@@ -1,0 +1,1 @@
+"""Part of the shockwave_tpu PyTorch port."""

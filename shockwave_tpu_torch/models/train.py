@@ -1,0 +1,244 @@
+"""Training program for the Transformer family, in PyTorch.
+
+The port's counterpart of ``shockwave_tpu/models/train.py``, the process
+the scheduler's dispatcher launches on a worker:
+
+  python -m shockwave_tpu_torch.models.train --model Transformer \
+      --batch_size 8 -n <steps> --checkpoint_dir <dir> [--device cpu]
+
+Same flags, the same synthetic token batches (``np.random.default_rng``
+drawn exactly as the JAX program draws them, so both see the same
+batches), the same ``[Transformer] steps=N loss=... throughput=...
+steps/s`` line and the same ``SHOCKWAVE_PHASE_TIMINGS`` PHASES line. It
+runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
+asked for and absent.
+
+Checkpoint: ``train_state.pt`` in ``--checkpoint_dir`` (model and
+optimizer state), written beside the final path and renamed into place so
+a kill mid-save keeps the previous good checkpoint. A run that finds one
+restores it before its first step.
+
+Not in this slice of the port (each raises NotImplementedError, see
+ROADMAP.md): the other families, gang rendezvous over several workers,
+model and sequence parallelism, the orbax backend and the leased
+Shockwave iterator.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import numpy as np
+import torch
+
+from shockwave_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    lm_loss,
+)
+from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
+from shockwave_tpu_torch.utils.device import resolve_device
+
+CHECKPOINT_NAME = "train_state.pt"
+_LATER_FAMILIES = ("ResNet-18", "ResNet-50", "LM", "Recommendation", "A3C",
+                   "CycleGAN")
+
+
+def _not_ported(what: str):
+    return NotImplementedError(
+        f"{what} is not ported to shockwave_tpu_torch yet; see ROADMAP.md"
+    )
+
+
+def build_family(name, args, device):
+    """Returns (model, step_fn(batch) -> loss, optimizer,
+    batch_fn(np_rng) -> batch). ``step_fn`` takes one AdamW step and
+    returns the loss before it, detached and not synchronised."""
+    if name in _LATER_FAMILIES:
+        raise _not_ported(f"the {name} family")
+    if name != "Transformer":
+        raise ValueError(f"Unknown model family {name!r}")
+    cfg = TransformerConfig(
+        vocab_size=args.vocab_size,
+        d_model=args.d_model,
+        num_heads=args.num_heads,
+        num_layers=args.num_layers,
+        d_ff=4 * args.d_model,
+        max_len=args.seq_len,
+        dtype=args.dtype,
+        attention=args.attention,
+        attention_window=args.attention_window,
+        num_kv_heads=args.num_kv_heads,
+        positional=args.positional,
+        num_experts=args.num_experts,
+        remat=args.remat,
+    )
+    # Initialised on the CPU from the seed, so every device starts from
+    # the same weights.
+    generator = torch.Generator().manual_seed(args.seed)
+    model = TransformerLM(cfg, generator=generator).to(device)
+    opt = FusedAdamW(model.parameters(), args.learning_rate)
+    logit_chunk = args.logit_chunk
+    bs = args.batch_size
+
+    def batch_fn(np_rng):
+        tokens = np_rng.integers(0, cfg.vocab_size, (bs, args.seq_len + 1))
+        return torch.from_numpy(tokens).to(device)
+
+    def step_fn(batch):
+        opt.zero_grad(set_to_none=True)
+        loss = lm_loss(model, batch, logit_chunk=logit_chunk)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return model, step_fn, opt, batch_fn
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", type=str, required=True)
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("-n", "--num_steps", type=int, required=True)
+    parser.add_argument("--checkpoint_dir", type=str, default=None)
+    parser.add_argument("--ckpt_backend", type=str, default="msgpack",
+                        choices=["msgpack", "orbax"],
+                        help="msgpack: one train_state.pt file (the name is "
+                        "the JAX program's); orbax is not ported")
+    parser.add_argument("--enable_shockwave_iterator", action="store_true")
+    parser.add_argument("--learning_rate", type=float, default=1e-3)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"],
+                        help="cuda (default) raises when no card is present")
+    # Transformer knobs.
+    parser.add_argument("--vocab_size", type=int, default=1024)
+    parser.add_argument("--d_model", type=int, default=128)
+    parser.add_argument("--num_heads", type=int, default=4)
+    parser.add_argument("--num_layers", type=int, default=2)
+    parser.add_argument("--seq_len", type=int, default=128)
+    parser.add_argument("--attention", type=str, default="dense",
+                        choices=["dense", "ring", "ulysses", "flash"])
+    parser.add_argument("--attention_window", type=int, default=None)
+    parser.add_argument("--num_kv_heads", type=int, default=None)
+    parser.add_argument("--logit_chunk", type=int, default=None)
+    parser.add_argument("--positional", type=str, default="learned",
+                        choices=["learned", "rope"])
+    parser.add_argument("--dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="activation dtype (params stay float32)")
+    parser.add_argument("--remat", action="store_true")
+    parser.add_argument("--num_experts", type=int, default=0)
+    parser.add_argument("--moe_aux_weight", type=float, default=1e-2)
+    parser.add_argument("--moe_capacity_factor", type=float, default=1.25)
+    parser.add_argument("--moe_dispatch", type=str, default="grouped",
+                        choices=["grouped", "dense"])
+    parser.add_argument("--model_parallel", type=int, default=1)
+    parser.add_argument("--seq_parallel", type=int, default=1)
+    # Gang rendezvous (appended by the scheduler).
+    parser.add_argument("--distributed_addr", type=str, default=None)
+    parser.add_argument("--num_workers", type=int, default=1)
+    parser.add_argument("--worker_rank", type=int, default=0)
+    parser.add_argument("--distributed_timeout", type=float, default=None)
+    return parser.parse_args(argv)
+
+
+def _check_args(args) -> None:
+    if args.distributed_addr and args.num_workers > 1:
+        raise _not_ported("gang training over several workers")
+    if args.model_parallel > 1 or args.seq_parallel > 1:
+        raise _not_ported("model and sequence parallelism")
+    if args.ckpt_backend == "orbax":
+        raise _not_ported("the orbax checkpoint backend")
+    if args.enable_shockwave_iterator and "SHOCKWAVE_JOB_ID" in os.environ:
+        raise _not_ported("the leased Shockwave iterator")
+
+
+def main(argv=None):
+    """Train; prints the steps line and returns a summary dict with the
+    per-step losses, the elapsed train time and the phase timings."""
+    args = parse_args(argv)
+    # Opt-in phase breakdown (SHOCKWAVE_PHASE_TIMINGS=1): one PHASES line
+    # splitting the attempt's wall clock into build/restore/
+    # first_step_compile/train/save, as the JAX program prints it. Here the
+    # first step pays the kernels' build instead of a compile.
+    timed = bool(os.environ.get("SHOCKWAVE_PHASE_TIMINGS"))
+    phase_timings = {}
+    phase_start = time.time()
+
+    def mark_phase(name):
+        nonlocal phase_start
+        if timed:
+            now = time.time()
+            phase_timings[name] = phase_timings.get(name, 0.0) + now - phase_start
+            phase_start = now
+
+    _check_args(args)
+    device = resolve_device(args.device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    ckpt_path = (os.path.join(args.checkpoint_dir, CHECKPOINT_NAME)
+                 if args.checkpoint_dir else None)
+    resuming = bool(ckpt_path and os.path.exists(ckpt_path))
+    model, step_fn, opt, batch_fn = build_family(args.model, args, device)
+    sync()
+    mark_phase("build")
+    if resuming:
+        try:
+            state = torch.load(ckpt_path, map_location=device,
+                               weights_only=True)
+        except FileNotFoundError:
+            raise RuntimeError(
+                f"checkpoint at {ckpt_path} disappeared between resume "
+                "detection and restore"
+            ) from None
+        model.load_state_dict(state["model"])
+        opt.load_state_dict(state["opt"])
+        sync()
+    mark_phase("restore")
+
+    def save_checkpoint():
+        if not ckpt_path:
+            return
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        tmp_path = ckpt_path + ".tmp"
+        torch.save({"model": model.state_dict(), "opt": opt.state_dict()},
+                   tmp_path)
+        os.replace(tmp_path, ckpt_path)
+
+    np_rng = np.random.default_rng(args.seed)
+    losses = []
+    start = time.time()
+    for _ in range(args.num_steps):
+        losses.append(step_fn(batch_fn(np_rng)))
+        if len(losses) == 1 and timed:
+            # Fences the first step (the kernels' build lands there) so
+            # the scrape does not charge it to steady-state training.
+            sync()
+            mark_phase("first_step_compile")
+    sync()
+    elapsed = time.time() - start
+    mark_phase("train")
+    save_checkpoint()
+    mark_phase("save")
+    if phase_timings:
+        print("PHASES " + " ".join(
+            f"{k}={v:.1f}s" for k, v in phase_timings.items()))
+    loss_values = [float(x) for x in losses]
+    loss_str = f"{loss_values[-1]:.4f}" if loss_values else "n/a"
+    steps = len(loss_values)
+    print(
+        f"[{args.model}] steps={steps} loss={loss_str} "
+        f"throughput={steps / max(elapsed, 1e-9):.2f} steps/s"
+    )
+    return {"steps": steps, "losses": loss_values, "elapsed_s": elapsed,
+            "phases": phase_timings, "resumed": resuming}
+
+
+if __name__ == "__main__":
+    main()

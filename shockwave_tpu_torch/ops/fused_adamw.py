@@ -1,0 +1,56 @@
+"""AdamW as one pass over each parameter.
+
+The port's counterpart of ``shockwave_tpu/ops/fused_adamw.py`` (which is
+jitted XLA there, not a Pallas kernel, so plain PyTorch here). Same math
+and defaults: b1 0.9, b2 0.999, eps 1e-8, weight decay 1e-4 applied to
+every parameter, bias correction from an integer step count computed in
+float32, and
+
+    m = b1 m + (1 - b1) g
+    v = b2 v + (1 - b2) g^2
+    p = p - lr * ((m / c1) / (sqrt(v / c2) + eps) + wd * p)
+
+with c_i = 1 - b_i^step. Unlike the JAX version it updates the parameters
+and moments in place.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class FusedAdamW(torch.optim.Optimizer):
+    def __init__(self, params, learning_rate: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        super().__init__(params, dict(lr=learning_rate, b1=b1, b2=b2,
+                                      eps=eps, weight_decay=weight_decay))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        for group in self.param_groups:
+            lr, b1, b2 = group["lr"], group["b1"], group["b2"]
+            eps, wd = group["eps"], group["weight_decay"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["step"] = 0
+                    state["m"] = torch.zeros_like(p)
+                    state["v"] = torch.zeros_like(p)
+                state["step"] += 1
+                count = np.float32(state["step"])
+                c1 = float(np.float32(1.0) - np.float32(b1) ** count)
+                c2 = float(np.float32(1.0) - np.float32(b2) ** count)
+                g, m, v = p.grad, state["m"], state["v"]
+                m.mul_(b1).add_(g * (1.0 - b1))
+                v.mul_(b2).add_(g.square() * (1.0 - b2))
+                step = (m / c1) / (torch.sqrt(v / c2) + eps)
+                p.sub_(lr * (step + wd * p))
+        return loss

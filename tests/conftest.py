@@ -43,6 +43,11 @@ def pytest_configure(config):
     )
     config.addinivalue_line(
         "markers",
+        "cuda: needs an NVIDIA card and nvcc (the PyTorch port's CUDA "
+        "kernels); skips where torch.cuda.is_available() is False",
+    )
+    config.addinivalue_line(
+        "markers",
         "wallclock_retry(retries=2): bounded auto-retry for the "
         "wall-clock tier, whose tests drive real rounds/leases with "
         "short (seconds-long) rounds and are load-sensitive: under "

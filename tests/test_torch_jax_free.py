@@ -1,0 +1,94 @@
+"""The port runs with JAX and the JAX package unimportable, and its
+sources import neither.
+
+The module names are matched exactly: ``shockwave_tpu_torch`` starts with
+the string ``shockwave_tpu`` but is not the JAX package.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+
+_SCRIPT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+from shockwave_tpu_torch.models import train
+args = ["--model", "Transformer", "--batch_size", "2", "--vocab_size", "64",
+        "--d_model", "32", "--num_heads", "2", "--num_layers", "1",
+        "--seq_len", "128", "--attention", "flash", "--device", "cpu",
+        "--checkpoint_dir", sys.argv[1]]
+train.main(args + ["-n", "2"])
+train.main(args + ["-n", "1"])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+                and sys.modules[m] is not None)
+print("LEAKED", leaked)
+"""
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_train_cli_runs_with_jax_blocked(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(tmp_path)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "[Transformer] steps=2 loss=" in proc.stdout
+    assert "[Transformer] steps=1 loss=" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+    assert (tmp_path / "train_state.pt").exists()
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_import_no_jax():
+    files = sorted((ROOT / "shockwave_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
+           if _forbidden(m)]
+    assert bad == []
+
+
+def test_guard_matches_module_names_exactly():
+    assert _forbidden("shockwave_tpu") and _forbidden("shockwave_tpu.ops")
+    assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert not _forbidden("shockwave_tpu_torch.ops")
+    assert not _forbidden("jaxtyping")
+
+
+def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):
+    """chip_smoke.py exits nonzero and prints no result line on a host
+    without a card, and in a directory that holds nothing else of the
+    repo."""
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    (alone / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (alone, alone / "chip_smoke.py")):
+        proc = subprocess.run(
+            [sys.executable, str(script)], cwd=cwd, env=env,
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

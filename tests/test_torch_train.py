@@ -1,0 +1,111 @@
+"""The port's training program against the JAX package's, on the CPU.
+
+Both ``build_family("Transformer")`` loops start from the JAX
+initialisation (carried over with ``params_from_jax``) and draw their
+batches from the same ``np.random.default_rng(seed)``, so their loss
+trajectories must agree. Float32; the tolerance 1e-4 relative covers the
+summation-order differences of the forward (1e-5, see
+test_torch_transformer.py) grown through two AdamW steps at lr 1e-3.
+"""
+
+import flax.linen as flax_nn
+import jax
+import numpy as np
+import pytest
+import torch
+
+from shockwave_tpu.models.train import build_family as jax_build_family
+from shockwave_tpu_torch.models import train
+from shockwave_tpu_torch.models.convert import params_from_jax
+
+TINY_ARGS = ["--model", "Transformer", "--batch_size", "2", "--vocab_size",
+             "256", "--d_model", "64", "--num_heads", "2", "--num_layers",
+             "2", "--seq_len", "128", "--attention", "flash", "--device",
+             "cpu"]
+
+
+def test_three_steps_track_the_jax_loop():
+    args = train.parse_args(TINY_ARGS + ["-n", "3"])
+    variables, jax_step, opt_state, jax_batch = jax_build_family(
+        "Transformer", args, mesh=None)
+    jax_step = jax.jit(jax_step)
+    model, step_fn, _, batch_fn = train.build_family(
+        "Transformer", args, torch.device("cpu"))
+    params = jax.tree.map(np.asarray,
+                          flax_nn.meta.unbox(variables)["params"])
+    model.load_state_dict(params_from_jax(params))
+
+    jax_rng = np.random.default_rng(args.seed)
+    port_rng = np.random.default_rng(args.seed)
+    jax_losses, port_losses = [], []
+    for _ in range(3):
+        variables, opt_state, loss = jax_step(variables, opt_state,
+                                              jax_batch(jax_rng))
+        jax_losses.append(float(loss))
+        port_losses.append(float(step_fn(batch_fn(port_rng))))
+    np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-4)
+
+
+def test_checkpoint_resume_restores_before_the_first_step(tmp_path, capsys):
+    ckpt = str(tmp_path / "ckpt")
+    first = train.main(TINY_ARGS + ["-n", "2", "--checkpoint_dir", ckpt])
+    assert first["steps"] == 2 and not first["resumed"]
+    assert (tmp_path / "ckpt" / train.CHECKPOINT_NAME).exists()
+    assert not (tmp_path / "ckpt" / (train.CHECKPOINT_NAME + ".tmp")).exists()
+    second = train.main(TINY_ARGS + ["-n", "1", "--checkpoint_dir", ckpt])
+    assert second["resumed"]
+    # The resumed run sees the first batch again, now with trained
+    # weights: its loss is below the fresh run's first loss.
+    assert second["losses"][0] < first["losses"][0]
+    state = torch.load(tmp_path / "ckpt" / train.CHECKPOINT_NAME,
+                       weights_only=True)
+    steps = {s["step"] for s in state["opt"]["state"].values()}
+    assert steps == {3}
+    out = capsys.readouterr().out
+    assert "[Transformer] steps=2 loss=" in out
+    assert "[Transformer] steps=1 loss=" in out
+
+
+def test_phase_timings_line(monkeypatch, capsys):
+    monkeypatch.setenv("SHOCKWAVE_PHASE_TIMINGS", "1")
+    result = train.main(TINY_ARGS + ["-n", "1"])
+    assert set(result["phases"]) == {"build", "restore",
+                                     "first_step_compile", "train", "save"}
+    assert capsys.readouterr().out.startswith("PHASES build=")
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ["--model", "ResNet-18"],
+        ["--model", "LM"],
+        ["--model", "Recommendation"],
+        ["--model", "A3C"],
+        ["--model", "CycleGAN"],
+        ["--distributed_addr", "localhost:1234", "--num_workers", "2"],
+        ["--model_parallel", "2"],
+        ["--seq_parallel", "2"],
+        ["--ckpt_backend", "orbax"],
+        ["--attention", "ring"],
+        ["--num_experts", "2"],
+        ["--remat"],
+        ["--logit_chunk", "64"],
+    ],
+)
+def test_unported_paths_raise(extra):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.main(TINY_ARGS + ["-n", "1"] + extra)
+
+
+def test_leased_iterator_raises_only_under_a_job(monkeypatch):
+    monkeypatch.setenv("SHOCKWAVE_JOB_ID", "7")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.main(TINY_ARGS + ["-n", "1", "--enable_shockwave_iterator"])
+
+
+def test_unknown_family_and_missing_card(monkeypatch):
+    with pytest.raises(ValueError):
+        train.main(TINY_ARGS + ["-n", "1", "--model", "GPT-9"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(TINY_ARGS + ["-n", "1", "--device", "cuda"])

@@ -1,0 +1,220 @@
+"""The port's TransformerLM, loss and AdamW against the JAX package's.
+
+The JAX model is initialised by JAX and its parameters carried over with
+``params_from_jax``; the same numpy token batch goes through both. The
+JAX flash kernels run in interpret mode on the CPU, the port's wrappers
+take their plain versions there.
+
+Tolerances: float32 results differ only in summation order (blockwise
+online softmax against one pass, LayerNorm's E[x^2]-E[x]^2 variance
+against torch's two-pass one), so the loss agrees to 1e-5 relative and
+every gradient to 1e-4 of its largest entry. bfloat16 rounds at every
+layer in both, at slightly different places (flax casts around GELU and
+the residual adds in its own order), so the bf16 loss is held to 2e-2
+and the bf16 logits to a limit between the measured bf16 and float32
+distances from JAX's bf16 logits (see the test).
+"""
+
+import flax.linen as flax_nn
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from shockwave_tpu.models.small_models import token_xent as jax_token_xent
+from shockwave_tpu.models.transformer import (
+    TransformerConfig as JaxConfig,
+    TransformerLM as JaxLM,
+    lm_loss as jax_lm_loss,
+)
+from shockwave_tpu.ops.fused_adamw import FusedAdamW as JaxFusedAdamW
+from shockwave_tpu_torch.models.convert import params_from_jax
+from shockwave_tpu_torch.models.small_models import token_xent
+from shockwave_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    apply_rope,
+    lm_loss,
+)
+from shockwave_tpu_torch.ops import flash_attention as fa
+from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
+
+TINY = dict(vocab_size=256, d_model=64, num_heads=2, num_layers=2, d_ff=256,
+            max_len=128)
+
+
+def _models(**overrides):
+    kw = dict(TINY, **overrides)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, kw["vocab_size"], (2, kw["max_len"] + 1))
+    jax_model = JaxLM(JaxConfig(**kw))
+    # The parameter tree does not depend on the attention path: initialise
+    # through dense attention, which skips the interpreted kernels.
+    init_cfg = JaxConfig(**dict(kw, attention="dense", attention_window=None))
+    variables = JaxLM(init_cfg).init(jax.random.PRNGKey(0),
+                                     jnp.asarray(tokens[:, :-1], jnp.int32))
+    params = jax.tree.map(np.asarray, flax_nn.meta.unbox(variables)["params"])
+    model = TransformerLM(TransformerConfig(**kw))
+    model.load_state_dict(params_from_jax(params))
+    return jax_model, params, model, tokens
+
+
+def _jax_loss_and_grads(jax_model, params, tokens):
+    return jax.value_and_grad(
+        lambda p: jax_lm_loss(jax_model, {"params": p},
+                              jnp.asarray(tokens, jnp.int32))
+    )(params)
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [
+        dict(attention="flash"),
+        dict(attention="flash", num_kv_heads=1, attention_window=48),
+        dict(attention="dense", positional="rope", num_kv_heads=1),
+    ],
+    ids=["flash", "flash-gqa-window", "dense-rope-gqa"],
+)
+def test_loss_and_every_gradient_match_jax(overrides):
+    jax_model, params, model, tokens = _models(**overrides)
+    j_loss, j_grads = _jax_loss_and_grads(jax_model, params, tokens)
+    loss = lm_loss(model, torch.from_numpy(tokens))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=1e-5)
+    ref = params_from_jax(jax.tree.map(np.asarray, j_grads))
+    got = dict(model.named_parameters())
+    assert set(ref) == set(got)
+    for name, g in ref.items():
+        scale = float(g.abs().max())
+        np.testing.assert_allclose(
+            got[name].grad.numpy(), g.numpy(), rtol=0, atol=1e-4 * scale,
+            err_msg=name)
+
+
+def test_bf16_forward_matches_jax():
+    """The bf16 model against JAX's bf16 model on the same weights and
+    tokens. Loss: within 2e-2 relative. Logits: the port's bf16 logits
+    sit at rel_fro 6.30e-3 from JAX's, the port run in float32 at 9.01e-3
+    (CPU readings; the rest is rounding placed differently around GELU
+    and the residual adds). The 7.5e-3 limit sits between, so a port that
+    kept the activations in float32 fails it."""
+    jax_model, params, model, tokens = _models(attention="flash")
+    cfg = JaxConfig(**TINY, attention="flash", dtype="bfloat16")
+    inputs = jnp.asarray(tokens[:, :-1], jnp.int32)
+    j_logits = np.asarray(JaxLM(cfg).apply({"params": params}, inputs),
+                          np.float32)
+    j_loss = jax_lm_loss(JaxLM(cfg), {"params": params},
+                         jnp.asarray(tokens, jnp.int32))
+    model_bf16 = TransformerLM(TransformerConfig(**TINY, attention="flash",
+                                                 dtype="bfloat16"))
+    model_bf16.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        logits = model_bf16(torch.from_numpy(tokens[:, :-1]))
+        loss = lm_loss(model_bf16, torch.from_numpy(tokens))
+        logits_f32 = model(torch.from_numpy(tokens[:, :-1]))
+    assert logits.dtype == torch.float32
+    np.testing.assert_allclose(loss.item(), float(j_loss), rtol=2e-2)
+
+    def rel_fro(x):
+        return np.linalg.norm(x.numpy() - j_logits) / np.linalg.norm(j_logits)
+
+    assert rel_fro(logits) < 7.5e-3
+    assert rel_fro(logits_f32) > 7.5e-3  # the limit tells them apart
+
+
+def test_flash_takes_dense_below_128_tokens_and_kernels_at_128():
+    """The port keeps the JAX model's dense fallback for sequences that do
+    not tile (flash_tiles), so both packages take the same path."""
+    kw = dict(TINY, max_len=64)
+    flash = TransformerLM(TransformerConfig(**kw, attention="flash"))
+    dense = TransformerLM(TransformerConfig(**kw, attention="dense"))
+    dense.load_state_dict(flash.state_dict())
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 65)))
+    assert torch.equal(lm_loss(flash, tokens), lm_loss(dense, tokens))
+
+
+def test_rope_matches_jax():
+    from shockwave_tpu.models.transformer import apply_rope as jax_apply_rope
+
+    x = np.random.default_rng(2).normal(size=(2, 64, 2, 32)).astype(np.float32)
+    np.testing.assert_allclose(apply_rope(torch.from_numpy(x)).numpy(),
+                               np.asarray(jax_apply_rope(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_token_xent_matches_jax():
+    """Including the JAX contract for a target outside the vocabulary:
+    it selects nothing, so its term is the bare logsumexp."""
+    rng = np.random.default_rng(3)
+    logits = rng.normal(size=(2, 16, 32)).astype(np.float32) * 3
+    targets = rng.integers(0, 32, (2, 16))
+    targets[0, 3] = 40
+    ref = jax_token_xent(jnp.asarray(logits), jnp.asarray(targets))
+    got = token_xent(torch.from_numpy(logits), torch.from_numpy(targets))
+    np.testing.assert_allclose(got.item(), float(ref), rtol=1e-6)
+
+
+def test_fused_adamw_three_steps_match_jax():
+    """Same update, same float32 bias correction; the moments round
+    identically, so three steps agree to a few float32 ulps."""
+    rng = np.random.default_rng(4)
+    shapes = {"w": (8, 4), "b": (4,)}
+    params = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    grads = [{k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+             for _ in range(3)]
+    jax_opt = JaxFusedAdamW(1e-2)
+    j_params = jax.tree.map(jnp.asarray, params)
+    j_state = jax_opt.init(j_params)
+    tensors = {k: torch.tensor(v) for k, v in params.items()}
+    opt = FusedAdamW(list(tensors.values()), 1e-2)
+    for g in grads:
+        j_params, j_state = jax_opt.apply_gradients(
+            jax.tree.map(jnp.asarray, g), j_state, j_params)
+        for k, t in tensors.items():
+            t.grad = torch.from_numpy(g[k])
+        opt.step()
+    for k, t in tensors.items():
+        np.testing.assert_allclose(t.numpy(), np.asarray(j_params[k]),
+                                   rtol=1e-6, atol=1e-7)
+        state = opt.state[t]
+        np.testing.assert_allclose(state["m"].numpy(),
+                                   np.asarray(j_state.m[k]), rtol=1e-6)
+        np.testing.assert_allclose(state["v"].numpy(),
+                                   np.asarray(j_state.v[k]), rtol=1e-6)
+        assert state["step"] == int(j_state.count) == 3
+
+
+@pytest.mark.parametrize(
+    "overrides",
+    [dict(attention="ring"), dict(attention="ulysses"), dict(num_experts=2),
+     dict(remat=True), dict(remat=True, remat_group=2)],
+)
+def test_unported_options_raise(overrides):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TransformerLM(TransformerConfig(**TINY, **overrides))
+
+
+def test_logit_chunk_raises_and_window_needs_flash():
+    model = TransformerLM(TransformerConfig(**TINY))
+    tokens = torch.zeros(1, 129, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        lm_loss(model, tokens, logit_chunk=64)
+    with pytest.raises(ValueError):
+        TransformerLM(TransformerConfig(**TINY, attention_window=32))
+
+
+def test_training_shape_takes_the_flash_wrappers():
+    """At a flash-tiling length the attention goes through the wrappers
+    (here their plain versions: nothing launches on the CPU)."""
+    fa.reset_launch_counts()
+    calls = []
+    original = fa.flash_fwd
+    try:
+        fa.flash_fwd = lambda *a, **k: calls.append(1) or original(*a, **k)
+        model = TransformerLM(TransformerConfig(**TINY, attention="flash"))
+        lm_loss(model, torch.zeros(1, 129, dtype=torch.long)).backward()
+    finally:
+        fa.flash_fwd = original
+    assert len(calls) == TINY["num_layers"]
+    assert sum(fa.LAUNCHES.values()) == 0
