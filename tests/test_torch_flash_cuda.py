@@ -8,15 +8,17 @@ conftest.py (which sets JAX up):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_flash_cuda.py
 
 Tolerance: flash_attention.KERNEL_TOLERANCE, the limits chip_smoke.py
-holds the kernels to (each element within atol + rtol * |plain|, and the
-tensor within rel_fro of the plain version in Frobenius norm), stated and
-explained there.
+holds the kernels to (each element within atol + rtol * |plain| plus one
+bf16 step of its largest term, and the tensor within rel_fro of the plain
+version in Frobenius norm), stated and explained there. The inputs and
+the check are tools/bench_flash.py's, as chip_smoke.py uses them.
 """
 
 import pytest
 import torch
 
 from shockwave_tpu_torch.ops import flash_attention as fa
+from shockwave_tpu_torch.tools import bench_flash
 
 @pytest.fixture
 def device():
@@ -44,34 +46,35 @@ def _close(got, ref, tol, what):
         (1, 512, 2, 2, 128, 64),
         (2, 512, 4, 2, 64, 200),
         (1, 1024, 2, 1, 128, 333),
+        # Edges of the bf16 forward's 128-row q and k tiles and of dK/dV's
+        # 128 keys and 64-row q tiles: one tile, windows ending on a tile
+        # boundary, groups of 4 query heads per KV head.
+        (1, 128, 4, 4, 128, None),
+        (1, 512, 8, 2, 128, 128),
+        (2, 384, 8, 2, 64, 64),
     ],
 )
 def test_kernels_match_plain_versions(device, dtype, B, S, H, Hkv, D, window):
-    gen = torch.Generator(device=device).manual_seed(S + D)
-
-    def randn(rows):
-        return torch.randn(rows, S, D, generator=gen, device=device).to(dtype)
-
-    q, g = randn(B * H), randn(B * H)
-    k, v = randn(B * Hkv), randn(B * Hkv)
-    qs = fa.scale_q(q)
     fa.reset_launch_counts()
-    out, lse = fa.flash_fwd(qs, k, v, H, window)
-    out_p, lse_p = fa.flash_fwd_plain(qs, k, v, H, window)
-    torch.cuda.synchronize()
-    tol = fa.KERNEL_TOLERANCE[dtype]
-    _close(out, out_p, tol, "out")
-    _close(lse, lse_p, fa.KERNEL_TOLERANCE["lse"], "lse")
-    delta = (g.float() * out.float()).sum(-1)
-    args = (qs, k, v, g, lse, delta, H, window)
-    dk, dv = fa.flash_dkv(*args)
-    dq = fa.flash_dq(*args)
-    torch.cuda.synchronize()
-    dk_p, dv_p = fa.flash_dkv_plain(*args)
-    _close(dk, dk_p, tol, "dk")
-    _close(dv, dv_p, tol, "dv")
-    _close(dq, fa.flash_dq_plain(*args), tol, "dq")
+    found, _, _ = bench_flash.check_kernels(fa, fa, S + D, B, S, H, Hkv, D,
+                                            dtype, window, device)
+    for (kernel, what), r in found.items():
+        assert r["ok"], f"{kernel} {what}: {bench_flash.describe(r)}"
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1}
+
+
+@pytest.mark.cuda
+def test_training_shape_on_a_second_seed(device):
+    """The training shape (B=8, S=2048, H=8, D=128, bf16) on inputs from
+    seed 1, drawn as chip_smoke.py draws seed 0. Under the earlier rule
+    (atol 2^-9, no flip term in KERNEL_TOLERANCE) 5 of dk's 134M elements
+    broke the per-element limit here: a ds that rounds to bf16 the other
+    way in the kernel than in the plain version moves its element by one
+    bf16 step of ds * q, more than that atol."""
+    found, _, _ = bench_flash.check_kernels(fa, fa, 1, 8, 2048, 8, 8, 128,
+                                            torch.bfloat16, None, device)
+    for (kernel, what), r in found.items():
+        assert r["ok"], f"{kernel} {what}: {bench_flash.describe(r)}"
 
 
 @pytest.mark.cuda
@@ -98,12 +101,16 @@ def test_autograd_through_kernels_matches_dense(device):
 
 
 @pytest.mark.cuda
-def test_cuda_tensors_never_take_the_plain_version(device, monkeypatch):
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_cuda_tensors_never_take_the_plain_version(device, monkeypatch, D):
     def boom(*args):
         raise AssertionError("plain version called for a CUDA tensor")
 
-    monkeypatch.setattr(fa, "flash_fwd_plain", boom)
-    q = torch.randn(1, 128, 2, 16, device=device)
+    for name in ("flash_fwd_plain", "flash_dkv_plain", "flash_dq_plain"):
+        monkeypatch.setattr(fa, name, boom)
+    q = torch.randn(1, 128, 2, D, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
     fa.reset_launch_counts()
-    fa.flash_attention(q, q, q)
-    assert fa.LAUNCHES["flash_fwd"] == 1
+    fa.flash_attention(q, q, q).float().sum().backward()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1}
