@@ -7,9 +7,10 @@
 2. Builds the CUDA kernels from ``shockwave_tpu_torch/ops/csrc`` into
    ``shockwave_tpu_torch/_build/`` (nvcc, a few seconds), prints each
    kernel's registers, stack and shared memory (``cuobjdump -res-usage``)
-   and fails unless the SASS (``cuobjdump -sass``) of every bf16 forward
-   and dK/dV instantiation holds wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``).
+   and fails unless the SASS (``cuobjdump -sass``) of every bf16 forward,
+   dK/dV and dQ instantiation holds wgmma (``HGMMA``) and TMA loads
+   (``UTMALDG``), or if ptxas reported serialising any wgmma (the build
+   log, ``-Xptxas -v``).
 3. Holds each kernel (flash forward, dK/dV, dQ) against its plain PyTorch
    version on the card: at the training shape (B=8, S=2048, H=8, D=128,
    bf16, causal) on inputs from seeds 1 and 0, at two GQA-plus-window
@@ -18,12 +19,13 @@
    window-straddle and skip code, and at the first of those in float32,
    under the per-element (with its one-flip term) and Frobenius limits
    of ``flash_attention.KERNEL_TOLERANCE``; then shows that those limits
-   reject planted faults (a skipped tile, misweighted rows) at the
-   training shape. The inputs, the check and the timing are
-   ``shockwave_tpu_torch/tools/bench_flash.py``'s.
+   reject planted faults (a skipped tile of the width each kernel walks,
+   misweighted rows) at the training shape. The inputs, the check and the
+   timing are ``shockwave_tpu_torch/tools/bench_flash.py``'s.
 4. Times each kernel, its plain version and PyTorch's
    scaled_dot_product_attention with CUDA events, beside the kernel's
-   bound on an H100 SXM.
+   bound on an H100 SXM, and the backward pair (dK/dV + dQ) beside SDPA's
+   backward, which computes dq, dk and dv in one call.
 5. Checks a small model on the card: the flash path against the dense
    path on the same weights.
 6. Drives the main path: ``shockwave_tpu_torch.models.train.main`` at the
@@ -65,6 +67,10 @@ REPLACES = {
     "flash_dkv": "shockwave_tpu/ops/flash_attention.py:491",
     "flash_dq": "shockwave_tpu/ops/flash_attention.py:543",
 }
+# Widths of the tiles the bf16 kernels walk (FWD_BN, DKV_BQ and DQ_BN in
+# the source): a planted fault skips one such tile.
+DKV_Q_TILE = 64
+DQ_K_TILE = 128
 
 
 def fail(message: str) -> None:
@@ -112,7 +118,7 @@ def bound(kernel: str, bh: int, bhkv: int, S: int, D: int, dtype, window):
 
 
 # Kernels whose SASS must hold wgmma and TMA loads, at every head dim.
-HOPPER_KERNELS = ("flash_fwd_bf16", "flash_dkv_bf16")
+HOPPER_KERNELS = ("flash_fwd_bf16", "flash_dkv_bf16", "flash_dq_bf16")
 
 
 def kernel_of(mangled: str):
@@ -124,9 +130,19 @@ def kernel_of(mangled: str):
 
 def inspect_library(_build, path):
     """Print registers, stack, shared and local memory of each kernel
-    (cuobjdump -res-usage); fail unless the SASS of every bf16 forward and
-    dK/dV instantiation holds HGMMA (wgmma) and UTMALDG (TMA tile load)
-    instructions. Returns {(kernel, D): {"REG": .., "STACK": .., ...}}."""
+    (cuobjdump -res-usage); fail unless the SASS of every instantiation of
+    HOPPER_KERNELS holds HGMMA (wgmma) and UTMALDG (TMA tile load)
+    instructions, or if the build log shows ptxas serialising wgmma
+    instructions (it then waits on each product before the next, which
+    the kernels' overlaps rely on it not doing). Returns
+    {(kernel, D): {"REG": .., "STACK": .., ...}}."""
+    serialized = [line.strip() for line in
+                  path.with_suffix(".log").read_text().splitlines()
+                  if "wgmma.mma_async instructions are serialized" in line]
+    for line in serialized:
+        print(f"  {line}")
+    if serialized:
+        fail(f"ptxas serialised wgmma in {len(serialized)} function(s)")
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
 
     def dump(flag):
@@ -154,7 +170,7 @@ def inspect_library(_build, path):
         elif current:
             for op in ("HGMMA", "UTMALDG"):
                 counts[current][op] += op in line
-    print("SASS of the bf16 forward and dK/dV (cuobjdump -sass):")
+    print("SASS of the bf16 kernels (cuobjdump -sass):")
     missing = []
     for name in HOPPER_KERNELS:
         for D in (16, 32, 64, 128):
@@ -192,13 +208,12 @@ def check_kernels(fa, bench, label, seed, B, S, H, Hkv, D, dtype, window,
 def planted_faults(fa, q, k, v, g, lse, delta, num_q_heads):
     """What a kernel with one bug would return on these inputs (causal,
     no window, as many KV heads as q heads), from the plain versions' math:
-    the forward skipping the 128-wide k tile at mid-sequence and dQ the
-    64-wide one there (the widths each walks), dK/dV skipping the 64-row
-    q tile there, and the forward weighting the later half of its rows 2%
-    high. Returns {(output, fault): tensor}."""
+    the forward skipping the k tile at mid-sequence, dQ skipping the k tile
+    there and dK/dV the q tile there, each of the width that kernel walks,
+    and the forward weighting the later half of its rows 2% high. Returns
+    {(output, fault): tensor}."""
     BH, S, D = q.shape
     dtype = q.dtype
-    tile = slice(S // 2, S // 2 + 64)
     s = fa._masked_scores(q, k, num_q_heads, None)
     s_skip = s.clone()
     s_skip[:, :, S // 2:S // 2 + fa._FWD_K_TILE] = -1e30
@@ -213,10 +228,10 @@ def planted_faults(fa, q, k, v, g, lse, delta, num_q_heads):
     p = torch.exp(s - lse[..., None])
     del s
     p_cols = p.clone()
-    p_cols[:, :, tile] = 0
+    p_cols[:, :, S // 2:S // 2 + DQ_K_TILE] = 0
     _, ds = grads(p_cols)
     dq = ((ds @ k.float()) / math.sqrt(D)).to(dtype)
-    p[:, tile, :] = 0
+    p[:, S // 2:S // 2 + DKV_Q_TILE, :] = 0
     p_rows, ds = grads(p)
     dv = (p_rows.transpose(1, 2) @ g.float()).to(dtype)
     dk = (ds.transpose(1, 2) @ q.float()).to(dtype)
@@ -371,6 +386,7 @@ def main() -> None:
           f"peak memory {peak_gib:.2f} GiB; launches {launches}, "
           f"resume {resume_launches}")
 
+    backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
     for name in ("flash_fwd", "flash_dkv", "flash_dq"):
         bound_ms, bound_by = bound(name, B * H, B * H, S, D, torch.bfloat16,
@@ -389,12 +405,15 @@ def main() -> None:
         if name != "flash_fwd":
             # SDPA's backward computes dq, dk and dv in one call.
             row["sdpa_backward_ms"] = sdpa_bwd
+            row["backward_ms"] = backward_ms
         print(f"{name}: {ms[name][0]:.4f} ms (bound {bound_ms:.4f} ms by "
               f"{bound_by}, {100 * bound_ms / ms[name][0]:.1f}% of it; "
               f"plain {ms[name][1]:.3f} ms; SDPA "
               f"{'forward' if name == 'flash_fwd' else 'backward'} "
               f"{sdpa_fwd if name == 'flash_fwd' else sdpa_bwd:.4f} ms)")
         kernels.append(row)
+    print(f"backward (flash_dkv + flash_dq): {backward_ms:.4f} ms; SDPA "
+          f"backward {sdpa_bwd:.4f} ms ({backward_ms / sdpa_bwd:.2f}x)")
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_steps_per_s": 1 / steady_s,
                       "train_tokens_per_s": B * S / steady_s}))

@@ -4,13 +4,15 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
 plain C interface:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-        -Xcompiler -fPIC -o _build/<name>-<hash>.so csrc/<name>.cu
+        -Xcompiler -fPIC -Xptxas -v -o _build/<name>-<hash>.so csrc/<name>.cu
 
 The library lands in ``shockwave_tpu_torch/_build/`` (git-ignored), named
 by a hash of every source under ``csrc/`` and the flags, so an edited
 source rebuilds and an unchanged one loads straight away. No PyTorch
 headers are compiled: a plain C library builds in seconds, where an
-extension including torch's headers takes minutes.
+extension including torch's headers takes minutes. What nvcc printed
+(``-Xptxas -v``: each kernel's registers and spills, and any wgmma that
+ptxas serialised) is kept beside the library as ``<name>-<hash>.log``.
 
 Every C entry point takes its pointers and the stream as ``void*`` and
 returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
@@ -31,7 +33,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -92,8 +94,11 @@ def build(name: str) -> Path:
         raise RuntimeError(
             f"nvcc failed for csrc/{name}.cu:\n{run.stdout}{run.stderr}"
         )
-    # Rename into place: a concurrent build sees either no library or a
-    # whole one.
+    # Rename into place, the log first: a concurrent build sees either no
+    # library or a whole one with its log.
+    tmp_log = tmp.with_suffix(".log")
+    tmp_log.write_text(run.stdout + run.stderr)
+    os.replace(tmp_log, final.with_suffix(".log"))
     os.replace(tmp, final)
     return final
 

@@ -29,7 +29,7 @@
 // mask (the TPU's _causal_block_split). The walks that take longest are
 // issued first.
 //
-// bfloat16 forward and dK/dV (the training path): wgmma, TMA and warp
+// bfloat16 forward, dK/dV and dQ (the training path): wgmma, TMA and warp
 // specialisation. A CTA is three warpgroups. The first is the producer: it
 // gives its registers up (setmaxnreg) and one of its threads keeps a ring
 // of two stages of tiles in flight with TMA (cp.async.bulk.tensor), each
@@ -50,25 +50,40 @@
 //     memory, P^T = exp(S^T - lse), dS^T = P^T * (dP^T - delta), then
 //     dV += P^T.g and dK += dS^T.Q with A in registers and the same q and g
 //     tiles read MN-major. dk and dv stay in registers for the whole walk.
-// What bounds them here is not the tensor cores or the bytes (a forward
-// with P.V removed, or with the V loads removed too, took as long) but the
-// f32 work between the products and the fixed cost of each CTA. So exp is
-// ex2.approx of x * log2 e (three instructions where expf takes eight), and
-// the outputs leave through swizzled shared memory and TMA stores that
-// drain while the next CTA starts. Overlapping the softmax with P.V inside
-// a warpgroup, a ping-pong order between the two warpgroups, a third stage,
-// skipping the output rescale when no max moved, and skipping dK/dV steps
-// whose keys are all dead measured no faster and are not used.
+//   - dQ (replaces _dq_kernel): 128 q rows a CTA with their g rows, both
+//     loaded once, and 128-wide k tiles with their v tiles in the ring. Per
+//     k tile: S = Q.K^T and dP = g.V^T from shared memory, issued together;
+//     P = exp(S - lse), dS = P * (dP - delta) in registers, rounded to bf16
+//     as the A operand of dQ += dS.K, which reads the same K tile again
+//     MN-major (two descriptors on one swizzled tile). dq stays in
+//     registers for the whole walk and 1/sqrt(D) lands once, at the store.
+//     Bound at the training shape: 3 products, ~103 GFLOP, 0.104 ms of
+//     tensor-core time; its bytes take ~0.05 ms.
+//     S, dP and the exp alone run at ~90% of the tensor rate; dS.K, a
+//     third of the products, takes the rest of the time, whether A comes
+//     from registers or from shared memory, and whether its stage is freed
+//     early or a third stage is added: the chain S, dP -> exp -> dS.K in
+//     each warpgroup is what the card waits on. The two warpgroups take
+//     turns at issuing S and dP (two named barriers), so that they fall
+//     out of step: 5% faster. 128-wide k tiles measured 8% faster than
+//     64-wide ones (half the waits per key).
+// What bounds the forward and dK/dV here is not the tensor cores or the
+// bytes (a forward with P.V removed, or with the V loads removed too, took
+// as long) but the f32 work between the products and the fixed cost of
+// each CTA. So exp is ex2.approx of x * log2 e (three instructions where
+// expf takes eight), and the outputs leave through swizzled shared memory
+// and TMA stores that drain while the next CTA starts. Overlapping the
+// softmax with P.V inside a warpgroup, a ping-pong order between the two
+// warpgroups, a third stage, skipping the output rescale when no max
+// moved, and skipping dK/dV steps whose keys are all dead measured no
+// faster there and are not used.
 // Tiles are loaded swizzled (128-byte rows, two 64-column halves at D = 128;
 // 32/64-byte rows at D = 16/32), the layouts wgmma's descriptors read.
 // Tensor maps are encoded on the host for each launch, through the runtime's
 // driver entry point, so the library links no libcuda.
 //
-// bfloat16 dQ: mma.sync m16n8k16 (bf16 in, f32 accumulate), 64-row tiles,
-// operands fed by ldmatrix from padded shared tiles and cp.async double
-// buffering; its ds strip's accumulators become the A operand of ds.K in
-// registers. float32 inputs (tests, reference runs) take a SIMT path with
-// 64-row tiles and the products staged in shared memory.
+// float32 inputs (tests, reference runs) take a SIMT path with 64-row tiles
+// and the products staged in shared memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,7 +96,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TILE = 64;   // rows of a q tile and of a k tile (dq, f32 kernels)
+constexpr int TILE = 64;   // rows of a q tile and of a k tile (f32 kernels)
 constexpr int WARPS = 4;   // warp w owns rows [16w, 16w + 16) of a tile
 constexpr int THREADS = WARPS * 32;
 constexpr float MASK_VALUE = -1e30f;
@@ -117,61 +132,11 @@ __device__ __forceinline__ int last_q_tile(int last_col, int window, int num_til
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 dQ: mma.sync tensor cores, register accumulators
+// bfloat16 helpers: accumulator fragments
 // ---------------------------------------------------------------------------
-
-// Shared tiles are [TILE, D] with rows padded by 8 elements (16 bytes): the
-// eight 16-byte rows an ldmatrix phase reads then fall on distinct banks.
-template <int D> struct Bf16Tile {
-  static constexpr int LD = D + 8;
-  static constexpr size_t bytes = sizeof(bf16) * TILE * LD;
-};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-// Wait until at most N of this thread's committed groups are still in flight.
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Start copying a [TILE, D] tile (global row stride D) into shared memory.
-template <int D>
-__device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* src) {
-  constexpr int PER_ROW = D / 8;  // 16-byte chunks
-  for (int idx = threadIdx.x; idx < TILE * PER_ROW; idx += THREADS) {
-    const int r = idx / PER_ROW, c = (idx % PER_ROW) * 8;
-    cp_async16(dst + r * Bf16Tile<D>::LD + c, src + static_cast<size_t>(r) * D + c);
-  }
-}
-
-
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c[16x8] += a[16x16] * b[16x8]; bf16 operands, f32 accumulators. In a
-// warp, lane = 4g + t holds c rows g and g + 8, columns 2t and 2t + 1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Two floats rounded to bf16 (nearest even, as torch's .to()) in one
@@ -179,67 +144,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragment of the 16x16 block at `p` of a row-major shared tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* p, int ld) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, p + (lane & 15) * ld + (lane >> 4) * 8);
-}
-
-// B fragments of two n8 tiles, b = X^T with X stored [n][k] at `p`:
-// (b[0], b[1]) for columns n..n+7, (b[2], b[3]) for n+8..n+15.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* p, int ld) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, p + ((lane & 7) + ((lane >> 4) << 3)) * ld + ((lane >> 3) & 1) * 8);
-}
-
-// The same for b = Y with Y stored [k][n] at `p` (transposed on load).
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* p, int ld) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, p + ((lane & 7) + (((lane >> 3) & 1) << 3)) * ld + (lane >> 4) * 8);
-}
-
-// acc[16, N] += A[16, K] . X[N, K]^T: A the warp's strip of a shared tile,
-// X a whole shared tile. Scores s = q.k^T and dp = g.v^T (and transposed).
-template <int N, int K>
-__device__ __forceinline__ void strip_abt(float (&acc)[N / 8][4], const bf16* A, const bf16* X,
-                                          int ld) {
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    load_a(a, A + k0, ld);
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      uint32_t b[4];
-      load_b_nk(b, X + n0 * ld + k0, ld);
-      mma_bf16(acc[n0 / 8], a, b[0], b[1]);
-      mma_bf16(acc[n0 / 8 + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[16, N] += P[16, TILE] . Y[TILE, N]: P a strip of accumulator
-// fragments (rounded to bf16 here, as the TPU kernels cast p and ds to the
-// input dtype), Y a whole shared tile. o += p.v, dq += ds.k, dv += p^T.g,
-// dk += ds^T.q.
-template <int N>
-__device__ __forceinline__ void strip_pv(float (&acc)[N / 8][4], const float (&p)[TILE / 8][4],
-                                         const bf16* Y, int ld) {
-#pragma unroll
-  for (int kk = 0; kk < TILE / 16; ++kk) {
-    const uint32_t a[4] = {
-        pack_bf16(p[2 * kk][0], p[2 * kk][1]), pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-        pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-        pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      uint32_t b[4];
-      load_b_kn(b, Y + kk * 16 * ld + n0, ld);
-      mma_bf16(acc[n0 / 8], a, b[0], b[1]);
-      mma_bf16(acc[n0 / 8 + 1], a, b[2], b[3]);
-    }
-  }
 }
 
 template <int N>
@@ -265,20 +169,6 @@ __device__ __forceinline__ void mask_strip(float (&s)[N / 8][4], int row0, int f
   }
 }
 
-// Store a [16, D] f32 strip (rows r and r + 8 of `dst`, row stride D) as bf16.
-template <int D>
-__device__ __forceinline__ void store_strip(bf16* dst, const float (&acc)[D / 8][4], float s0,
-                                            float s1) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(dst + g * D + 8 * n + 2 * t) =
-        pack_bf16(acc[n][0] * s0, acc[n][1] * s0);
-    *reinterpret_cast<uint32_t*>(dst + (g + 8) * D + 8 * n + 2 * t) =
-        pack_bf16(acc[n][2] * s1, acc[n][3] * s1);
-  }
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -286,80 +176,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-template <int D> struct Bf16Smem {
-  static constexpr size_t dq = 6 * Bf16Tile<D>::bytes;  // q, g, 2 x (k, v)
-};
-
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ g,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              bf16* __restrict__ dq, int S, int H, int group, int window, float scale) {
-  constexpr int LD = Bf16Tile<D>::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sG = sQ + TILE * LD;
-  bf16* sK = sG + TILE * LD;      // two buffers
-  bf16* sV = sK + 2 * TILE * LD;  // two buffers
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest k walks first
-  const int bh = blockIdx.y;
-  const int first_row = qt * TILE;
-  const size_t q_off = (static_cast<size_t>(bh) * S + first_row) * D;
-  const size_t kv_off = static_cast<size_t>(kv_row(bh, H, group)) * S * D;
-  const int kt_lo = first_k_tile<TILE>(first_row, window);
-
-  load_tile_async<D>(sQ, q + q_off);
-  load_tile_async<D>(sG, g + q_off);
-  load_tile_async<D>(sK, k + kv_off + static_cast<size_t>(kt_lo) * TILE * D);
-  load_tile_async<D>(sV, v + kv_off + static_cast<size_t>(kt_lo) * TILE * D);
-  cp_async_commit();
-
-  const int row0 = first_row + 16 * warp + (lane >> 2);
-  const float lse0 = lse[static_cast<size_t>(bh) * S + row0];
-  const float lse1 = lse[static_cast<size_t>(bh) * S + row0 + 8];
-  const float delta0 = delta[static_cast<size_t>(bh) * S + row0];
-  const float delta1 = delta[static_cast<size_t>(bh) * S + row0 + 8];
-  float acc[D / 8][4];
-  zero(acc);
-
-  for (int kt = kt_lo; kt <= qt; ++kt) {
-    const int buf = (kt - kt_lo) & 1;
-    if (kt < qt) {
-      const size_t next = kv_off + static_cast<size_t>(kt + 1) * TILE * D;
-      load_tile_async<D>(sK + (buf ^ 1) * TILE * LD, k + next);
-      load_tile_async<D>(sV + (buf ^ 1) * TILE * LD, v + next);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* cK = sK + buf * TILE * LD;
-    const bf16* cV = sV + buf * TILE * LD;
-
-    float s[TILE / 8][4], dp[TILE / 8][4];
-    zero(s);
-    zero(dp);
-    strip_abt<TILE, D>(s, sQ + 16 * warp * LD, cK, LD);
-    strip_abt<TILE, D>(dp, sG + 16 * warp * LD, cV, LD);
-    if (!tile_full(first_row, TILE, kt * TILE, TILE, window))
-      mask_strip<TILE>(s, row0, kt * TILE, false, window);
-#pragma unroll
-    for (int j = 0; j < TILE / 8; ++j) {  // s becomes ds = p * (dp - delta)
-      s[j][0] = expf(s[j][0] - lse0) * (dp[j][0] - delta0);
-      s[j][1] = expf(s[j][1] - lse0) * (dp[j][1] - delta0);
-      s[j][2] = expf(s[j][2] - lse1) * (dp[j][2] - delta1);
-      s[j][3] = expf(s[j][3] - lse1) * (dp[j][3] - delta1);
-    }
-    strip_pv<D>(acc, s, cK, LD);  // dq += ds.k
-    __syncthreads();
-  }
-  // ds.k used the unscaled ds; 1/sqrt(D) lands once here, as on the TPU.
-  store_strip<D>(dq + q_off + static_cast<size_t>(16 * warp) * D, acc, scale, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,6 +187,8 @@ constexpr int HOPPER_THREADS = 128 * (CONSUMERS + 1);  // + the producer warpgro
 constexpr int STAGES = 2;                         // ring of tiles in flight
 constexpr int FWD_BM = 128, FWD_BN = 128;         // forward: q rows a CTA, k tile width
 constexpr int DKV_BK = 128, DKV_BQ = 64;          // dK/dV: keys a CTA, q tile rows
+constexpr int DQ_BM = 128, DQ_BN = 128;           // dQ: q rows a CTA, k tile width
+static_assert(DQ_BN == 128, "dQ's S and dP products are m64n128 wgmmas");
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
@@ -692,6 +510,12 @@ template <int D> struct DkvSmem {
   static constexpr uint32_t STAGE_TX = 2 * Q_BYTES + 2 * ROW_BYTES;
   static constexpr size_t bytes = bars + 8 * (1 + 2 * STAGES) + 1024;
 };
+template <int D> struct DqSmem {
+  static constexpr uint32_t Q_BYTES = DQ_BM * D * 2, KV_BYTES = DQ_BN * D * 2;
+  static constexpr uint32_t q = 0, g = Q_BYTES, k = 2 * Q_BYTES, v = k + STAGES * KV_BYTES;
+  static constexpr uint32_t bars = v + STAGES * KV_BYTES;  // qg, full[], empty[]
+  static constexpr size_t bytes = bars + 8 * (1 + 2 * STAGES) + 1024;
+};
 
 __device__ __forceinline__ uint32_t aligned_smem_base(const unsigned char* raw) {
   return (smem_u32(raw) + 1023u) & ~1023u;
@@ -972,6 +796,141 @@ flash_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const CUtensorMap* const maps[2] = {&tdk, &tdv};
   const uint32_t rows[2] = {k_rows, v_rows};
   store_staged<D>(maps, rows, DKV_BK * W::ROW, bh * S + first_key);
+}
+
+template <int D>
+__global__ void __launch_bounds__(HOPPER_THREADS, 1)
+flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              const __grid_constant__ CUtensorMap tdq, int S, int H, int group, int window,
+              float scale) {
+  using L = DqSmem<D>;
+  using W = Swz<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const uint32_t bar_qg = base + L::bars;
+  const uint32_t full = bar_qg + 8, empty = full + 8 * STAGES;
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest k walks first
+  const int bh = blockIdx.y;
+  const int first_row = qt * DQ_BM;
+  // The k walk: from the first tile the CTA's first row sees to the one
+  // holding its last row's diagonal.
+  const int kt_lo = first_k_tile<DQ_BN>(first_row, window);
+  const int num_k_tiles = (first_row + DQ_BM - 1) / DQ_BN - kt_lo + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_qg, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 4 * CONSUMERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_qg, 2 * L::Q_BYTES);
+      tma_tile<D>(base + L::q, &tq, DQ_BM, bh * S + first_row, bar_qg);
+      tma_tile<D>(base + L::g, &tg, DQ_BM, bh * S + first_row, bar_qg);
+      const int kv0 = kv_row(bh, H, group) * S;
+      for (int i = 0; i < num_k_tiles; ++i) {
+        const int s = i % STAGES;
+        if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
+        const int row = kv0 + (kt_lo + i) * DQ_BN;
+        mbar_expect_tx(full + 8 * s, 2 * L::KV_BYTES);
+        tma_tile<D>(base + L::k + s * L::KV_BYTES, &tk, DQ_BN, row, full + 8 * s);
+        tma_tile<D>(base + L::v + s * L::KV_BYTES, &tv, DQ_BN, row, full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup: rows [64cw, 64cw + 64)
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int wg_row = first_row + 64 * cw;
+  const int row0 = wg_row + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_rows = base + L::q + 64 * cw * W::ROW;
+  const uint32_t g_rows = base + L::g + 64 * cw * W::ROW;
+  const size_t r0 = static_cast<size_t>(bh) * S + row0;
+  const float lse0 = lse[r0], lse1 = lse[r0 + 8];
+  const float delta0 = delta[r0], delta1 = delta[r0 + 8];
+
+  float acc[D / 8][4];
+  zero(acc);
+  // The two warpgroups take turns at issuing S and dP (named barriers 3
+  // and 4; 1 and 2 are each warpgroup's own), warpgroup 0 first, so that
+  // one's exp and dS.K run under the other's products instead of both
+  // waiting on the same ones.
+  const int turn = 3 + cw, other = 4 - cw;
+  auto my_turn = [&] { asm volatile("bar.sync %0, 256;\n" ::"r"(turn) : "memory"); };
+  auto pass_turn = [&] { asm volatile("bar.arrive %0, 256;\n" ::"r"(other) : "memory"); };
+  if (cw == 1) pass_turn();
+  mbar_wait(bar_qg, 0);
+
+  for (int i = 0; i < num_k_tiles; ++i) {
+    const int s = i % STAGES;
+    const uint32_t phase = (i / STAGES) & 1;
+    const int first_col = (kt_lo + i) * DQ_BN;
+    const uint32_t k_tile = base + L::k + s * L::KV_BYTES;
+    const uint32_t v_tile = base + L::v + s * L::KV_BYTES;
+
+    // A tile that none of this warpgroup's rows see (a window shorter than
+    // the tile) is computed and masked to zero all the same: skipping it
+    // would put the products in a branch of their own.
+    float sc[DQ_BN / 8][4], dp[DQ_BN / 8][4];
+    mbar_wait(full + 8 * s, phase);
+    my_turn();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(sc, desc_k<D>(q_rows, DQ_BM * W::ROW, kk),
+                    desc_k<D>(k_tile, DQ_BN * W::ROW, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n128(dp, desc_k<D>(g_rows, DQ_BM * W::ROW, kk),
+                    desc_k<D>(v_tile, DQ_BN * W::ROW, kk), kk);
+    wgmma_commit();
+    pass_turn();
+    wgmma_wait();
+    keep(sc);
+    keep(dp);
+    if (!tile_full(wg_row, 64, first_col, DQ_BN, window))
+      mask_strip<DQ_BN>(sc, row0, first_col, false, window);
+#pragma unroll
+    for (int j = 0; j < DQ_BN / 8; ++j) {  // sc becomes ds = p * (dp - delta)
+      sc[j][0] = exp_approx(sc[j][0] - lse0) * (dp[j][0] - delta0);
+      sc[j][1] = exp_approx(sc[j][1] - lse0) * (dp[j][1] - delta0);
+      sc[j][2] = exp_approx(sc[j][2] - lse1) * (dp[j][2] - delta1);
+      sc[j][3] = exp_approx(sc[j][3] - lse1) * (dp[j][3] - delta1);
+    }
+    uint32_t da[DQ_BN / 16][4];  // ds in bf16, as the TPU kernel casts it
+    pack_a<DQ_BN>(da, sc);
+    keep(acc);
+    keep(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BN / 16; ++kk)  // dq += ds.k, k read MN-major
+      rs_step<D>(acc, da[kk], k_tile, DQ_BN * W::ROW, kk);
+    wgmma_commit();
+    wgmma_wait();
+    keep(acc);
+    keep(da);
+    if (lane == 0) mbar_arrive(empty + 8 * s);  // after ds.k: K is read twice
+  }
+  if (cw == 0) my_turn();  // the turn warpgroup 1 passed last
+
+  // ds.k used the unscaled ds; 1/sqrt(D) lands once here, as on the TPU.
+  // dq goes out through this warpgroup's q rows, which its last S product
+  // has finished reading, and one TMA store.
+  stage_rows<D>(smem_raw + (q_rows - smem_u32(smem_raw)), DQ_BM * W::ROW, acc, scale, scale);
+  const CUtensorMap* const maps[1] = {&tdq};
+  const uint32_t rows[1] = {q_rows};
+  store_staged<D>(maps, rows, DQ_BM * W::ROW, bh * S + wg_row);
 }
 
 // ---------------------------------------------------------------------------
@@ -1356,19 +1315,22 @@ template <int D>
 cudaError_t dq(int dtype, const void* q, const void* k, const void* v, const void* g,
                const void* lse, const void* delta, void* dq_out, int bh, int S, int H,
                int group, int window, float scale, cudaStream_t stream) {
-  const dim3 grid(S / TILE, bh);
   if (dtype == 1) {
-    LAUNCH(flash_dq_bf16<D>, Bf16Smem<D>::dq, grid, THREADS, stream,
-           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-           static_cast<const bf16*>(v), static_cast<const bf16*>(g),
-           static_cast<const float*>(lse), static_cast<const float*>(delta),
-           static_cast<bf16*>(dq_out), S, H, group, window, scale);
+    CUtensorMap tq, tk, tv, tg, tdq;
+    const int kv_rows = bh / group * S;
+    if (!tile_map<D>(&tq, q, bh * S, DQ_BM) || !tile_map<D>(&tg, g, bh * S, DQ_BM) ||
+        !tile_map<D>(&tk, k, kv_rows, DQ_BN) || !tile_map<D>(&tv, v, kv_rows, DQ_BN) ||
+        !tile_map<D>(&tdq, dq_out, bh * S, 64))
+      return cudaErrorInvalidValue;
+    LAUNCH(flash_dq_bf16<D>, DqSmem<D>::bytes, dim3(S / DQ_BM, bh), HOPPER_THREADS, stream,
+           tq, tk, tv, tg, static_cast<const float*>(lse), static_cast<const float*>(delta), tdq,
+           S, H, group, window, scale);
   }
-  LAUNCH(flash_dq_f32<D>, F32Smem<D>::dq, grid, THREADS, stream, static_cast<const float*>(q),
-         static_cast<const float*>(k), static_cast<const float*>(v),
-         static_cast<const float*>(g), static_cast<const float*>(lse),
-         static_cast<const float*>(delta), static_cast<float*>(dq_out), S, H, group, window,
-         scale);
+  LAUNCH(flash_dq_f32<D>, F32Smem<D>::dq, dim3(S / TILE, bh), THREADS, stream,
+         static_cast<const float*>(q), static_cast<const float*>(k),
+         static_cast<const float*>(v), static_cast<const float*>(g),
+         static_cast<const float*>(lse), static_cast<const float*>(delta),
+         static_cast<float*>(dq_out), S, H, group, window, scale);
 }
 
 // Head dims 16, 32, 64, 128; dtype code 0 = float32, 1 = bfloat16.

@@ -20,9 +20,13 @@ launch adds one to its entry of ``LAUNCHES``.
 
 What the TPU version needed and this one does not: the 128-lane
 replication of lse (here [B*H, S] float32), the 16 MiB VMEM block cap and
-the 1024-wide blocks. The block sizes are not arguments: the bf16 forward
-walks 128-wide k tiles (which sets where p is rounded, so the plain
-forward walks the same tiles), the other kernels 64-wide ones.
+the 1024-wide blocks. The block sizes are not arguments. The bf16 forward
+takes 128 q rows a CTA and walks 128-wide k tiles (which sets where p is
+rounded, so the plain forward walks the same tiles); bf16 dK/dV takes 128
+keys a CTA and walks 64-row q tiles; bf16 dQ takes 128 q rows a CTA and
+walks 128-wide k tiles. dK/dV and dQ recompute p from lse elementwise, so
+their widths do not touch the numerics. The float32 kernels take 64-row
+tiles throughout.
 """
 
 from __future__ import annotations

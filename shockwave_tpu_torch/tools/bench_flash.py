@@ -13,9 +13,10 @@ at the training shape (B=8, S=2048, H=8, D=128, bf16, causal) on inputs
 from each seed of ``SEEDS``, printing each output's readings, then times
 each kernel, its plain version and PyTorch's scaled_dot_product_attention
 as ``chip_smoke.py`` does. The last line is one JSON object with the ms of
-each, the atol each output needed on each seed with and without the
-one-flip term of the tolerance, the card's name and power limit, and the
-checkout the kernels came from.
+each, of the backward pair (dK/dV + dQ, beside SDPA's backward), the atol
+each output needed on each seed with and without the one-flip term of the
+tolerance, the card's name and power limit, and the checkout the kernels
+came from.
 
 ``--root`` takes the kernels, their wrappers and plain versions from
 another checkout (for example an older commit unpacked with
@@ -200,6 +201,7 @@ def main(argv=None) -> dict:
         "ms": {name: t for name, (t, _) in ms.items()},
         "plain_ms": {name: t for name, (_, t) in ms.items()},
         "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd,
+        "backward_ms": ms["flash_dkv"][0] + ms["flash_dq"][0],
         "readings": needed,
         "card": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -199,6 +199,23 @@ def test_chip_smoke_names_the_kernels_in_cuobjdump_output():
     assert smoke.kernel_of("Function _Z6helperv:") is None
 
 
+def test_chip_smoke_checks_every_bf16_kernel():
+    """The SASS check covers all three bf16 kernels, and the planted faults
+    skip tiles of the widths the CUDA source walks."""
+    import re
+
+    from shockwave_tpu_torch.ops import _build
+
+    smoke = _chip_smoke()
+    assert smoke.HOPPER_KERNELS == (
+        "flash_fwd_bf16", "flash_dkv_bf16", "flash_dq_bf16")
+    source = (_build.CSRC / "flash_attention.cu").read_text()
+    for name, width in (("FWD_BN", fa._FWD_K_TILE),
+                        ("DKV_BQ", smoke.DKV_Q_TILE),
+                        ("DQ_BN", smoke.DQ_K_TILE)):
+        assert re.search(rf"\b{name} = (\d+)", source).group(1) == str(width)
+
+
 def test_bench_flash_needs_a_card():
     """The kernel timing tool refuses to run without a card rather than
     timing the plain versions on the CPU."""
@@ -212,11 +229,11 @@ def test_bench_flash_needs_a_card():
 
 def test_kernel_tolerance_rejects_planted_faults():
     """The limits the card holds each kernel to (KERNEL_TOLERANCE, bf16,
-    with its flip terms) reject what chip_smoke.py plants: a skipped k
-    tile of the width each kernel walks (128 for the forward, 64 for dQ),
-    a skipped 64-row q tile (dK/dV), and the later half of the rows
-    weighted 2% high; here on the plain versions at S=2048, D=128 (two
-    heads)."""
+    with its flip terms) reject what chip_smoke.py plants: a skipped tile
+    of the width each bf16 kernel walks (a 128-wide k tile for the
+    forward and for dQ, a 64-row q tile for dK/dV), and the
+    later half of the rows weighted 2% high; here on the plain versions at
+    S=2048, D=128 (two heads)."""
     smoke = _chip_smoke()
 
     gen = torch.Generator().manual_seed(0)
@@ -340,6 +357,32 @@ def test_ctypes_signatures_match_the_c_entry_points():
                      ctypes.c_float if p.startswith("float") else ctypes.c_int
                      for p in params]
             assert kinds == argtypes, fn
+
+
+def test_build_keeps_the_ptxas_report(monkeypatch, tmp_path):
+    """build() asks ptxas for its report (-Xptxas -v) and keeps what nvcc
+    printed beside the library, where chip_smoke.py looks for serialised
+    wgmma."""
+    import subprocess
+
+    from shockwave_tpu_torch.ops import _build
+
+    report = "ptxas info    : Used 168 registers, used 16 barriers\n"
+    calls = []
+
+    def fake_nvcc(cmd, **kwargs):
+        calls.append(cmd)
+        Path(cmd[cmd.index("-o") + 1]).write_bytes(b"")
+        return subprocess.CompletedProcess(cmd, 0, "", report)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "run", fake_nvcc)
+    lib = _build.build("flash_attention")
+    assert lib.exists() and lib.parent == tmp_path
+    assert lib.with_suffix(".log").read_text() == report
+    assert "-Xptxas" in calls[0] and "-v" in calls[0]
+    assert _build.build("flash_attention") == lib and len(calls) == 1
 
 
 def test_build_names_a_missing_nvcc(monkeypatch):

@@ -52,6 +52,13 @@ def _close(got, ref, tol, what):
         (1, 128, 4, 4, 128, None),
         (1, 512, 8, 2, 128, 128),
         (2, 384, 8, 2, 64, 64),
+        # Edges of the bf16 dQ's 128-row CTAs, split into two warpgroups of
+        # 64 rows, and its 128-wide k tiles: a window shorter than 64 rows
+        # and off every tile boundary, so a warpgroup sees nothing of some
+        # tiles of its CTA's walk; groups of 8 query heads per KV head at
+        # D=16.
+        (1, 256, 2, 2, 32, 17),
+        (1, 384, 8, 1, 16, 100),
     ],
 )
 def test_kernels_match_plain_versions(device, dtype, B, S, H, Hkv, D, window):
