@@ -33,7 +33,27 @@
    2048, batch 8, bf16, flash, AdamW) for 5 steps with a checkpoint, then
    resumes from it for 2 more. The launch counters must show 8 launches
    of every kernel per step (one per layer).
-7. Prints one JSON line ``{"kernels": [...]}`` and, last,
+7. Drives the second main path, trace-driven simulation under the
+   Shockwave planner with its level-set solve on the card
+   (``shockwave_tpu_torch/tools/bench_sim.py``): (a) the committed 12-job
+   trace on 8 GPUs under ``shockwave_tpu_level`` and ``shockwave_native``,
+   each within 1e-3 of the JAX package's golden (tests/test_golden.py),
+   every level solve of the first run on the card (16); (b) the 2048-job
+   trace on 256 GPUs with 120 s rounds under ``shockwave_tpu``, the
+   production dispatch, within 1e-3 of the JAX package's run on the CPU,
+   with at least one level solve on the card; (c) the level solve on the
+   card against the port's CPU solve (which the tests hold to the JAX
+   package), counts equal and objectives within 1e-6, on the 204 seeded
+   parity problems (slot bands 64 to 1024, with and without a switch
+   bonus), on a seeded problem of every timing band and on every planning
+   problem the 2048-job run built; (d) per slot band (64 to 1024 jobs on
+   256 GPUs, 20 rounds, seeded) and on a sample of the 2048-job run's own
+   problems across their job counts, the level solve's time, device head
+   and host tail, the median of 20 after a warm-up, its kernel launches
+   and the device's busy time under torch.profiler, and the native
+   greedy's time on the same problem, with the crossover of each set. It
+   prints one JSON line ``{"simulation": {...}}`` of these readings.
+8. Prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero without the last line. It needs one card
@@ -318,7 +338,54 @@ def run_main_path(fa, train, steps: int, resume: bool):
     return result, launches
 
 
+def run_simulation(device) -> dict:
+    """Phases (a)-(d) of the simulation path (docstring, item 7); fails
+    on any metric past its tolerance, a level solve off the card or
+    counts that differ from the CPU's."""
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    golden = {}
+    for policy in ("shockwave_tpu_level", "shockwave_native"):
+        r = sim.run_trace(sim.GOLDEN_TRACE, policy, 8, device)
+        print(f"golden trace, {policy}: makespan {r['makespan']:.3f} avg "
+              f"JCT {r['avg_jct']:.3f} worst FTF {r['worst_ftf']:.3f}, "
+              f"{r['rounds']} rounds, solves {r['solves']} on "
+              f"{r['device_solves']}, {r['wall_s']:.2f} s", flush=True)
+        bad = sim.check_run(r, sim.GOLDEN[policy])
+        if bad:
+            fail(f"golden trace under {policy}: " + ", ".join(bad))
+        golden[policy] = r
+    level = golden["shockwave_tpu_level"]
+    if level["device_solves"] != {"cuda": 16} or level["solves"] != {
+            "level": 16}:
+        fail(f"golden level run: expected 16 level solves on cuda, got "
+             f"{level['solves']} on {level['device_solves']}")
+
+    problems = []
+    tier = sim.run_trace(sim.TRACE_2048, "shockwave_tpu", 256, device,
+                         capture=problems)
+    print(f"2048-job tier, shockwave_tpu on 256 GPUs: makespan "
+          f"{tier['makespan']:.3f} avg JCT {tier['avg_jct']:.3f} worst FTF "
+          f"{tier['worst_ftf']:.3f}, {tier['rounds']} rounds; solves "
+          f"{tier['solves']} taking {tier['solve_s']} s (level solves by "
+          f"device {tier['device_solves']}); wall {tier['wall_s']:.2f} s",
+          flush=True)
+    bad = sim.check_run(tier, sim.TIER_2048)
+    if bad:
+        fail("2048-job tier: " + ", ".join(bad))
+    on_card = tier["device_solves"].get("cuda", 0)
+    if on_card == 0 or on_card != tier["solves"].get("level", 0):
+        fail(f"2048-job tier: level solves {tier['solves']} but "
+             f"{tier['device_solves']} by device")
+
+    bad, report = sim.solve_report(device, problems)
+    if bad:
+        fail("level solve on the card against the CPU's: " + "; ".join(bad))
+    return {"golden": golden, "tier_2048": tier, **report}
+
+
 def main() -> None:
+    started = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     sys.path.insert(0, str(ROOT))
@@ -386,6 +453,8 @@ def main() -> None:
           f"peak memory {peak_gib:.2f} GiB; launches {launches}, "
           f"resume {resume_launches}")
 
+    simulation = run_simulation(device)
+
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
     for name in ("flash_fwd", "flash_dkv", "flash_dq"):
@@ -414,6 +483,8 @@ def main() -> None:
         kernels.append(row)
     print(f"backward (flash_dkv + flash_dq): {backward_ms:.4f} ms; SDPA "
           f"backward {sdpa_bwd:.4f} ms ({backward_ms / sdpa_bwd:.2f}x)")
+    print(f"chip_smoke: all phases in {time.time() - started:.1f} s")
+    print(json.dumps({"simulation": simulation, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_steps_per_s": 1 / steady_s,
                       "train_tokens_per_s": B * S / steady_s}))

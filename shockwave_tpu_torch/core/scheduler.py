@@ -1,0 +1,917 @@
+"""The round-based scheduler's trace-driven simulation, under the
+Shockwave planner.
+
+The port of the simulation main path of the JAX package's
+``shockwave_tpu/core/scheduler.py``: ``Scheduler.simulate`` (:2046) over
+a static trace, the Shockwave planner hooks
+(``_shockwave_schedule_helper`` :1356, ``_shockwave_scheduler_update``
+:2011), strided worker assignment, micro-task completion merging,
+batch-size adaptation, and the metrics getters. Time is divided into
+fixed rounds (``time_per_iteration`` seconds); every round the planner
+picks which jobs occupy which workers.
+
+Not ported yet, each raising ``NotImplementedError`` naming
+``ROADMAP.md``: the non-Shockwave policies, physical mode
+(``simulate=False``), HA state, streaming admission (a ``submitter``),
+fault plans, simulator checkpoints, online throughput estimation
+(``profiling_percentage < 1``) and pool sets (``hetero_pools``); cost
+accounting (per-worker-type prices) and lease-extension counting are not
+carried. The run has no fault injector, the reference's
+default (``faults.active()`` is ``None``).
+"""
+
+from __future__ import annotations
+
+import copy
+import heapq
+import math
+import random
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from shockwave_tpu_torch import obs
+from shockwave_tpu_torch.core.ids import JobId
+from shockwave_tpu_torch.core.job import Job
+from shockwave_tpu_torch.data.workload_info import (
+    MAX_BATCH_SIZES,
+    MIN_BATCH_SIZES,
+    num_epochs as epochs_for_steps,
+    steps_per_epoch,
+    total_steps_for_epochs,
+)
+from shockwave_tpu_torch.utils.logging import make_logger
+
+DEFAULT_THROUGHPUT = 1
+MAX_FAILED_ATTEMPTS = 5
+
+# Batch-size scaling directions.
+BS_BIG = 0
+BS_SMALL = 1
+
+_NOT_PORTED = "is not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1)"
+
+
+def resolve_preemption_overhead(overheads, job_type: str) -> float:
+    """Per-job relaunch overhead (seconds) from an overhead table: a
+    scalar, or a dict keyed by family name (the part of ``job_type``
+    before " (batch size N)") with an optional "default" entry. Absent
+    families cost 0."""
+    if overheads is None:
+        return 0.0
+    if isinstance(overheads, (int, float)):
+        return float(overheads)
+    family = job_type.split(" (")[0]
+    return float(overheads.get(family, overheads.get("default", 0.0)))
+
+
+def autosize_round_duration(
+    overheads,
+    base_round_s: float,
+    max_overhead_fraction: float = 0.25,
+    max_round_s: Optional[float] = None,
+) -> float:
+    """Overhead-aware round length: long enough that the worst per-family
+    relaunch overhead costs at most ``max_overhead_fraction`` of one
+    round; never shorter than ``base_round_s``, at most ``max_round_s``."""
+    if not 0.0 < max_overhead_fraction <= 1.0:
+        raise ValueError(
+            f"max_overhead_fraction must be in (0, 1], got "
+            f"{max_overhead_fraction}"
+        )
+    if overheads is None:
+        worst = 0.0
+    elif isinstance(overheads, (int, float)):
+        worst = float(overheads)
+    elif isinstance(overheads, dict):
+        worst = max(
+            (float(v) for k, v in overheads.items() if k != "default"),
+            default=0.0,
+        )
+        worst = max(worst, float(overheads.get("default", 0.0)))
+    else:
+        raise TypeError(
+            "preemption overheads must be None, a scalar, or a "
+            f"{{family: seconds}} dict, got {type(overheads).__name__}"
+        )
+    sized = max(float(base_round_s), worst / max_overhead_fraction)
+    if max_round_s is not None:
+        sized = min(sized, float(max_round_s))
+    return max(sized, float(base_round_s))
+
+
+class Scheduler:
+    def __init__(
+        self,
+        policy,
+        simulate: bool = True,
+        throughputs: Optional[dict] = None,
+        seed: int = 0,
+        time_per_iteration: float = 360.0,
+        profiles: Optional[dict] = None,
+        shockwave_config: Optional[dict] = None,
+        log_level=None,
+        profiling_percentage: float = 1.0,
+        num_reference_models: Optional[int] = None,
+        preemption_overheads=None,
+        round_overhead_fraction: Optional[float] = None,
+    ):
+        if not policy.name.startswith("Shockwave"):
+            raise NotImplementedError(f"policy {policy.name} {_NOT_PORTED}")
+        if not simulate:
+            raise NotImplementedError(f"physical mode {_NOT_PORTED}")
+        if profiling_percentage < 1.0 or num_reference_models is not None:
+            raise NotImplementedError(
+                f"online throughput estimation {_NOT_PORTED}")
+        if shockwave_config is None:
+            raise ValueError("Shockwave policies require shockwave_config")
+        if shockwave_config.get("hetero_pools"):
+            raise NotImplementedError(
+                f"per-worker-type pools (hetero_pools) {_NOT_PORTED}")
+        self._oracle_throughputs = throughputs
+        self._time_per_iteration = float(time_per_iteration)
+        # Preemption awareness: per-family relaunch overheads (seconds;
+        # scalar or {family: seconds}) feed the planner's switching-cost
+        # term, and with round_overhead_fraction auto-size the round.
+        if preemption_overheads is None:
+            preemption_overheads = shockwave_config.get("preemption_overheads")
+        self._preemption_overheads = preemption_overheads
+        if round_overhead_fraction is not None:
+            sized = autosize_round_duration(
+                preemption_overheads,
+                self._time_per_iteration,
+                max_overhead_fraction=round_overhead_fraction,
+            )
+            if sized != self._time_per_iteration:
+                self._time_per_iteration = sized
+                shockwave_config = dict(shockwave_config)
+                shockwave_config["time_per_iteration"] = sized
+        self._profiles = profiles or {}
+
+        self._current_timestamp: float = 0.0
+        self._num_completed_rounds = 0
+        # The reference's RNG fan-out (reference: scheduler.py:378-392):
+        # the worker-type shuffle draws from the seed + 5 stream.
+        self._worker_type_shuffler = random.Random(seed + 5)
+
+        # Job state.
+        self._job_id_counter = 0
+        self._jobs: "OrderedDict[JobId, Job]" = OrderedDict()
+        self._completed_jobs: set = set()
+        self._running_jobs: set = set()
+        self._steps_run_so_far: Dict[JobId, Dict[str, int]] = {}
+        self._total_steps_run: Dict[JobId, int] = {}
+        self._throughputs: Dict[JobId, dict] = {}
+        self._original_bs: Dict[JobId, int] = {}
+        self._bs_scale: Dict[JobId, Optional[int]] = {}
+        self._num_failures_per_job: Dict[JobId, int] = {}
+        self._per_job_start_timestamps: Dict[JobId, float] = {}
+        self._per_job_latest_timestamps: Dict[JobId, Optional[float]] = {}
+        self._job_completion_times: "OrderedDict[JobId, Optional[float]]" = OrderedDict()
+        self._num_jobs_in_trace = 0
+        self._in_progress_updates: Dict[JobId, list] = {}
+
+        # Worker state.
+        self._worker_id_counter = 0
+        self._worker_ids: List[int] = []
+        self._worker_types: List[str] = []
+        self._cluster_spec: Dict[str, int] = {}
+        self._worker_id_to_worker_type: Dict[int, str] = {}
+        # worker_type -> list of per-server worker-id lists.
+        self._worker_type_to_worker_ids: Dict[str, List[List[int]]] = {}
+        self._worker_start_times: Dict[int, float] = {}
+        self._cumulative_worker_time_so_far: Dict[int, float] = {}
+
+        self._current_worker_assignments: "OrderedDict[JobId, tuple]" = OrderedDict()
+        self._current_round_scheduled_jobs: List[JobId] = []
+        # Preemptions: a still-active job that held workers last round
+        # and this round is either unscheduled or moved to a different
+        # worker set.
+        self._num_preemptions = 0
+
+        self._logger = make_logger(
+            "scheduler", lambda: self._current_timestamp, level=log_level
+        )
+        self._shockwave = policy.make_planner(shockwave_config)
+
+    # ------------------------------------------------------------------
+    # Workers and jobs.
+    # ------------------------------------------------------------------
+    def register_worker(self, worker_type: str, num_gpus: int = 1) -> List[int]:
+        """Register one server with ``num_gpus`` workers of ``worker_type``
+        (reference: scheduler.py:2854-2940)."""
+        if worker_type not in self._worker_type_to_worker_ids:
+            self._worker_types = sorted([*self._worker_types, worker_type])
+            self._cluster_spec[worker_type] = 0
+            self._worker_type_to_worker_ids[worker_type] = []
+            for job_id in self._jobs:
+                self._steps_run_so_far[job_id][worker_type] = 0
+                self._set_initial_throughput(job_id, worker_type)
+        server_ids = []
+        for _ in range(num_gpus):
+            worker_id = self._worker_id_counter
+            self._worker_id_counter += 1
+            server_ids.append(worker_id)
+            self._worker_ids.append(worker_id)
+            self._worker_id_to_worker_type[worker_id] = worker_type
+            self._cluster_spec[worker_type] += 1
+            self._worker_start_times[worker_id] = self._current_timestamp
+            self._cumulative_worker_time_so_far[worker_id] = 0.0
+        self._worker_type_to_worker_ids[worker_type].append(server_ids)
+        return server_ids
+
+    def add_job(self, job: Job, timestamp: Optional[float] = None) -> JobId:
+        """(reference: scheduler.py:537-619)"""
+        job_id = JobId(self._job_id_counter)
+        self._job_id_counter += 1
+        job.job_id = job_id.integer
+        self._jobs[job_id] = job
+        self._steps_run_so_far[job_id] = {}
+        self._throughputs[job_id] = {}
+        self._original_bs[job_id] = job.batch_size
+        self._num_jobs_in_trace += 1
+        self._num_failures_per_job[job_id] = 0
+        self._total_steps_run[job_id] = 0
+        for worker_type in self._worker_types:
+            self._steps_run_so_far[job_id][worker_type] = 0
+            self._set_initial_throughput(job_id, worker_type)
+        self._per_job_latest_timestamps[job_id] = None
+        self._bs_scale[job_id] = None
+        if (
+            job_id.integer not in self._profiles
+            and self._oracle_throughputs is not None
+        ):
+            # No pre-computed profile: derive one from the throughput
+            # oracle, the math synthesize_profiles applies to a trace.
+            from shockwave_tpu_torch.data.profiles import synthesize_profile
+
+            worker_type = (
+                self._worker_types[0] if self._worker_types else "v100"
+            )
+            self._profiles[job_id.integer] = synthesize_profile(
+                job, self._oracle_throughputs, worker_type
+            )
+        self._shockwave.add_job(
+            job_id,
+            self._profiles[job_id.integer],
+            self._time_per_iteration,
+            job.scale_factor,
+            submit_time=self.get_current_timestamp(),
+            overhead_s=resolve_preemption_overhead(
+                self._preemption_overheads, job.job_type
+            ),
+        )
+        if timestamp is None:
+            timestamp = self.get_current_timestamp()
+        self._per_job_start_timestamps[job_id] = timestamp
+        obs.counter(
+            "scheduler_jobs_admitted_total", "jobs admitted from the trace"
+        ).inc()
+        self._logger.info("[Job dispatched]\tJob ID: %s", job_id)
+        return job_id
+
+    def _remove_job(self, job_id: JobId) -> None:
+        """(reference: scheduler.py:627-705)"""
+        self._completed_jobs.add(job_id)
+        duration = (
+            self._per_job_latest_timestamps[job_id]
+            - self._per_job_start_timestamps[job_id]
+        )
+        del self._jobs[job_id]
+        if self._num_failures_per_job[job_id] >= MAX_FAILED_ATTEMPTS:
+            self._job_completion_times[job_id] = None
+        else:
+            self._job_completion_times[job_id] = duration
+        del self._steps_run_so_far[job_id]
+        del self._throughputs[job_id]
+        del self._num_failures_per_job[job_id]
+        self._in_progress_updates.pop(job_id, None)
+        self._logger.info("Remaining active jobs: %d", len(self._jobs))
+
+    def _set_initial_throughput(self, job_id: JobId, worker_type: str) -> None:
+        if self._oracle_throughputs is not None:
+            key = self._jobs[job_id].job_type_key()
+            self._throughputs[job_id][worker_type] = self._oracle_throughputs[
+                worker_type
+            ][key]["null"]
+        else:
+            self._throughputs[job_id][worker_type] = DEFAULT_THROUGHPUT
+
+    def _update_throughput(self, job_id, all_num_steps, all_execution_times):
+        """The planner's measured-throughput record of the round
+        (reference: scheduler.py:921-938)."""
+        current_round = self._num_completed_rounds
+        for i, single in enumerate(job_id.singletons()):
+            tput = (
+                0.0
+                if all_execution_times[i] <= 0
+                else all_num_steps[i] / all_execution_times[i]
+            )
+            if single in self._jobs:
+                self._shockwave.record_round_throughput(
+                    single, current_round, tput, self._jobs[single].batch_size
+                )
+
+    def _get_remaining_steps(self, job_id: JobId) -> int:
+        return self._jobs[job_id].total_steps - self._total_steps_run[job_id]
+
+    # ------------------------------------------------------------------
+    # Per-round scheduling.
+    # ------------------------------------------------------------------
+    def _shockwave_pool_type(self) -> str:
+        """The homogeneous pool the planner plans onto: v100 when present,
+        else the cluster's sole worker type (reference: v100-only,
+        scheduler.py:991-1014)."""
+        if "v100" in self._worker_type_to_worker_ids:
+            return "v100"
+        types = list(self._worker_type_to_worker_ids)
+        if len(types) == 1:
+            return types[0]
+        raise ValueError(
+            "Shockwave plans a homogeneous pool: need a 'v100' "
+            f"pool or a single worker type, got {types}"
+        )
+
+    def _shockwave_schedule_helper(self) -> Dict[str, List[Tuple[JobId, int]]]:
+        """This round's job list from the planner (reference:
+        scheduler.py:991-1014)."""
+        worker_type = self._shockwave_pool_type()
+        scheduled: Dict[str, List[Tuple[JobId, int]]] = {worker_type: []}
+        self._current_round_scheduled_jobs = self._shockwave.current_round_schedule()
+        for job_id in self._current_round_scheduled_jobs:
+            if job_id in self._jobs:
+                scheduled[worker_type].append(
+                    (job_id, self._jobs[job_id].scale_factor)
+                )
+        return scheduled
+
+    def _assign_workers_to_job(
+        self, job_id, scale_factor, worker_state, worker_assignments
+    ) -> None:
+        """Strided server-local placement (reference: scheduler.py:838-889)."""
+        worker_ids = worker_state["worker_ids"]
+        assigned = worker_state["assigned_worker_ids"]
+        ptr = worker_state["server_id_ptr"]
+        ids_for_job = list(worker_assignments.get(job_id, ()))
+        while len(ids_for_job) < scale_factor and ptr < len(worker_ids):
+            if not worker_ids[ptr]:
+                ptr += 1
+                continue
+            candidate = worker_ids[ptr][0]
+            if candidate not in assigned:
+                ids_for_job.append(candidate)
+                assigned.add(candidate)
+            worker_ids[ptr].pop(0)
+        if len(ids_for_job) != scale_factor:
+            raise RuntimeError(f"Could not assign workers to job {job_id}")
+        worker_assignments[job_id] = tuple(ids_for_job)
+        worker_state["server_id_ptr"] = ptr
+        for single in job_id.singletons():
+            self._per_job_latest_timestamps[single] = self.get_current_timestamp()
+            self._running_jobs.add(single)
+
+    def _schedule_jobs_on_workers(self) -> "OrderedDict[JobId, tuple]":
+        """(reference: scheduler.py:1017-1129)"""
+        # The reference's fixed goodness order for its GPU vocabulary;
+        # other worker types come after, alphabetically.
+        known = ["v100", "p100", "k80"]
+        worker_types = [
+            wt for wt in known if wt in self._worker_type_to_worker_ids
+        ] + sorted(
+            wt for wt in self._worker_type_to_worker_ids if wt not in known
+        )
+        # Shockwave's policy names hold neither "Perf" nor "Packing", so
+        # the reference shuffles here, and the shuffle draws from the
+        # seeded stream.
+        self._worker_type_shuffler.shuffle(worker_types)
+
+        scheduled_jobs = self._shockwave_schedule_helper()
+        worker_types = [wt for wt in worker_types if wt in scheduled_jobs]
+
+        new_assignments: "OrderedDict[JobId, tuple]" = OrderedDict()
+        worker_state = {}
+        for worker_type in worker_types:
+            scheduled_jobs[worker_type].sort(key=lambda x: x[1], reverse=True)
+            worker_state[worker_type] = {
+                "worker_ids": copy.deepcopy(
+                    self._worker_type_to_worker_ids[worker_type]
+                ),
+                "assigned_worker_ids": set(),
+                "server_id_ptr": 0,
+            }
+
+        prev_worker_types = {
+            job_id: self._worker_id_to_worker_type[ids[0]]
+            for job_id, ids in self._current_worker_assignments.items()
+        }
+
+        for worker_type in worker_types:
+            state = worker_state[worker_type]
+            assigned = state["assigned_worker_ids"]
+            scale_factors = sorted(
+                {sf for _, sf in scheduled_jobs[worker_type]}, reverse=True
+            )
+            for current_sf in scale_factors:
+                # First pass: keep jobs on their previous workers if intact.
+                for job_id, sf in scheduled_jobs[worker_type]:
+                    if sf != current_sf:
+                        continue
+                    if prev_worker_types.get(job_id) != worker_type:
+                        continue
+                    prev_ids = self._current_worker_assignments[job_id]
+                    if any(wid in assigned for wid in prev_ids):
+                        continue
+                    new_assignments[job_id] = prev_ids
+                    assigned.update(prev_ids)
+                # Second pass: everyone else, strided.
+                for job_id, sf in scheduled_jobs[worker_type]:
+                    if sf != current_sf:
+                        continue
+                    self._assign_workers_to_job(
+                        job_id, sf, state, new_assignments
+                    )
+
+        counts: Dict[int, int] = {}
+        for ids in new_assignments.values():
+            for wid in ids:
+                counts[wid] = counts.get(wid, 0) + 1
+                if counts[wid] > 1:
+                    raise RuntimeError(f"Worker {wid} assigned twice")
+        return new_assignments
+
+    # ------------------------------------------------------------------
+    # Micro-task accounting.
+    # ------------------------------------------------------------------
+    def _get_num_steps(self, job_id, worker_type) -> int:
+        """(reference: scheduler.py:1131-1165)"""
+        tput = self._throughputs[job_id][worker_type]
+        num_steps = int(tput * self._time_per_iteration)
+        return min(num_steps, self._get_remaining_steps(job_id))
+
+    def _get_job_steps_and_finish_times(self, job_id, worker_type):
+        """(reference: scheduler.py:1166-1212)"""
+        max_finish_time = self.get_current_timestamp()
+        all_num_steps = []
+        for single in job_id.singletons():
+            num_steps = self._get_num_steps(single, worker_type)
+            all_num_steps.append(num_steps)
+            tput = self._throughputs[single][worker_type]
+            if tput <= 0:
+                raise RuntimeError(
+                    f"Throughput for job {single} on {worker_type} is <= 0"
+                )
+            finish_time = self.get_current_timestamp() + num_steps / tput
+            max_finish_time = max(max_finish_time, finish_time)
+            self._running_jobs.add(single)
+        return all_num_steps, max_finish_time
+
+    def _done_callback(
+        self, job_id, worker_id, all_num_steps, all_execution_times
+    ) -> None:
+        """Merge per-worker completions for a micro-task; update steps, time
+        and batch-size adaptation; remove finished jobs
+        (reference: scheduler.py:3223-3482, simulation paths)."""
+        to_remove: List[JobId] = []
+        worker_type = self._worker_id_to_worker_type[worker_id]
+        is_active = {s: s in self._jobs for s in job_id.singletons()}
+        if not any(is_active.values()):
+            return
+
+        scale_factor = len(self._current_worker_assignments[job_id])
+        updates = self._in_progress_updates.setdefault(job_id, [])
+        updates.append((worker_id, all_num_steps, all_execution_times))
+        if len(updates) < scale_factor:
+            return
+        updates.sort(key=lambda x: x[0])
+        micro_task_succeeded = True
+        merged_steps = [0] * len(job_id.singletons())
+        merged_times = [0.0] * len(job_id.singletons())
+        for _, steps_i, times_i in updates:
+            for j in range(len(job_id.singletons())):
+                merged_steps[j] += steps_i[j]
+                merged_times[j] = max(merged_times[j], times_i[j])
+        # A gang's steps are split across workers and the final sliver of
+        # a job can be smaller than its gang, leaving some workers with 0
+        # steps: success is judged on the merged totals.
+        for j, single in enumerate(job_id.singletons()):
+            if is_active[single] and (
+                merged_steps[j] <= 0 or merged_times[j] <= 0
+            ):
+                micro_task_succeeded = False
+        self._in_progress_updates[job_id] = []
+
+        if not micro_task_succeeded:
+            self._logger.info("[Micro-task failed]\tJob ID: %s", job_id)
+            if is_active[job_id]:
+                self._num_failures_per_job[job_id] += 1
+                if self._num_failures_per_job[job_id] >= MAX_FAILED_ATTEMPTS:
+                    to_remove.append(job_id)
+        else:
+            for single, num_steps in zip(job_id.singletons(), merged_steps):
+                if not is_active[single]:
+                    continue
+                if single in self._running_jobs:
+                    self._running_jobs.remove(single)
+                    self._steps_run_so_far[single][worker_type] += num_steps
+                    self._total_steps_run[single] += num_steps
+                    if self._get_remaining_steps(single) <= 0:
+                        to_remove.append(single)
+            max_execution_time = max(merged_times)
+            for wid, _, _ in updates:
+                self._cumulative_worker_time_so_far[wid] += max_execution_time
+
+        self._update_throughput(job_id, merged_steps, merged_times)
+
+        for single in job_id.singletons():
+            self._scale_bs_and_iters(single)
+            self._bs_scale[single] = None
+
+        for single in to_remove:
+            self._remove_job(single)
+            self._shockwave.remove_job(single)
+
+    # ------------------------------------------------------------------
+    # Batch-size adaptation (simulation).
+    # ------------------------------------------------------------------
+    def _simulate_gns(self, job_id: JobId) -> None:
+        """(reference: scheduler.py:1308-1334)"""
+        from shockwave_tpu_torch.data import bs_patterns
+
+        job = self._jobs[job_id]
+        model = job.model
+        batch_size = job.batch_size
+        current_epoch = epochs_for_steps(
+            model, batch_size, self._total_steps_run[job_id]
+        )
+        pattern = bs_patterns.gns_pattern(
+            job.job_type,
+            self._original_bs[job_id],
+            max(760, current_epoch + 2),
+            job.scale_factor,
+        )
+        if (
+            pattern[current_epoch + 1] > batch_size
+            or pattern[current_epoch] > batch_size
+        ):
+            if MAX_BATCH_SIZES.get(model) != batch_size:
+                self._bs_scale[job_id] = BS_BIG
+
+    def _simulate_accordion(self, job_id: JobId) -> None:
+        """(reference: scheduler.py:1336-1363)"""
+        from shockwave_tpu_torch.data import bs_patterns
+
+        job = self._jobs[job_id]
+        model = job.model
+        if model == "Transformer":
+            return
+        batch_size = job.batch_size
+        original = self._original_bs[job_id]
+        current_epoch = epochs_for_steps(
+            model, batch_size, self._total_steps_run[job_id]
+        )
+        in_critical = bs_patterns.accordion_in_critical_regime(
+            model, original, current_epoch
+        )
+        if batch_size == original and not in_critical:
+            if MAX_BATCH_SIZES.get(model) != batch_size:
+                self._bs_scale[job_id] = BS_BIG
+        elif batch_size != original and in_critical:
+            if MIN_BATCH_SIZES.get(model) != batch_size:
+                self._bs_scale[job_id] = BS_SMALL
+
+    def _scale_bs_and_iters(self, job_id: JobId) -> None:
+        """Apply a pending batch-size change: rewrite the job's command and
+        type, refresh throughputs, and rescale total/completed steps so epoch
+        progress is preserved (reference: scheduler.py:3504-3591)."""
+        if job_id is None or self._bs_scale.get(job_id) is None:
+            return
+        job = self._jobs[job_id]
+        old_bs = job.batch_size
+        model = job.model
+        original = self._original_bs[job_id]
+        if MAX_BATCH_SIZES.get(model) == original:
+            self._bs_scale[job_id] = None
+            return
+        if job.mode == "gns":
+            if self._bs_scale[job_id] != BS_BIG:
+                raise RuntimeError(f"gns job {job_id} asked to shrink")
+            new_bs = 2 * old_bs
+        elif job.mode == "accordion":
+            new_bs = (
+                MAX_BATCH_SIZES[model]
+                if self._bs_scale[job_id] == BS_BIG
+                else original
+            )
+        else:
+            new_bs = old_bs
+        job.update_batch_size(new_bs)
+        for worker_type in self._worker_types:
+            key = job.job_type_key()
+            if key not in self._oracle_throughputs[worker_type]:
+                self._logger.error(
+                    "Reverting job %s bs: %s -> %s", job_id, new_bs, old_bs
+                )
+                self._bs_scale[job_id] = None
+                job.update_batch_size(old_bs)
+                return
+            self._throughputs[job_id][worker_type] = self._oracle_throughputs[
+                worker_type
+            ][key]["null"]
+
+        total_steps = job.total_steps
+        total_steps_run = self._total_steps_run[job_id]
+        old_total_epochs = epochs_for_steps(model, old_bs, total_steps)
+        new_total_steps = math.ceil(total_steps * old_bs / new_bs)
+        if epochs_for_steps(model, new_bs, new_total_steps) != old_total_epochs:
+            new_total_steps = total_steps_for_epochs(model, new_bs, old_total_epochs)
+        job.total_steps = new_total_steps
+
+        completed_epochs = epochs_for_steps(model, old_bs, total_steps_run)
+        new_steps_run = total_steps_for_epochs(model, new_bs, completed_epochs)
+        # Rescale each worker type's step history proportionally.
+        old_total = self._total_steps_run[job_id]
+        for worker_type in self._worker_types:
+            old_per_type = self._steps_run_so_far[job_id].get(worker_type, 0)
+            if old_total > 0:
+                self._steps_run_so_far[job_id][worker_type] = round(
+                    old_per_type * new_steps_run / old_total
+                )
+            else:
+                self._steps_run_so_far[job_id][worker_type] = 0
+        self._total_steps_run[job_id] = new_steps_run
+
+        self._bs_scale[job_id] = None
+        self._shockwave.set_recompute_flag(jobs=[job_id])
+
+    def _shockwave_scheduler_update(self) -> None:
+        """Push epoch progress into the planner and advance its round
+        (reference: scheduler.py:3598-3621)."""
+        pool_type = (
+            self._shockwave_pool_type()
+            if self._current_round_scheduled_jobs
+            else None
+        )
+        for job_id in self._current_round_scheduled_jobs:
+            if job_id in self._completed_jobs:
+                self._shockwave.mark_complete(job_id)
+                continue
+            steps_run = self._steps_run_so_far.get(job_id, {}).get(
+                pool_type, 0
+            )
+            if job_id in self._jobs:
+                bs = self._jobs[job_id].batch_size
+                model = self._jobs[job_id].model
+                current_epoch = steps_run // steps_per_epoch(model, bs)
+                self._shockwave.set_progress(job_id, current_epoch)
+        self._shockwave.increment_round()
+
+    # ------------------------------------------------------------------
+    # Simulation.
+    # ------------------------------------------------------------------
+    def get_current_timestamp(self) -> float:
+        return self._current_timestamp
+
+    def simulate(
+        self,
+        cluster_spec: Dict[str, int],
+        arrival_times: Optional[List[float]] = None,
+        jobs: Optional[List[Job]] = None,
+        num_gpus_per_server: Optional[Dict[str, int]] = None,
+        jobs_to_complete: Optional[set] = None,
+        max_rounds: Optional[int] = None,
+        checkpoint_threshold: Optional[int] = None,
+        checkpoint_file: Optional[str] = None,
+        submitter=None,
+    ) -> float:
+        """Trace-driven simulation; returns the makespan
+        (reference: scheduler.py:1365-1796, from_trace path)."""
+        if checkpoint_threshold is not None or checkpoint_file is not None:
+            raise NotImplementedError(f"simulator checkpoints {_NOT_PORTED}")
+        if submitter is not None:
+            raise NotImplementedError(f"streaming admission {_NOT_PORTED}")
+        if arrival_times is None or jobs is None:
+            raise ValueError("simulate needs the trace's jobs and arrivals")
+        remaining_jobs = len(jobs)
+        queued_jobs = list(zip(arrival_times, jobs))
+        running_jobs: list = []
+
+        for worker_type in sorted(cluster_spec):
+            num_gpus = (
+                num_gpus_per_server[worker_type]
+                if num_gpus_per_server is not None
+                else 1
+            )
+            for _ in range(cluster_spec[worker_type] // num_gpus):
+                self.register_worker(worker_type, num_gpus=num_gpus)
+
+        self._current_timestamp = arrival_times[0]
+
+        while True:
+            if jobs_to_complete is not None and jobs_to_complete.issubset(
+                self._completed_jobs
+            ):
+                break
+            if remaining_jobs == 0:
+                break
+            if max_rounds is not None and self._num_completed_rounds >= max_rounds:
+                break
+            next_job_arrival_time = queued_jobs[0][0] if queued_jobs else None
+
+            # Advance the clock to the end of the round (latest micro-task
+            # finish) or to the next arrival when idle.
+            max_timestamp = 0.0
+            if running_jobs and -running_jobs[0][0] > max_timestamp:
+                max_timestamp = -running_jobs[0][0]
+            if max_timestamp > 0:
+                self._current_timestamp = max_timestamp
+            elif next_job_arrival_time is not None:
+                self._current_timestamp = max(
+                    self._current_timestamp, next_job_arrival_time
+                )
+
+            # Complete every running micro-task (they all end by round end).
+            while running_jobs:
+                (
+                    finish_time,
+                    job_id,
+                    worker_ids,
+                    all_num_steps,
+                    round_start,
+                ) = running_jobs[0]
+                finish_time = -finish_time
+                if finish_time > self._current_timestamp:
+                    break
+                all_execution_times = []
+                for single in job_id.singletons():
+                    # Execution time runs from this micro-task's dispatch,
+                    # so idle gaps between rounds are never billed as work.
+                    all_execution_times.append(finish_time - round_start)
+                    self._per_job_latest_timestamps[single] = finish_time
+                self._in_progress_updates[job_id] = []
+                scale_factor = len(worker_ids)
+                total_steps = [0] * len(job_id.singletons())
+                for i, worker_id in enumerate(worker_ids):
+                    if i == len(worker_ids) - 1:
+                        worker_steps = [
+                            all_num_steps[j] - total_steps[j]
+                            for j in range(len(all_num_steps))
+                        ]
+                    else:
+                        worker_steps = [x // scale_factor for x in all_num_steps]
+                    for j in range(len(worker_steps)):
+                        total_steps[j] += worker_steps[j]
+                    self._done_callback(
+                        job_id, worker_id, worker_steps, all_execution_times
+                    )
+                for single in job_id.singletons():
+                    if single not in self._jobs:
+                        remaining_jobs -= 1
+                heapq.heappop(running_jobs)
+
+            # Batch-size adaptation flags for the next completion.
+            for job_id in self._jobs:
+                if self._jobs[job_id].mode == "accordion":
+                    self._simulate_accordion(job_id)
+                elif self._jobs[job_id].mode == "gns":
+                    self._simulate_gns(job_id)
+
+            if self._num_completed_rounds >= 1:
+                self._shockwave_scheduler_update()
+
+            # Admit arrivals due by now.
+            while queued_jobs and queued_jobs[0][0] <= self._current_timestamp:
+                arrival_time, job = queued_jobs.pop(0)
+                self.add_job(job, timestamp=arrival_time)
+
+            if len(self._jobs) == 0:
+                if not queued_jobs:
+                    break
+                continue
+
+            scheduled_jobs = self._schedule_jobs_on_workers()
+            # The planner's empty round means end of trace.
+            if len(scheduled_jobs) == 0:
+                break
+            for job_id in self._current_worker_assignments:
+                if job_id in self._jobs:
+                    kept = job_id in scheduled_jobs and set(
+                        self._current_worker_assignments[job_id]
+                    ) == set(scheduled_jobs[job_id])
+                    if not kept:
+                        self._num_preemptions += 1
+                        obs.counter(
+                            "scheduler_preemptions_total",
+                            "still-active jobs that lost their workers "
+                            "at a round boundary",
+                        ).inc()
+            self._current_worker_assignments = scheduled_jobs
+            obs.counter(
+                "scheduler_rounds_total", "scheduling rounds started"
+            ).inc()
+
+            for job_id, worker_ids in scheduled_jobs.items():
+                worker_type = self._worker_id_to_worker_type[worker_ids[0]]
+                all_num_steps, max_finish_time = self._get_job_steps_and_finish_times(
+                    job_id, worker_type
+                )
+                heapq.heappush(
+                    running_jobs,
+                    (
+                        -max_finish_time,
+                        job_id,
+                        worker_ids,
+                        all_num_steps,
+                        self._current_timestamp,
+                    ),
+                )
+
+            self._num_completed_rounds += 1
+
+        self._logger.info(
+            "Total duration: %.3f seconds (%.2f hours)",
+            self._current_timestamp,
+            self._current_timestamp / 3600.0,
+        )
+        return self._current_timestamp
+
+    # ------------------------------------------------------------------
+    # Metrics.
+    # ------------------------------------------------------------------
+    def get_average_jct(self, job_ids=None, verbose: bool = False):
+        """(reference: scheduler.py:2131-2189)"""
+        if len(self._job_completion_times) == 0:
+            return None
+        if job_ids is None:
+            job_ids = sorted(self._job_completion_times.keys())
+        else:
+            job_ids = sorted(job_ids)
+        times = [
+            self._job_completion_times[j]
+            for j in job_ids
+            if self._job_completion_times.get(j) is not None
+        ]
+        if not times:
+            return None
+        avg = float(np.mean(times))
+        if verbose:
+            print(
+                "Average job completion time: %.3f seconds (%.2f hours)"
+                % (avg, avg / 3600.0)
+            )
+        return avg
+
+    def get_cluster_utilization(self):
+        """(reference: scheduler.py:2202-2220)"""
+        utilizations = []
+        for worker_id, worker_time in self._cumulative_worker_time_so_far.items():
+            total = self._current_timestamp - self._worker_start_times[worker_id]
+            if total <= 0:
+                continue
+            utilization = worker_time / total
+            if utilization > 1.0:
+                return None
+            utilizations.append(utilization)
+        if not utilizations:
+            return None
+        return float(np.mean(utilizations))
+
+    def _finish_time_rho(self, job_id: JobId, jct: float):
+        """rho = JCT / (isolated duration x contention factor); None when
+        the job has no profile (no isolated baseline)."""
+        profile = self._profiles.get(job_id.integer)
+        if profile is None:
+            return None
+        isolated = sum(profile["duration_every_epoch"])
+        if isolated <= 0:
+            return None
+        contention = max(
+            1.0, self._num_jobs_in_trace / max(1, len(self._worker_ids))
+        )
+        return jct / (isolated * contention)
+
+    def get_finish_time_fairness(self, job_ids=None):
+        """rho per completed job; also the percentage of jobs with
+        rho > 1.1 (reference: scheduler.py:3627-3655)."""
+        if len(self._job_completion_times) == 0:
+            return [], 0.0
+        ftf_list = []
+        for job_id in sorted(self._job_completion_times.keys()):
+            if job_ids is not None and job_id not in job_ids:
+                continue
+            jct = self._job_completion_times[job_id]
+            if jct is None:
+                continue
+            rho = self._finish_time_rho(job_id, jct)
+            if rho is None:
+                continue
+            ftf_list.append(round(rho, 3))
+        if not ftf_list:
+            return [], 0.0
+        unfair_fraction = 100.0 * sum(f > 1.1 for f in ftf_list) / len(ftf_list)
+        return ftf_list, unfair_fraction
+
+    def get_num_preemptions(self):
+        """Round transitions where a still-active job lost its workers
+        (unscheduled or moved)."""
+        return self._num_preemptions

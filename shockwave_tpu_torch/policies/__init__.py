@@ -1,0 +1,56 @@
+"""Policy registry: name -> policy.
+
+The port has the Shockwave policies of the simulation main path:
+``shockwave_tpu`` (the production dispatch), ``shockwave_tpu_level`` and
+``shockwave_native``. Every other name of the JAX package's registry
+(``shockwave_tpu/policies/__init__.py``) raises ``NotImplementedError``
+naming ``ROADMAP.md``.
+"""
+
+from __future__ import annotations
+
+from shockwave_tpu_torch.policies.base import Policy
+
+_BACKENDS = {
+    "shockwave_tpu": "tpu",
+    "shockwave_tpu_level": "level",
+    "shockwave_native": "native",
+}
+
+# The JAX package's vocabulary that is still to be ported.
+_NOT_PORTED = (
+    "allox", "fifo", "fifo_perf", "fifo_packed", "finish_time_fairness",
+    "finish_time_fairness_perf", "finish_time_fairness_packed", "gandiva",
+    "isolated", "max_min_fairness", "max_min_fairness_perf",
+    "max_min_fairness_packed", "max_min_fairness_water_filling",
+    "max_min_fairness_water_filling_perf",
+    "max_min_fairness_water_filling_packed",
+    "max_min_fairness_strategy_proof", "max_sum_throughput_perf",
+    "max_sum_throughput_normalized_by_cost_perf",
+    "max_sum_throughput_normalized_by_cost_perf_SLOs",
+    "max_sum_throughput_normalized_by_cost_packed_SLOs",
+    "min_total_duration", "min_total_duration_perf",
+    "min_total_duration_packed", "shockwave", "shockwave_tpu_relaxed",
+    "shockwave_tpu_sharded", "shockwave_tpu_pdhg", "shockwave_tpu_cells",
+)
+
+
+def get_policy(policy_name: str, device="cuda") -> Policy:
+    """The policy named ``policy_name``; ``device`` is where the level
+    solve of the Shockwave planner runs."""
+    if policy_name in _BACKENDS:
+        from shockwave_tpu_torch.policies.shockwave import ShockwavePolicy
+
+        return ShockwavePolicy(backend=_BACKENDS[policy_name], device=device)
+    if policy_name in _NOT_PORTED or policy_name.startswith("allox"):
+        raise NotImplementedError(
+            f"policy {policy_name!r} is not ported to shockwave_tpu_torch "
+            "yet (ROADMAP.md, queue 1)")
+    raise ValueError(f"Unknown policy: {policy_name!r}")
+
+
+def get_available_policies():
+    return list(_BACKENDS)
+
+
+__all__ = ["Policy", "get_policy", "get_available_policies"]

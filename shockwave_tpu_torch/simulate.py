@@ -1,0 +1,250 @@
+"""Trace-driven simulation entry point of the PyTorch port.
+
+    python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
+        -p shockwave_tpu_level -c v100=8 --time_per_iteration 120 --device cuda
+
+The counterpart of the JAX package's ``scripts/simulate.py``: parses a
+trace, builds the throughput oracle and epoch profiles, runs the
+simulator under a Shockwave policy (``shockwave_tpu``,
+``shockwave_tpu_level`` or ``shockwave_native``), and prints makespan /
+average JCT / utilization / finish-time fairness. ``--device`` (default
+``cuda``) is where the planner's level-set solve runs; ``cuda`` without a
+card raises. The telemetry, flight-recorder and watchdog flags raise
+``NotImplementedError``: they are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import pickle
+import time
+
+from shockwave_tpu_torch import obs
+from shockwave_tpu_torch.core.scheduler import Scheduler
+from shockwave_tpu_torch.data import (
+    load_or_synthesize_profiles,
+    parse_trace,
+    read_throughputs,
+)
+from shockwave_tpu_torch.data.default_oracle import generate_oracle
+from shockwave_tpu_torch.policies import get_available_policies, get_policy
+from shockwave_tpu_torch.utils.cluster_spec import parse_cluster_spec
+from shockwave_tpu_torch.utils.device import resolve_device
+
+
+def _json_arg(value: str, flag: str):
+    """A JSON literal, or a path to a JSON file holding one."""
+    if os.path.exists(value):
+        with open(value) as f:
+            return json.load(f)
+    try:
+        return json.loads(value)
+    except json.JSONDecodeError as e:
+        raise SystemExit(f"{flag}: neither a file nor JSON: {e}") from None
+
+
+def main(argv=None) -> dict:
+    args = parse_args(argv)
+    obs.configure(metrics=bool(args.metrics_out), trace=bool(args.trace_out))
+    if args.decision_log:
+        obs.configure_recorder(args.decision_log)
+    if args.watchdog or args.watchdog_config:
+        obs.configure_watchdog(args.watchdog_config)
+    device = resolve_device(args.device)
+
+    jobs, arrival_times = parse_trace(args.trace_file)
+    if args.throughputs_file:
+        throughputs = read_throughputs(args.throughputs_file)
+    else:
+        throughputs = generate_oracle()
+
+    cluster_spec = parse_cluster_spec(args.cluster_spec)
+    if "=" in args.cluster_spec:
+        if "=" not in args.num_gpus_per_server and (
+            args.num_gpus_per_server != "1:1:1"
+        ):
+            raise SystemExit(
+                "--num_gpus_per_server must use the type=count form "
+                "when --cluster_spec does"
+            )
+        num_gpus_per_server = {wt: 1 for wt in cluster_spec}
+        if "=" in args.num_gpus_per_server:
+            num_gpus_per_server.update(
+                parse_cluster_spec(args.num_gpus_per_server)
+            )
+    else:
+        per_server = [int(x) for x in args.num_gpus_per_server.split(":")]
+        num_gpus_per_server = {
+            "v100": per_server[0], "p100": per_server[1], "k80": per_server[2]
+        }
+
+    profiles = load_or_synthesize_profiles(
+        args.trace_file,
+        jobs,
+        throughputs,
+        worker_type=next(iter(cluster_spec)),
+        cache=not args.no_profile_cache,
+    )
+    for i, job in enumerate(jobs):
+        job.duration = sum(profiles[i]["duration_every_epoch"])
+
+    shockwave_config = {}
+    if args.config:
+        with open(args.config) as f:
+            shockwave_config = json.load(f)
+    shockwave_config.setdefault("future_rounds", 20)
+    shockwave_config.setdefault("lambda", 5.0)
+    shockwave_config.setdefault("k", 10.0)
+    shockwave_config.setdefault(
+        "log_approximation_bases", [0.0, 0.2, 0.4, 0.6, 0.8, 1.0]
+    )
+    shockwave_config["time_per_iteration"] = args.time_per_iteration
+    # Homogeneous planning capacity: the v100 pool in the reference
+    # vocabulary, else the whole (named-type) cluster.
+    shockwave_config["num_gpus"] = cluster_spec.get(
+        "v100", sum(cluster_spec.values())
+    )
+
+    preemption_overheads = None
+    if args.preemption_overheads:
+        preemption_overheads = _json_arg(
+            args.preemption_overheads, "--preemption_overheads")
+
+    policy = get_policy(args.policy, device=device)
+    sched = Scheduler(
+        policy,
+        simulate=True,
+        throughputs=throughputs,
+        seed=args.seed if args.seed is not None else 0,
+        time_per_iteration=args.time_per_iteration,
+        profiles=profiles,
+        shockwave_config=shockwave_config,
+        preemption_overheads=preemption_overheads,
+        round_overhead_fraction=args.round_overhead_fraction,
+    )
+
+    jobs_to_complete = None
+    if args.window_start is not None and args.window_end is not None:
+        from shockwave_tpu_torch.core.ids import JobId
+
+        jobs_to_complete = {
+            JobId(i) for i in range(args.window_start, args.window_end)
+        }
+
+    start = time.time()
+    makespan = sched.simulate(
+        cluster_spec,
+        arrival_times,
+        jobs,
+        num_gpus_per_server=num_gpus_per_server,
+        jobs_to_complete=jobs_to_complete,
+    )
+    wall = time.time() - start
+
+    avg_jct = sched.get_average_jct(jobs_to_complete)
+    utilization = sched.get_cluster_utilization()
+    ftf_list, unfair_fraction = sched.get_finish_time_fairness()
+    backends: dict = {}
+    for record in sched._shockwave.solve_records:
+        backends[record["backend"]] = backends.get(record["backend"], 0) + 1
+
+    print(f"Policy: {args.policy} (level solve on {device})")
+    print(f"Makespan: {makespan:.3f} s ({makespan / 3600.0:.2f} h)")
+    if avg_jct is not None:
+        print(f"Average JCT: {avg_jct:.3f} s ({avg_jct / 3600.0:.2f} h)")
+    if utilization is not None:
+        print(f"Cluster utilization: {utilization:.3f}")
+    if ftf_list:
+        print(f"Worst FTF: {max(ftf_list):.3f}")
+        print(f"Unfair job fraction: {unfair_fraction:.1f}%")
+    print(f"Preemptions: {sched.get_num_preemptions()}")
+    if sched._time_per_iteration != args.time_per_iteration:
+        print(
+            f"Round auto-sized: {args.time_per_iteration} s -> "
+            f"{sched._time_per_iteration:.0f} s"
+        )
+    print(f"Rounds: {sched._num_completed_rounds}; solves by backend: "
+          f"{backends}; sim wall-clock: {wall:.1f} s")
+
+    result = {
+        "trace_file": args.trace_file,
+        "policy": args.policy,
+        "device": str(device),
+        "num_gpus": str(shockwave_config["num_gpus"]),
+        "makespan": makespan,
+        "avg_jct": avg_jct,
+        "utilization": utilization,
+        "worst_ftf": max(ftf_list) if ftf_list else None,
+        "unfair_fraction": unfair_fraction,
+        "num_preemptions": sched.get_num_preemptions(),
+        "rounds": sched._num_completed_rounds,
+        "solves": backends,
+        "wall_s": wall,
+        "effective_round_s": sched._time_per_iteration,
+    }
+    if args.output_pickle:
+        os.makedirs(os.path.dirname(args.output_pickle) or ".", exist_ok=True)
+        with open(args.output_pickle, "wb") as f:
+            pickle.dump(result, f)
+        print(f"Wrote {args.output_pickle}")
+    return result
+
+
+def parse_args(argv=None):
+    parser = argparse.ArgumentParser(description="Run the simulator on a trace")
+    parser.add_argument("-t", "--trace_file", type=str, required=True)
+    parser.add_argument(
+        "-p", "--policy", type=str, default="shockwave_tpu",
+        choices=get_available_policies(),
+    )
+    parser.add_argument(
+        "--throughputs_file",
+        type=str,
+        default=None,
+        help="Oracle JSON; defaults to the built-in synthetic oracle",
+    )
+    parser.add_argument("-c", "--cluster_spec", type=str, default="25:0:0")
+    parser.add_argument("--num_gpus_per_server", type=str, default="1:1:1")
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--time_per_iteration", type=int, default=360)
+    parser.add_argument("-s", "--window-start", type=int, default=None)
+    parser.add_argument("-e", "--window-end", type=int, default=None)
+    parser.add_argument("--config", type=str, default=None,
+                        help="Shockwave JSON config")
+    parser.add_argument("--output_pickle", type=str, default=None)
+    parser.add_argument("--no_profile_cache", action="store_true")
+    parser.add_argument(
+        "--preemption_overheads",
+        type=str,
+        default=None,
+        help="measured relaunch overhead feeding the planner's "
+        "switching-cost term: a JSON literal (scalar seconds or "
+        '{"family": seconds}) or a path to a JSON file holding one',
+    )
+    parser.add_argument(
+        "--round_overhead_fraction",
+        type=float,
+        default=None,
+        help="auto-size the round so the worst relaunch overhead costs "
+        "at most this fraction of it (never shrinks the round)",
+    )
+    parser.add_argument(
+        "--device", type=str, default="cuda",
+        help="where the planner's level-set solve runs: cuda (default; "
+        "raises without a card) or cpu",
+    )
+    # The JAX package's observability flags; not ported yet (they raise).
+    parser.add_argument("--trace-out", "--trace_out", dest="trace_out")
+    parser.add_argument("--metrics-out", "--metrics_out", dest="metrics_out")
+    parser.add_argument("--decision-log", "--decision_log",
+                        dest="decision_log")
+    parser.add_argument("--watchdog", action="store_true")
+    parser.add_argument("--watchdog-config", "--watchdog_config",
+                        dest="watchdog_config")
+    return parser.parse_args(argv)
+
+
+if __name__ == "__main__":
+    main()

@@ -32,6 +32,37 @@ print("LEAKED", leaked)
 """
 
 
+_SIM_SCRIPT = """
+import runpy, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+sys.argv = ["simulate", "-t", "traces/small_12_dynamic.trace", "-p",
+            "shockwave_tpu_level", "-c", "v100=8", "--time_per_iteration",
+            "120", "--device", "cpu", "--no_profile_cache"]
+runpy.run_module("shockwave_tpu_torch.simulate", run_name="__main__")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+                and sys.modules[m] is not None)
+print("LEAKED", leaked)
+"""
+
+
+def test_simulate_cli_runs_with_jax_blocked():
+    """``python -m shockwave_tpu_torch.simulate`` on the golden trace with
+    JAX and the JAX package unimportable prints the golden makespan
+    (tests/test_golden.py) and leaves no module of either loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SIM_SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "Makespan: 13456.422 s" in proc.stdout
+    assert "Average JCT: 5658.689 s" in proc.stdout
+    assert "Worst FTF: 2.029" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in FORBIDDEN
