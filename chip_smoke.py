@@ -5,8 +5,10 @@
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the CUDA kernels from ``shockwave_tpu_torch/ops/csrc`` into
-   ``shockwave_tpu_torch/_build/`` (nvcc, a few seconds), prints each
-   kernel's registers, stack and shared memory (``cuobjdump -res-usage``)
+   ``shockwave_tpu_torch/_build/`` (one nvcc for each source, started
+   together, ~13 s), prints the flash kernels' registers, stack and
+   shared memory (``cuobjdump -res-usage``) and the planning kernels'
+   registers and spills (``-Xptxas -v``)
    and fails unless the SASS (``cuobjdump -sass``) of every bf16 forward,
    dK/dV and dQ instantiation holds wgmma (``HGMMA``) and TMA loads
    (``UTMALDG``), or if ptxas reported serialising any wgmma (the build
@@ -53,7 +55,28 @@
    and the device's busy time under torch.profiler, and the native
    greedy's time on the same problem, with the crossover of each set. It
    prints one JSON line ``{"simulation": {...}}`` of these readings.
-8. Prints one JSON line ``{"kernels": [...]}`` and, last,
+8. Drives the planner's first-order backends, kernels A (restarted PDHG,
+   ``csrc/eg_pdhg.cu``) and B (relaxed PGD, ``csrc/eg_relaxed.cu``), each
+   one launch a solve (``shockwave_tpu_torch/tools/bench_sim.py``): (a) the
+   2048-job trace on 256 GPUs under ``shockwave_tpu_pdhg``, every plan
+   audited (``EGProblem.audit_schedule``), with its makespan, average JCT
+   and solves, their device head apart from their host tail, within 1e-3
+   of the JAX package's run on the CPU; on 8 of its windows spread over
+   their job counts the pdhg plan's objective at least the level
+   backend's less 1e-3 of it (the JAX package's bar,
+   tests/test_pdhg.py:47-58); the 12-job trace under
+   ``shockwave_tpu_pdhg`` and ``shockwave_tpu_relaxed`` within 1e-3 of the
+   JAX package's metrics; (b) each kernel against its plain version on
+   the card on seeded problems of 64, 256, 1024 and 4096 jobs (256 GPUs,
+   20 rounds) and on those 8 windows: ``s`` within rtol = atol = 5e-3,
+   the objective within 1e-3 (1 + |obj|), the rounded counts' objective
+   within 2e-3 (1 + |o|), and two runs bitwise equal; (c) the degradation
+   ladder: the 12-job trace under ``shockwave_tpu`` with a planning
+   deadline and one injected ``solver_timeout``, whose record must show
+   the pdhg rung ``ok``; (d) each kernel and its plain version timed at
+   256 to 65536 jobs (the plain versions up to 4096) with its block
+   barriers and bounds. It prints one JSON line ``{"first_order": ...}``.
+9. Prints one JSON line ``{"kernels": [...]}`` and, last,
    ``{"ok": true, "device": {...}}``.
 
 Any failed phase exits nonzero without the last line. It needs one card
@@ -86,6 +109,13 @@ REPLACES = {
     "flash_fwd": "shockwave_tpu/ops/flash_attention.py:285",
     "flash_dkv": "shockwave_tpu/ops/flash_attention.py:491",
     "flash_dq": "shockwave_tpu/ops/flash_attention.py:543",
+    # Jitted XLA loops, not Pallas kernels: the planner's device work.
+    "eg_pdhg": "shockwave_tpu/solver/eg_pdhg.py:121",
+    "eg_relaxed": "shockwave_tpu/solver/eg_jax.py:121",
+}
+SOURCES = {
+    "eg_pdhg": "shockwave_tpu_torch/ops/csrc/eg_pdhg.cu",
+    "eg_relaxed": "shockwave_tpu_torch/ops/csrc/eg_relaxed.cu",
 }
 # Widths of the tiles the bf16 kernels walk (FWD_BN, DKV_BQ and DQ_BN in
 # the source): a planted fault skips one such tile.
@@ -384,6 +414,148 @@ def run_simulation(device) -> dict:
     return {"golden": golden, "tier_2048": tier, **report}
 
 
+def ptxas_usage(path) -> dict:
+    """Registers and spill bytes of the library's kernel, from nvcc's
+    ``-Xptxas -v`` report kept beside it."""
+    text = path.with_suffix(".log").read_text()
+    regs = re.findall(r"Used (\d+) registers", text)
+    spills = re.findall(r"(\d+) bytes spill stores", text)
+    return {"REG": int(regs[-1]) if regs else None,
+            "SPILL": int(spills[-1]) if spills else None}
+
+
+def run_first_order(device) -> dict:
+    """Phases (a)-(d) of the first-order backends (docstring, item 8);
+    fails on a plan that is not feasible, a window where pdhg falls below
+    the level backend's bar, a metric past its tolerance, a kernel that
+    disagrees with its plain version or repeats differently, a ladder that
+    did not absorb the fault on its pdhg rung, or a kernel the main path
+    did not launch. Returns the readings and each kernel's main-path
+    launches."""
+    from shockwave_tpu_torch.runtime import faults
+    from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
+    from shockwave_tpu_torch.solver.eg_level import solve_eg_level
+    from shockwave_tpu_torch.solver.eg_pdhg import solve_eg_pdhg
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    # The device head of each pdhg solve (pack, copy, kernel A, fetch),
+    # timed apart from the solve's host tail (rounding, polish, placement).
+    head = {"s": 0.0}
+    device_head = pdhg_solver.solve_pdhg_relaxed
+
+    def timed_head(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return device_head(*args, **kwargs)
+        finally:
+            head["s"] += time.perf_counter() - start
+
+    problems, plans = [], []
+    pdhg_solver.solve_pdhg_relaxed = timed_head
+    try:
+        tier = sim.run_trace(sim.TRACE_2048, "shockwave_tpu_pdhg", 256,
+                             device, capture=problems, plans=plans)
+    finally:
+        pdhg_solver.solve_pdhg_relaxed = device_head
+    tier["device_head_s"] = head["s"]
+    launches = {"eg_pdhg": tier["launches"]["eg_pdhg"]}
+    for problem, (round_index, Y) in zip(problems, plans):
+        try:
+            problem.audit_schedule(Y)
+        except AssertionError as e:
+            fail(f"2048-job tier under pdhg, round {round_index}: {e}")
+    print(f"2048-job tier, shockwave_tpu_pdhg on 256 GPUs: makespan "
+          f"{tier['makespan']:.3f} avg JCT {tier['avg_jct']:.3f} worst FTF "
+          f"{tier['worst_ftf']:.3f}, {tier['rounds']} rounds; solves "
+          f"{tier['solves']} taking {tier['solve_s']} s (device head "
+          f"{head['s']:.3f} s, the rest the host tail), kernel A launched "
+          f"{launches['eg_pdhg']} times; {len(plans)} plans audited; wall "
+          f"{tier['wall_s']:.2f} s", flush=True)
+    off = sim.check_run(tier, sim.TIER_2048_PDHG)
+    print(f"  against the JAX package's run on the CPU "
+          f"({sim.TIER_2048_PDHG}): "
+          + (", ".join(off) if off else "within 1e-3"), flush=True)
+    if off:
+        fail("2048-job tier under pdhg against the JAX package's run: "
+             + ", ".join(off))
+    if tier["solves"] != {"pdhg": len(plans)} or launches["eg_pdhg"] < len(
+            plans):
+        fail(f"2048-job tier under pdhg: solves {tier['solves']}, kernel A "
+             f"launches {launches}, {len(plans)} plans")
+    windows = sim.sample_by_jobs(problems, 8)
+    vs_level = []
+    for problem in windows:
+        Y_pdhg = solve_eg_pdhg(problem, device=device)
+        problem.audit_schedule(Y_pdhg)
+        o_pdhg = problem.objective_value(Y_pdhg)
+        o_level = problem.objective_value(solve_eg_level(problem, device))
+        vs_level.append(dict(jobs=problem.num_jobs, pdhg=o_pdhg,
+                             level=o_level))
+        print(f"  window of {problem.num_jobs} jobs: pdhg objective "
+              f"{o_pdhg!r}, level {o_level!r}", flush=True)
+        if o_pdhg < o_level - 1e-3 * abs(o_level):
+            fail(f"window of {problem.num_jobs} jobs: pdhg objective "
+                 f"{o_pdhg} below level {o_level} by more than 1e-3")
+
+    golden = {}
+    for policy, expected in sim.GOLDEN_FIRST_ORDER.items():
+        r = sim.run_trace(sim.GOLDEN_TRACE, policy, 8, device)
+        print(f"golden trace, {policy}: makespan {r['makespan']:.3f} avg "
+              f"JCT {r['avg_jct']:.3f} worst FTF {r['worst_ftf']:.3f}, "
+              f"solves {r['solves']}, kernel launches {r['launches']}",
+              flush=True)
+        bad = sim.check_run(r, expected)
+        if bad:
+            fail(f"golden trace under {policy}: " + ", ".join(bad))
+        golden[policy] = {k: r[k] for k in ("makespan", "avg_jct",
+                                            "worst_ftf", "solves",
+                                            "launches", "wall_s")}
+    launches["eg_relaxed"] = golden["shockwave_tpu_relaxed"]["launches"][
+        "eg_relaxed"]
+    for name, count in launches.items():
+        if count == 0:
+            fail(f"the main path launched {name} no time")
+
+    print("first-order kernels against their plain versions (seeded "
+          f"problems of {sim.EG_CHECK_BANDS} jobs, 8 tier windows):",
+          flush=True)
+    checked = [sim.seeded_problem(jobs) for jobs in sim.EG_CHECK_BANDS]
+    bad, max_err = sim.check_eg_kernels(checked + windows, device)
+    if bad:
+        fail("first-order kernels against their plain versions: "
+             + "; ".join(bad))
+    print(f"  both kernels within the limits on {len(checked + windows)} "
+          f"problems and bitwise repeatable; largest |s| error {max_err}",
+          flush=True)
+
+    faults.configure(faults.FaultPlan(
+        seed=0, events=[faults.FaultEvent(0, "solver_timeout", round=0)]))
+    try:
+        r = sim.run_trace(sim.GOLDEN_TRACE, "shockwave_tpu", 8, device,
+                          config={"plan_deadline_s": 30.0})
+    finally:
+        faults.reset()
+    degraded = [rec for rec in r["records"] if rec.get("degraded")]
+    print(f"ladder: golden trace under shockwave_tpu with a 30 s deadline "
+          f"and one injected solver_timeout: degraded solves {degraded}",
+          flush=True)
+    if len(degraded) != 1 or degraded[0]["ladder"] != [
+            {"backend": "tpu", "outcome": "timeout_injected"},
+            {"backend": "pdhg", "outcome": "ok"}]:
+        fail(f"ladder did not absorb the timeout on its pdhg rung: "
+             f"{degraded}")
+    print("first-order kernels timed (kernel: CUDA events, median of "
+          f"{sim.EG_ITERS}; plain: one run, up to {sim.EG_PLAIN_MAX_JOBS} "
+          "jobs):", flush=True)
+    timings = sim.time_eg_kernels(device)
+    return {"tier_2048_pdhg": {k: tier[k] for k in (
+                "makespan", "avg_jct", "worst_ftf", "rounds", "solves",
+                "solve_s", "device_head_s", "launches", "wall_s")},
+            "windows_vs_level": vs_level, "golden": golden,
+            "max_abs_err": max_err, "ladder": degraded,
+            "timings": timings, "launches": launches}
+
+
 def main() -> None:
     started = time.time()
     if not torch.cuda.is_available():
@@ -405,10 +577,16 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
     t0 = time.time()
-    built = _build.build("flash_attention")
-    print(f"built kernels in {time.time() - t0:.1f} s ({built.name})",
+    libraries = _build.build_all(["flash_attention", *SOURCES])
+    print(f"built kernels in {time.time() - t0:.1f} s (one nvcc each, "
+          f"together: {', '.join(p.name for p in libraries.values())})",
           flush=True)
-    usage = inspect_library(_build, built)
+    usage = inspect_library(_build, libraries["flash_attention"])
+    for name in SOURCES:
+        u = ptxas_usage(libraries[name])
+        usage[(name, None)] = u
+        print(f"  {name}: {u['REG']} registers, {u['SPILL']} bytes of "
+              f"spill stores (ptxas -v)")
 
     print("kernels against their plain versions:")
     B, S, H, D = bench.TRAIN_SHAPE
@@ -454,6 +632,7 @@ def main() -> None:
           f"resume {resume_launches}")
 
     simulation = run_simulation(device)
+    first_order = run_first_order(device)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -483,8 +662,35 @@ def main() -> None:
         kernels.append(row)
     print(f"backward (flash_dkv + flash_dq): {backward_ms:.4f} ms; SDPA "
           f"backward {sdpa_bwd:.4f} ms ({backward_ms / sdpa_bwd:.2f}x)")
+    for name, solver in (("eg_pdhg", "pdhg"), ("eg_relaxed", "relaxed")):
+        # The row of the largest band the plain version was timed at.
+        timed = [r for r in first_order["timings"]
+                 if r["kernel"] == solver and r["plain_ms"] is not None]
+        row = timed[-1]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": first_order["launches"][name],
+            "max_abs_err": first_order["max_abs_err"][solver],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "jobs": row["jobs"],
+            "barriers": row["barriers"],
+            "us_per_barrier": row["us_per_barrier"],
+            "state_hbm_ms": row["state_hbm_ms"],
+            "state_l2_ms": row["state_l2_ms"],
+            "registers": usage[(name, None)]["REG"],
+            "spill_bytes": usage[(name, None)]["SPILL"],
+        })
+        print(f"{name}: {row['ms']:.4f} ms at {row['jobs']} jobs (bound "
+              f"{row['bound_ms']:.5f} ms by {row['bound_by']}; "
+              f"{row['barriers']} block barriers; plain "
+              f"{row['plain_ms']:.1f} ms; no PyTorch call computes it)")
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s")
+    for run in (simulation["tier_2048"], *simulation["golden"].values()):
+        run.pop("records", None)
     print(json.dumps({"simulation": simulation, "card": card}))
+    print(json.dumps({"first_order": first_order, "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_steps_per_s": 1 / steady_s,
                       "train_tokens_per_s": B * S / steady_s}))

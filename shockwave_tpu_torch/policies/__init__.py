@@ -1,8 +1,9 @@
 """Policy registry: name -> policy.
 
 The port has the Shockwave policies of the simulation main path:
-``shockwave_tpu`` (the production dispatch), ``shockwave_tpu_level`` and
-``shockwave_native``. Every other name of the JAX package's registry
+``shockwave_tpu`` (the production dispatch), ``shockwave_tpu_level``,
+``shockwave_native``, ``shockwave_tpu_pdhg`` and
+``shockwave_tpu_relaxed``. Every other name of the JAX package's registry
 (``shockwave_tpu/policies/__init__.py``) raises ``NotImplementedError``
 naming ``ROADMAP.md``.
 """
@@ -15,6 +16,8 @@ _BACKENDS = {
     "shockwave_tpu": "tpu",
     "shockwave_tpu_level": "level",
     "shockwave_native": "native",
+    "shockwave_tpu_relaxed": "relaxed",
+    "shockwave_tpu_pdhg": "pdhg",
 }
 
 # The JAX package's vocabulary that is still to be ported.
@@ -30,14 +33,14 @@ _NOT_PORTED = (
     "max_sum_throughput_normalized_by_cost_perf_SLOs",
     "max_sum_throughput_normalized_by_cost_packed_SLOs",
     "min_total_duration", "min_total_duration_perf",
-    "min_total_duration_packed", "shockwave", "shockwave_tpu_relaxed",
-    "shockwave_tpu_sharded", "shockwave_tpu_pdhg", "shockwave_tpu_cells",
+    "min_total_duration_packed", "shockwave", "shockwave_tpu_sharded",
+    "shockwave_tpu_cells",
 )
 
 
 def get_policy(policy_name: str, device="cuda") -> Policy:
-    """The policy named ``policy_name``; ``device`` is where the level
-    solve of the Shockwave planner runs."""
+    """The policy named ``policy_name``; ``device`` is where the
+    Shockwave planner's device solves (level, PDHG, relaxed) run."""
     if policy_name in _BACKENDS:
         from shockwave_tpu_torch.policies.shockwave import ShockwavePolicy
 

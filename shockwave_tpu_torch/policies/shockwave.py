@@ -7,16 +7,48 @@ for the backends of the simulation main path:
     on the planner's device;
   * ``level`` — the level-set solve forced
     (:func:`shockwave_tpu_torch.solver.eg_level.solve_eg_level`);
-  * ``native`` — the C++ greedy forced.
-The other backends (``reference``, ``relaxed``, ``sharded``, ``pdhg``,
-``cells``), the degradation ladder, ``PoolSetPlanner`` and
+  * ``native`` — the C++ greedy forced;
+  * ``pdhg`` — the restarted PDHG solve
+    (:func:`shockwave_tpu_torch.solver.eg_pdhg.solve_eg_pdhg`, one launch
+    of kernel A on a card), warm-started from the previous plan;
+  * ``relaxed`` — the projected-gradient solve
+    (:func:`shockwave_tpu_torch.solver.eg_relaxed.solve_eg_relaxed`, one
+    launch of kernel B, then a bounded PDHG polish).
+With ``plan_deadline_s`` in the config, or a fault injector armed
+(``shockwave_tpu_torch/runtime/faults.py``), a solve runs down the
+degradation ladder: the configured backend, then ``pdhg``, ``relaxed``
+and ``native``, each rung bounded by what is left of the deadline.
+
+The other backends (``reference``, ``sharded``, ``cells``), plan-ahead
+speculation and its repair solves, ``PoolSetPlanner`` and
 ``planner_from_state`` raise ``NotImplementedError`` naming
-``ROADMAP.md``. The device of the level solve is passed explicitly
+``ROADMAP.md``. The device of the device solves is passed explicitly
 (``ShockwavePolicy(backend, device=...)``).
+
+A rung that blows the deadline is abandoned as a thread and runs on to
+its end, as in the reference. On a card its kernel would hold the
+stream the next device rung launches on, and that rung would queue
+behind it and spend its own budget waiting. So each deadline-bounded
+rung on a card runs on a stream of its own (:func:`_rung_stream`): one
+problem's kernel takes one block, one of the card's 132 SMs, and the
+next rung's launch runs beside it. The final rung runs in the calling
+thread on the current stream, and ``native`` needs no card at all.
+
+The ladder steps past a rung's timeout, an injected fault or a solver
+error, but not past a broken card or kernel: a
+:class:`~shockwave_tpu_torch.ops._build.KernelError` (a kernel that does
+not build, load or launch) or a ``torch.AcceleratorError`` (a fault the
+card reported) propagates, so no device rung's failure ends in a plan
+from the host greedy. On a card the ladder builds both first-order
+kernels before its clock starts, so an nvcc run at first use is not
+charged to the plan's budget, and a build that fails raises there. A
+device fault in a rung abandoned at its deadline is raised by the next
+ladder solve.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
@@ -45,8 +77,18 @@ SHARDED_DISPATCH_MIN_JOBS = 8192
 # measured crossover between the two is in PERF.md.
 NATIVE_MAX_WORK = 4e6
 
-BACKENDS = ("tpu", "level", "native")
+BACKENDS = ("tpu", "level", "native", "pdhg", "relaxed")
 _NOT_PORTED = "is not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1)"
+
+
+def _is_device_fault(error: Optional[BaseException]) -> bool:
+    """A failure the ladder must not step past: a kernel that does not
+    build, load or launch, or a fault the card reported."""
+    from shockwave_tpu_torch.ops._build import KernelError
+
+    return isinstance(
+        error, (KernelError, getattr(torch, "AcceleratorError", KernelError))
+    )
 
 
 class ShockwavePlanner(SpeculativePlannerMixin):
@@ -60,8 +102,6 @@ class ShockwavePlanner(SpeculativePlannerMixin):
     def __init__(self, config: dict, backend: str = "tpu", device="cuda"):
         if backend not in BACKENDS:
             raise NotImplementedError(f"the {backend!r} backend {_NOT_PORTED}")
-        if config.get("plan_deadline_s") is not None:
-            raise NotImplementedError(f"the degradation ladder {_NOT_PORTED}")
         self.config = dict(config)
         self.backend = backend
         self.device = torch.device(device)
@@ -73,6 +113,10 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         self.log_bases = list(
             config.get("log_approximation_bases", DEFAULT_LOG_BASES)
         )
+        self.solver_num_steps = int(config.get("solver_num_steps", 256))
+        # Fixed-point tolerance of the restarted-PDHG backend (the
+        # objective-stall stop usually fires first; see eg_pdhg).
+        self.pdhg_tol = float(config.get("pdhg_tol", 1e-4))
         # Preemption-aware planning: scale on the per-job measured
         # relaunch overheads the scheduler threads through add_job. 0
         # disables the switching-cost term even when overheads are known.
@@ -81,6 +125,21 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         self.stickiness_hysteresis = float(
             config.get("stickiness_hysteresis", 1.0)
         )
+        # Per-round planning deadline (seconds) for the degradation
+        # ladder: primary backend -> restarted PDHG -> relaxed PGD ->
+        # native greedy, each rung budgeted against what remains. None
+        # (default) keeps the single-backend behavior; the ladder also
+        # engages when fault injection is armed.
+        raw_deadline = config.get("plan_deadline_s")
+        self.plan_deadline_s = (
+            float(raw_deadline) if raw_deadline is not None else None
+        )
+        # Ladder outcome of the most recent solve (consumed by
+        # _record_solve to tag degraded rounds in solve_records).
+        self._last_ladder: Optional[dict] = None
+        # (thread, result box) of rungs abandoned at their deadline; a
+        # device fault one of them ends in is raised by the next ladder.
+        self._abandoned: List[tuple] = []
         self._init_speculation(config)
 
         self.round_index = 0
@@ -186,6 +245,10 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             for j, md in self.job_metadata.items()
             if md.completed_epochs < md.total_epochs
         ]
+        # Plan-order job ids of the problem being built (the PDHG
+        # backend's solution warm start maps cached future schedules
+        # back onto problem rows through this).
+        self._plan_job_ids = list(job_ids)
         if not job_ids:
             return None, []
         J = len(job_ids)
@@ -261,18 +324,220 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         return max(1e-6, alpha * avg + (1 - alpha) * history[-1][1])
 
     def _solve(self, problem: EGProblem) -> "Tuple[np.ndarray, str]":
-        """Returns (schedule, backend_used): the reference's straight
-        dispatch when there is no plan deadline and no fault injector
-        (shockwave.py:529-543), the only case ported."""
+        """Returns (schedule, backend_used): ``backend_used`` is the
+        backend that actually produced the solve, which for the "tpu"
+        dispatch differs per problem size. With a planning deadline
+        (``plan_deadline_s``) or armed fault injection the solve runs
+        down the degradation ladder (:meth:`_solve_with_ladder`);
+        otherwise it is a straight dispatch to the configured backend
+        (reference shockwave.py:485-544; the speculation-repair branch
+        is not ported, as speculation is not)."""
+        from shockwave_tpu_torch.runtime import faults
+
+        injector = faults.active()
+        self._last_ladder = None
         self._attempted_backend = self.backend
-        return self._solve_backend(self.backend, problem)
+        # Computed once per solve, before the plan cache is overwritten,
+        # and only when a pdhg solve can happen this round.
+        pdhg_possible = (
+            self.backend == "pdhg"
+            or self.plan_deadline_s is not None
+            or injector is not None
+        )
+        self._solve_warm_start = (
+            self._solution_warm_start() if pdhg_possible else None
+        )
+        if self.plan_deadline_s is None and injector is None:
+            return self._solve_backend(self.backend, problem)
+        return self._solve_with_ladder(problem, injector)
+
+    def _ladder_rungs(self) -> List[str]:
+        """Degradation ladder: configured backend, then the restarted
+        PDHG first-order solve, then the relaxed PGD solve, then the
+        native greedy (host-only). Rungs the host cannot run (no C++
+        toolchain) are dropped; the primary always stays."""
+        from shockwave_tpu_torch import native
+
+        rungs = [self.backend]
+        for fallback in ("pdhg", "relaxed", "native"):
+            if fallback not in rungs:
+                rungs.append(fallback)
+        if not native.available():
+            rungs = [r for r in rungs if r != "native"] or [self.backend]
+        return rungs
+
+    def _rung_stream(self):
+        """The stream a deadline-bounded rung runs on: a new one on a
+        card (module docstring), none on the CPU."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.stream(torch.cuda.Stream(self.device))
+
+    def _solve_with_ladder(
+        self, problem: EGProblem, injector
+    ) -> "Tuple[np.ndarray, str]":
+        """Run the solve down the degradation ladder under the round's
+        planning budget (reference shockwave.py:562-710). Every rung but
+        the last is bounded by the remaining deadline (a rung that blows
+        it is abandoned: its thread is left to finish into the void);
+        the final rung runs to completion unconditionally, because a
+        plan is mandatory. Injected solver faults are consumed one per
+        attempt: ``solver_timeout`` charges the rung as timed out
+        without burning wall clock, ``solver_slowdown`` stretches the
+        attempt by ``delay_s`` so a real deadline can overrun."""
+        import threading
+
+        self._raise_abandoned_device_fault()
+        if self.device.type == "cuda":
+            from shockwave_tpu_torch.ops import _build
+
+            for name in ("eg_pdhg", "eg_relaxed"):
+                _build.library(name)
+        start = time.monotonic()
+        deadline = self.plan_deadline_s
+        rungs = self._ladder_rungs()
+        attempts: List[dict] = []
+        faults_hit: list = []
+        last_error: Optional[BaseException] = None
+        for i, backend in enumerate(rungs):
+            is_last = i == len(rungs) - 1
+            fault = (
+                injector.next_solver_fault(self.round_index)
+                if injector is not None
+                else None
+            )
+            if fault is not None:
+                faults_hit.append(fault)
+                injector.mark_applied(
+                    fault, round=self.round_index, backend=backend
+                )
+                obs.counter(
+                    "fault_injected_total",
+                    "fault events delivered by the injector",
+                ).inc(kind=fault.kind)
+            if (
+                fault is not None
+                and fault.kind == "solver_timeout"
+                and not is_last
+            ):
+                # A plan is mandatory: an injected timeout charges every
+                # rung but the last, which always runs.
+                attempts.append(
+                    {"backend": backend, "outcome": "timeout_injected"}
+                )
+                last_error = TimeoutError(
+                    f"injected solver timeout (fault {fault.event_id})"
+                )
+                continue
+            remaining = (
+                None
+                if deadline is None
+                else deadline - (time.monotonic() - start)
+            )
+            if remaining is not None and remaining <= 0 and not is_last:
+                attempts.append(
+                    {"backend": backend, "outcome": "skipped_budget"}
+                )
+                continue
+            delay_s = fault.delay_s if fault is not None else 0.0
+            box: dict = {}
+
+            def run_attempt(backend=backend, delay_s=delay_s, fb=(i > 0),
+                            stream=contextlib.nullcontext):
+                try:
+                    if delay_s:
+                        time.sleep(delay_s)
+                    with stream():
+                        box["result"] = self._solve_backend(
+                            backend, problem, as_fallback=fb
+                        )
+                except Exception as e:  # noqa: BLE001 - re-raised below
+                    box["error"] = e
+
+            if remaining is None or is_last:
+                run_attempt()
+            else:
+                worker = threading.Thread(
+                    target=run_attempt, daemon=True,
+                    kwargs={"stream": self._rung_stream},
+                )
+                worker.start()
+                worker.join(remaining)
+                if worker.is_alive():
+                    self._abandoned.append((worker, box))
+                    attempts.append(
+                        {"backend": backend, "outcome": "timeout"}
+                    )
+                    last_error = TimeoutError(
+                        f"{backend} solve exceeded the remaining "
+                        f"{remaining:.3f}s of the {deadline}s plan budget"
+                    )
+                    continue
+            if "error" in box:
+                if _is_device_fault(box["error"]):
+                    raise box["error"]
+                attempts.append(
+                    {
+                        "backend": backend,
+                        "outcome": type(box["error"]).__name__,
+                    }
+                )
+                last_error = box["error"]
+                continue
+            Y, used = box["result"]
+            attempts.append({"backend": used, "outcome": "ok"})
+            degraded = i > 0
+            self._last_ladder = {
+                "degraded": degraded,
+                "fallback_from": rungs[0] if degraded else None,
+                "attempts": attempts,
+            }
+            if degraded:
+                obs.counter(
+                    "shockwave_solver_degraded_total",
+                    "plan solves that fell down the degradation ladder",
+                ).inc(backend=used)
+                obs.instant(
+                    "solver_degraded", cat="plan", pid="solver",
+                    tid="planner",
+                    args={
+                        "round": self.round_index,
+                        "fallback_from": rungs[0],
+                        "backend": used,
+                        "attempts": len(attempts),
+                    },
+                )
+            for fault in faults_hit:
+                how = "ladder_fallback" if degraded else "ladder_absorbed"
+                injector.mark_recovered(
+                    fault.event_id, how=how, backend=used
+                )
+            return Y, used
+        if last_error is not None:
+            raise last_error
+        raise RuntimeError("degradation ladder produced no plan")
+
+    def _raise_abandoned_device_fault(self) -> None:
+        """Raise the device fault an abandoned rung ended in, if any;
+        forget the abandoned rungs that have ended."""
+        ended = [box for worker, box in self._abandoned
+                 if not worker.is_alive()]
+        self._abandoned = [(worker, box) for worker, box in self._abandoned
+                           if worker.is_alive()]
+        for box in ended:
+            if _is_device_fault(box.get("error")):
+                raise box["error"]
 
     def _solve_backend(
-        self, backend: str, problem: EGProblem
+        self, backend: str, problem: EGProblem, as_fallback: bool = False
     ) -> "Tuple[np.ndarray, str]":
-        """One backend's solve, then the per-round reorder.
-        ``_attempted_backend`` tracks the in-flight choice so a raising
-        solver is attributed to the backend that actually raised."""
+        """One backend's solve (the ladder's rung body), then the
+        per-round reorder. ``_attempted_backend`` tracks the in-flight
+        choice so a raising solver is attributed to the backend that
+        actually raised. ``as_fallback`` marks a ladder rung below the
+        primary: the relaxed rung then skips its PDHG polish, so a
+        failing (or deadline-blowing) PDHG kernel cannot take out the
+        rung that exists to recover from it."""
         from shockwave_tpu_torch import native
         from shockwave_tpu_torch.solver.eg_level import solve_eg_level
         from shockwave_tpu_torch.solver.rounding import reorder_rounds
@@ -283,6 +548,43 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             Y = native.solve_eg_greedy_native(problem)
         elif backend == "level":
             Y = solve_eg_level(problem, self.device)
+        elif backend == "pdhg":
+            # Restarted PDHG on the exact continuous relaxation,
+            # solution-warm-started from the previous plan's round
+            # counts when one is cached.
+            from shockwave_tpu_torch.solver.eg_pdhg import solve_eg_pdhg
+
+            Y = solve_eg_pdhg(
+                problem,
+                s0=getattr(self, "_solve_warm_start", None),
+                tol=self.pdhg_tol,
+                device=self.device,
+            )
+        elif backend == "relaxed":
+            # Projected-gradient ascent on the exact continuous
+            # relaxation, then integer rounding + per-round placement on
+            # the host.
+            from shockwave_tpu_torch.solver.eg_relaxed import (
+                solve_eg_relaxed,
+            )
+            from shockwave_tpu_torch.solver.rounding import (
+                schedule_from_relaxed,
+            )
+
+            s = solve_eg_relaxed(
+                problem,
+                num_steps=self.solver_num_steps,
+                pdhg_polish=not as_fallback,
+                device=self.device,
+            )
+            Y = schedule_from_relaxed(
+                s,
+                problem.priorities,
+                problem.nworkers,
+                problem.num_gpus,
+                problem.future_rounds,
+                problem=problem,
+            )
         else:
             # "tpu", the production path: latency-aware dispatch. Small
             # solves go to the C++ host core, where the device's fixed
@@ -320,6 +622,67 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             used,
         )
 
+    def _solution_warm_start(self) -> "Optional[np.ndarray]":
+        """Previous-plan round counts delta-patched onto the new job
+        set, or None (reference shockwave.py:855-928).
+
+        The cached schedules for rounds >= the cursor are the
+        still-valid tail of the last plan; counting each job's
+        occurrences gives the s-vector that plan chose, a near-feasible
+        saddle-point guess for the incremental replan.
+        :func:`shockwave_tpu_torch.solver.warm_start.delta_patch_counts`
+        aligns it across the churn delta. A replayed planner carries the
+        derived vector instead (``_replay_warm_start``), consumed once."""
+        override = getattr(self, "_replay_warm_start", None)
+        job_ids = getattr(self, "_plan_job_ids", None)
+        if override is not None:
+            # One recorded vector, one solve: clear on consumption, and
+            # drop it if it no longer matches the problem rows.
+            self._replay_warm_start = None
+            if job_ids is not None and len(override) == len(job_ids):
+                return np.asarray(override, dtype=np.float64)
+        if not job_ids:
+            return None
+        future = [
+            s for r, s in self.schedules.items() if r >= self.round_index
+        ]
+        if not future:
+            return None
+        prev_counts: Dict[object, int] = {}
+        for schedule in future:
+            for j in schedule:
+                prev_counts[j] = prev_counts.get(j, 0) + 1
+        if not prev_counts:
+            return None
+        from shockwave_tpu_torch.solver import warm_start
+
+        prev_ids = list(prev_counts)
+        nworkers = np.array(
+            [
+                float(self.job_metadata[j].nworkers)
+                if j in self.job_metadata
+                else 1.0
+                for j in job_ids
+            ]
+        )
+        patched = warm_start.delta_patch_counts(
+            prev_ids,
+            np.array([float(prev_counts[j]) for j in prev_ids]),
+            job_ids,
+            nworkers,
+            self.num_gpus,
+            self.future_rounds,
+        )
+        if patched is not None:
+            arrivals = sum(1 for j in job_ids if j not in prev_counts)
+            if arrivals:
+                obs.counter(
+                    "planner_delta_arrivals_total",
+                    "new jobs absorbed into a replan via the "
+                    "delta-patched warm start",
+                ).inc(arrivals)
+        return patched
+
     def _record_solve(
         self, seconds: float, backend: str, num_jobs: int,
         ok: bool, error: Optional[str] = None,
@@ -335,6 +698,12 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         }
         if error is not None:
             record["error"] = error
+        ladder = self._last_ladder
+        if ladder is not None and ladder["degraded"]:
+            # A degraded round is tagged where operators look.
+            record["degraded"] = True
+            record["fallback_from"] = ladder["fallback_from"]
+            record["ladder"] = [dict(a) for a in ladder["attempts"]]
         self.solve_records.append(record)
         obs.histogram(
             "shockwave_solve_seconds",
@@ -481,6 +850,8 @@ class ShockwavePolicy(Policy):
         self.name = {
             "native": "Shockwave_Native",
             "level": "Shockwave_TPU_Level",
+            "relaxed": "Shockwave_TPU_Relaxed",
+            "pdhg": "Shockwave_TPU_PDHG",
         }.get(backend, "Shockwave_TPU")
 
     def make_planner(self, config: dict) -> ShockwavePlanner:

@@ -6,10 +6,13 @@
 The counterpart of the JAX package's ``scripts/simulate.py``: parses a
 trace, builds the throughput oracle and epoch profiles, runs the
 simulator under a Shockwave policy (``shockwave_tpu``,
-``shockwave_tpu_level`` or ``shockwave_native``), and prints makespan /
-average JCT / utilization / finish-time fairness. ``--device`` (default
-``cuda``) is where the planner's level-set solve runs; ``cuda`` without a
-card raises. The telemetry, flight-recorder and watchdog flags raise
+``shockwave_tpu_level``, ``shockwave_native``, ``shockwave_tpu_pdhg`` or
+``shockwave_tpu_relaxed``), and prints makespan / average JCT /
+utilization / finish-time fairness. ``--device`` (default ``cuda``) is
+where the planner's device solves run (the level-set solve, and the
+PDHG and relaxed kernels); ``cuda`` without a card raises. A
+``plan_deadline_s`` in ``--config`` runs every solve down the
+degradation ladder. The telemetry, flight-recorder and watchdog flags raise
 ``NotImplementedError``: they are not ported yet (ROADMAP.md).
 """
 
@@ -150,7 +153,7 @@ def main(argv=None) -> dict:
     for record in sched._shockwave.solve_records:
         backends[record["backend"]] = backends.get(record["backend"], 0) + 1
 
-    print(f"Policy: {args.policy} (level solve on {device})")
+    print(f"Policy: {args.policy} (device solves on {device})")
     print(f"Makespan: {makespan:.3f} s ({makespan / 3600.0:.2f} h)")
     if avg_jct is not None:
         print(f"Average JCT: {avg_jct:.3f} s ({avg_jct / 3600.0:.2f} h)")
@@ -232,7 +235,7 @@ def parse_args(argv=None):
     )
     parser.add_argument(
         "--device", type=str, default="cuda",
-        help="where the planner's level-set solve runs: cuda (default; "
+        help="where the planner's device solves run: cuda (default; "
         "raises without a card) or cpu",
     )
     # The JAX package's observability flags; not ported yet (they raise).

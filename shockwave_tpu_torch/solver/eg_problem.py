@@ -119,3 +119,31 @@ class EGProblem:
         # rate the makespan term charges).
         switch_penalty = float(np.sum(np.where(s < 0.5, self.switch_bonus(), 0.0)))
         return welfare - self.regularizer * makespan - switch_penalty
+
+    def audit_schedule(self, Y: np.ndarray) -> None:
+        """Assert Y is a feasible boolean schedule for this problem:
+        binary entries (a job occupies a round at most once — no double
+        grants), per-round gang capacity respected, window length
+        respected, and no grants to gangs wider than the cluster.
+        Raises AssertionError with a diagnostic on any violation. Used by
+        the headline bench (bench.py) so the stress-scale number is backed
+        by a feasibility proof of the produced schedule, not only its
+        scalar objective."""
+        Y = np.asarray(Y)
+        J, R = Y.shape
+        assert J == self.num_jobs and R == self.future_rounds, (
+            f"schedule shape {Y.shape} != ({self.num_jobs}, "
+            f"{self.future_rounds})"
+        )
+        binary = np.isin(Y, (0, 1)).all()
+        assert binary, "schedule has non-boolean entries (double grant?)"
+        too_wide = self.nworkers > self.num_gpus
+        assert not np.any(Y[too_wide].sum(axis=1) > 0), (
+            "grants to gangs wider than the cluster"
+        )
+        per_round = (Y * self.nworkers[:, None]).sum(axis=0)
+        worst = int(np.argmax(per_round))
+        assert (per_round <= self.num_gpus + 1e-6).all(), (
+            f"round {worst} oversubscribed: {per_round[worst]} workers "
+            f"> capacity {self.num_gpus}"
+        )

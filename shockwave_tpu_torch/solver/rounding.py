@@ -1,20 +1,57 @@
-"""Boolean schedule recovery from per-job round counts (host side).
+"""Boolean schedule recovery from the relaxed solve or from per-job round
+counts (host side).
 
-The JAX package's ``shockwave_tpu/solver/rounding.py`` for the level
-backend (its relaxed-solve rounding, ``round_counts`` and
-``schedule_from_relaxed``, is not ported):
-  * ``refine_counts``: exchange polish of the level solve's counts;
+The JAX package's ``shockwave_tpu/solver/rounding.py``, in numpy as
+there, giving the same integers:
+  * ``round_counts``: fractional per-job round counts s -> integers n,
+    respecting the aggregate budget sum_j g_j n_j <= R * G (the first-order
+    backends' rounding);
+  * ``refine_counts``: exchange polish of the counts;
   * ``order_schedule``: place each job's n_j rounds into the planning
     window under per-round capacity, earliest-first by unfairness
     priority — a greedy solution of the reordering program the reference
     solves as a second MILP (reference: shockwave.py:281-328): minimize
     sum_j priority_j * mean-round-index_j;
-  * ``reorder_rounds``: the same reordering applied to any schedule.
+  * ``reorder_rounds``: the same reordering applied to any schedule;
+  * ``schedule_from_relaxed``: round, polish and place a relaxed s.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def round_counts(
+    s: np.ndarray, nworkers: np.ndarray, num_gpus: int, future_rounds: int
+) -> np.ndarray:
+    """Fractional round counts -> integers under the round-seconds budget.
+
+    Floors are always budget-feasible (the relaxed s was); the leftover
+    budget is granted as round-ups in order of largest fractional part,
+    breaking ties toward higher-priority-independent larger remainders.
+    """
+    s = np.clip(np.asarray(s, dtype=np.float64), 0.0, future_rounds)
+    g = np.asarray(nworkers, dtype=np.float64)
+    budget = float(num_gpus) * future_rounds
+    n = np.floor(s + 1e-9)
+    used = float(np.sum(g * n))
+    # Defensive: a caller may hand in an over-budget s (ours never is);
+    # shed load from the widest gangs first.
+    while used > budget + 1e-9:
+        candidates = np.where(n > 0)[0]
+        if len(candidates) == 0:
+            break
+        j = candidates[np.argmax(g[candidates])]
+        n[j] -= 1
+        used -= g[j]
+    frac = s - n
+    for j in np.argsort(-frac):
+        if frac[j] <= 1e-9 or n[j] >= future_rounds:
+            continue
+        if used + g[j] <= budget + 1e-9:
+            n[j] += 1
+            used += g[j]
+    return n.astype(np.int64)
 
 
 def order_schedule(
@@ -316,3 +353,16 @@ def refine_counts(counts: np.ndarray, problem, max_moves: int = 2000) -> np.ndar
         counts[receiver] += 1
     return counts.astype(np.int64)
 
+
+def schedule_from_relaxed(
+    s: np.ndarray,
+    priorities: np.ndarray,
+    nworkers: np.ndarray,
+    num_gpus: int,
+    future_rounds: int,
+    problem=None,
+) -> np.ndarray:
+    counts = round_counts(s, nworkers, num_gpus, future_rounds)
+    if problem is not None:
+        counts = refine_counts(counts, problem)
+    return order_schedule(counts, priorities, nworkers, num_gpus, future_rounds)

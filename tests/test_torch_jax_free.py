@@ -11,6 +11,10 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
+from shockwave_tpu_torch.tools import bench_sim
+
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
 
@@ -36,8 +40,9 @@ _SIM_SCRIPT = """
 import runpy, sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
     sys.modules[name] = None  # any import of them now raises ImportError
+policy = sys.argv[1] if len(sys.argv) > 1 else "shockwave_tpu_level"
 sys.argv = ["simulate", "-t", "traces/small_12_dynamic.trace", "-p",
-            "shockwave_tpu_level", "-c", "v100=8", "--time_per_iteration",
+            policy, "-c", "v100=8", "--time_per_iteration",
             "120", "--device", "cpu", "--no_profile_cache"]
 runpy.run_module("shockwave_tpu_torch.simulate", run_name="__main__")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
@@ -60,6 +65,26 @@ def test_simulate_cli_runs_with_jax_blocked():
     assert "Makespan: 13456.422 s" in proc.stdout
     assert "Average JCT: 5658.689 s" in proc.stdout
     assert "Worst FTF: 2.029" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
+@pytest.mark.parametrize("policy", ["shockwave_tpu_pdhg",
+                                    "shockwave_tpu_relaxed"])
+def test_first_order_simulate_cli_runs_with_jax_blocked(policy):
+    """The PDHG and relaxed backends (their kernels' plain versions on the
+    CPU) through ``python -m shockwave_tpu_torch.simulate`` with JAX and
+    the JAX package unimportable: the JAX package's golden metrics, and no
+    module of either loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _SIM_SCRIPT, policy], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    golden = bench_sim.GOLDEN_FIRST_ORDER[policy]
+    assert f"Makespan: {golden['makespan']:.3f} s" in proc.stdout
+    assert f"Average JCT: {golden['avg_jct']:.3f} s" in proc.stdout
+    assert f"Worst FTF: {golden['worst_ftf']:.3f}" in proc.stdout
     assert "LEAKED []" in proc.stdout
 
 

@@ -5,6 +5,13 @@ and the 220-job trace on 256 GPUs (Figure 9's largest cluster): every
 planning problem the JAX package's run solves gives equal counts in the
 port, and the port's run of the same configuration gives the same
 makespan, average JCT and worst finish-time fairness within 1e-3.
+
+The first-order backends on the golden trace: every problem the JAX
+package's planner solves under ``shockwave_tpu_pdhg`` and
+``shockwave_tpu_relaxed``, solved by the port's plain versions of kernels
+A and B within the limits of two summation orders (tests/test_pdhg.py:
+377-398), and the whole run's metrics within 1e-3; and the degradation
+ladder (tests/test_pdhg.py:286-375).
 """
 
 import json
@@ -24,12 +31,16 @@ from shockwave_tpu.data import load_or_synthesize_profiles, parse_trace
 from shockwave_tpu.data.default_oracle import generate_oracle
 from shockwave_tpu.policies import get_policy as ref_get_policy
 from shockwave_tpu.solver import eg_jax
+from shockwave_tpu.solver import eg_pdhg as ref_pdhg
 from shockwave_tpu_torch import simulate
+from shockwave_tpu_torch.runtime import faults
 from shockwave_tpu_torch.core.scheduler import Scheduler
+from shockwave_tpu_torch.ops import _build
 from shockwave_tpu_torch.policies import get_policy
 from shockwave_tpu_torch.policies.shockwave import ShockwavePlanner
-from shockwave_tpu_torch.solver import eg_level
+from shockwave_tpu_torch.solver import eg_level, eg_pdhg, eg_relaxed
 from shockwave_tpu_torch.tools import bench_sim
+from test_torch_pdhg import assert_matches, rounded_objective
 from test_torch_solver import port_problem
 
 TRACE_220 = bench_sim.TRACES / "generated_220_dynamic.trace"
@@ -81,7 +92,9 @@ def test_golden_metrics_on_the_cpu(policy):
         assert result["device_solves"] == {"cpu": 16}
 
 
-def _ref_run(trace, policy, num_gpus):
+def _ref_run(trace, policy, num_gpus, plans=None):
+    """The JAX package's run; ``plans``, where given, receives (round,
+    schedule) of every solve."""
     jobs, arrivals = parse_trace(str(trace))
     oracle = generate_oracle()
     profiles = load_or_synthesize_profiles(str(trace), jobs, oracle,
@@ -93,6 +106,16 @@ def _ref_run(trace, policy, num_gpus):
     sched = RefScheduler(ref_get_policy(policy, seed=0), throughputs=oracle,
                          seed=0, time_per_iteration=120, profiles=profiles,
                          shockwave_config=config)
+    if plans is not None:
+        planner = sched._shockwave
+        solve = planner._solve
+
+        def capturing(problem):
+            Y, used = solve(problem)
+            plans.append((planner.round_index, Y.copy(), problem))
+            return Y, used
+
+        planner._solve = capturing
     makespan = sched.simulate({"v100": num_gpus}, arrivals, jobs)
     ftf, _ = sched.get_finish_time_fairness()
     return dict(makespan=makespan, avg_jct=sched.get_average_jct(),
@@ -149,8 +172,8 @@ def test_cli_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("name", [
-    "fifo", "max_min_fairness", "shockwave", "shockwave_tpu_pdhg",
-    "shockwave_tpu_relaxed", "shockwave_tpu_sharded", "shockwave_tpu_cells"])
+    "fifo", "max_min_fairness", "shockwave", "shockwave_tpu_sharded",
+    "shockwave_tpu_cells"])
 def test_policies_not_ported_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_policy(name, device="cpu")
@@ -158,7 +181,6 @@ def test_policies_not_ported_raise(name):
 
 @pytest.mark.parametrize("config, kwargs", [
     ({"speculate": True}, {}),
-    ({"plan_deadline_s": 1.0}, {}),
     ({"hetero_pools": True}, {}),
     ({"cells": 4}, {}),
     ({}, {"simulate": False}),
@@ -223,3 +245,331 @@ def test_cli_options_match_the_reference_cli(case, tmp_path, monkeypatch):
             "level": len(bonus_solves)}
     if case == "autosized_round":
         assert result["effective_round_s"] > 60
+
+
+# -- the first-order backends on the golden trace -------------------------
+
+# The planner's objective gap where the port's plan of a round differs from
+# the JAX package's: none on the golden trace (measured 0.0 under both
+# backends: every plan equal); the metrics are held to TOLERANCE.
+FIRST_ORDER = ("shockwave_tpu_pdhg", "shockwave_tpu_relaxed")
+
+
+def test_every_pdhg_problem_of_the_golden_run_matches(monkeypatch):
+    """Each PDHG solve the JAX planner makes on the golden trace (problem,
+    warm start and tolerance as it passed them) against the port's plain
+    version of kernel A, to the limits of two summation orders."""
+    captured = []
+    solve = ref_pdhg.solve_pdhg_relaxed
+
+    def capture(problem, s0=None, **kwargs):
+        out = solve(problem, s0=s0, **kwargs)
+        captured.append((problem, s0, kwargs, out))
+        return out
+
+    monkeypatch.setattr(ref_pdhg, "solve_pdhg_relaxed", capture)
+    _ref_run(bench_sim.GOLDEN_TRACE, "shockwave_tpu_pdhg", 8)
+    assert len(captured) >= 10
+    assert sum(s0 is not None for _, s0, _, _ in captured) >= 5
+    for problem, s0, kwargs, (ref_s, ref_obj, ref_info) in captured:
+        s, obj, info = eg_pdhg.solve_pdhg_relaxed(
+            port_problem(problem), s0=s0, device="cpu", **kwargs)
+        assert_matches(problem, s, obj, ref_s, ref_obj)
+
+
+def _relaxed_objective(problem, s):
+    """The reference's relaxed objective (eg_jax._objective, hard max) of
+    ``s`` on the problem's padded float32 arrays."""
+    import jax.numpy as jnp
+
+    slots = eg_jax.num_slots_for(problem.num_jobs)
+    pk = eg_jax.pad_problem(problem, slots)
+    x = np.zeros(slots, np.float32)
+    x[:problem.num_jobs] = s
+    return float(eg_jax._objective(
+        jnp.asarray(x), pk["active"], pk["priorities"], pk["completed"],
+        pk["total"], jnp.maximum(pk["epoch_dur"], eg_jax._EPS),
+        pk["remaining"], jnp.sum(pk["active"]),
+        float(problem.round_duration), int(problem.future_rounds),
+        float(problem.regularizer), switch_bonus=pk.get("switch_bonus")))
+
+
+def _assert_feasible(problem, s):
+    """``s`` lies in the solve's feasible set: 0 <= s <= R for a job that
+    fits the cluster (0 for one that does not), and w . s <= budget."""
+    s = np.asarray(s, np.float64)
+    nworkers = np.asarray(problem.nworkers, np.float64)
+    R = float(problem.future_rounds)
+    s_max = np.where(nworkers <= problem.num_gpus, R, 0.0)
+    assert np.all(s >= 0.0) and np.all(s <= s_max * (1 + 1e-6))
+    assert nworkers @ s <= problem.num_gpus * R * (1 + 1e-6)
+
+
+def test_every_relaxed_problem_of_the_golden_run_matches(monkeypatch):
+    """Each relaxed solve the JAX planner makes on the golden trace (PGD,
+    then the PDHG polish) against the port's: the relaxed objective of
+    each ``s`` (the reference's) and the rounded objective within their
+    limits, and ``s`` within 5e-3 except where the two objectives are
+    equal to the last bit, i.e. the float32 objective cannot tell the
+    points apart. That is one of the 15 (8 jobs on 8 GPUs, its objective
+    ~6.3e4, one float32 step 0.004): job 0 sits past its finish cap at
+    6.64 and 8.14 rounds, where its utility and lateness are flat, and the
+    polish's iterates wander there; the plans the planner makes of both
+    are equal (test_first_order_golden_run_matches_the_reference). Such a
+    pair is held to the feasible set instead (``_assert_feasible``)."""
+    captured = []
+    solve = eg_jax.solve_eg_jax
+
+    def capture(problem, **kwargs):
+        s = solve(problem, **kwargs)
+        captured.append((problem, kwargs, s))
+        return s
+
+    monkeypatch.setattr(eg_jax, "solve_eg_jax", capture)
+    _ref_run(bench_sim.GOLDEN_TRACE, "shockwave_tpu_relaxed", 8)
+    assert len(captured) >= 10
+    flat = 0
+    for problem, kwargs, ref_s in captured:
+        s = eg_relaxed.solve_eg_relaxed(port_problem(problem), device="cpu",
+                                        **kwargs)
+        obj = _relaxed_objective(problem, s)
+        ref_obj = _relaxed_objective(problem, ref_s)
+        if obj == ref_obj and not np.allclose(s, ref_s, rtol=5e-3,
+                                              atol=5e-3):
+            flat += 1
+            _assert_feasible(problem, s)
+            _assert_feasible(problem, ref_s)
+            o = rounded_objective(problem, s)
+            ref_o = rounded_objective(problem, ref_s)
+            assert abs(o - ref_o) <= 2e-3 * (1.0 + abs(ref_o))
+            continue
+        assert_matches(problem, s, obj, ref_s, ref_obj)
+    assert flat <= 1
+
+
+@pytest.mark.parametrize("policy", FIRST_ORDER)
+def test_first_order_golden_run_matches_the_reference(policy):
+    """The whole golden run under the backend: metrics within
+    ``bench_sim.TOLERANCE`` of the JAX package's run. A plan that differs
+    is named by its round with its objective gap."""
+    ref_plans, plans = [], []
+    reference = _ref_run(bench_sim.GOLDEN_TRACE, policy, 8, plans=ref_plans)
+    result = bench_sim.run_trace(bench_sim.GOLDEN_TRACE, policy, 8, "cpu",
+                                 plans=plans)
+    backend = policy.rsplit("_", 1)[1]
+    assert result["solves"] == {backend: len(ref_plans)}
+    assert result["launches"] == {"eg_pdhg": 0, "eg_relaxed": 0}
+    differ = [
+        (r, problem.objective_value(Y) - problem.objective_value(ref_Y))
+        for (r, ref_Y, problem), (r2, Y) in zip(ref_plans, plans)
+        if r != r2 or not np.array_equal(Y, ref_Y)]
+    detail = (f"first differing plan at round {differ[0][0]}, objective "
+              f"gap {differ[0][1]:.6g}" if differ else "every plan equal")
+    assert bench_sim.check_run(result, reference) == [], detail
+
+
+# -- the degradation ladder (tests/test_pdhg.py:286-375) ------------------
+
+PROFILE = {
+    "num_epochs": 4,
+    "num_samples_per_epoch": 64,
+    "scale_factor": 1,
+    "bs_every_epoch": [32] * 4,
+    "duration_every_epoch": [120.0] * 4,
+}
+
+
+@pytest.fixture
+def no_faults():
+    faults.reset()
+    yield
+    faults.reset()
+
+
+def _tiny_planner(backend, plan_deadline_s=None, device="cpu"):
+    config = {"num_gpus": 2, "time_per_iteration": 60.0, "future_rounds": 4,
+              "lambda": 2.0, "k": 1e-3}
+    if plan_deadline_s is not None:
+        config["plan_deadline_s"] = plan_deadline_s
+    planner = ShockwavePlanner(config, backend=backend, device=device)
+    for j in range(3):
+        planner.add_job(j, dict(PROFILE), 60.0, 1)
+    return planner
+
+
+def test_pdhg_backend_plans_and_warm_starts(no_faults):
+    planner = _tiny_planner("pdhg")
+    assert planner.current_round_schedule()
+    assert planner.solve_records[-1]["backend"] == "pdhg"
+    # The cached plan seeds the next replan's solution warm start.
+    s0 = planner._solution_warm_start()
+    assert s0 is not None and s0.sum() > 0
+    planner.set_recompute_flag()
+    assert planner.current_round_schedule()
+    assert planner.solve_records[-1]["backend"] == "pdhg"
+
+
+def test_replay_warm_start_is_consumed_once(no_faults):
+    """A replayed planner's recorded warm start is used for one solve and
+    dropped; one that no longer fits the problem rows is ignored."""
+    planner = _tiny_planner("pdhg")
+    planner.current_round_schedule()
+    planner._replay_warm_start = [1.0, 2.0, 3.0]
+    np.testing.assert_array_equal(planner._solution_warm_start(),
+                                  [1.0, 2.0, 3.0])
+    assert planner._replay_warm_start is None
+    live = planner._solution_warm_start()
+    planner._replay_warm_start = [1.0]
+    np.testing.assert_array_equal(planner._solution_warm_start(), live)
+
+
+def test_ladder_falls_back_to_pdhg_rung(no_faults):
+    plan = faults.FaultPlan(
+        seed=0, events=[faults.FaultEvent(0, "solver_timeout", round=0)])
+    injector = faults.configure(plan)
+    planner = _tiny_planner("tpu", plan_deadline_s=10.0)
+    assert planner.current_round_schedule(), "ladder fallback produced no plan"
+    record = planner.solve_records[-1]
+    assert record["ok"] and record["degraded"] is True
+    assert record["fallback_from"] == "tpu"
+    assert record["ladder"][0]["outcome"] == "timeout_injected"
+    assert record["ladder"][1] == {"backend": "pdhg", "outcome": "ok"}
+    assert record["backend"] == "pdhg"
+    assert injector.summary()["unrecovered"] == []
+
+
+def test_broken_pdhg_cannot_take_out_relaxed_rung(no_faults, monkeypatch):
+    def boom(*args, **kwargs):
+        raise RuntimeError("pdhg kernel down")
+
+    monkeypatch.setattr(eg_pdhg, "solve_pdhg_relaxed", boom)
+    monkeypatch.setattr(eg_pdhg, "solve_eg_pdhg", boom)
+    monkeypatch.setattr(eg_pdhg, "polish_relaxed", boom)
+    planner = _tiny_planner("pdhg", plan_deadline_s=10.0)
+    assert planner.current_round_schedule()
+    record = planner.solve_records[-1]
+    assert record["ok"] and record["degraded"] is True
+    assert record["fallback_from"] == "pdhg"
+    assert record["ladder"][0] == {"backend": "pdhg",
+                                   "outcome": "RuntimeError"}
+    # "relaxed", not "native": the relaxed rung ran without its polish.
+    assert record["backend"] == "relaxed"
+
+
+def test_failed_kernel_build_raises_through_the_ladder(no_faults, monkeypatch):
+    """On a card the ladder builds its kernels before the clock starts; a
+    build that fails raises instead of ending in the native rung's plan."""
+    def no_build(name):
+        raise _build.KernelError(f"nvcc failed for csrc/{name}.cu")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    planner = _tiny_planner("tpu", plan_deadline_s=10.0, device="cuda")
+    with pytest.raises(_build.KernelError, match="nvcc failed"):
+        planner.current_round_schedule()
+    assert planner.solve_records[-1]["ok"] is False
+
+
+@pytest.mark.parametrize("error", [_build.KernelError, torch.AcceleratorError])
+def test_device_fault_in_a_rung_is_not_stepped_past(no_faults, monkeypatch,
+                                                   error):
+    """A kernel that fails to launch, or a fault the card reports, ends the
+    solve: the ladder steps past solver errors, not past a broken card."""
+    def fault(*args, **kwargs):
+        raise error("eg_pdhg: CUDA error 700 at launch")
+
+    monkeypatch.setattr(eg_pdhg, "solve_eg_pdhg", fault)
+    planner = _tiny_planner("pdhg", plan_deadline_s=10.0)
+    with pytest.raises(error, match="CUDA error 700"):
+        planner.current_round_schedule()
+    record = planner.solve_records[-1]
+    assert record["ok"] is False and record["backend"] == "pdhg"
+
+
+def test_device_fault_of_an_abandoned_rung_raises_next_solve(no_faults,
+                                                             monkeypatch):
+    """A rung abandoned at its deadline that then hits a device fault
+    fails the next ladder solve."""
+    def fault(*args, **kwargs):
+        raise _build.KernelError("eg_pdhg: CUDA error 700 at launch")
+
+    monkeypatch.setattr(eg_pdhg, "solve_eg_pdhg", fault)
+    faults.configure(faults.FaultPlan(seed=0, events=[
+        faults.FaultEvent(0, "solver_slowdown", round=0, delay_s=0.3)]))
+    planner = _tiny_planner("pdhg", plan_deadline_s=0.1)
+    assert planner.current_round_schedule()
+    assert planner.solve_records[-1]["ladder"][0] == {
+        "backend": "pdhg", "outcome": "timeout"}
+    for worker, _ in planner._abandoned:
+        worker.join()
+    planner.set_recompute_flag()
+    with pytest.raises(_build.KernelError, match="CUDA error 700"):
+        planner.current_round_schedule()
+
+
+def test_spent_deadline_skips_to_the_final_rung(no_faults):
+    """With no budget left every rung but the last is skipped_budget, and
+    the final rung (native, host-only) still plans."""
+    planner = _tiny_planner("tpu", plan_deadline_s=0.0)
+    assert planner.current_round_schedule()
+    record = planner.solve_records[-1]
+    assert record["ok"] and record["backend"] == "native"
+    assert [a["outcome"] for a in record["ladder"]] == [
+        "skipped_budget"] * 3 + ["ok"]
+
+
+def test_abandoned_rung_leaves_the_final_rung_running(no_faults):
+    """A rung slowed past the deadline is abandoned (its thread runs on
+    into the void) and the next rungs still plan: with every device rung
+    slowed, the host-only native rung does."""
+    plan = faults.FaultPlan(seed=0, events=[
+        faults.FaultEvent(i, "solver_slowdown", round=0, delay_s=0.5)
+        for i in range(3)])
+    injector = faults.configure(plan)
+    planner = _tiny_planner("pdhg", plan_deadline_s=0.2)
+    assert planner.current_round_schedule()
+    record = planner.solve_records[-1]
+    assert record["ok"] and record["backend"] == "native"
+    outcomes = [a["outcome"] for a in record["ladder"]]
+    assert outcomes[0] == "timeout" and outcomes[-1] == "ok"
+    assert set(outcomes[1:-1]) <= {"timeout", "skipped_budget"}
+    assert injector.summary()["unrecovered"] == []
+
+
+def test_golden_run_under_the_ladder(no_faults):
+    """The golden trace with a planning deadline and one injected timeout
+    at round 0: the first solve falls to the pdhg rung, the rest plan on
+    the primary, and every plan is recorded."""
+    faults.configure(faults.FaultPlan(
+        seed=0, events=[faults.FaultEvent(0, "solver_timeout", round=0)]))
+    result = bench_sim.run_trace(bench_sim.GOLDEN_TRACE, "shockwave_tpu", 8,
+                                 "cpu", config={"plan_deadline_s": 30.0})
+    degraded = [r for r in result["records"] if r.get("degraded")]
+    assert len(degraded) == 1
+    assert degraded[0]["ladder"] == [
+        {"backend": "tpu", "outcome": "timeout_injected"},
+        {"backend": "pdhg", "outcome": "ok"}]
+    assert result["solves"]["pdhg"] == 1
+    assert all(r["ok"] for r in result["records"])
+
+
+def test_fault_plans_of_the_scheduler_are_not_ported(no_faults):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        faults.configure(faults.FaultPlan(seed=0, events=[
+            faults.FaultEvent(0, "worker_crash", at_s=10.0)]))
+
+
+def test_fault_plan_round_trips_and_loads_from_the_environment(
+        no_faults, tmp_path, monkeypatch):
+    plan = faults.FaultPlan(seed=3, events=[
+        faults.FaultEvent(0, "solver_slowdown", round=2, delay_s=0.25),
+        faults.FaultEvent(1, "solver_timeout", round=1)])
+    path = tmp_path / "plan.json"
+    path.write_text(plan.to_json())
+    assert faults.FaultPlan.from_file(str(path)) == plan
+    monkeypatch.setattr(faults, "_ENV_CHECKED", False)
+    monkeypatch.setenv("SHOCKWAVE_FAULTS", str(path))
+    injector = faults.active()
+    assert injector is not None and injector.plan == plan
+    assert injector.next_solver_fault(0) is None
+    assert injector.next_solver_fault(5).event_id == 1
+    assert injector.summary()["pending_solver"] == 1
