@@ -10,9 +10,9 @@
    shared memory (``cuobjdump -res-usage``) and the planning kernels'
    registers and spills (``-Xptxas -v``)
    and fails unless the SASS (``cuobjdump -sass``) of every bf16 forward,
-   dK/dV and dQ instantiation holds wgmma (``HGMMA``) and TMA loads
-   (``UTMALDG``), or if ptxas reported serialising any wgmma (the build
-   log, ``-Xptxas -v``).
+   dK/dV and dQ instantiation, causal and non-causal, holds wgmma
+   (``HGMMA``) and TMA loads (``UTMALDG``), or if ptxas reported
+   serialising any wgmma (the build log, ``-Xptxas -v``).
 3. Holds each kernel (flash forward, dK/dV, dQ) against its plain PyTorch
    version on the card: at the training shape (B=8, S=2048, H=8, D=128,
    bf16, causal) on inputs from seeds 1 and 0, at two GQA-plus-window
@@ -34,8 +34,30 @@
    110M tier (vocab 8192, d_model 1024, 8 heads of 128, 8 layers, seq
    2048, batch 8, bf16, flash, AdamW) for 5 steps with a checkpoint, then
    resumes from it for 2 more. The launch counters must show 8 launches
-   of every kernel per step (one per layer).
-7. Drives the second main path, trace-driven simulation under the
+   of every causal kernel per step (one per layer) and none non-causal.
+7. Drives the ring slice (``run_ring``): (a) each kernel against its
+   plain version under ``KERNEL_TOLERANCE`` at the shapes the ring gives
+   it: causal in bf16 at the 110M tier's ring-hop shape (B=8, Sq=Sk=512,
+   H=8, D=128, each shard's hop 0), and non-causal in bf16 at that shape
+   and at a GQA shape with Sk != Sq (B=2, Sq=512, Sk=1024, H=4, Hkv=2,
+   D=64), and in float32 at the latter, with the planted faults rejected
+   at the hop shape; (b) ``ring_attention`` (flash body, a
+   4-shard seq mesh of the one card) against ``flash_attention`` in
+   float32 (B=2, S=1024, H=4, Hkv=2, D=64), output and q/k/v gradients
+   within rtol 1e-3, atol 1e-4; (c) the 110M tier with
+   ``attention="ring"`` on a (1, 1, 4, 1) mesh of the card through
+   ``train.build_family`` against the flash model on the same seed-0
+   weights and batches: on the first batch its loss within 2e-5 and every
+   parameter's gradient within 0.08 (relative Frobenius) of the flash
+   model's, limits that four planted hop faults (the last live hop
+   dropped or weighted twice, in every layer or the last) must each fail;
+   then 5 steps, each loss within 5e-5 of the flash run's (item 6), with
+   32 causal and 48 non-causal launches of each kernel per step (8 layers
+   x (4 shards + 6 live hops)); then ``train.main --attention ring --seq_parallel 1`` for
+   2 steps; (d) the non-causal kernels timed at the hop shape beside
+   their bound and SDPA with ``is_causal=False``, and the ring step's
+   steps/s and peak memory beside the flash step's.
+8. Drives the second main path, trace-driven simulation under the
    Shockwave planner with its level-set solve on the card
    (``shockwave_tpu_torch/tools/bench_sim.py``): (a) the committed 12-job
    trace on 8 GPUs under ``shockwave_tpu_level`` and ``shockwave_native``,
@@ -55,7 +77,7 @@
    and the device's busy time under torch.profiler, and the native
    greedy's time on the same problem, with the crossover of each set. It
    prints one JSON line ``{"simulation": {...}}`` of these readings.
-8. Drives the planner's first-order backends, kernels A (restarted PDHG,
+9. Drives the planner's first-order backends, kernels A (restarted PDHG,
    ``csrc/eg_pdhg.cu``) and B (relaxed PGD, ``csrc/eg_relaxed.cu``), each
    one launch a solve (``shockwave_tpu_torch/tools/bench_sim.py``): (a) the
    2048-job trace on 256 GPUs under ``shockwave_tpu_pdhg``, every plan
@@ -76,8 +98,9 @@
    the pdhg rung ``ok``; (d) each kernel and its plain version timed at
    256 to 65536 jobs (the plain versions up to 4096) with its block
    barriers and bounds. It prints one JSON line ``{"first_order": ...}``.
-9. Prints one JSON line ``{"kernels": [...]}`` and, last,
-   ``{"ok": true, "device": {...}}``.
+10. Prints one JSON line ``{"kernels": [...]}`` (a row for each kernel
+   and mode) and, last, ``{"ok": true, "device": {...}}``. Every printed
+   reading of the ring phase carries the card's name and power limit.
 
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
@@ -95,6 +118,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
@@ -141,25 +165,31 @@ def card_line() -> str:
     return out[0].strip()
 
 
-def live_pairs(S: int, window) -> int:
-    """(row, col) score entries the causal (windowed) mask keeps."""
+def live_pairs(S: int, window, causal: bool = True, Sk=None) -> int:
+    """(row, col) score entries the mask keeps: the causal (windowed) ones,
+    or every one of S x Sk when not causal."""
+    if not causal:
+        return S * (S if Sk is None else Sk)
     if window is None:
         return S * (S + 1) // 2
     w = min(window, S)
     return w * (w + 1) // 2 + (S - w) * w
 
 
-def bound(kernel: str, bh: int, bhkv: int, S: int, D: int, dtype, window):
+def bound(kernel: str, bh: int, bhkv: int, S: int, D: int, dtype, window,
+          causal: bool = True, Sk=None):
     """Least time (ms) for the kernel's work on an H100 SXM, and what
     bounds it: products over the live entries at the dtype's tensor rate,
-    or each input read once and each output written once."""
+    or each input read once and each output written once. q-like tensors
+    have S rows, k/v (and dk/dv, per query head) Sk."""
+    Sk = S if Sk is None else Sk
     products = {"flash_fwd": 2, "flash_dkv": 4, "flash_dq": 3}[kernel]
-    flops = products * 2 * D * live_pairs(S, window) * bh
+    flops = products * 2 * D * live_pairs(S, window, causal, Sk) * bh
     e = torch.tensor([], dtype=dtype).element_size()
-    qlike, kvlike, rows = bh * S * D * e, bhkv * S * D * e, bh * S * 4
+    qlike, kvlike, rows = bh * S * D * e, bhkv * Sk * D * e, bh * S * 4
     nbytes = {
         "flash_fwd": qlike + 2 * kvlike + qlike + rows,
-        "flash_dkv": 2 * qlike + 2 * kvlike + 2 * rows + 2 * qlike,
+        "flash_dkv": 2 * qlike + 2 * kvlike + 2 * rows + 2 * bh * Sk * D * e,
         "flash_dq": 2 * qlike + 2 * kvlike + 2 * rows + qlike,
     }[kernel]
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
@@ -172,10 +202,12 @@ HOPPER_KERNELS = ("flash_fwd_bf16", "flash_dkv_bf16", "flash_dq_bf16")
 
 
 def kernel_of(mangled: str):
-    """(kernel, head dim) of a mangled instantiation such as
-    ``..._14flash_fwd_bf16ILi128EEEv...``, or None for another symbol."""
-    m = re.search(r"\d(flash_(?:fwd|dkv|dq)_(?:bf16|f32))ILi(\d+)E", mangled)
-    return (m.group(1), int(m.group(2))) if m else None
+    """(kernel, head dim, causal) of a mangled instantiation such as
+    ``..._14flash_fwd_bf16ILi128ELb1EEEv...``, or None for another
+    symbol."""
+    m = re.search(r"\d(flash_(?:fwd|dkv|dq)_(?:bf16|f32))ILi(\d+)ELb([01])E",
+                  mangled)
+    return (m.group(1), int(m.group(2)), m.group(3) == "1") if m else None
 
 
 def inspect_library(_build, path):
@@ -209,9 +241,10 @@ def inspect_library(_build, path):
                               re.findall(r"(\w+):(\d+)", line)}
     print("kernel resources (cuobjdump -res-usage; LOCAL > 0 would be "
           "spills):")
-    for (name, D), u in sorted(usage.items()):
-        print(f"  {name}<{D}>: {u['REG']} registers, stack {u['STACK']} B, "
-              f"static shared {u['SHARED']} B, local {u['LOCAL']} B")
+    for (name, D, causal), u in sorted(usage.items()):
+        print(f"  {name}<{D}, {'causal' if causal else 'non-causal'}>: "
+              f"{u['REG']} registers, stack {u['STACK']} B, static shared "
+              f"{u['SHARED']} B, local {u['LOCAL']} B")
     counts, current = {}, None
     for line in dump("-sass").splitlines():
         if "Function :" in line:
@@ -224,11 +257,13 @@ def inspect_library(_build, path):
     missing = []
     for name in HOPPER_KERNELS:
         for D in (16, 32, 64, 128):
-            c = counts.get((name, D), {"HGMMA": 0, "UTMALDG": 0})
-            print(f"  {name}<{D}>: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
-                  f"UTMALDG")
-            if not (c["HGMMA"] and c["UTMALDG"]):
-                missing.append(f"{name}<{D}>")
+            for causal in (True, False):
+                c = counts.get((name, D, causal), {"HGMMA": 0, "UTMALDG": 0})
+                label = f"{name}<{D}, {'causal' if causal else 'non-causal'}>"
+                print(f"  {label}: {c['HGMMA']} HGMMA, {c['UTMALDG']} "
+                      "UTMALDG")
+                if not (c["HGMMA"] and c["UTMALDG"]):
+                    missing.append(label)
     if missing:
         fail("no wgmma (HGMMA) or TMA (UTMALDG) instructions in "
              + ", ".join(missing))
@@ -236,14 +271,15 @@ def inspect_library(_build, path):
 
 
 def check_kernels(fa, bench, label, seed, B, S, H, Hkv, D, dtype, window,
-                  device):
+                  device, causal=True, Sk=None):
     """Each kernel against its plain version on the same inputs from
     ``seed``, under ``fa.KERNEL_TOLERANCE`` (``bench.check_kernels``).
     Prints the readings of every output and fails after the last if any
     broke a limit. Returns the largest absolute error of each kernel, and
     the inputs and plain outputs."""
     found, inputs, plain = bench.check_kernels(
-        fa, fa, seed, B, S, H, Hkv, D, dtype, window, device)
+        fa, fa, seed, B, S, H, Hkv, D, dtype, window, device, causal=causal,
+        Sk=Sk)
     errors, broken = {}, []
     for (kernel, what), r in found.items():
         print(f"  {label} seed {seed} {kernel} {what}: " + bench.describe(r))
@@ -255,16 +291,16 @@ def check_kernels(fa, bench, label, seed, B, S, H, Hkv, D, dtype, window,
     return errors, inputs, plain
 
 
-def planted_faults(fa, q, k, v, g, lse, delta, num_q_heads):
-    """What a kernel with one bug would return on these inputs (causal,
-    no window, as many KV heads as q heads), from the plain versions' math:
-    the forward skipping the k tile at mid-sequence, dQ skipping the k tile
-    there and dK/dV the q tile there, each of the width that kernel walks,
-    and the forward weighting the later half of its rows 2% high. Returns
-    {(output, fault): tensor}."""
+def planted_faults(fa, q, k, v, g, lse, delta, num_q_heads, causal=True):
+    """What a kernel with one bug would return on these inputs (no window,
+    as many KV heads as q heads, Sk = S, in the mode ``causal``), from the
+    plain versions' math: the forward skipping the k tile at mid-sequence,
+    dQ skipping the k tile there and dK/dV the q tile there, each of the
+    width that kernel walks, and the forward weighting the later half of
+    its rows 2% high. Returns {(output, fault): tensor}."""
     BH, S, D = q.shape
     dtype = q.dtype
-    s = fa._masked_scores(q, k, num_q_heads, None)
+    s = fa._masked_scores(q, k, num_q_heads, None, causal)
     s_skip = s.clone()
     s_skip[:, :, S // 2:S // 2 + fa._FWD_K_TILE] = -1e30
     p_skip = torch.softmax(s_skip, dim=-1)
@@ -285,21 +321,23 @@ def planted_faults(fa, q, k, v, g, lse, delta, num_q_heads):
     p_rows, ds = grads(p)
     dv = (p_rows.transpose(1, 2) @ g.float()).to(dtype)
     dk = (ds.transpose(1, 2) @ q.float()).to(dtype)
-    out_heavy = fa.flash_fwd_plain(q, k, v, num_q_heads, None)[0].clone()
+    out_heavy = fa.flash_fwd_plain(q, k, v, num_q_heads, None,
+                                   causal)[0].clone()
     out_heavy[:, S // 2:] = (out_heavy[:, S // 2:].float() * 1.02).to(dtype)
     return {("out", "k tile skipped"): out_skip, ("dq", "k tile skipped"): dq,
             ("dk", "q tile skipped"): dk, ("dv", "q tile skipped"): dv,
             ("out", "later rows 2% heavy"): out_heavy}
 
 
-def check_planted_faults(fa, bench, inputs, plain, H):
+def check_planted_faults(fa, bench, inputs, plain, H, causal=True):
     """The tolerance, flip terms included, must reject every planted
     fault."""
     tol = fa.KERNEL_TOLERANCE[inputs[0].dtype]
-    terms = fa.largest_terms(*inputs, H, None)
-    for (what, fault), bad in planted_faults(fa, *inputs, H).items():
+    terms = fa.largest_terms(*inputs, H, None, causal)
+    mode = "" if causal else "non-causal "
+    for (what, fault), bad in planted_faults(fa, *inputs, H, causal).items():
         r = fa.compare(bad, plain[what], tol, terms[what])
-        print(f"  planted fault, {what} with {fault}: "
+        print(f"  planted fault, {mode}{what} with {fault}: "
               + bench.describe(dict(r, tol=tol)))
         if r["ok"]:
             fail(f"the tolerance accepts {what} with {fault}")
@@ -344,10 +382,11 @@ def check_small_model(device):
           f"dense {losses[1]:.6f}; worst gradient error {worst:.2e} of max")
 
 
-def train_args(steps: int):
+def train_args(steps: int, attention: str = "flash"):
+    """The 110M tier's command line (its checkpoint in CKPT_DIR)."""
     return ["--model", "Transformer", "--batch_size", "8", "-n", str(steps),
             "--vocab_size", "8192", "--d_model", "1024", "--num_heads", "8",
-            "--num_layers", "8", "--seq_len", "2048", "--attention", "flash",
+            "--num_layers", "8", "--seq_len", "2048", "--attention", attention,
             "--dtype", "bfloat16", "--learning_rate", "1e-3", "--seed", "0",
             "--checkpoint_dir", str(CKPT_DIR), "--device", "cuda"]
 
@@ -362,14 +401,273 @@ def run_main_path(fa, train, steps: int, resume: bool):
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         fail(f"losses {losses}")
     for name, count in launches.items():
-        if count != 8 * steps:
+        expected = 0 if name.endswith("_nc") else 8 * steps
+        if count != expected:
             fail(f"{name} launched {count} times in {steps} steps of an "
-                 f"8-layer model, expected {8 * steps}")
+                 f"8-layer model, expected {expected}")
     return result, launches
 
 
+# The ring phase: a 4-shard seq mesh of the one card. At the 110M tier's
+# seq 2048 a shard holds 512 tokens, so a hop is B=8, Sq=Sk=512, H=8, D=128.
+RING_SHARDS = 4
+RING_GQA = dict(B=2, S=512, Sk=1024, H=4, Hkv=2, D=64)
+# The ring 110M tier against the flash model on the same seed-0 weights and
+# batches, bf16. On an H100 the first losses are 4.9e-6 apart (relative),
+# the five steps' at most 1.1e-5, and every parameter's gradient on the
+# first batch within 0.032 of the flash model's (relative Frobenius; the
+# last layers' query and key weights, whose gradients are small at random
+# weights). A live hop dropped or weighted twice, in every layer or in the
+# last alone, moves some parameter's gradient by 0.125 or more, and the
+# first loss by as little as 8e-6.
+RING_LOSS_RTOL = 2e-5
+RING_STEPS_RTOL = 5e-5
+RING_GRAD_RTOL = 0.08
+
+
+def check_ring_against_flash(device):
+    """Ring attention (flash body, a RING_SHARDS-shard seq mesh of the
+    card) against flash_attention on the same float32 inputs: output and
+    q/k/v gradients within rtol 1e-3, atol 1e-4, the JAX package's limits
+    for ring against dense (tests/test_ring_attention.py). Returns the
+    largest absolute error."""
+    from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.parallel.mesh import make_mesh
+    from shockwave_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = make_mesh((1, 1, RING_SHARDS, 1), [device] * RING_SHARDS)
+    gen = torch.Generator(device=device).manual_seed(0)
+    B, S, H, Hkv, D = 2, 1024, 4, 2, 64
+    inputs = [torch.randn(B, S, h, D, generator=gen, device=device)
+              for h in (H, Hkv, Hkv)]
+    w = torch.randn(B, S, H, D, generator=gen, device=device)
+    results = []
+    for attend in (lambda *a: ring_attention(*a, mesh, inner="flash"),
+                   fa.flash_attention):
+        leaves = [x.clone().requires_grad_() for x in inputs]
+        out = attend(*leaves)
+        (out * w).sum().backward()
+        results.append([out.detach()] + [x.grad for x in leaves])
+    sync()
+    worst = 0.0
+    for what, got, ref in zip(("out", "dq", "dk", "dv"), *results):
+        err = (got - ref).abs()
+        worst = max(worst, float(err.max()))
+        over = int((err > 1e-4 + 1e-3 * ref.abs()).sum())
+        if over or not bool(torch.isfinite(got).all()):
+            fail(f"ring against flash: {what} has {over} elements past "
+                 "rtol 1e-3, atol 1e-4")
+    return worst
+
+
+def loss_and_grads(model, batch):
+    """The model's loss on ``batch`` and each parameter's gradient, in
+    float32; leaves no gradient on the model."""
+    from shockwave_tpu_torch.models.transformer import lm_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = lm_loss(model, batch)
+    loss.backward()
+    grads = {name: p.grad.float() for name, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def worst_grad_error(grads, ref):
+    """(name, error) of the parameter whose gradient is furthest from
+    ``ref``'s, in relative Frobenius norm."""
+    errors = {name: float((grads[name] - g).norm() / g.norm().clamp_min(
+        1e-30)) for name, g in ref.items()}
+    name = max(errors, key=errors.get)
+    return name, errors[name]
+
+
+def ring_fault(attend, kind: str, layers, live: int):
+    """``flash_attention_lse`` as the ring's flash body would see it with
+    one bug: in each layer of ``layers`` (None: every layer) the last live
+    hop (the last shard attending the first shard's block) is dropped
+    (``kind`` "drop": its lse is -inf, so the merge gives it no weight) or
+    weighted twice ("double": its lse raised by ln 2). ``live`` is the
+    count of live hops a layer; a forward calls the body's non-causal
+    hops layer by layer, each layer's in hop order."""
+    calls = [0]
+
+    def faulty(q, k, v, causal=True, window=None):
+        out, lse = attend(q, k, v, causal=causal, window=window)
+        if causal:
+            return out, lse
+        layer, hop = divmod(calls[0], live)
+        calls[0] += 1
+        if hop == live - 1 and (layers is None or layer in layers):
+            lse = (torch.full_like(lse, -math.inf) if kind == "drop"
+                   else lse + math.log(2.0))
+        return out, lse
+
+    return faulty
+
+
+def run_ring(fa, bench, train, device, card, flash_losses):
+    """The ring slice (docstring, item 7): the kernels against their
+    plain versions at the ring's shapes with planted faults rejected, ring
+    against flash, the 110M tier under ring attention (its first loss and
+    gradients against the flash model's, planted hop faults rejected, 5
+    steps against ``flash_losses``, the flash run's, and its launches),
+    ``train.main --attention ring --seq_parallel 1`` for 2 steps, and the
+    non-causal kernels timed. Returns the readings; fails on any miss."""
+    from shockwave_tpu_torch.parallel import ring_attention as ra
+    from shockwave_tpu_torch.parallel.mesh import make_mesh
+
+    B, S, H, D = bench.HOP_SHAPE
+    print(f"ring phase [{card}]: the kernels against their plain versions "
+          "at the shapes the ring gives them:", flush=True)
+    # Hop 0 of every shard is a causal launch at the hop shape.
+    causal_errors = check_kernels(fa, bench, "ring-hop causal bf16", 0, B, S,
+                                  H, H, D, torch.bfloat16, None, device)[0]
+    errors, inputs, plain = check_kernels(
+        fa, bench, "ring-hop bf16", 0, B, S, H, H, D, torch.bfloat16, None,
+        device, causal=False)
+    g = RING_GQA
+    for dtype in (torch.bfloat16, torch.float32):
+        label = f"gqa Sk!=Sq {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+        found = check_kernels(fa, bench, label, 0, g["B"], g["S"], g["H"],
+                              g["Hkv"], g["D"], dtype, None, device,
+                              causal=False, Sk=g["Sk"])[0]
+        if dtype == torch.bfloat16:
+            errors = {k: max(e, found[k]) for k, e in errors.items()}
+    print("planted faults against the bf16 tolerance, non-causal (all must "
+          "fail it):")
+    check_planted_faults(fa, bench, inputs, plain, H, causal=False)
+    del inputs, plain
+    ring_err = check_ring_against_flash(device)
+    print(f"ring ({RING_SHARDS} shards of one card, flash body) against "
+          f"flash_attention, f32 B=2 S=1024 H=4 Hkv=2 D=64: out and q/k/v "
+          f"gradients within rtol 1e-3 atol 1e-4, largest |err| "
+          f"{ring_err:.3e} [{card}]", flush=True)
+
+    # The flash model's loss and gradients on the seed-0 weights and first
+    # batch, against the ring model's on the same.
+    args = train.parse_args(train_args(5, "flash"))
+    model, _, _, batch_fn = train.build_family("Transformer", args, device)
+    first_batch = batch_fn(np.random.default_rng(args.seed))
+    flash_loss, flash_grads = loss_and_grads(model, first_batch)
+    del model
+
+    args = train.parse_args(train_args(5, "ring"))
+    mesh = make_mesh((1, 1, RING_SHARDS, 1), [device] * RING_SHARDS)
+    model, step_fn, _, batch_fn = train.build_family("Transformer", args,
+                                                     device, mesh)
+    live = RING_SHARDS * (RING_SHARDS - 1) // 2
+    ring_loss, grads = loss_and_grads(model, first_batch)
+    grad_err = worst_grad_error(grads, flash_grads)
+    del grads
+    loss_err = abs(ring_loss - flash_loss) / abs(flash_loss)
+    print(f"110M tier, first batch: ring loss {ring_loss!r} against flash's "
+          f"{flash_loss!r} ({loss_err:.3e} relative, limit "
+          f"{RING_LOSS_RTOL:g}); worst gradient {grad_err[0]} at "
+          f"{grad_err[1]:.4f} relative (limit {RING_GRAD_RTOL:g}) [{card}]",
+          flush=True)
+    if loss_err > RING_LOSS_RTOL or grad_err[1] > RING_GRAD_RTOL:
+        fail("ring 110M tier: first loss or gradients past their limits")
+    print("planted hop faults against those limits (all must fail them):")
+    last = args.num_layers - 1
+    faults = {}
+    for kind, layers in (("drop", None), ("drop", (last,)),
+                         ("double", None), ("double", (last,))):
+        attend = ra.flash_attention_lse
+        ra.flash_attention_lse = ring_fault(attend, kind, layers, live)
+        try:
+            f_loss, f_grads = loss_and_grads(model, first_batch)
+        finally:
+            ra.flash_attention_lse = attend
+        f_name, f_err = worst_grad_error(f_grads, flash_grads)
+        del f_grads
+        f_loss_err = abs(f_loss - flash_loss) / abs(flash_loss)
+        what = (f"last live hop {'dropped' if kind == 'drop' else 'doubled'}"
+                f" in {'every layer' if layers is None else f'layer {last}'}")
+        faults[what] = {"loss_rel": f_loss_err, "worst_grad": f_name,
+                        "worst_grad_rel": f_err}
+        print(f"  {what}: loss {f_loss_err:.3e} relative, worst gradient "
+              f"{f_name} at {f_err:.4f}")
+        if f_loss_err <= RING_LOSS_RTOL and f_err <= RING_GRAD_RTOL:
+            fail(f"the ring limits accept the {what}")
+    del flash_grads
+
+    np_rng = np.random.default_rng(args.seed)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses = [step_fn(batch_fn(np_rng))]
+    sync()
+    start = time.perf_counter()
+    for _ in range(args.num_steps - 1):
+        losses.append(step_fn(batch_fn(np_rng)))
+    sync()
+    steady_s = (time.perf_counter() - start) / (args.num_steps - 1)
+    launches = dict(fa.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del model, step_fn
+    losses = [float(x) for x in losses]
+    steps_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         flash_losses))
+    print(f"110M tier, ring on a (1, 1, {RING_SHARDS}, 1) mesh of one card: "
+          f"losses {losses} against the flash run's {flash_losses} (at most "
+          f"{steps_err:.3e} relative, limit {RING_STEPS_RTOL:g}); "
+          f"{1 / steady_s:.3f} steps/s after the "
+          f"first ({args.batch_size * args.seq_len / steady_s:.0f} "
+          f"tokens/s); peak memory {peak_gib:.2f} GiB; launches {launches} "
+          f"[{card}]", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"ring 110M tier: losses {losses}")
+    if len(losses) != len(flash_losses) or steps_err > RING_STEPS_RTOL:
+        fail(f"ring 110M tier: losses {losses} against the flash run's "
+             f"{flash_losses}, past {RING_STEPS_RTOL:g} of them")
+    # A layer runs RING_SHARDS causal hops and P(P-1)/2 live non-causal
+    # ones, forward and backward.
+    layers, steps = args.num_layers, args.num_steps
+    for name, count in launches.items():
+        expected = layers * steps * (live if name.endswith("_nc")
+                                     else RING_SHARDS)
+        if count != expected:
+            fail(f"ring 110M tier: {name} launched {count} times in {steps} "
+                 f"steps, expected {expected}")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        fa.reset_launch_counts()
+        one = train.main(train_args(2, "ring") + ["--seq_parallel", "1"])
+        one_launches = dict(fa.LAUNCHES)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"train.main --attention ring --seq_parallel 1: losses "
+          f"{one['losses']}, launches {one_launches} [{card}]", flush=True)
+    if len(one["losses"]) != 2 or not all(math.isfinite(x)
+                                          for x in one["losses"]):
+        fail(f"train.main --attention ring: losses {one['losses']}")
+    if one_launches != {name: 0 if name.endswith("_nc") else 2 * layers
+                        for name in one_launches}:
+        fail(f"train.main --attention ring --seq_parallel 1: launches "
+             f"{one_launches}")
+
+    ms, sdpa_fwd, sdpa_bwd = bench.time_kernels(fa, B, S, H, D,
+                                                torch.bfloat16, device,
+                                                causal=False)
+    return {"max_abs_err": errors, "causal_max_abs_err": causal_errors,
+            "ring_vs_flash_max_abs_err": ring_err,
+            "flash_first_loss": flash_loss, "ring_first_loss": ring_loss,
+            "first_loss_rel": loss_err, "worst_grad": grad_err[0],
+            "worst_grad_rel": grad_err[1], "planted_hop_faults": faults,
+            "losses": losses, "flash_losses": flash_losses,
+            "losses_max_rel": steps_err,
+            "steps_per_s": 1 / steady_s,
+            "tokens_per_s": args.batch_size * args.seq_len / steady_s,
+            "peak_gib": peak_gib, "launches": launches,
+            "seq_parallel_1": {"losses": one["losses"],
+                               "launches": one_launches},
+            "ms": ms, "sdpa_fwd_ms": sdpa_fwd, "sdpa_bwd_ms": sdpa_bwd}
+
+
 def run_simulation(device) -> dict:
-    """Phases (a)-(d) of the simulation path (docstring, item 7); fails
+    """Phases (a)-(d) of the simulation path (docstring, item 8); fails
     on any metric past its tolerance, a level solve off the card or
     counts that differ from the CPU's."""
     from shockwave_tpu_torch.tools import bench_sim as sim
@@ -425,7 +723,7 @@ def ptxas_usage(path) -> dict:
 
 
 def run_first_order(device) -> dict:
-    """Phases (a)-(d) of the first-order backends (docstring, item 8);
+    """Phases (a)-(d) of the first-order backends (docstring, item 9);
     fails on a plan that is not feasible, a window where pdhg falls below
     the level backend's bar, a metric past its tolerance, a kernel that
     disagrees with its plain version or repeats differently, a ladder that
@@ -629,7 +927,16 @@ def main() -> None:
           f"over all {first['steps']} steps, {1 / steady_s:.3f} steps/s "
           f"after the first ({B * S / steady_s:.0f} tokens/s); "
           f"peak memory {peak_gib:.2f} GiB; launches {launches}, "
-          f"resume {resume_launches}")
+          f"resume {resume_launches} [{card}]")
+
+    ring_started = time.time()
+    ring = run_ring(fa, bench, train, device, card, first["losses"])
+    ring["phase_s"] = time.time() - ring_started
+    print(f"ring phase: {ring['phase_s']:.1f} s [{card}]", flush=True)
+    print(f"110M tier step [{card}]: ring ({RING_SHARDS} shards) "
+          f"{ring['steps_per_s']:.3f} steps/s, peak {ring['peak_gib']:.2f} "
+          f"GiB; flash {1 / steady_s:.3f} steps/s, peak {peak_gib:.2f} GiB",
+          flush=True)
 
     simulation = run_simulation(device)
     first_order = run_first_order(device)
@@ -639,11 +946,14 @@ def main() -> None:
     for name in ("flash_fwd", "flash_dkv", "flash_dq"):
         bound_ms, bound_by = bound(name, B * H, B * H, S, D, torch.bfloat16,
                                    None)
-        res = usage.get((name + "_bf16", D), {})
+        res = usage.get((name + "_bf16", D, True), {})
         row = {
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
-            "max_abs_err": errors[name], "ms": ms[name][0],
+            # The training shape's and the ring's causal hop shape's.
+            "max_abs_err": max(errors[name],
+                               ring["causal_max_abs_err"][name]),
+            "ms": ms[name][0],
             "plain_ms": ms[name][1], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": sdpa_fwd if name == "flash_fwd" else None,
@@ -661,7 +971,39 @@ def main() -> None:
               f"{sdpa_fwd if name == 'flash_fwd' else sdpa_bwd:.4f} ms)")
         kernels.append(row)
     print(f"backward (flash_dkv + flash_dq): {backward_ms:.4f} ms; SDPA "
-          f"backward {sdpa_bwd:.4f} ms ({backward_ms / sdpa_bwd:.2f}x)")
+          f"backward {sdpa_bwd:.4f} ms ({backward_ms / sdpa_bwd:.2f}x) "
+          f"[{card}]")
+    hB, hS, hH, hD = bench.HOP_SHAPE
+    nc_backward_ms = ring["ms"]["flash_dkv"][0] + ring["ms"]["flash_dq"][0]
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        t, t_plain = ring["ms"][name]
+        bound_ms, bound_by = bound(name, hB * hH, hB * hH, hS, hD,
+                                   torch.bfloat16, None, causal=False)
+        res = usage.get((name + "_bf16", hD, False), {})
+        row = {
+            "name": name + "_nc", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": ring["launches"][name + "_nc"],
+            "max_abs_err": ring["max_abs_err"][name], "ms": t,
+            "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": ring["sdpa_fwd_ms"] if name == "flash_fwd"
+            else None,
+            "share_of_bound": bound_ms / t, "shape": list(bench.HOP_SHAPE),
+            "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
+        }
+        if name != "flash_fwd":
+            row["sdpa_backward_ms"] = ring["sdpa_bwd_ms"]
+            row["backward_ms"] = nc_backward_ms
+        print(f"{name} non-causal at the hop shape: {t:.4f} ms (bound "
+              f"{bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / t:.1f}% of "
+              f"it; plain {t_plain:.3f} ms; SDPA is_causal=False "
+              f"{'forward' if name == 'flash_fwd' else 'backward'} "
+              f"{ring['sdpa_fwd_ms'] if name == 'flash_fwd' else ring['sdpa_bwd_ms']:.4f}"
+              f" ms) [{card}]")
+        kernels.append(row)
+    print(f"non-causal backward (flash_dkv + flash_dq) at the hop shape: "
+          f"{nc_backward_ms:.4f} ms; SDPA backward {ring['sdpa_bwd_ms']:.4f} "
+          f"ms [{card}]")
     for name, solver in (("eg_pdhg", "pdhg"), ("eg_relaxed", "relaxed")):
         # The row of the largest band the plain version was timed at.
         timed = [r for r in first_order["timings"]
@@ -691,6 +1033,8 @@ def main() -> None:
         run.pop("records", None)
     print(json.dumps({"simulation": simulation, "card": card}))
     print(json.dumps({"first_order": first_order, "card": card}))
+    print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
+                      "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_steps_per_s": 1 / steady_s,
                       "train_tokens_per_s": B * S / steady_s}))

@@ -18,10 +18,13 @@ optimizer state), written beside the final path and renamed into place so
 a kill mid-save keeps the previous good checkpoint. A run that finds one
 restores it before its first step.
 
+``--attention ring --seq_parallel P`` runs ring attention over a mesh
+built as the JAX program builds it: ``factorize_gang`` over the devices the
+run holds (one card, or the CPU), so P must divide their count.
+
 Not in this slice of the port (each raises NotImplementedError, see
 ROADMAP.md): the other families, gang rendezvous over several workers,
-model and sequence parallelism, the orbax backend and the leased
-Shockwave iterator.
+model parallelism, the orbax backend and the leased Shockwave iterator.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from shockwave_tpu_torch.models.transformer import (
     lm_loss,
 )
 from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
+from shockwave_tpu_torch.parallel.mesh import factorize_gang, make_mesh
 from shockwave_tpu_torch.utils.device import resolve_device
 
 CHECKPOINT_NAME = "train_state.pt"
@@ -52,10 +56,11 @@ def _not_ported(what: str):
     )
 
 
-def build_family(name, args, device):
+def build_family(name, args, device, mesh=None):
     """Returns (model, step_fn(batch) -> loss, optimizer,
     batch_fn(np_rng) -> batch). ``step_fn`` takes one AdamW step and
-    returns the loss before it, detached and not synchronised."""
+    returns the loss before it, detached and not synchronised. ``mesh``
+    is the grid ring attention shards over (``parallel/mesh.py``)."""
     if name in _LATER_FAMILIES:
         raise _not_ported(f"the {name} family")
     if name != "Transformer":
@@ -78,7 +83,7 @@ def build_family(name, args, device):
     # Initialised on the CPU from the seed, so every device starts from
     # the same weights.
     generator = torch.Generator().manual_seed(args.seed)
-    model = TransformerLM(cfg, generator=generator).to(device)
+    model = TransformerLM(cfg, generator=generator, mesh=mesh).to(device)
     opt = FusedAdamW(model.parameters(), args.learning_rate)
     logit_chunk = args.logit_chunk
     bs = args.batch_size
@@ -148,8 +153,8 @@ def parse_args(argv=None):
 def _check_args(args) -> None:
     if args.distributed_addr and args.num_workers > 1:
         raise _not_ported("gang training over several workers")
-    if args.model_parallel > 1 or args.seq_parallel > 1:
-        raise _not_ported("model and sequence parallelism")
+    if args.model_parallel > 1:
+        raise _not_ported("model parallelism")
     if args.ckpt_backend == "orbax":
         raise _not_ported("the orbax checkpoint backend")
     if args.enable_shockwave_iterator and "SHOCKWAVE_JOB_ID" in os.environ:
@@ -185,7 +190,12 @@ def main(argv=None):
     ckpt_path = (os.path.join(args.checkpoint_dir, CHECKPOINT_NAME)
                  if args.checkpoint_dir else None)
     resuming = bool(ckpt_path and os.path.exists(ckpt_path))
-    model, step_fn, opt, batch_fn = build_family(args.model, args, device)
+    # The run holds one device (a card, or the CPU): as in the JAX program,
+    # --seq_parallel and --model_parallel must divide that count.
+    mesh = make_mesh(factorize_gang(1, args.seq_parallel, args.model_parallel),
+                     [device])
+    model, step_fn, opt, batch_fn = build_family(args.model, args, device,
+                                                 mesh)
     sync()
     mark_phase("build")
     if resuming:

@@ -13,11 +13,13 @@ one card. Same configuration, parameters and numerics:
   accumulation: the operands are upcast to float32, which is exact for
   bf16 values and the same function on the CPU and on the card.
 
-Attention is ``dense`` or ``flash`` (the CUDA kernels of
-``ops/flash_attention.py``); flash falls back to dense for sequences that
-do not tile, as the JAX model does. Ring and Ulysses attention, the MoE
-MLP, rematerialisation and the chunked head are later slices of the port
-and raise NotImplementedError.
+Attention is ``dense``, ``flash`` (the CUDA kernels of
+``ops/flash_attention.py``) or ``ring`` (``parallel/ring_attention.py``
+over the ``mesh`` the model is built with, its hops on the flash kernels
+when the local block tiles); flash falls back to dense for sequences that
+do not tile, as the JAX model does. Ulysses attention, the MoE MLP,
+rematerialisation and the chunked head are later slices of the port and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ from shockwave_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_tiles,
 )
-from shockwave_tpu_torch.parallel.ring_attention import dense_causal_attention
+from shockwave_tpu_torch.parallel.ring_attention import (
+    dense_causal_attention,
+    ring_attention,
+)
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 _LECUN_TRUNC = 0.87962566103423978  # stddev of a unit normal cut at +-2
@@ -50,7 +55,7 @@ class TransformerConfig:
     d_ff: int = 512
     max_len: int = 512
     dtype: str = "float32"  # "bfloat16" for training on the card
-    attention: str = "dense"  # "dense" | "flash" ("ring", "ulysses" later)
+    attention: str = "dense"  # "dense" | "flash" | "ring" ("ulysses" later)
     attention_window: Optional[int] = None
     num_kv_heads: Optional[int] = None
     num_experts: int = 0  # > 0 (the MoE MLP) is not ported yet
@@ -69,9 +74,9 @@ def _not_ported(what: str):
 
 def check_config(cfg: TransformerConfig) -> None:
     """Raise on every option this slice of the port does not cover."""
-    if cfg.attention in ("ring", "ulysses"):
+    if cfg.attention == "ulysses":
         raise _not_ported(f"attention={cfg.attention!r}")
-    if cfg.attention not in ("dense", "flash"):
+    if cfg.attention not in ("dense", "flash", "ring"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     if cfg.num_experts > 0:
         raise _not_ported("the mixture-of-experts MLP (num_experts > 0)")
@@ -115,9 +120,10 @@ def _linear(d_in: int, d_out: int) -> nn.Linear:
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
+        self.mesh = mesh
         self.head_dim = cfg.d_model // cfg.num_heads
         self.kv_heads = (cfg.num_heads if cfg.num_kv_heads is None
                          else cfg.num_kv_heads)
@@ -152,7 +158,11 @@ class Attention(nn.Module):
         if cfg.positional == "rope":
             q = apply_rope(q, cfg.rope_base)
             k = apply_rope(k, cfg.rope_base)
-        if cfg.attention == "flash" and flash_tiles(S):
+        if cfg.attention == "ring":
+            if self.mesh is None:
+                raise ValueError("ring attention requires a mesh")
+            out = ring_attention(q, k, v, self.mesh)
+        elif cfg.attention == "flash" and flash_tiles(S):
             out = flash_attention(q, k, v, window=cfg.attention_window)
         else:
             if cfg.attention_window is not None:
@@ -186,10 +196,10 @@ def _layer_norm(ln: nn.LayerNorm, x):
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.ln1 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
-        self.attention = Attention(cfg)
+        self.attention = Attention(cfg, mesh)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
         self.mlp = Mlp(cfg)
 
@@ -199,10 +209,11 @@ class Block(nn.Module):
 
 
 class TransformerLM(nn.Module):
-    """Logits [B, S, V] (float32) for tokens [B, S]."""
+    """Logits [B, S, V] (float32) for tokens [B, S]. ``mesh``
+    (``parallel/mesh.py``) is the grid ring attention shards over."""
 
     def __init__(self, cfg: TransformerConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         check_config(cfg)
         self.config = cfg
@@ -211,7 +222,8 @@ class TransformerLM(nn.Module):
             self.positional = nn.Parameter(
                 torch.empty(cfg.max_len, cfg.d_model)
             )
-        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.num_layers))
+        self.blocks = nn.ModuleList(Block(cfg, mesh)
+                                    for _ in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
         self.reset_parameters(generator)
 

@@ -53,11 +53,12 @@ _F = ctypes.c_float
 # C signatures of every entry point, by source name.
 SIGNATURES = {
     "flash_attention": {
-        "flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                      _I, _P],
         "flash_dkv": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _I, _I, _I, _I, _I, _P],
+                      _I, _I, _I, _I, _I, _I, _I, _P],
         "flash_dq": [_I, _I, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _F, _P],
+                     _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "eg_pdhg": {
         "eg_pdhg": [_P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -1,19 +1,25 @@
-// Causal flash attention for Hopper (sm_90a): forward, dK/dV and dQ.
+// Flash attention for Hopper (sm_90a): forward, dK/dV and dQ, causal or not.
 //
-// Replaces the three Pallas TPU kernels of shockwave_tpu/ops/flash_attention.py:
+// Replaces the three Pallas TPU kernels of shockwave_tpu/ops/flash_attention.py,
+// in both of their modes:
 //   flash_fwd  <- _fwd_kernel  (pallas_call in _flash_fwd_flat)
 //   flash_dkv  <- _dkv_kernel  (first pallas_call in _flash_bwd_flat)
 //   flash_dq   <- _dq_kernel   (second pallas_call in _flash_bwd_flat)
 //
 // Contract (the wrapper in ../flash_attention.py prepares it):
-//   q      [B*H,   S, D]  input dtype, already multiplied by 1/sqrt(D) in f32
-//                         and cast back, as the TPU wrapper does;
-//   k, v   [B*Hkv, S, D]  query head h reads KV head h / group (GQA);
-//   lse    [B*H, S] f32   (no 128-lane replication: that was TPU tiling);
-//   delta  [B*H, S] f32   rowsum(dout * out), computed outside;
-//   dk, dv [B*H, S, D]    per query head, group-summed by the wrapper.
-// Causal, with an optional sliding window: row r attends cols (r-window, r].
-// Dead score entries take the mask value -1e30, as on the TPU.
+//   q      [B*H,   Sq, D]  input dtype, already multiplied by 1/sqrt(D) in f32
+//                          and cast back, as the TPU wrapper does;
+//   k, v   [B*Hkv, Sk, D]  query head h reads KV head h / group (GQA);
+//   lse    [B*H, Sq] f32   (no 128-lane replication: that was TPU tiling);
+//   delta  [B*H, Sq] f32   rowsum(dout * out) - g_lse, computed outside (the
+//                          cotangent of lse folds into it, as on the TPU);
+//   dk, dv [B*H, Sk, D]    per query head, group-summed by the wrapper.
+// Causal (Sq == Sk), with an optional sliding window: row r attends cols
+// (r-window, r]. Non-causal (a ring-attention hop whose keys all lie in the
+// past; Sk may differ from Sq): every row attends every key, and no tile is
+// masked. The mode is a template parameter: each instantiation holds only
+// its own mode's walk and masking, the other's compiled away. Dead score
+// entries take the mask value -1e30, as on the TPU.
 //
 // Bound on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s): at the training
 // shape (B*H = 64, S = 2048, D = 128, bf16) the forward does 2 products of
@@ -27,7 +33,14 @@
 // carries between CTAs. Causal and window skipping are loop bounds; only
 // tiles straddling the diagonal or the window edge pay for the per-element
 // mask (the TPU's _causal_block_split). The walks that take longest are
-// issued first.
+// issued first. Non-causal, forward and dq walk all Sk / 128 k tiles and
+// dkv all Sq / 64 (bf16) q tiles, every walk equally long. At the 110M
+// tier's ring hop (B*H = 64, Sq = Sk = 512, D = 128) a launch is 256 CTAs,
+// about two waves of one CTA an SM on 132 SMs. Its forward does 2 products
+// of 2*Sq*Sk*D flops per head (8.6 GFLOP, 8.7 us at the bf16 tensor rate),
+// less than the 10.1 us its 34 MB of q, k, v, out and lse take at 3.35
+// TB/s: at this shape the forward is bound by bytes, dK/dV and dQ (4 and
+// 3 products) still by operations.
 //
 // bfloat16 forward, dK/dV and dQ (the training path): wgmma, TMA and warp
 // specialisation. A CTA is three warpgroups. The first is the producer: it
@@ -129,6 +142,17 @@ __device__ __forceinline__ int first_k_tile(int first_row, int window) {
 template <int BLOCK>
 __device__ __forceinline__ int last_q_tile(int last_col, int window, int num_tiles) {
   return window > 0 ? min(num_tiles - 1, (last_col + window - 1) / BLOCK) : num_tiles - 1;
+}
+
+// The k walk of a CTA whose q rows are [first_row, first_row + rows): its
+// first BLOCK-wide k tile and how many it walks. Causal: from the first tile
+// its first row sees to the one holding its last row's diagonal. Non-causal:
+// every tile of the Sk keys.
+template <int BLOCK, bool CAUSAL>
+__device__ __forceinline__ int2 k_walk(int first_row, int rows, int Sk, int window) {
+  if (!CAUSAL) return make_int2(0, Sk / BLOCK);
+  const int lo = first_k_tile<BLOCK>(first_row, window);
+  return make_int2(lo, (first_row + rows - 1) / BLOCK - lo + 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -521,11 +545,11 @@ __device__ __forceinline__ uint32_t aligned_smem_base(const unsigned char* raw) 
   return (smem_u32(raw) + 1023u) & ~1023u;
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tout,
-               float* __restrict__ lse, int S, int H, int group, int window) {
+               float* __restrict__ lse, int Sq, int Sk, int H, int group, int window) {
   using L = FwdSmem<D>;
   using W = Swz<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -536,8 +560,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest k walks first
   const int bh = blockIdx.y;
   const int first_row = qt * FWD_BM;
-  const int kt_lo = first_k_tile<FWD_BN>(first_row, window);
-  const int num_k_tiles = (first_row + FWD_BM - 1) / FWD_BN - kt_lo + 1;
+  const int2 walk = k_walk<FWD_BN, CAUSAL>(first_row, FWD_BM, Sk, window);
+  const int kt_lo = walk.x, num_k_tiles = walk.y;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -554,8 +578,8 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_q, L::Q_BYTES);
-      tma_tile<D>(base + L::q, &tq, FWD_BM, bh * S + first_row, bar_q);
-      const int kv0 = kv_row(bh, H, group) * S;
+      tma_tile<D>(base + L::q, &tq, FWD_BM, bh * Sq + first_row, bar_q);
+      const int kv0 = kv_row(bh, H, group) * Sk;
       for (int i = 0; i < num_k_tiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
@@ -598,7 +622,7 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     wgmma_commit();
     wgmma_wait();
     keep(sc);
-    if (!tile_full(wg_row, 64, first_col, FWD_BN, window))
+    if (CAUSAL && !tile_full(wg_row, 64, first_col, FWD_BN, window))
       mask_strip<FWD_BN>(sc, row0, first_col, false, window);
 
     float mx0 = m0, mx1 = m1;
@@ -653,20 +677,20 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
                 1.f / fmaxf(l0, 1e-30f), 1.f / fmaxf(l1, 1e-30f));
   const CUtensorMap* const maps[1] = {&tout};
   const uint32_t rows[1] = {q_rows};
-  store_staged<D>(maps, rows, FWD_BM * W::ROW, bh * S + wg_row);
+  store_staged<D>(maps, rows, FWD_BM * W::ROW, bh * Sq + wg_row);
   if ((lane & 3) == 0) {
-    lse[static_cast<size_t>(bh) * S + row0] = m0 + logf(l0 + 1e-30f);
-    lse[static_cast<size_t>(bh) * S + row0 + 8] = m1 + logf(l1 + 1e-30f);
+    lse[static_cast<size_t>(bh) * Sq + row0] = m0 + logf(l0 + 1e-30f);
+    lse[static_cast<size_t>(bh) * Sq + row0 + 8] = m1 + logf(l1 + 1e-30f);
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
                const float* __restrict__ lse, const float* __restrict__ delta,
                const __grid_constant__ CUtensorMap tdk, const __grid_constant__ CUtensorMap tdv,
-               int S, int H, int group, int window) {
+               int Sq, int Sk, int H, int group, int window) {
   using L = DkvSmem<D>;
   using W = Swz<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -678,9 +702,12 @@ flash_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int kt = blockIdx.x;  // k tile 0 walks the most q tiles: first
   const int bh = blockIdx.y;
   const int first_col = kt * DKV_BK;
-  const int qt_lo = first_col / DKV_BQ;
+  // Causal: from the q tile on the diagonal to the last that sees these
+  // keys; non-causal: every q tile.
+  const int qt_lo = CAUSAL ? first_col / DKV_BQ : 0;
   const int num_q_tiles =
-      last_q_tile<DKV_BQ>(first_col + DKV_BK - 1, window, S / DKV_BQ) - qt_lo + 1;
+      CAUSAL ? last_q_tile<DKV_BQ>(first_col + DKV_BK - 1, window, Sq / DKV_BQ) - qt_lo + 1
+             : Sq / DKV_BQ;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -695,14 +722,14 @@ flash_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   if (threadIdx.x < 128) {  // producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      const int kv0 = kv_row(bh, H, group) * S + first_col;
+      const int kv0 = kv_row(bh, H, group) * Sk + first_col;
       mbar_expect_tx(bar_kv, 2 * L::KV_BYTES);
       tma_tile<D>(base + L::k, &tk, DKV_BK, kv0, bar_kv);
       tma_tile<D>(base + L::v, &tv, DKV_BK, kv0, bar_kv);
       for (int i = 0; i < num_q_tiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
-        const int row = bh * S + (qt_lo + i) * DKV_BQ;
+        const int row = bh * Sq + (qt_lo + i) * DKV_BQ;
         mbar_expect_tx(full + 8 * s, L::STAGE_TX);
         tma_tile<D>(base + L::q + s * L::Q_BYTES, &tq, DKV_BQ, row, full + 8 * s);
         tma_tile<D>(base + L::g + s * L::Q_BYTES, &tg, DKV_BQ, row, full + 8 * s);
@@ -751,7 +778,7 @@ flash_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     wgmma_wait();
     keep(pt);
     keep(dst);
-    if (!tile_full(first_row, DKV_BQ, first_key, 64, window))
+    if (CAUSAL && !tile_full(first_row, DKV_BQ, first_key, 64, window))
       mask_strip<DKV_BQ>(pt, key0, first_row, true, window);
 #pragma unroll
     for (int j = 0; j < DKV_BQ / 8; ++j) {
@@ -795,16 +822,16 @@ flash_dkv_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   stage_rows<D>(smem_raw + (v_rows - smem_u32(smem_raw)), DKV_BK * W::ROW, dv_acc, 1.f, 1.f);
   const CUtensorMap* const maps[2] = {&tdk, &tdv};
   const uint32_t rows[2] = {k_rows, v_rows};
-  store_staged<D>(maps, rows, DKV_BK * W::ROW, bh * S + first_key);
+  store_staged<D>(maps, rows, DKV_BK * W::ROW, bh * Sk + first_key);
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(HOPPER_THREADS, 1)
 flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              const __grid_constant__ CUtensorMap tdq, int S, int H, int group, int window,
-              float scale) {
+              const __grid_constant__ CUtensorMap tdq, int Sq, int Sk, int H, int group,
+              int window, float scale) {
   using L = DqSmem<D>;
   using W = Swz<D>;
   extern __shared__ unsigned char smem_raw[];
@@ -815,10 +842,8 @@ flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest k walks first
   const int bh = blockIdx.y;
   const int first_row = qt * DQ_BM;
-  // The k walk: from the first tile the CTA's first row sees to the one
-  // holding its last row's diagonal.
-  const int kt_lo = first_k_tile<DQ_BN>(first_row, window);
-  const int num_k_tiles = (first_row + DQ_BM - 1) / DQ_BN - kt_lo + 1;
+  const int2 walk = k_walk<DQ_BN, CAUSAL>(first_row, DQ_BM, Sk, window);
+  const int kt_lo = walk.x, num_k_tiles = walk.y;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_qg, 1);
@@ -834,9 +859,9 @@ flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
       mbar_expect_tx(bar_qg, 2 * L::Q_BYTES);
-      tma_tile<D>(base + L::q, &tq, DQ_BM, bh * S + first_row, bar_qg);
-      tma_tile<D>(base + L::g, &tg, DQ_BM, bh * S + first_row, bar_qg);
-      const int kv0 = kv_row(bh, H, group) * S;
+      tma_tile<D>(base + L::q, &tq, DQ_BM, bh * Sq + first_row, bar_qg);
+      tma_tile<D>(base + L::g, &tg, DQ_BM, bh * Sq + first_row, bar_qg);
+      const int kv0 = kv_row(bh, H, group) * Sk;
       for (int i = 0; i < num_k_tiles; ++i) {
         const int s = i % STAGES;
         if (i >= STAGES) mbar_wait(empty + 8 * s, ((i / STAGES) - 1) & 1);
@@ -856,7 +881,7 @@ flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const int row0 = wg_row + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
   const uint32_t q_rows = base + L::q + 64 * cw * W::ROW;
   const uint32_t g_rows = base + L::g + 64 * cw * W::ROW;
-  const size_t r0 = static_cast<size_t>(bh) * S + row0;
+  const size_t r0 = static_cast<size_t>(bh) * Sq + row0;
   const float lse0 = lse[r0], lse1 = lse[r0 + 8];
   const float delta0 = delta[r0], delta1 = delta[r0 + 8];
 
@@ -879,9 +904,10 @@ flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     const uint32_t k_tile = base + L::k + s * L::KV_BYTES;
     const uint32_t v_tile = base + L::v + s * L::KV_BYTES;
 
-    // A tile that none of this warpgroup's rows see (a window shorter than
-    // the tile) is computed and masked to zero all the same: skipping it
-    // would put the products in a branch of their own.
+    // A tile that none of this warpgroup's rows see (causal, a window
+    // shorter than the tile) is computed and masked to zero all the same:
+    // skipping it would put the products in a branch of their own.
+    // Non-causal, every row sees every tile.
     float sc[DQ_BN / 8][4], dp[DQ_BN / 8][4];
     mbar_wait(full + 8 * s, phase);
     my_turn();
@@ -899,7 +925,7 @@ flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     wgmma_wait();
     keep(sc);
     keep(dp);
-    if (!tile_full(wg_row, 64, first_col, DQ_BN, window))
+    if (CAUSAL && !tile_full(wg_row, 64, first_col, DQ_BN, window))
       mask_strip<DQ_BN>(sc, row0, first_col, false, window);
 #pragma unroll
     for (int j = 0; j < DQ_BN / 8; ++j) {  // sc becomes ds = p * (dp - delta)
@@ -930,7 +956,7 @@ flash_dq_bf16(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   stage_rows<D>(smem_raw + (q_rows - smem_u32(smem_raw)), DQ_BM * W::ROW, acc, scale, scale);
   const CUtensorMap* const maps[1] = {&tdq};
   const uint32_t rows[1] = {q_rows};
-  store_staged<D>(maps, rows, DQ_BM * W::ROW, bh * S + wg_row);
+  store_staged<D>(maps, rows, DQ_BM * W::ROW, bh * Sq + wg_row);
 }
 
 // ---------------------------------------------------------------------------
@@ -1017,11 +1043,11 @@ __device__ __forceinline__ void probs_and_dscores(float* S_w, float* dP_w, const
   __syncwarp();
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-              int S, int H, int group, int window) {
+              int Sq, int Sk, int H, int group, int window) {
   using L = F32Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* p = smem;
@@ -1035,10 +1061,10 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest k walks first
   const int bh = blockIdx.y;
   const int first_row = qt * TILE;
-  const float* kbase = k + static_cast<size_t>(kv_row(bh, H, group)) * S * D;
-  const float* vbase = v + static_cast<size_t>(kv_row(bh, H, group)) * S * D;
+  const float* kbase = k + static_cast<size_t>(kv_row(bh, H, group)) * Sk * D;
+  const float* vbase = v + static_cast<size_t>(kv_row(bh, H, group)) * Sk * D;
 
-  load_tile<D>(sQ, q + (static_cast<size_t>(bh) * S + first_row) * D);
+  load_tile<D>(sQ, q + (static_cast<size_t>(bh) * Sq + first_row) * D);
   zero_rows<D>(sO);
 
   float m_row[16], l_row[16];  // every lane holds its warp's 16 rows
@@ -1047,13 +1073,14 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   float* S_w = sS + 16 * warp * TILE;
   float* O_w = sO + 16 * warp * D;
-  for (int kt = first_k_tile<TILE>(first_row, window); kt <= qt; ++kt) {
+  const int2 walk = k_walk<TILE, CAUSAL>(first_row, TILE, Sk, window);
+  for (int kt = walk.x; kt < walk.x + walk.y; ++kt) {
     __syncthreads();  // the previous tile's K/V are no longer read
     load_tile<D>(sK, kbase + static_cast<size_t>(kt) * TILE * D);
     load_tile<D>(sV, vbase + static_cast<size_t>(kt) * TILE * D);
     __syncthreads();
     const int first_col = kt * TILE;
-    const bool full = tile_full(first_row, TILE, first_col, TILE, window);
+    const bool full = !CAUSAL || tile_full(first_row, TILE, first_col, TILE, window);
 
     warp_gemm<false, true, TILE, D>(sQ + 16 * warp * D, D, sK, D, S_w, TILE, false);
 #pragma unroll
@@ -1081,18 +1108,18 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < 16; ++i) {
     const int row = first_row + 16 * warp + i;
     const float inv = 1.f / fmaxf(l_row[i], 1e-30f);
-    float* orow = out + (static_cast<size_t>(bh) * S + row) * D;
+    float* orow = out + (static_cast<size_t>(bh) * Sq + row) * D;
     for (int c = lane; c < D; c += 32) orow[c] = O_w[i * D + c] * inv;
-    if (lane == 0) lse[static_cast<size_t>(bh) * S + row] = m_row[i] + logf(l_row[i] + 1e-30f);
+    if (lane == 0) lse[static_cast<size_t>(bh) * Sq + row] = m_row[i] + logf(l_row[i] + 1e-30f);
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ g,
               const float* __restrict__ lse, const float* __restrict__ delta,
-              float* __restrict__ dk, float* __restrict__ dv, int S, int H, int group,
+              float* __restrict__ dk, float* __restrict__ dv, int Sq, int Sk, int H, int group,
               int window) {
   using L = F32Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -1112,25 +1139,29 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int kt = blockIdx.x;  // k tile 0 walks the most q tiles: first
   const int bh = blockIdx.y;
   const int first_col = kt * TILE;
-  const size_t kv_off = (static_cast<size_t>(kv_row(bh, H, group)) * S + first_col) * D;
+  const size_t kv_off = (static_cast<size_t>(kv_row(bh, H, group)) * Sk + first_col) * D;
   load_tile<D>(sK, k + kv_off);
   load_tile<D>(sV, v + kv_off);
   zero_rows<D>(sdK);
   zero_rows<D>(sdV);
 
-  const int qt_hi = last_q_tile<TILE>(first_col + TILE - 1, window, S / TILE);
-  for (int qt = kt; qt <= qt_hi; ++qt) {
+  // Causal: from the q tile on the diagonal to the last that sees these
+  // keys; non-causal: every q tile.
+  const int qt_lo = CAUSAL ? kt : 0;
+  const int qt_hi =
+      CAUSAL ? last_q_tile<TILE>(first_col + TILE - 1, window, Sq / TILE) : Sq / TILE - 1;
+  for (int qt = qt_lo; qt <= qt_hi; ++qt) {
     const int first_row = qt * TILE;
-    const size_t q_off = (static_cast<size_t>(bh) * S + first_row) * D;
+    const size_t q_off = (static_cast<size_t>(bh) * Sq + first_row) * D;
     __syncthreads();  // the previous q tile is no longer read
     load_tile<D>(sQ, q + q_off);
     load_tile<D>(sG, g + q_off);
     for (int r = threadIdx.x; r < TILE; r += THREADS) {
-      sL[r] = lse[static_cast<size_t>(bh) * S + first_row + r];
-      sDelta[r] = delta[static_cast<size_t>(bh) * S + first_row + r];
+      sL[r] = lse[static_cast<size_t>(bh) * Sq + first_row + r];
+      sDelta[r] = delta[static_cast<size_t>(bh) * Sq + first_row + r];
     }
     __syncthreads();
-    const bool full = tile_full(first_row, TILE, first_col, TILE, window);
+    const bool full = !CAUSAL || tile_full(first_row, TILE, first_col, TILE, window);
 
     // Strips over q rows: s = q.k^T, dp = g.v^T, then p and ds.
     const int r0 = 16 * warp;
@@ -1145,19 +1176,20 @@ flash_dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
     warp_gemm<true, false, D, TILE>(sdP + r0, TILE, sQ, D, sdK + r0 * D, D, true);
   }
   __syncthreads();
-  const size_t d_off = (static_cast<size_t>(bh) * S + first_col) * D;
+  const size_t d_off = (static_cast<size_t>(bh) * Sk + first_col) * D;
   for (int idx = threadIdx.x; idx < TILE * D; idx += THREADS) {
     dk[d_off + idx] = sdK[idx];
     dv[d_off + idx] = sdV[idx];
   }
 }
 
-template <int D>
+template <int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ g,
              const float* __restrict__ lse, const float* __restrict__ delta,
-             float* __restrict__ dq, int S, int H, int group, int window, float scale) {
+             float* __restrict__ dq, int Sq, int Sk, int H, int group, int window,
+             float scale) {
   using L = F32Smem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned char* p = smem;
@@ -1175,25 +1207,26 @@ flash_dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qt = gridDim.x - 1 - blockIdx.x;  // longest k walks first
   const int bh = blockIdx.y;
   const int first_row = qt * TILE;
-  const size_t q_off = (static_cast<size_t>(bh) * S + first_row) * D;
-  const float* kbase = k + static_cast<size_t>(kv_row(bh, H, group)) * S * D;
-  const float* vbase = v + static_cast<size_t>(kv_row(bh, H, group)) * S * D;
+  const size_t q_off = (static_cast<size_t>(bh) * Sq + first_row) * D;
+  const float* kbase = k + static_cast<size_t>(kv_row(bh, H, group)) * Sk * D;
+  const float* vbase = v + static_cast<size_t>(kv_row(bh, H, group)) * Sk * D;
   load_tile<D>(sQ, q + q_off);
   load_tile<D>(sG, g + q_off);
   for (int r = threadIdx.x; r < TILE; r += THREADS) {
-    sL[r] = lse[static_cast<size_t>(bh) * S + first_row + r];
-    sDelta[r] = delta[static_cast<size_t>(bh) * S + first_row + r];
+    sL[r] = lse[static_cast<size_t>(bh) * Sq + first_row + r];
+    sDelta[r] = delta[static_cast<size_t>(bh) * Sq + first_row + r];
   }
   zero_rows<D>(sdQ);
 
   const int r0 = 16 * warp;
-  for (int kt = first_k_tile<TILE>(first_row, window); kt <= qt; ++kt) {
+  const int2 walk = k_walk<TILE, CAUSAL>(first_row, TILE, Sk, window);
+  for (int kt = walk.x; kt < walk.x + walk.y; ++kt) {
     __syncthreads();  // the previous tile's K/V are no longer read
     load_tile<D>(sK, kbase + static_cast<size_t>(kt) * TILE * D);
     load_tile<D>(sV, vbase + static_cast<size_t>(kt) * TILE * D);
     __syncthreads();
     const int first_col = kt * TILE;
-    const bool full = tile_full(first_row, TILE, first_col, TILE, window);
+    const bool full = !CAUSAL || tile_full(first_row, TILE, first_col, TILE, window);
     warp_gemm<false, true, TILE, D>(sQ + r0 * D, D, sK, D, sS + r0 * TILE, TILE, false);
     warp_gemm<false, true, TILE, D>(sG + r0 * D, D, sV, D, sdP + r0 * TILE, TILE, false);
     probs_and_dscores(sS + r0 * TILE, sdP + r0 * TILE, sL + r0, sDelta + r0, first_row + r0,
@@ -1271,66 +1304,80 @@ bool tile_map(CUtensorMap* map, const void* ptr, int rows, int box_rows) {
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// Launch the <D, causal> instantiation of a kernel. COMMA keeps the
+// template's comma from splitting LAUNCH's arguments: it expands only after
+// they are split.
+#define COMMA ,
+#define LAUNCH_MODE(kernel, causal, smem, grid, threads, stream, ...)                  \
+  do {                                                                               \
+    if (causal) LAUNCH(kernel<D COMMA true>, smem, grid, threads, stream, __VA_ARGS__); \
+    LAUNCH(kernel<D COMMA false>, smem, grid, threads, stream, __VA_ARGS__);           \
+  } while (0)
+
+// Tensor maps: q, g, out, dq and lse/delta rows on bh * Sq rows; k and v on
+// bh / group * Sk rows; dk and dv (per query head) on bh * Sk rows.
 template <int D>
 cudaError_t fwd(int dtype, const void* q, const void* k, const void* v, void* out, void* lse,
-                int bh, int S, int H, int group, int window, cudaStream_t stream) {
+                int bh, int Sq, int Sk, int H, int group, int window, bool causal,
+                cudaStream_t stream) {
   if (dtype == 1) {
     CUtensorMap tq, tk, tv, tout;
-    const int kv_rows = bh / group * S;
-    if (!tile_map<D>(&tq, q, bh * S, FWD_BM) || !tile_map<D>(&tk, k, kv_rows, FWD_BN) ||
-        !tile_map<D>(&tv, v, kv_rows, FWD_BN) || !tile_map<D>(&tout, out, bh * S, 64))
+    const int kv_rows = bh / group * Sk;
+    if (!tile_map<D>(&tq, q, bh * Sq, FWD_BM) || !tile_map<D>(&tk, k, kv_rows, FWD_BN) ||
+        !tile_map<D>(&tv, v, kv_rows, FWD_BN) || !tile_map<D>(&tout, out, bh * Sq, 64))
       return cudaErrorInvalidValue;
-    LAUNCH(flash_fwd_bf16<D>, FwdSmem<D>::bytes, dim3(S / FWD_BM, bh), HOPPER_THREADS, stream,
-           tq, tk, tv, tout, static_cast<float*>(lse), S, H, group, window);
+    LAUNCH_MODE(flash_fwd_bf16, causal, FwdSmem<D>::bytes, dim3(Sq / FWD_BM, bh),
+                HOPPER_THREADS, stream, tq, tk, tv, tout, static_cast<float*>(lse), Sq, Sk, H,
+                group, window);
   }
-  LAUNCH(flash_fwd_f32<D>, F32Smem<D>::fwd, dim3(S / TILE, bh), THREADS, stream,
-         static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse), S, H,
-         group, window);
+  LAUNCH_MODE(flash_fwd_f32, causal, F32Smem<D>::fwd, dim3(Sq / TILE, bh), THREADS, stream,
+              static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<float*>(out), static_cast<float*>(lse),
+              Sq, Sk, H, group, window);
 }
 
 template <int D>
 cudaError_t dkv(int dtype, const void* q, const void* k, const void* v, const void* g,
-                const void* lse, const void* delta, void* dk, void* dv, int bh, int S, int H,
-                int group, int window, cudaStream_t stream) {
+                const void* lse, const void* delta, void* dk, void* dv, int bh, int Sq, int Sk,
+                int H, int group, int window, bool causal, cudaStream_t stream) {
   if (dtype == 1) {
     CUtensorMap tq, tk, tv, tg, tdk, tdv;
-    const int kv_rows = bh / group * S;
-    if (!tile_map<D>(&tq, q, bh * S, DKV_BQ) || !tile_map<D>(&tg, g, bh * S, DKV_BQ) ||
+    const int kv_rows = bh / group * Sk;
+    if (!tile_map<D>(&tq, q, bh * Sq, DKV_BQ) || !tile_map<D>(&tg, g, bh * Sq, DKV_BQ) ||
         !tile_map<D>(&tk, k, kv_rows, DKV_BK) || !tile_map<D>(&tv, v, kv_rows, DKV_BK) ||
-        !tile_map<D>(&tdk, dk, bh * S, 64) || !tile_map<D>(&tdv, dv, bh * S, 64))
+        !tile_map<D>(&tdk, dk, bh * Sk, 64) || !tile_map<D>(&tdv, dv, bh * Sk, 64))
       return cudaErrorInvalidValue;
-    LAUNCH(flash_dkv_bf16<D>, DkvSmem<D>::bytes, dim3(S / DKV_BK, bh), HOPPER_THREADS, stream,
-           tq, tk, tv, tg, static_cast<const float*>(lse), static_cast<const float*>(delta), tdk,
-           tdv, S, H, group, window);
+    LAUNCH_MODE(flash_dkv_bf16, causal, DkvSmem<D>::bytes, dim3(Sk / DKV_BK, bh),
+                HOPPER_THREADS, stream, tq, tk, tv, tg, static_cast<const float*>(lse),
+                static_cast<const float*>(delta), tdk, tdv, Sq, Sk, H, group, window);
   }
-  LAUNCH(flash_dkv_f32<D>, F32Smem<D>::dkv, dim3(S / TILE, bh), THREADS, stream,
-         static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<const float*>(g),
-         static_cast<const float*>(lse), static_cast<const float*>(delta),
-         static_cast<float*>(dk), static_cast<float*>(dv), S, H, group, window);
+  LAUNCH_MODE(flash_dkv_f32, causal, F32Smem<D>::dkv, dim3(Sk / TILE, bh), THREADS, stream,
+              static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(g),
+              static_cast<const float*>(lse), static_cast<const float*>(delta),
+              static_cast<float*>(dk), static_cast<float*>(dv), Sq, Sk, H, group, window);
 }
 
 template <int D>
 cudaError_t dq(int dtype, const void* q, const void* k, const void* v, const void* g,
-               const void* lse, const void* delta, void* dq_out, int bh, int S, int H,
-               int group, int window, float scale, cudaStream_t stream) {
+               const void* lse, const void* delta, void* dq_out, int bh, int Sq, int Sk, int H,
+               int group, int window, float scale, bool causal, cudaStream_t stream) {
   if (dtype == 1) {
     CUtensorMap tq, tk, tv, tg, tdq;
-    const int kv_rows = bh / group * S;
-    if (!tile_map<D>(&tq, q, bh * S, DQ_BM) || !tile_map<D>(&tg, g, bh * S, DQ_BM) ||
+    const int kv_rows = bh / group * Sk;
+    if (!tile_map<D>(&tq, q, bh * Sq, DQ_BM) || !tile_map<D>(&tg, g, bh * Sq, DQ_BM) ||
         !tile_map<D>(&tk, k, kv_rows, DQ_BN) || !tile_map<D>(&tv, v, kv_rows, DQ_BN) ||
-        !tile_map<D>(&tdq, dq_out, bh * S, 64))
+        !tile_map<D>(&tdq, dq_out, bh * Sq, 64))
       return cudaErrorInvalidValue;
-    LAUNCH(flash_dq_bf16<D>, DqSmem<D>::bytes, dim3(S / DQ_BM, bh), HOPPER_THREADS, stream,
-           tq, tk, tv, tg, static_cast<const float*>(lse), static_cast<const float*>(delta), tdq,
-           S, H, group, window, scale);
+    LAUNCH_MODE(flash_dq_bf16, causal, DqSmem<D>::bytes, dim3(Sq / DQ_BM, bh), HOPPER_THREADS,
+                stream, tq, tk, tv, tg, static_cast<const float*>(lse),
+                static_cast<const float*>(delta), tdq, Sq, Sk, H, group, window, scale);
   }
-  LAUNCH(flash_dq_f32<D>, F32Smem<D>::dq, dim3(S / TILE, bh), THREADS, stream,
-         static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<const float*>(g),
-         static_cast<const float*>(lse), static_cast<const float*>(delta),
-         static_cast<float*>(dq_out), S, H, group, window, scale);
+  LAUNCH_MODE(flash_dq_f32, causal, F32Smem<D>::dq, dim3(Sq / TILE, bh), THREADS, stream,
+              static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(g),
+              static_cast<const float*>(lse), static_cast<const float*>(delta),
+              static_cast<float*>(dq_out), Sq, Sk, H, group, window, scale);
 }
 
 // Head dims 16, 32, 64, 128; dtype code 0 = float32, 1 = bfloat16.
@@ -1345,11 +1392,16 @@ cudaError_t dq(int dtype, const void* q, const void* k, const void* v, const voi
     return cudaErrorInvalidValue;                     \
   } while (0)
 
-// S a multiple of 128 (the widest tile), and every flat row index an int
-// (the TMA coordinates are 32-bit).
-bool bad_args(int dtype, int bh, int S) {
-  return (dtype != 0 && dtype != 1) || bh < 1 || bh > 65535 || S < 128 || S % 128 != 0 ||
-         static_cast<long long>(bh) * S > 0x7fffffffLL;
+// Sq and Sk multiples of 128 (the widest tile), every flat row index an int
+// (the TMA coordinates are 32-bit); causal needs Sq == Sk and a window needs
+// causal, as flash_attention_lse checks on the TPU side.
+bool bad_args(int dtype, int bh, int Sq, int Sk, int window, int causal) {
+  auto bad_len = [bh](int S) {
+    return S < 128 || S % 128 != 0 || static_cast<long long>(bh) * S > 0x7fffffffLL;
+  };
+  return (dtype != 0 && dtype != 1) || bh < 1 || bh > 65535 || bad_len(Sq) || bad_len(Sk) ||
+         (causal != 0 && causal != 1) || (causal && Sq != Sk) || (!causal && window != 0) ||
+         window < 0;
 }
 
 }  // namespace
@@ -1357,29 +1409,32 @@ bool bad_args(int dtype, int bh, int S) {
 // Plain C entry points, loaded with ctypes. Each returns the launch's
 // cudaGetLastError() (0 on success); the kernels run asynchronously on
 // `stream` and allocate nothing. Tensors are contiguous and 16-byte aligned.
+// causal is 1 (causal, seq_q == seq_k) or 0 (non-causal, no window).
 extern "C" int flash_fwd(int dtype, int head_dim, const void* q, const void* k, const void* v,
-                         void* out, void* lse, int bh, int seq, int num_q_heads, int group,
-                         int window, void* stream) {
-  if (bad_args(dtype, bh, seq)) return cudaErrorInvalidValue;
+                         void* out, void* lse, int bh, int seq_q, int seq_k, int num_q_heads,
+                         int group, int window, int causal, void* stream) {
+  if (bad_args(dtype, bh, seq_q, seq_k, window, causal)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  DISPATCH(head_dim, (fwd<D>(dtype, q, k, v, out, lse, bh, seq, num_q_heads, group, window, s)));
+  DISPATCH(head_dim, (fwd<D>(dtype, q, k, v, out, lse, bh, seq_q, seq_k, num_q_heads, group,
+                             window, causal, s)));
 }
 
 extern "C" int flash_dkv(int dtype, int head_dim, const void* q, const void* k, const void* v,
                          const void* g, const void* lse, const void* delta, void* dk, void* dv,
-                         int bh, int seq, int num_q_heads, int group, int window, void* stream) {
-  if (bad_args(dtype, bh, seq)) return cudaErrorInvalidValue;
+                         int bh, int seq_q, int seq_k, int num_q_heads, int group, int window,
+                         int causal, void* stream) {
+  if (bad_args(dtype, bh, seq_q, seq_k, window, causal)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  DISPATCH(head_dim, (dkv<D>(dtype, q, k, v, g, lse, delta, dk, dv, bh, seq, num_q_heads, group,
-                             window, s)));
+  DISPATCH(head_dim, (dkv<D>(dtype, q, k, v, g, lse, delta, dk, dv, bh, seq_q, seq_k,
+                             num_q_heads, group, window, causal, s)));
 }
 
 extern "C" int flash_dq(int dtype, int head_dim, const void* q, const void* k, const void* v,
                         const void* g, const void* lse, const void* delta, void* dq_out, int bh,
-                        int seq, int num_q_heads, int group, int window, float scale,
-                        void* stream) {
-  if (bad_args(dtype, bh, seq)) return cudaErrorInvalidValue;
+                        int seq_q, int seq_k, int num_q_heads, int group, int window,
+                        float scale, int causal, void* stream) {
+  if (bad_args(dtype, bh, seq_q, seq_k, window, causal)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  DISPATCH(head_dim, (dq<D>(dtype, q, k, v, g, lse, delta, dq_out, bh, seq, num_q_heads, group,
-                            window, scale, s)));
+  DISPATCH(head_dim, (dq<D>(dtype, q, k, v, g, lse, delta, dq_out, bh, seq_q, seq_k,
+                            num_q_heads, group, window, scale, causal, s)));
 }

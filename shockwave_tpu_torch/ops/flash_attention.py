@@ -1,22 +1,31 @@
-"""Blockwise (flash) causal attention with hand-written CUDA kernels.
+"""Blockwise (flash) attention with hand-written CUDA kernels.
 
 The port's counterpart of ``shockwave_tpu/ops/flash_attention.py``: the
-same public contract (``flash_attention`` on [B, S, H, D], causal, with
-grouped-query attention and a sliding window), and the same numerics
-choices. The 1/sqrt(D) score scale is folded into q once, in float32,
-then cast back to the input dtype. The P.V product takes p in the input
-dtype with float32 accumulation. The backward recomputes
-p = exp(s - lse) from the saved per-row log-sum-exp, with
-delta = rowsum(dout * out) computed outside the kernels. dk/dv are
-written per query head and group-summed here in float32, with no atomics.
-Dead score entries take the mask value -1e30.
+same public contract and the same numerics choices. ``flash_attention``
+is causal attention on [B, S, H, D], with grouped-query attention and a
+sliding window. ``flash_attention_lse`` also returns the per-row
+log-sum-exp and has a non-causal mode, in which every query attends the
+whole K/V sequence and Sk may differ from Sq: a ring-attention hop whose
+keys all lie in the past (``parallel/ring_attention.py``). The lse is
+differentiable; its cotangent folds into the backward's delta.
 
-Three kernels live in ``csrc/flash_attention.cu``: forward, dK/dV and dQ.
-Each has a wrapper here (``flash_fwd``, ``flash_dkv``, ``flash_dq`` on
-flat [B*H, S, D] tensors with a pre-scaled q) and a plain PyTorch version
-of the same function. A wrapper takes the plain version only for tensors
-on the CPU; on a CUDA tensor it launches the kernel or raises. Each
-launch adds one to its entry of ``LAUNCHES``.
+The 1/sqrt(D) score scale is folded into q once, in float32, then cast
+back to the input dtype. The P.V product takes p in the input dtype with
+float32 accumulation. The backward recomputes p = exp(s - lse) from the
+saved per-row log-sum-exp, with delta = rowsum(dout * out) - g_lse
+computed outside the kernels. dk/dv are written per query head and
+group-summed here in float32, with no atomics. Dead score entries take
+the mask value -1e30.
+
+Three kernels live in ``csrc/flash_attention.cu``: forward, dK/dV and dQ,
+each in both modes. Each has a wrapper here (``flash_fwd``,
+``flash_dkv``, ``flash_dq`` on flat [B*H, Sq, D] q-like and
+[B*Hkv, Sk, D] k/v tensors with a pre-scaled q, and ``causal``) and a
+plain PyTorch version of the same function with the same arguments. A
+wrapper takes the plain version only for tensors on the CPU; on a CUDA
+tensor it launches the kernel or raises. Each launch adds one to its
+entry of ``LAUNCHES``: ``flash_fwd`` and the like for the causal mode,
+``flash_fwd_nc`` and the like for the non-causal one.
 
 What the TPU version needed and this one does not: the 128-lane
 replication of lse (here [B*H, S] float32), the 16 MiB VMEM block cap and
@@ -45,9 +54,11 @@ _FWD_K_TILE = 128
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# Launches of each CUDA kernel since the last reset. Only a kernel launch
-# counts; the plain versions do not.
-LAUNCHES = {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
+KERNELS = ("flash_fwd", "flash_dkv", "flash_dq")
+# Launches of each CUDA kernel since the last reset, by mode (causal under
+# the kernel's name, non-causal under the name with "_nc"). Only a kernel
+# launch counts; the plain versions do not.
+LAUNCHES = {name + mode: 0 for mode in ("", "_nc") for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -120,11 +131,14 @@ def _expand_kv(x: torch.Tensor, bh: int, num_q_heads: int) -> torch.Tensor:
     return x.reshape(bh, S, D)
 
 
-def _masked_scores(q, k, num_q_heads, window):
-    """f32 scores of the pre-scaled q against k, dead entries -1e30."""
-    S = q.shape[1]
+def _masked_scores(q, k, num_q_heads, window, causal=True):
+    """f32 scores of the pre-scaled q against k, dead entries -1e30 (none
+    when not causal)."""
     kx = _expand_kv(k, q.shape[0], num_q_heads)
     s = q.float() @ kx.float().transpose(1, 2)
+    if not causal:
+        return s
+    S = q.shape[1]
     rows = torch.arange(S, device=q.device)[:, None]
     cols = torch.arange(S, device=q.device)[None, :]
     dead = cols > rows
@@ -133,23 +147,23 @@ def _masked_scores(q, k, num_q_heads, window):
     return s.masked_fill(dead, _NEG_INF)
 
 
-def flash_fwd_plain(q, k, v, num_q_heads, window):
-    """Plain version of the forward kernel: (out, lse [B*H, S] f32).
+def flash_fwd_plain(q, k, v, num_q_heads, window, causal=True):
+    """Plain version of the forward kernel: (out, lse [B*H, Sq] f32).
 
     It walks the keys in the bf16 kernel's 128-wide tiles with the same
     online softmax, so p = exp(s - running max) is rounded to the input
     dtype at the same scale as in the kernel (and in the TPU kernel at
     128-wide k blocks). In float32 the rounding is a no-op and the width
-    only orders the sums. Tiles a row cannot see change nothing: past its last live
-    column p is 0; before its first, the next live tile's correction
-    factor exp(-1e30 - m) zeroes what they added."""
+    only orders the sums. Tiles a row cannot see change nothing: past its
+    last live column p is 0; before its first, the next live tile's
+    correction factor exp(-1e30 - m) zeroes what they added."""
     BH, S, D = q.shape
-    s = _masked_scores(q, k, num_q_heads, window)
+    s = _masked_scores(q, k, num_q_heads, window, causal)
     vx = _expand_kv(v, BH, num_q_heads).float()
     m = torch.full((BH, S, 1), _NEG_INF, device=q.device)
     l = torch.zeros((BH, S, 1), device=q.device)
     acc = torch.zeros((BH, S, D), device=q.device)
-    for c in range(0, S, _FWD_K_TILE):
+    for c in range(0, k.shape[1], _FWD_K_TILE):
         st = s[:, :, c:c + _FWD_K_TILE]
         m_new = torch.maximum(m, st.amax(-1, keepdim=True))
         p = torch.exp(st - m_new)
@@ -162,8 +176,9 @@ def flash_fwd_plain(q, k, v, num_q_heads, window):
     return out.to(q.dtype), lse
 
 
-def _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window):
-    s = _masked_scores(q, k, num_q_heads, window)
+def _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window,
+                       causal=True):
+    s = _masked_scores(q, k, num_q_heads, window, causal)
     p = torch.exp(s - lse[..., None])
     vx = _expand_kv(v, q.shape[0], num_q_heads)
     dp = g.float() @ vx.float().transpose(1, 2)
@@ -171,17 +186,21 @@ def _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window):
     return p, ds
 
 
-def flash_dkv_plain(q, k, v, g, lse, delta, num_q_heads, window):
-    """Plain version of the dK/dV kernel: per query head, [B*H, S, D]."""
-    p, ds = _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window)
+def flash_dkv_plain(q, k, v, g, lse, delta, num_q_heads, window,
+                    causal=True):
+    """Plain version of the dK/dV kernel: per query head, [B*H, Sk, D]."""
+    p, ds = _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window,
+                               causal)
     dv = p.to(q.dtype).float().transpose(1, 2) @ g.float()
     dk = ds.float().transpose(1, 2) @ q.float()
     return dk.to(q.dtype), dv.to(q.dtype)
 
 
-def flash_dq_plain(q, k, v, g, lse, delta, num_q_heads, window):
+def flash_dq_plain(q, k, v, g, lse, delta, num_q_heads, window,
+                   causal=True):
     """Plain version of the dQ kernel; 1/sqrt(D) applied once at the end."""
-    _, ds = _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window)
+    _, ds = _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window,
+                               causal)
     kx = _expand_kv(k, q.shape[0], num_q_heads)
     scale = 1.0 / math.sqrt(q.shape[-1])
     return ((ds.float() @ kx.float()) * scale).to(q.dtype)
@@ -226,7 +245,8 @@ KERNEL_TOLERANCE = {
 }
 
 
-def largest_terms(q, k, v, g, lse, delta, num_q_heads, window):
+def largest_terms(q, k, v, g, lse, delta, num_q_heads, window,
+                  causal=True):
     """For each element of out, dk, dv and dq, a bound on the largest term
     of the product sum it comes from, from the plain versions' p and ds:
     out[r, d] sums p[r, c] * v[c, d], so the bound is max_c p[r, c] times
@@ -234,7 +254,8 @@ def largest_terms(q, k, v, g, lse, delta, num_q_heads, window):
     ds[r, c] * q[r, d]; dq[r, d] sums ds[r, c] * k[c, d] / sqrt(D).
     Broadcastable to [B*H, S, D]; the flip rule of KERNEL_TOLERANCE
     multiplies them by one bf16 step."""
-    p, ds = _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window)
+    p, ds = _probs_and_dscores(q, k, v, g, lse, delta, num_q_heads, window,
+                               causal)
     ds = ds.float().abs()
     bh = q.shape[0]
 
@@ -281,18 +302,33 @@ def compare(got: torch.Tensor, ref: torch.Tensor, tol: dict,
 
 
 # -- kernel wrappers -----------------------------------------------------
-def _check_flat(q, kv, like_q=(), rows=()):
+def _check_mode(seq_q: int, seq_k: int, causal: bool, window) -> None:
+    """The modes the kernels take, as the JAX package's
+    ``flash_attention_lse`` checks them."""
+    if causal and seq_q != seq_k:
+        raise ValueError(
+            f"causal flash needs matching q/k lengths, got {seq_q} vs {seq_k}"
+        )
+    if window is not None and not causal:
+        raise ValueError("window requires causal attention")
+
+
+def _check_flat(q, kv, like_q=(), rows=(), causal=True, window=None):
     """Shapes, dtypes, devices and layout the kernels take: q-like tensors
-    [B*H, S, D], k/v [B*Hkv, S, D], per-row stats [B*H, S] f32."""
-    BH, S, D = q.shape
-    _check_supported(S, D, q.dtype)
+    [B*H, Sq, D], k/v [B*Hkv, Sk, D], per-row stats [B*H, Sq] f32.
+    Returns (B*H, Sq, Sk, D, group)."""
+    BH, Sq, D = q.shape
+    Sk = kv[0].shape[1]
+    _check_supported(Sq, D, q.dtype)
+    _check_supported(Sk, D, q.dtype)
+    _check_mode(Sq, Sk, causal, window)
     for t in (q, *kv, *like_q, *rows):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
     for t in kv:
-        if t.dtype != q.dtype or t.shape[1:] != (S, D) or BH % t.shape[0]:
+        if t.dtype != q.dtype or t.shape[1:] != (Sk, D) or BH % t.shape[0]:
             raise ValueError(
                 f"k/v {tuple(t.shape)} {t.dtype} do not fit q "
                 f"{tuple(q.shape)} {q.dtype}"
@@ -301,76 +337,85 @@ def _check_flat(q, kv, like_q=(), rows=()):
         if t.dtype != q.dtype or t.shape != q.shape:
             raise ValueError(f"{tuple(t.shape)} {t.dtype} does not match q")
     for t in rows:
-        if t.dtype != torch.float32 or t.shape != (BH, S):
-            raise ValueError(f"row stats must be float32 {(BH, S)}")
+        if t.dtype != torch.float32 or t.shape != (BH, Sq):
+            raise ValueError(f"row stats must be float32 {(BH, Sq)}")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {q.device}")
     if q.device.type == "cuda" and any(
         t.data_ptr() % 16 for t in (q, *kv, *like_q, *rows)
     ):
         raise ValueError("flash kernels take 16-byte aligned tensors")
-    return BH, S, D, BH // kv[0].shape[0]
+    return BH, Sq, Sk, D, BH // kv[0].shape[0]
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def flash_fwd(q, k, v, num_q_heads, window=None):
+def _launched(kernel: str, code: int, causal: bool) -> None:
+    key = kernel if causal else kernel + "_nc"
+    _build.check(code, key)
+    LAUNCHES[key] += 1
+
+
+def flash_fwd(q, k, v, num_q_heads, window=None, causal=True):
     """Forward kernel on flat tensors (q pre-scaled): (out, lse)."""
-    BH, S, D, group = _check_flat(q, (k, v))
+    BH, Sq, Sk, D, group = _check_flat(q, (k, v), causal=causal,
+                                       window=window)
     if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, num_q_heads, window)
+        return flash_fwd_plain(q, k, v, num_q_heads, window, causal)
     out = torch.empty_like(q)
-    lse = torch.empty((BH, S), device=q.device, dtype=torch.float32)
+    lse = torch.empty((BH, Sq), device=q.device, dtype=torch.float32)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         code = lib.flash_fwd(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, S,
-            num_q_heads, group, window or 0, _stream(q),
+            v.data_ptr(), out.data_ptr(), lse.data_ptr(), BH, Sq, Sk,
+            num_q_heads, group, window or 0, int(causal), _stream(q),
         )
-    _build.check(code, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+    _launched("flash_fwd", code, causal)
     return out, lse
 
 
-def flash_dkv(q, k, v, g, lse, delta, num_q_heads, window=None):
-    """dK/dV kernel: per query head [B*H, S, D], group-summed by caller."""
-    BH, S, D, group = _check_flat(q, (k, v), (g,), (lse, delta))
+def flash_dkv(q, k, v, g, lse, delta, num_q_heads, window=None,
+              causal=True):
+    """dK/dV kernel: per query head [B*H, Sk, D], group-summed by caller."""
+    BH, Sq, Sk, D, group = _check_flat(q, (k, v), (g,), (lse, delta),
+                                       causal, window)
     if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, g, lse, delta, num_q_heads, window)
-    dk = torch.empty_like(q)
-    dv = torch.empty_like(q)
+        return flash_dkv_plain(q, k, v, g, lse, delta, num_q_heads, window,
+                               causal)
+    dk = torch.empty((BH, Sk, D), device=q.device, dtype=q.dtype)
+    dv = torch.empty_like(dk)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         code = lib.flash_dkv(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, S,
-            num_q_heads, group, window or 0, _stream(q),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Sq, Sk,
+            num_q_heads, group, window or 0, int(causal), _stream(q),
         )
-    _build.check(code, "flash_dkv")
-    LAUNCHES["flash_dkv"] += 1
+    _launched("flash_dkv", code, causal)
     return dk, dv
 
 
-def flash_dq(q, k, v, g, lse, delta, num_q_heads, window=None):
-    """dQ kernel: [B*H, S, D], with the 1/sqrt(D) scale applied."""
-    BH, S, D, group = _check_flat(q, (k, v), (g,), (lse, delta))
+def flash_dq(q, k, v, g, lse, delta, num_q_heads, window=None, causal=True):
+    """dQ kernel: [B*H, Sq, D], with the 1/sqrt(D) scale applied."""
+    BH, Sq, Sk, D, group = _check_flat(q, (k, v), (g,), (lse, delta),
+                                       causal, window)
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, g, lse, delta, num_q_heads, window)
+        return flash_dq_plain(q, k, v, g, lse, delta, num_q_heads, window,
+                              causal)
     dq = torch.empty_like(q)
     lib = _build.library("flash_attention")
     with torch.cuda.device(q.device):
         code = lib.flash_dq(
             _DTYPE_CODE[q.dtype], D, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), BH, S, num_q_heads, group,
-            window or 0, 1.0 / math.sqrt(D), _stream(q),
+            delta.data_ptr(), dq.data_ptr(), BH, Sq, Sk, num_q_heads, group,
+            window or 0, 1.0 / math.sqrt(D), int(causal), _stream(q),
         )
-    _build.check(code, "flash_dq")
-    LAUNCHES["flash_dq"] += 1
+    _launched("flash_dq", code, causal)
     return dq
 
 
@@ -385,28 +430,65 @@ def _group_sum(d: torch.Tensor, bhkv: int) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Forward kernel; backward dK/dV then dQ. Works on flat tensors."""
+    """Forward kernel returning (out, lse); backward dK/dV then dQ, with
+    the lse cotangent folded into delta. Works on flat tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_q_heads, window):
+    def forward(ctx, q, k, v, num_q_heads, window, causal):
         qs = scale_q(q)
-        out, lse = flash_fwd(qs, k, v, num_q_heads, window)
+        out, lse = flash_fwd(qs, k, v, num_q_heads, window, causal)
         ctx.save_for_backward(qs, k, v, out, lse)
-        ctx.num_q_heads, ctx.window = num_q_heads, window
-        return out
+        ctx.num_q_heads, ctx.window, ctx.causal = num_q_heads, window, causal
+        return out, lse
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, g_lse):
         qs, k, v, out, lse = ctx.saved_tensors
-        H, window = ctx.num_q_heads, ctx.window
-        delta = (g.float() * out.float()).sum(-1)
+        H, window, causal = ctx.num_q_heads, ctx.window, ctx.causal
+        # d s = p * (dp - delta + g_lse) row by row: the lse cotangent
+        # folds into delta, and the kernels take no extra operand. An
+        # unused output's cotangent arrives as zeros.
+        delta = (g.float() * out.float()).sum(-1) - g_lse.float()
         # Cotangent in the input dtype: bf16 p/ds product operands with
         # f32 accumulation, as the JAX backward does.
         g = g.to(qs.dtype).contiguous()
-        dk, dv = flash_dkv(qs, k, v, g, lse, delta, H, window)
-        dq = flash_dq(qs, k, v, g, lse, delta, H, window)
+        dk, dv = flash_dkv(qs, k, v, g, lse, delta, H, window, causal)
+        dq = flash_dq(qs, k, v, g, lse, delta, H, window, causal)
         return dq, _group_sum(dk, k.shape[0]), _group_sum(dv, v.shape[0]), \
-            None, None
+            None, None, None
+
+
+def flash_attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = True,
+    window: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Flash attention returning (out [B, Sq, H, D], lse [B, H, Sq] f32).
+
+    The per-row log-sum-exp lets callers merge partial results over
+    disjoint key sets exactly (the ring-attention hop merge: out_total =
+    sum_i out_i * exp(lse_i - logaddexp_i lse_i)); gradients flow through
+    both outputs. ``causal=False`` attends every query to the whole K/V
+    sequence (a ring hop whose keys all lie in the past); it is the only
+    mode where Sk may differ from Sq. ``window`` as in
+    :func:`flash_attention` (causal only). Both lengths must be multiples
+    of 128 (:func:`flash_tiles`).
+    """
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    Hkv = _check_kv_heads(H, k.shape[2], v.shape[2])
+    _check_mode(Sq, Sk, causal, window)
+    window = _resolve_window(window, Sq)
+
+    def flat(x, s, h):
+        return x.transpose(1, 2).reshape(B * h, s, D).contiguous()
+
+    out, lse = _FlashAttention.apply(
+        flat(q, Sq, H), flat(k, Sk, Hkv), flat(v, Sk, Hkv), H, window, causal
+    )
+    return out.view(B, H, Sq, D).transpose(1, 2), lse.view(B, H, Sq)
 
 
 def flash_attention(
@@ -427,15 +509,9 @@ def flash_attention(
     carry fewer heads than q (grouped-query attention): query head h
     attends KV head h // (H // Hkv), and the KV tensors are never repeated
     per query head.
+
+    It is :func:`flash_attention_lse` with the lse discarded, so there is
+    one backward; the discarded lse's zero cotangent folds into delta as
+    nothing.
     """
-    B, S, H, D = q.shape
-    Hkv = _check_kv_heads(H, k.shape[2], v.shape[2])
-    window = _resolve_window(window, S)
-
-    def flat(x, h):
-        return x.transpose(1, 2).reshape(B * h, S, D).contiguous()
-
-    out = _FlashAttention.apply(
-        flat(q, H), flat(k, Hkv), flat(v, Hkv), H, window
-    )
-    return out.view(B, H, S, D).transpose(1, 2)
+    return flash_attention_lse(q, k, v, causal=True, window=window)[0]

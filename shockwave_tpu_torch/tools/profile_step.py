@@ -2,11 +2,13 @@
 
     python -m shockwave_tpu_torch.tools.profile_step            # 110M tier
     python -m shockwave_tpu_torch.tools.profile_step --steps 5 --d_model 512
+    python -m shockwave_tpu_torch.tools.profile_step --attention ring
 
 Builds the Transformer family exactly as ``models/train.py`` does (the
 defaults here are the 110M tier: vocab 8192, d_model 1024, 8 heads, 8
-layers, seq 2048, batch 8, bf16, flash attention), takes two warm-up
-steps, then runs ``--steps`` steps under ``torch.profiler`` with CPU and
+layers, seq 2048, batch 8, bf16, flash attention; ``--attention ring``
+shards the sequence over a (1, 1, 4, 1) mesh of the one card, as
+``chip_smoke.py`` does), takes two warm-up steps, then runs ``--steps`` steps under ``torch.profiler`` with CPU and
 CUDA activities. It prints one JSON object:
 
 - ``step_ms``: host clock around ``--steps`` steps run without the
@@ -38,6 +40,9 @@ from shockwave_tpu_torch.utils.device import resolve_device
 
 # First matching pattern names a kernel's category.
 CATEGORIES = [
+    ("flash_fwd_nc", r"flash_fwd_\w+<\d+, false>"),
+    ("flash_dkv_nc", r"flash_dkv_\w+<\d+, false>"),
+    ("flash_dq_nc", r"flash_dq_\w+<\d+, false>"),
     ("flash_fwd", r"flash_fwd_"),
     ("flash_dkv", r"flash_dkv_"),
     ("flash_dq", r"flash_dq_"),
@@ -49,6 +54,10 @@ CATEGORIES = [
     ("elementwise", r"elementwise|vectorized|Elementwise|unrolled"),
     ("index", r"index|gather|scatter|embedding"),
 ]
+
+
+# Sequence shards of --attention ring, all on the one card.
+RING_SHARDS = 4
 
 
 def _category(name: str) -> str:
@@ -96,7 +105,13 @@ def main(argv=None):
         "--num_layers", str(opts.num_layers), "--seq_len", str(opts.seq_len),
         "--attention", opts.attention, "--dtype", opts.dtype,
     ])
-    _, step_fn, _, batch_fn = train.build_family("Transformer", args, device)
+    mesh = None
+    if opts.attention == "ring":
+        from shockwave_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh((1, 1, RING_SHARDS, 1), [device] * RING_SHARDS)
+    _, step_fn, _, batch_fn = train.build_family("Transformer", args, device,
+                                                 mesh)
     rng = np.random.default_rng(0)
     batches = [batch_fn(rng) for _ in range(2 * opts.steps + 2)]
     for batch in batches[:2]:

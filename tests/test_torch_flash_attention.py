@@ -189,13 +189,13 @@ def test_chip_smoke_names_the_kernels_in_cuobjdump_output():
     smoke = _chip_smoke()
     prefix = "_ZN51_GLOBAL__N__c2d97782_18_flash_attention_cu_b294bfd0"
     assert smoke.kernel_of(
-        f"Function {prefix}14flash_fwd_bf16ILi32EEEv14CUtensorMap_stS1_S1_S1_"
-        "Pfiiii:") == ("flash_fwd_bf16", 32)
+        f"Function {prefix}14flash_fwd_bf16ILi32ELb1EEEv14CUtensorMap_stS1_"
+        "S1_S1_Pfiiiii:") == ("flash_fwd_bf16", 32, True)
     assert smoke.kernel_of(
-        f"        Function : {prefix}14flash_dkv_bf16ILi128EEEv14CUtensorMap_"
-        "st") == ("flash_dkv_bf16", 128)
-    assert smoke.kernel_of(f"{prefix}13flash_dq_f32ILi16EEEvPKf") == (
-        "flash_dq_f32", 16)
+        f"        Function : {prefix}14flash_dkv_bf16ILi128ELb0EEEv14CUtensor"
+        "Map_st") == ("flash_dkv_bf16", 128, False)
+    assert smoke.kernel_of(f"{prefix}13flash_dq_f32ILi16ELb1EEEvPKf") == (
+        "flash_dq_f32", 16, True)
     assert smoke.kernel_of("Function _Z6helperv:") is None
 
 
@@ -249,6 +249,33 @@ def test_kernel_tolerance_rejects_planted_faults():
     tol = fa.KERNEL_TOLERANCE[torch.bfloat16]
     terms = fa.largest_terms(qs, k, v, g, lse, delta, 2, None)
     faults = smoke.planted_faults(fa, qs, k, v, g, lse, delta, 2)
+    assert len(faults) == 5
+    for (what, fault), bad in faults.items():
+        assert not fa.compare(bad, plain[what], tol, terms[what])["ok"], (
+            what, fault)
+    for what, t in plain.items():
+        assert fa.compare(t, t, tol, terms[what])["ok"], what
+
+
+def test_kernel_tolerance_rejects_non_causal_planted_faults():
+    """The same planted faults in the non-causal mode, at the 110M tier's
+    ring-hop length (Sq = Sk = 512, D = 128, two heads), where
+    chip_smoke.py plants them on the card."""
+    smoke = _chip_smoke()
+
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, g = (torch.randn(2, 512, 128, generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    qs = fa.scale_q(q)
+    out, lse = fa.flash_fwd_plain(qs, k, v, 2, None, causal=False)
+    delta = (g.float() * out.float()).sum(-1)
+    args = (qs, k, v, g, lse, delta, 2, None)
+    plain = {"out": out, "dq": fa.flash_dq_plain(*args, causal=False)}
+    plain["dk"], plain["dv"] = fa.flash_dkv_plain(*args, causal=False)
+    tol = fa.KERNEL_TOLERANCE[torch.bfloat16]
+    terms = fa.largest_terms(*args, causal=False)
+    faults = smoke.planted_faults(fa, qs, k, v, g, lse, delta, 2,
+                                  causal=False)
     assert len(faults) == 5
     for (what, fault), bad in faults.items():
         assert not fa.compare(bad, plain[what], tol, terms[what])["ok"], (
@@ -335,7 +362,11 @@ def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
     q, k, v, _ = _inputs(7, 1, 128, 2, 1, 16)
     args = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
     fa.flash_attention(*args).sum().backward()
-    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_dkv": 0, "flash_dq": 0}
+    out, lse = fa.flash_attention_lse(*args, causal=False)
+    (out.sum() + lse.sum()).backward()
+    assert fa.LAUNCHES == {name: 0 for name in (
+        "flash_fwd", "flash_dkv", "flash_dq",
+        "flash_fwd_nc", "flash_dkv_nc", "flash_dq_nc")}
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

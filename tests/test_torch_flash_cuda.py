@@ -67,7 +67,69 @@ def test_kernels_match_plain_versions(device, dtype, B, S, H, Hkv, D, window):
                                             dtype, window, device)
     for (kernel, what), r in found.items():
         assert r["ok"], f"{kernel} {what}: {bench_flash.describe(r)}"
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1}
+    assert fa.LAUNCHES == dict(ONE_CAUSAL_EACH)
+
+
+ONE_CAUSAL_EACH = {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1,
+                   "flash_fwd_nc": 0, "flash_dkv_nc": 0, "flash_dq_nc": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "B,Sq,Sk,H,Hkv,D",
+    [
+        (1, 128, 128, 2, 2, 16),
+        (2, 128, 384, 4, 1, 32),
+        (2, 512, 1024, 4, 2, 64),
+        (1, 384, 128, 8, 2, 128),
+        (2, 512, 512, 8, 8, 128),
+    ],
+)
+def test_non_causal_kernels_match_plain_versions(device, dtype, B, Sq, Sk, H,
+                                                 Hkv, D):
+    """The non-causal mode (a ring hop): every query against every key,
+    Sk apart from Sq, GQA groups of 1 to 4, at every head dim."""
+    fa.reset_launch_counts()
+    found, _, _ = bench_flash.check_kernels(fa, fa, Sq + Sk + D, B, Sq, H,
+                                            Hkv, D, dtype, None, device,
+                                            causal=False, Sk=Sk)
+    for (kernel, what), r in found.items():
+        assert r["ok"], f"{kernel} {what}: {bench_flash.describe(r)}"
+    assert fa.LAUNCHES == {name: int(name.endswith("_nc"))
+                           for name in ONE_CAUSAL_EACH}
+
+
+@pytest.mark.cuda
+def test_ring_on_one_card_matches_flash(device):
+    """Ring attention on a 4-shard seq mesh of one card (flash body: 4
+    causal hops, 6 live non-causal ones) against flash_attention, float32,
+    output and q/k/v gradients at the JAX package's ring limits (rtol
+    1e-3, atol 1e-4)."""
+    from shockwave_tpu_torch.parallel.mesh import make_mesh
+    from shockwave_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = make_mesh((1, 1, 4, 1), [device] * 4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    B, S, H, Hkv, D = 1, 512, 4, 2, 64
+    inputs = [torch.randn(B, S, h, D, generator=gen, device=device)
+              for h in (H, Hkv, Hkv)]
+    w = torch.randn(B, S, H, D, generator=gen, device=device)
+    ring_in = [x.clone().requires_grad_() for x in inputs]
+    flash_in = [x.clone().requires_grad_() for x in inputs]
+    fa.reset_launch_counts()
+    ring_out = ring_attention(*ring_in, mesh, inner="flash")
+    (ring_out * w).sum().backward()
+    assert fa.LAUNCHES == {"flash_fwd": 4, "flash_dkv": 4, "flash_dq": 4,
+                           "flash_fwd_nc": 6, "flash_dkv_nc": 6,
+                           "flash_dq_nc": 6}
+    flash_out = fa.flash_attention(*flash_in)
+    (flash_out * w).sum().backward()
+    tol = dict(rtol=1e-3, atol=1e-4)
+    torch.testing.assert_close(ring_out, flash_out, **tol)
+    for a, b in zip(ring_in, flash_in):
+        torch.testing.assert_close(a.grad, b.grad, **tol)
 
 
 @pytest.mark.cuda
@@ -117,7 +179,13 @@ def test_cuda_tensors_never_take_the_plain_version(device, monkeypatch, D):
         monkeypatch.setattr(fa, name, boom)
     q = torch.randn(1, 128, 2, D, device=device, dtype=torch.bfloat16,
                     requires_grad=True)
+    kv = torch.randn(1, 256, 1, D, device=device, dtype=torch.bfloat16,
+                     requires_grad=True)
     fa.reset_launch_counts()
     fa.flash_attention(q, q, q).float().sum().backward()
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_dkv": 1, "flash_dq": 1}
+    assert fa.LAUNCHES == ONE_CAUSAL_EACH
+    out, lse = fa.flash_attention_lse(q, kv, kv, causal=False)
+    (out.float().sum() + lse.sum()).backward()
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {name: 1 for name in ONE_CAUSAL_EACH}

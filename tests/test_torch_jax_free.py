@@ -106,6 +106,36 @@ def test_train_cli_runs_with_jax_blocked(tmp_path):
     assert (tmp_path / "train_state.pt").exists()
 
 
+_RING_SCRIPT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+from shockwave_tpu_torch.models import train
+train.main(["--model", "Transformer", "--batch_size", "2", "--vocab_size",
+            "64", "--d_model", "32", "--num_heads", "2", "--num_layers", "1",
+            "--seq_len", "128", "--attention", "ring", "--seq_parallel", "1",
+            "--device", "cpu", "-n", "2"])
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+                and sys.modules[m] is not None)
+print("LEAKED", leaked)
+"""
+
+
+def test_ring_train_cli_runs_with_jax_blocked():
+    """``train --attention ring --seq_parallel 1 --device cpu`` (ring
+    attention over a one-device mesh) with JAX and the JAX package
+    unimportable, leaving no module of either loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _RING_SCRIPT], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "[Transformer] steps=2 loss=" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):

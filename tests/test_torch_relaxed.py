@@ -16,9 +16,11 @@ steps normalise every coordinate's step to about the step size, so a
 rounding-level difference in the projection's dual (two sums in another
 order) grows along the trajectory, and jobs oscillating across the kink of
 the switch bonus at s = 1 end on different sides (seed 0: 93 of 1000
-coordinates, by up to 0.071). Its objective and rounded objective stay
-inside their limits, and the entry point the planner calls (PGD, then the
-PDHG polish) meets all three.
+coordinates, by up to 0.071). The reference does the same against itself
+when its start point moves by one float32 ulp
+(test_reference_spreads_as_far_under_a_one_ulp_start). Its objective and
+rounded objective stay inside their limits, and the entry point the
+planner calls (PGD, then the PDHG polish) meets all three.
 """
 
 import functools
@@ -87,6 +89,59 @@ def test_raw_pgd_at_1000_jobs_matches_in_objective():
     assert abs(obj - ref_obj) <= 1e-3 * (1.0 + abs(ref_obj))
     o, ref_o = rounded_objective(p, s), rounded_objective(p, ref_s)
     assert abs(o - ref_o) <= 2e-3 * (1.0 + abs(ref_o))
+
+
+def _misses(s, ref_s):
+    """Coordinates past the ``s`` limit (rtol = atol = 5e-3), and the
+    largest |difference|."""
+    d = np.abs(s - ref_s)
+    return int((d > 5e-3 + 5e-3 * np.abs(ref_s)).sum()), float(d.max())
+
+
+def test_reference_spreads_as_far_under_a_one_ulp_start(monkeypatch):
+    """Raw PGD at 1000 x 50 x 256 (seed 0), the reference against itself:
+    its start point (the first ``_project`` of ``solve_relaxed``) moved by
+    one float32 ulp, up and then down, on every active job. Its own
+    spread is of the size of the port's against it (CPU readings: 129 and
+    95 coordinates past the ``s`` limit, by up to 0.063 and 0.071, where
+    the port is 93 by up to 0.071), so the port's spread is the
+    trajectory's sensitivity to rounding, not a fault of its projection
+    or gradient; the module's limits stay as they are. The unjitted
+    function is traced afresh, so the patch reaches the trace."""
+    p = bench.make_problem(num_jobs=1000, future_rounds=50, num_gpus=256,
+                           seed=0)
+    slots = eg_jax.num_slots_for(p.num_jobs)
+    pk = eg_jax.pad_problem(p, slots)
+    args = [pk[k] for k in ("active", "priorities", "completed", "total",
+                            "epoch_dur", "remaining", "nworkers",
+                            "num_gpus")]
+    kw = dict(round_duration=float(p.round_duration),
+              future_rounds=int(p.future_rounds),
+              regularizer=float(p.regularizer),
+              switch_bonus=pk.get("switch_bonus"))
+    ref_s, _ = ref_raw(p)
+    s, _ = eg_relaxed.solve_relaxed_problem(port_problem(p), device="cpu")
+    port_count, port_max = _misses(s, ref_s)
+    project = eg_jax._project
+    for toward in (np.inf, -np.inf):
+        calls = []
+
+        def nudged(s, weights, budget, s_max):
+            out = project(s, weights, budget, s_max)
+            calls.append(1)
+            if len(calls) == 1:  # the start point, before the scan
+                out = jnp.where(weights > 0, jnp.nextafter(
+                    out, jnp.asarray(toward, out.dtype)), out)
+            return out
+
+        monkeypatch.setattr(eg_jax, "_project", nudged)
+        moved = np.asarray(eg_jax.solve_relaxed.__wrapped__(*args, **kw)[0])
+        monkeypatch.setattr(eg_jax, "_project", project)
+        assert len(calls) == 2  # the start point and the traced step
+        count, largest = _misses(moved[:p.num_jobs].astype(np.float64),
+                                 ref_s)
+        assert count >= port_count / 2 and largest >= port_max / 2, (
+            count, largest, port_count, port_max)
 
 
 @pytest.mark.parametrize("jobs, rounds, gpus, seed", [

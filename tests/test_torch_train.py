@@ -84,9 +84,8 @@ def test_phase_timings_line(monkeypatch, capsys):
         ["--model", "CycleGAN"],
         ["--distributed_addr", "localhost:1234", "--num_workers", "2"],
         ["--model_parallel", "2"],
-        ["--seq_parallel", "2"],
         ["--ckpt_backend", "orbax"],
-        ["--attention", "ring"],
+        ["--attention", "ulysses"],
         ["--num_experts", "2"],
         ["--remat"],
         ["--logit_chunk", "64"],

@@ -187,7 +187,7 @@ def test_fused_adamw_three_steps_match_jax():
 
 @pytest.mark.parametrize(
     "overrides",
-    [dict(attention="ring"), dict(attention="ulysses"), dict(num_experts=2),
+    [dict(attention="ulysses"), dict(num_experts=2),
      dict(remat=True), dict(remat=True, remat_group=2)],
 )
 def test_unported_options_raise(overrides):
