@@ -88,16 +88,22 @@
    backend's less 1e-3 of it (the JAX package's bar,
    tests/test_pdhg.py:47-58); the 12-job trace under
    ``shockwave_tpu_pdhg`` and ``shockwave_tpu_relaxed`` within 1e-3 of the
-   JAX package's metrics; (b) each kernel against its plain version on
-   the card on seeded problems of 64, 256, 1024 and 4096 jobs (256 GPUs,
-   20 rounds) and on those 8 windows: ``s`` within rtol = atol = 5e-3,
-   the objective within 1e-3 (1 + |obj|), the rounded counts' objective
-   within 2e-3 (1 + |o|), and two runs bitwise equal; (c) the degradation
-   ladder: the 12-job trace under ``shockwave_tpu`` with a planning
-   deadline and one injected ``solver_timeout``, whose record must show
-   the pdhg rung ``ok``; (d) each kernel and its plain version timed at
-   256 to 65536 jobs (the plain versions up to 4096) with its block
-   barriers and bounds. It prints one JSON line ``{"first_order": ...}``.
+   JAX package's metrics, every launch of the tier and of both golden
+   runs taking an instantiation with its per-job state in shared memory;
+   (b) each kernel against its plain version on the card on seeded
+   problems of 64, 256, 1024 and 4096 jobs (256 GPUs, 20 rounds) and on
+   those 8 windows: ``s`` within rtol = atol = 5e-3, the objective within
+   1e-3 (1 + |obj|), the rounded counts' objective within 2e-3 (1 + |o|),
+   two runs bitwise equal, and equal in every bit to the kernel's
+   sequential instantiation (one bisection step a barrier, state in
+   global memory); (c) the degradation ladder: the 12-job trace under
+   ``shockwave_tpu`` with a planning deadline and one injected
+   ``solver_timeout``, whose record must show the pdhg rung ``ok``; (d)
+   at 256 to 65536 jobs the wrapper's instantiation and the sequential
+   one timed in turns, each with its block barriers and its floor (the
+   barriers at a probe kernel's us per empty reduction), the two equal
+   in every bit, with the plain version's time (up to 4096 jobs) and the
+   bounds. It prints one JSON line ``{"first_order": ...}``.
 10. Prints one JSON line ``{"kernels": [...]}`` (a row for each kernel
    and mode) and, last, ``{"ok": true, "device": {...}}``. Every printed
    reading of the ring phase carries the card's name and power limit.
@@ -712,14 +718,17 @@ def run_simulation(device) -> dict:
     return {"golden": golden, "tier_2048": tier, **report}
 
 
-def ptxas_usage(path) -> dict:
-    """Registers and spill bytes of the library's kernel, from nvcc's
-    ``-Xptxas -v`` report kept beside it."""
-    text = path.with_suffix(".log").read_text()
-    regs = re.findall(r"Used (\d+) registers", text)
-    spills = re.findall(r"(\d+) bytes spill stores", text)
-    return {"REG": int(regs[-1]) if regs else None,
-            "SPILL": int(spills[-1]) if spills else None}
+def check_resident(what: str, run: dict, kernel: str) -> None:
+    """Fails unless every launch of ``kernel`` in ``run`` (a
+    ``bench_sim.run_trace`` result) took a resident instantiation: the
+    per-job state in shared memory."""
+    variants = run["variants"][kernel]
+    print(f"  {what}: {kernel} launches by instantiation {variants}",
+          flush=True)
+    if not variants or any(not v.endswith("-resident") for v in variants) \
+            or sum(variants.values()) != run["launches"][kernel]:
+        fail(f"{what}: {kernel} launched {variants}, not every launch "
+             f"resident")
 
 
 def run_first_order(device) -> dict:
@@ -780,6 +789,7 @@ def run_first_order(device) -> dict:
             plans):
         fail(f"2048-job tier under pdhg: solves {tier['solves']}, kernel A "
              f"launches {launches}, {len(plans)} plans")
+    check_resident("2048-job tier under pdhg", tier, "eg_pdhg")
     windows = sim.sample_by_jobs(problems, 8)
     vs_level = []
     for problem in windows:
@@ -805,25 +815,29 @@ def run_first_order(device) -> dict:
         bad = sim.check_run(r, expected)
         if bad:
             fail(f"golden trace under {policy}: " + ", ".join(bad))
+        check_resident(f"golden trace under {policy}", r,
+                       "eg_pdhg" if policy.endswith("pdhg") else "eg_relaxed")
         golden[policy] = {k: r[k] for k in ("makespan", "avg_jct",
                                             "worst_ftf", "solves",
-                                            "launches", "wall_s")}
+                                            "launches", "variants",
+                                            "wall_s")}
     launches["eg_relaxed"] = golden["shockwave_tpu_relaxed"]["launches"][
         "eg_relaxed"]
     for name, count in launches.items():
         if count == 0:
             fail(f"the main path launched {name} no time")
 
-    print("first-order kernels against their plain versions (seeded "
-          f"problems of {sim.EG_CHECK_BANDS} jobs, 8 tier windows):",
-          flush=True)
+    print("first-order kernels against their plain versions and their "
+          f"sequential instantiations (seeded problems of "
+          f"{sim.EG_CHECK_BANDS} jobs, 8 tier windows):", flush=True)
     checked = [sim.seeded_problem(jobs) for jobs in sim.EG_CHECK_BANDS]
     bad, max_err = sim.check_eg_kernels(checked + windows, device)
     if bad:
-        fail("first-order kernels against their plain versions: "
-             + "; ".join(bad))
+        fail("first-order kernels against their plain versions or their "
+             "sequential instantiations: " + "; ".join(bad))
     print(f"  both kernels within the limits on {len(checked + windows)} "
-          f"problems and bitwise repeatable; largest |s| error {max_err}",
+          f"problems, bitwise repeatable and equal to the sequential "
+          f"instantiation in every bit; largest |s| error {max_err}",
           flush=True)
 
     faults.configure(faults.FaultPlan(
@@ -842,10 +856,15 @@ def run_first_order(device) -> dict:
             {"backend": "pdhg", "outcome": "ok"}]:
         fail(f"ladder did not absorb the timeout on its pdhg rung: "
              f"{degraded}")
-    print("first-order kernels timed (kernel: CUDA events, median of "
-          f"{sim.EG_ITERS}; plain: one run, up to {sim.EG_PLAIN_MAX_JOBS} "
-          "jobs):", flush=True)
+    print("first-order kernels timed, the wrapper's instantiation and the "
+          f"sequential one in turns (CUDA events, median of {sim.EG_ITERS}; "
+          f"plain: one run, up to {sim.EG_PLAIN_MAX_JOBS} jobs):", flush=True)
     timings = sim.time_eg_kernels(device)
+    differ = [f"{r['kernel']} {r['jobs']} jobs" for r in timings
+              if not r["identical"]]
+    if differ:
+        fail("instantiations that differ from the sequential one in some "
+             "bit: " + ", ".join(differ))
     return {"tier_2048_pdhg": {k: tier[k] for k in (
                 "makespan", "avg_jct", "worst_ftf", "rounds", "solves",
                 "solve_s", "device_head_s", "launches", "wall_s")},
@@ -880,11 +899,15 @@ def main() -> None:
           f"together: {', '.join(p.name for p in libraries.values())})",
           flush=True)
     usage = inspect_library(_build, libraries["flash_attention"])
+    from shockwave_tpu_torch.tools.bench_sim import ptxas_usage
+
     for name in SOURCES:
         u = ptxas_usage(libraries[name])
         usage[(name, None)] = u
-        print(f"  {name}: {u['REG']} registers, {u['SPILL']} bytes of "
-              f"spill stores (ptxas -v)")
+        for kernel, k in u.items():
+            print(f"  {name} {kernel}: {k['REG']} registers, {k['STACK']} "
+                  f"bytes of stack, {k['SPILL']} bytes of spill stores, "
+                  f"{k['SMEM']} bytes of static shared memory (ptxas -v)")
 
     print("kernels against their plain versions:")
     B, S, H, D = bench.TRAIN_SHAPE
@@ -1005,10 +1028,14 @@ def main() -> None:
           f"{nc_backward_ms:.4f} ms; SDPA backward {ring['sdpa_bwd_ms']:.4f} "
           f"ms [{card}]")
     for name, solver in (("eg_pdhg", "pdhg"), ("eg_relaxed", "relaxed")):
-        # The row of the largest band the plain version was timed at.
-        timed = [r for r in first_order["timings"]
-                 if r["kernel"] == solver and r["plain_ms"] is not None]
-        row = timed[-1]
+        rows = [r for r in first_order["timings"] if r["kernel"] == solver]
+        # The row of the largest band the main path's instantiation (state
+        # resident) takes and the plain version was timed at.
+        row = [r for r in rows
+               if r["resident"] and r["plain_ms"] is not None][-1]
+        kernel = (f"{solver}_kernel<{row['levels']}, "
+                  f"{'true' if row['resident'] else 'false'}>")
+        res = usage[(name, None)].get(kernel, {})
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1017,17 +1044,29 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "jobs": row["jobs"],
+            "ms_before": row["ms_before"],
             "barriers": row["barriers"],
+            "barriers_before": row["barriers_before"],
+            "floor_ms": row["floor_ms"],
+            "floor_ms_before": row["floor_ms_before"],
             "us_per_barrier": row["us_per_barrier"],
             "state_hbm_ms": row["state_hbm_ms"],
             "state_l2_ms": row["state_l2_ms"],
-            "registers": usage[(name, None)]["REG"],
-            "spill_bytes": usage[(name, None)]["SPILL"],
+            "instantiation": kernel,
+            "registers": res.get("REG"), "spill_bytes": res.get("SPILL"),
+            "stack_bytes": res.get("STACK"),
+            "bands": [{k: r[k] for k in (
+                "jobs", "slots", "levels", "resident", "ms", "ms_before",
+                "barriers", "barriers_before", "floor_ms", "floor_ms_before",
+                "identical", "bound_ms", "plain_ms")} for r in rows],
         })
-        print(f"{name}: {row['ms']:.4f} ms at {row['jobs']} jobs (bound "
+        print(f"{name}: {row['ms']:.4f} ms at {row['jobs']} jobs ({kernel}; "
+              f"sequential {row['ms_before']:.4f} ms; bound "
               f"{row['bound_ms']:.5f} ms by {row['bound_by']}; "
-              f"{row['barriers']} block barriers; plain "
-              f"{row['plain_ms']:.1f} ms; no PyTorch call computes it)")
+              f"{row['barriers']} block barriers against "
+              f"{row['barriers_before']}, floor {row['floor_ms']:.4f} ms; "
+              f"plain {row['plain_ms']:.1f} ms; no PyTorch call computes "
+              f"it) [{card}]")
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s")
     for run in (simulation["tier_2048"], *simulation["golden"].values()):
         run.pop("records", None)

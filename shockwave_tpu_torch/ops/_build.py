@@ -61,12 +61,15 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _I, _F, _I, _P],
     },
     "eg_pdhg": {
-        "eg_pdhg": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "eg_pdhg_scratch_floats": [_I],
+        "eg_pdhg": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "eg_pdhg_state_floats": [_I],
+        "eg_pdhg_shared_bytes": [_I],
+        "eg_barrier_probe": [_P, _I, _I, _I, _P],
     },
     "eg_relaxed": {
-        "eg_relaxed": [_P, _P, _P, _P, _I, _I, _I, _P],
-        "eg_relaxed_scratch_floats": [_I],
+        "eg_relaxed": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "eg_relaxed_state_floats": [_I],
+        "eg_relaxed_shared_bytes": [_I],
     },
 }
 # Flags of one source on top of NVCC_FLAGS.
@@ -74,8 +77,11 @@ EXTRA_FLAGS = {
     "eg_pdhg": ("-fmad=false",),
     "eg_relaxed": ("-fmad=false",),
 }
+# Every instantiation of the planning kernels, not only the wrappers' and
+# the sequential one: a library of its own, built when asked for.
+ALL_LEVELS = ("-DEG_ALL_LEVELS",)
 
-_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS: dict = {}
 
 
 class KernelError(RuntimeError):
@@ -95,8 +101,8 @@ def _nvcc() -> str:
     )
 
 
-def _source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(extra: tuple = ()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     h.update(repr(sorted(EXTRA_FLAGS.items())).encode())
     for path in sorted(CSRC.glob("*.cu*")):
         h.update(path.name.encode())
@@ -104,21 +110,22 @@ def _source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_source_hash()}.so"
+def library_path(name: str, extra: tuple = ()) -> Path:
+    return BUILD_DIR / f"{name}-{_source_hash(extra)}.so"
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless the library of these sources is
-    already built; returns its path."""
-    final = library_path(name)
+def build(name: str, extra: tuple = ()) -> Path:
+    """Compile ``csrc/<name>.cu`` (with the flags ``extra`` on top of its
+    own) unless the library of these sources is already built; returns its
+    path."""
+    final = library_path(name, extra)
     if final.exists():
         return final
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = final.with_suffix(f".{os.getpid()}.tmp")
     run = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", str(tmp),
-         str(CSRC / f"{name}.cu")],
+        [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), *extra,
+         "-o", str(tmp), str(CSRC / f"{name}.cu")],
         capture_output=True, text=True,
     )
     if run.returncode != 0:
@@ -134,22 +141,24 @@ def build(name: str) -> Path:
     return final
 
 
-def build_all(names) -> dict:
-    """Build the libraries of ``names`` at once, one nvcc each; returns
-    {name: path}. Raises the first build's error after all have ended."""
+def build_all(names, extra: tuple = ()) -> dict:
+    """Build the libraries of ``names`` (with ``extra`` flags) at once, one
+    nvcc each; returns {name: path}. Raises the first build's error after
+    all have ended."""
     from concurrent.futures import ThreadPoolExecutor
 
     names = list(names)
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
-        futures = {name: pool.submit(build, name) for name in names}
+        futures = {name: pool.submit(build, name, extra) for name in names}
     return {name: f.result() for name, f in futures.items()}
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _LIBS.get(name)
+def library(name: str, extra: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with ``extra`` flags),
+    built first if needed."""
+    lib = _LIBS.get((name, extra))
     if lib is None:
-        path = build(name)
+        path = build(name, extra)
         try:
             lib = ctypes.CDLL(str(path))
         except OSError as e:
@@ -157,7 +166,7 @@ def library(name: str) -> ctypes.CDLL:
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[(name, extra)] = lib
     return lib
 
 

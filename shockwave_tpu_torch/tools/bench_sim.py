@@ -3,6 +3,7 @@
     python -m shockwave_tpu_torch.tools.bench_sim            # on the card
     python -m shockwave_tpu_torch.tools.bench_sim --device cpu
     python -m shockwave_tpu_torch.tools.bench_sim --first-order  # card only
+    python -m shockwave_tpu_torch.tools.bench_sim --first-order --levels
 
 ``chip_smoke.py`` and the tests use the helpers here: the trace runs and
 the constants they are held to (``run_trace``, ``check_run``, ``GOLDEN``,
@@ -26,14 +27,19 @@ each reading and, as its last line, one JSON object with them, the
 crossover of each set (the fewest jobs from which the level solve is the
 faster on every larger problem) and the card's name and power limit.
 With ``--first-order`` it instead checks kernels A and B against their
-plain versions on the seeded problems of ``EG_CHECK_BANDS`` and times
-them per band of ``EG_TIME_BANDS`` (``time_eg_kernels``).
+plain versions and their sequential instantiations on the seeded problems
+of ``EG_CHECK_BANDS`` and times the wrapper's instantiation and the
+sequential one in turns per band of ``EG_TIME_BANDS``
+(``time_eg_kernels``); with ``--levels`` as well, it times every
+instantiation per band (``sweep_levels``), the data the wrapper's levels
+are chosen from.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import statistics
 import subprocess
 import time
@@ -106,7 +112,8 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     by the device their tensors lay on, the launches of the PDHG and
     relaxed kernels, the planner's solve records and the run's wall
     time. ``capture``, where given, receives every planning problem the
-    planner solves, and ``plans`` (round, schedule) of every solve."""
+    planner solves, and ``plans`` (round, schedule) of every solve. The
+    kernels' launches come by instantiation too (``variants``)."""
     from shockwave_tpu_torch.core.scheduler import Scheduler
     from shockwave_tpu_torch.data import load_or_synthesize_profiles, parse_trace
     from shockwave_tpu_torch.data.default_oracle import generate_oracle
@@ -145,6 +152,8 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     makespan = sched.simulate({"v100": num_gpus}, arrivals, jobs)
     device_solves = dict(eg_level.SOLVES)
     launches = {**eg_pdhg.LAUNCHES, **eg_relaxed.LAUNCHES}
+    variants = {"eg_pdhg": dict(eg_pdhg.LAUNCHES_BY_VARIANT),
+                "eg_relaxed": dict(eg_relaxed.LAUNCHES_BY_VARIANT)}
     ftf, _ = sched.get_finish_time_fairness()
     backends: dict = {}
     solve_s: dict = {}
@@ -156,7 +165,7 @@ def run_trace(trace, policy: str, num_gpus: int, device,
                 avg_jct=sched.get_average_jct(), worst_ftf=max(ftf),
                 rounds=sched._num_completed_rounds, solves=backends,
                 solve_s=solve_s, device_solves=device_solves,
-                launches=launches,
+                launches=launches, variants=variants,
                 records=list(sched._shockwave.solve_records),
                 wall_s=time.perf_counter() - start)
 
@@ -416,6 +425,10 @@ def solve_report(device, problems) -> tuple:
 # EG_PLAIN_MAX_JOBS (one run each: seconds of eager launches).
 EG_CHECK_BANDS = (64, 256, 1024, 4096)
 EG_TIME_BANDS = (256, 1024, 4096, 16384, 65536)
+# Bands the level sweep times every instantiation at: each slot count a
+# problem can take up to 2048 (the warps that own slots change with it),
+# then the timing bands.
+EG_SWEEP_BANDS = (64, 128, 256, 512, 1024, 2048, 4096, 16384, 65536)
 EG_PLAIN_MAX_JOBS = 4096
 EG_ITERS = 5
 # Limits of two summation orders of the same arithmetic: the JAX
@@ -427,13 +440,19 @@ F32_PEAK = 67e12
 HBM_BYTES = 3.35e12
 # Float32 values of per-job state one pass over the jobs touches, and
 # the operations it does a job, counted from csrc/eg_pdhg.cu and
-# csrc/eg_relaxed.cu (a transcendental counts as one operation).
+# csrc/eg_relaxed.cu (a transcendental counts as one operation); the
+# "_iter" entries are one step of a block-wide bisection.
 PDHG_FLOATS = dict(step=13, acc=6, move=4, dual_iter=1, dual=2,
-                   proj=194, obj=7, cycle=20, fill_iter=9, fill=12)
-PDHG_OPS = dict(step=312, acc=2, move=4, dual_iter=3, dual=2, proj=372,
-                obj=8, cycle=10, fill_iter=17, fill=40)
-RELAXED_FLOATS_PER_STEP = 217
-RELAXED_OPS_PER_STEP = 425
+                   proj_iter=3, proj=14, obj=7, cycle=20, fill_iter=9,
+                   fill=12)
+PDHG_OPS = dict(step=312, acc=2, move=4, dual_iter=3, dual=2, proj_iter=6,
+                proj=12, obj=8, cycle=10, fill_iter=17, fill=40)
+RELAXED_FLOATS = dict(step=37, proj_iter=3)
+RELAXED_OPS = dict(step=65, proj_iter=6)
+# Steps of the block-wide bisections (csrc/eg_common.cuh, eg_pdhg.cu).
+PROJ_STEPS, DUAL_STEPS, FILL_STEPS = 60, 30, 80
+# Empty fused reductions the barrier probe times.
+PROBE_ITERS = 20000
 
 
 def eg_pack(kind: str, problem, device) -> torch.Tensor:
@@ -451,16 +470,31 @@ def eg_pack(kind: str, problem, device) -> torch.Tensor:
     return torch.from_numpy(host).to(device)[None]
 
 
-def eg_solve(kind: str, packed, barriers=None) -> torch.Tensor:
+def eg_solve(kind: str, packed, stats=None, variant=None) -> torch.Tensor:
     """The kernel's wrapper on ``packed`` (the plain version on the CPU),
-    at the reference's defaults; returns the output row."""
+    at the reference's defaults; returns the output row. ``stats``
+    receives the solve's counters, ``variant`` picks the instantiation."""
     from shockwave_tpu_torch.ops import eg_pdhg, eg_relaxed
     from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
 
     if kind == "pdhg":
         return eg_pdhg.pdhg(packed, pdhg_solver.DEFAULT_MAX_CYCLES,
-                            pdhg_solver.DEFAULT_INNER_ITERS, barriers)[0]
-    return eg_relaxed.relaxed(packed, 256, barriers)[0]
+                            pdhg_solver.DEFAULT_INNER_ITERS, stats,
+                            variant)[0]
+    return eg_relaxed.relaxed(packed, 256, stats, variant)[0]
+
+
+def instantiation(kind: str, slots: int) -> tuple:
+    """(levels, resident) the wrapper picks for ``slots`` slots."""
+    from shockwave_tpu_torch.ops import eg_pdhg, eg_relaxed
+
+    return (eg_pdhg if kind == "pdhg" else eg_relaxed).instantiation(slots)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two float32 tensors hold the same bits."""
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
 
 
 def eg_plain(kind: str, packed) -> torch.Tensor:
@@ -505,18 +539,26 @@ def eg_misses(problem, s, obj, ref_s, ref_obj) -> list:
 def check_eg_kernels(problems, device) -> tuple:
     """Kernels A and B on ``device`` against their plain versions on the
     same device and inputs (``eg_misses``), each kernel run twice and
-    bitwise equal. Returns (the misses, the largest |s| error of each
-    kernel)."""
+    bitwise equal, and bitwise equal to the sequential instantiation
+    (one bisection step a barrier, state in global memory). Returns (the
+    misses, the largest |s| error of each kernel)."""
+    from shockwave_tpu_torch.ops.eg_pdhg import SEQUENTIAL
+
     bad, max_err = [], {"pdhg": 0.0, "relaxed": 0.0}
     for i, problem in enumerate(problems):
         for kind in ("pdhg", "relaxed"):
             packed = eg_pack(kind, problem, device)
             out = eg_solve(kind, packed)
             again = eg_solve(kind, packed)
+            sequential = eg_solve(kind, packed, variant=SEQUENTIAL)
             plain = eg_plain(kind, packed)
             where = f"{kind} problem {i} ({problem.num_jobs} jobs)"
-            if not torch.equal(out, again):
+            if not same_bits(out, again):
                 bad.append(f"{where}: two runs differ")
+            if not same_bits(out, sequential):
+                bad.append(f"{where}: instantiation "
+                           f"{instantiation(kind, packed.shape[2])} differs "
+                           f"from the sequential one")
             J, slots = problem.num_jobs, packed.shape[2]
             got, ref = out.cpu().numpy(), plain.cpu().numpy()
             s, ref_s = got[:J].astype(np.float64), ref[:J].astype(np.float64)
@@ -543,72 +585,202 @@ def l2_rate(device) -> float:
     return 100 * 2 * x.numel() * 4 / (start.elapsed_time(end) / 1e3)
 
 
-def eg_work(kind: str, slots: int, row: np.ndarray, barriers: int) -> dict:
-    """Per-job state touched and operations done by one solve of ``slots``
-    job slots, from its output row and barrier count: the PDHG solve's
-    cycles, and the dual projections whose bisection ran (30 barriers
-    each, beyond the fixed ones); the relaxed solve's steps."""
+def eg_counts(kind: str, slots: int, row, stats) -> dict:
+    """What a solve ran, from its output row and its stats row: the PDHG
+    solve's cycles and the dual projections, budget projections and
+    fills whose bisection ran; the relaxed solve's steps and projections
+    bisected."""
+    stats = [int(x) for x in stats]
     if kind == "pdhg":
-        c, inner = int(row[slots + 1]), 40
-        fixed = 147 + c * (inner + 67)
-        duals = max(barriers - fixed, 0) // 30
+        return dict(cycles=int(row[slots + 1]), dual_projections=stats[1],
+                    projections=stats[2], fills=stats[3])
+    return dict(steps=int(row[slots + 1]), projections=stats[2])
+
+
+def _rounds(steps: int, levels: int) -> int:
+    """Tree rounds (barriers) of a bisection of ``steps`` steps."""
+    return -(-steps // levels)
+
+
+def eg_barriers(kind: str, counts: dict, levels: int,
+                sequential: bool) -> int:
+    """Block barriers the code passes for ``counts`` (``eg_counts``) at
+    ``levels`` levels a bisection barrier (csrc/eg_pdhg.cu,
+    csrc/eg_relaxed.cu): each bisection of n steps ceil(n / levels)."""
+    def rounds(steps):
+        return _rounds(steps, levels)
+
+    if kind == "pdhg":
+        return (7 + 47 * counts["cycles"]
+                + rounds(PROJ_STEPS) * counts["projections"]
+                + rounds(DUAL_STEPS) * counts["dual_projections"]
+                + rounds(FILL_STEPS) * counts["fills"])
+    n = counts["steps"]
+    # The sequential structure reduces the logsumexp's max each step.
+    return (3 + 3 * n + (n if sequential else 0)
+            + rounds(PROJ_STEPS) * counts["projections"])
+
+
+def tree_rounds(kind: str, counts: dict, levels: int) -> int:
+    """The barriers of ``eg_barriers`` that are bisection-tree rounds."""
+    tree = _rounds(PROJ_STEPS, levels) * counts["projections"]
+    if kind == "pdhg":
+        tree += (_rounds(DUAL_STEPS, levels) * counts["dual_projections"]
+                 + _rounds(FILL_STEPS, levels) * counts["fills"])
+    return tree
+
+
+def eg_work(kind: str, slots: int, counts: dict) -> dict:
+    """Per-job state touched and operations done by one solve of ``slots``
+    job slots that ran ``counts`` (``eg_counts``), one bisection step at a
+    time, and the bound they give: inputs and outputs once over HBM, or
+    the operations over the float32 peak."""
+    if kind == "pdhg":
+        c, inner = counts["cycles"], 40
         steps = c * (inner + 2)
 
         def total(k):
             return (steps * k["step"] + c * inner * k["acc"]
-                    + 2 * c * k["move"] + duals * (30 * k["dual_iter"]
-                                                  + k["dual"])
-                    + (c + 1) * (k["proj"] + k["obj"]) + c * k["cycle"]
-                    + 80 * k["fill_iter"] + k["fill"])
+                    + 2 * c * k["move"]
+                    + counts["dual_projections"] * (
+                        DUAL_STEPS * k["dual_iter"] + k["dual"])
+                    + (c + 1) * (k["proj"] + k["obj"])
+                    + counts["projections"] * PROJ_STEPS * k["proj_iter"]
+                    + c * k["cycle"]
+                    + counts["fills"] * FILL_STEPS * k["fill_iter"]
+                    + k["fill"])
 
         floats, ops = total(PDHG_FLOATS), total(PDHG_OPS)
         io = (10 * slots + slots + 8) * 4
-        count = dict(cycles=c, steps=steps, dual_projections=duals)
     else:
-        n = int(row[slots + 1])
-        floats = n * RELAXED_FLOATS_PER_STEP
-        ops = n * RELAXED_OPS_PER_STEP
+        def total(k):
+            return (counts["steps"] * k["step"] + counts["projections"]
+                    * PROJ_STEPS * k["proj_iter"])
+
+        floats, ops = total(RELAXED_FLOATS), total(RELAXED_OPS)
         io = (9 * slots + slots + 2) * 4
-        count = dict(steps=n)
     state_bytes = 4.0 * floats * slots
     t_io, t_ops = io / HBM_BYTES, ops * slots / F32_PEAK
-    return dict(count, state_bytes=state_bytes,
+    return dict(state_bytes=state_bytes,
                 state_hbm_ms=1e3 * state_bytes / HBM_BYTES,
                 bound_ms=1e3 * max(t_io, t_ops),
                 bound_by="operations" if t_ops >= t_io else "bytes")
 
 
+def barrier_us(device, values: int, warps: int = 32,
+               iters: int = PROBE_ITERS) -> float:
+    """us per block barrier of ``iters`` empty fused reductions of
+    ``values`` values among ``warps`` warps of a 1024-thread block (kernel
+    A's library's probe; CUDA events after a warm-up)."""
+    from shockwave_tpu_torch.ops import _build
+
+    lib = _build.library("eg_pdhg")
+    out = torch.empty(1, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(lib.eg_barrier_probe(out.data_ptr(), values, warps, 100,
+                                      stream), "eg_barrier_probe")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    _build.check(lib.eg_barrier_probe(out.data_ptr(), values, warps, iters,
+                                      stream), "eg_barrier_probe")
+    end.record()
+    end.synchronize()
+    return 1e3 * start.elapsed_time(end) / iters
+
+
+def active_warps(slots: int) -> int:
+    """Warps of a 1024-thread block that own slots (eg::active_warps): the
+    warps a non-sequential instantiation's reductions run on."""
+    return min(32, -(-slots // 32))
+
+
+def floor_ms(kind: str, counts: dict, barriers: int, levels: int,
+             probe: dict, warps: int) -> float:
+    """The barriers' own time: each tree round at the probe's time for
+    2^levels - 1 values, every other barrier at its time for one, both
+    among ``warps`` warps (``probe`` maps (values, warps) to us)."""
+    tree = tree_rounds(kind, counts, levels) if levels > 1 else 0
+    return 1e-3 * ((barriers - tree) * probe[(1, warps)]
+                   + tree * probe[((1 << levels) - 1, warps)])
+
+
+def _event_ms(fn) -> float:
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def time_eg_kernels(device, bands=EG_TIME_BANDS) -> list:
-    """Kernels A and B on a seeded problem of each band: the kernel's ms
-    (CUDA events around each launch, median of EG_ITERS after a warm-up),
-    its block barriers, cycles or steps, the plain version's ms (host
-    clock, one run, up to EG_PLAIN_MAX_JOBS jobs), and the bounds: the
-    contract's (inputs and outputs once over HBM, or the operations over
-    the float32 peak) and the per-job state each pass touches, over HBM
-    and over the measured L2-resident rate."""
+    """Kernels A and B on a seeded problem of each band, the wrapper's
+    instantiation and the sequential one (one bisection step a barrier,
+    state in global memory) timed in turns: each one's ms (CUDA events
+    around each launch, median of EG_ITERS after a warm-up), block
+    barriers and barrier floor (barriers at the probe's us each), whether
+    the two agree in every bit, the plain version's ms (host clock, one
+    run, up to EG_PLAIN_MAX_JOBS jobs), and the bounds: the contract's
+    (inputs and outputs once over HBM, or the operations over the float32
+    peak) and the per-job state each pass touches, over HBM and over the
+    measured L2-resident rate."""
+    from shockwave_tpu_torch.ops.eg_pdhg import SEQUENTIAL
+    from shockwave_tpu_torch.solver.eg_level import num_slots_for
+
     l2 = l2_rate(device)
+    # The probe at each (values, warps) a timed solve reduces over: the
+    # sequential instantiation over all 32 warps, the wrapper's over the
+    # warps that own slots.
+    needs = {(1, 32)}
+    for jobs in bands:
+        slots = num_slots_for(jobs)
+        for kind in ("pdhg", "relaxed"):
+            levels = instantiation(kind, slots)[0]
+            needs |= {(1, active_warps(slots)),
+                      ((1 << levels) - 1, active_warps(slots))}
+    probe = {need: barrier_us(device, *need) for need in sorted(needs)}
+    print("  barrier probe (us per empty fused reduction of N values among "
+          "W warps): " + ", ".join(f"N={v} W={w}: {us:.4f}" for (v, w), us
+                                   in sorted(probe.items())), flush=True)
     rows = []
     for jobs in bands:
         problem = seeded_problem(jobs)
         for kind in ("pdhg", "relaxed"):
             packed = eg_pack(kind, problem, device)
-            barriers = torch.zeros(1, dtype=torch.int64, device=device)
-            out = eg_solve(kind, packed, barriers)
-            times = []
-            for _ in range(EG_ITERS):
-                start, end = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(2))
-                start.record()
-                eg_solve(kind, packed)
-                end.record()
-                end.synchronize()
-                times.append(start.elapsed_time(end))
             slots = packed.shape[2]
-            n_bar = int(barriers[0])
+            variant = instantiation(kind, slots)
+            runs = {}
+            for name, v in (("after", variant), ("before", SEQUENTIAL)):
+                stats = torch.zeros((1, 4), dtype=torch.int64, device=device)
+                out = eg_solve(kind, packed, stats, v)
+                runs[name] = dict(out=out, stats=stats[0].cpu().numpy(),
+                                  times=[])
+            for it in range(EG_ITERS):
+                order = (("after", variant), ("before", SEQUENTIAL))
+                for name, v in order if it % 2 == 0 else order[::-1]:
+                    runs[name]["times"].append(_event_ms(
+                        lambda: eg_solve(kind, packed, variant=v)))
             row = dict(kernel=kind, jobs=jobs, slots=slots,
-                       ms=statistics.median(times), barriers=n_bar,
-                       **eg_work(kind, slots, out.cpu().numpy(), n_bar))
-            row["us_per_barrier"] = 1e3 * row["ms"] / n_bar
+                       levels=variant[0], resident=variant[1],
+                       identical=same_bits(runs["after"]["out"],
+                                           runs["before"]["out"]))
+            for name, levels in (("after", variant[0]), ("before", 1)):
+                r = runs[name]
+                counts = eg_counts(kind, slots, r["out"].cpu().numpy(),
+                                   r["stats"])
+                n_bar = int(r["stats"][0])
+                suffix = "" if name == "after" else "_before"
+                row["ms" + suffix] = statistics.median(r["times"])
+                row["barriers" + suffix] = n_bar
+                row["barriers_formula" + suffix] = eg_barriers(
+                    kind, counts, levels, name == "before")
+                row["floor_ms" + suffix] = floor_ms(
+                    kind, counts, n_bar, levels, probe,
+                    active_warps(slots) if name == "after" else 32)
+                row["us_per_barrier" + suffix] = 1e3 * row["ms" + suffix] / n_bar
+                if name == "after":
+                    row.update(counts)
+                    row.update(eg_work(kind, slots, counts))
             row["state_l2_ms"] = 1e3 * row["state_bytes"] / l2
             row["plain_ms"] = None
             if jobs <= EG_PLAIN_MAX_JOBS:
@@ -618,20 +790,105 @@ def time_eg_kernels(device, bands=EG_TIME_BANDS) -> list:
                 torch.cuda.synchronize()
                 row["plain_ms"] = 1e3 * (time.perf_counter() - start_s)
             row["l2_rate"] = l2
+            row["probe_us"] = {f"{v}x{w}": us
+                               for (v, w), us in probe.items()}
             rows.append(row)
             print("  " + describe_eg(row), flush=True)
     return rows
 
 
+def ptxas_usage(path) -> dict:
+    """Registers, stack, spill bytes and shared memory of each kernel of
+    the library, by its instantiation's name (``pdhg_kernel<1, true>``),
+    from nvcc's ``-Xptxas -v`` report kept beside it."""
+    text = path.with_suffix(".log").read_text()
+    usage = {}
+    for m in re.finditer(
+            r"Compiling entry function '(\w+)'.*?(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores.*?Used (\d+) registers(.*?)\n", text,
+            re.S):
+        k = re.search(r"(pdhg_kernel|relaxed_kernel|barrier_probe)ILi(\d+)E"
+                      r"(?:Lb([01])E)?", m.group(1))
+        if k is None:
+            continue
+        name = k.group(1) + "<" + k.group(2) + (
+            "" if k.group(3) is None else
+            ", " + ("true" if k.group(3) == "1" else "false")) + ">"
+        smem = re.search(r"(\d+) bytes smem", m.group(5))
+        usage[name] = {"REG": int(m.group(4)), "STACK": int(m.group(2)),
+                       "SPILL": int(m.group(3)),
+                       "SMEM": int(smem.group(1)) if smem else 0}
+    return usage
+
+
+def sweep_levels(device, bands=EG_SWEEP_BANDS) -> list:
+    """Every instantiation of kernels A and B (built together first, with
+    the build's time and each one's registers and spills printed) on a
+    seeded problem of each band (resident ones where the state fits):
+    median ms of EG_ITERS in turns, and whether each agrees with the
+    sequential one in every bit. The data the wrapper's levels per band
+    are chosen from."""
+    from shockwave_tpu_torch.ops import _build, eg_pdhg, eg_relaxed
+    from shockwave_tpu_torch.ops.eg_pdhg import MAX_SHARED, STATIC_SHARED
+
+    start = time.perf_counter()
+    libs = _build.build_all(["eg_pdhg", "eg_relaxed"], _build.ALL_LEVELS)
+    print(f"  every instantiation built in "
+          f"{time.perf_counter() - start:.1f} s (one nvcc a source, "
+          f"together)", flush=True)
+    for name, path in libs.items():
+        for kernel, u in ptxas_usage(path).items():
+            print(f"  {kernel}: {u['REG']} registers, {u['STACK']} B stack, "
+                  f"{u['SPILL']} B spill stores (ptxas -v)", flush=True)
+    rows = []
+    for jobs in bands:
+        problem = seeded_problem(jobs)
+        for kind, module in (("pdhg", eg_pdhg), ("relaxed", eg_relaxed)):
+            packed = eg_pack(kind, problem, device)
+            slots = packed.shape[2]
+            fits = (4 * module.STATE_ROWS * slots + STATIC_SHARED
+                    <= MAX_SHARED)
+            variants = [(L, r) for r in ((False, True) if fits else (False,))
+                        for L in range(1, 6)]
+            ref = eg_solve(kind, packed, variant=eg_pdhg.SEQUENTIAL)
+            times = {v: [] for v in variants}
+            same = {v: same_bits(eg_solve(kind, packed, variant=v), ref)
+                    for v in variants}
+            for it in range(EG_ITERS):
+                for v in variants if it % 2 == 0 else variants[::-1]:
+                    times[v].append(_event_ms(
+                        lambda: eg_solve(kind, packed, variant=v)))
+            for v in variants:
+                rows.append(dict(kernel=kind, jobs=jobs, slots=slots,
+                                 levels=v[0], resident=v[1],
+                                 ms=statistics.median(times[v]),
+                                 identical=same[v]))
+                print(f"  {kind} {jobs} jobs, {v[0]} levels, "
+                      f"{'resident' if v[1] else 'global'}: "
+                      f"{rows[-1]['ms']:.4f} ms, "
+                      f"{'same bits' if same[v] else 'DIFFERENT BITS'}",
+                      flush=True)
+    return rows
+
+
 def describe_eg(row: dict) -> str:
-    what = (f"{row['cycles']} cycles, {row['dual_projections']} dual "
+    what = (f"{row['cycles']} cycles, {row['dual_projections']} dual, "
+            f"{row['projections']} budget and {row['fills']} fill "
             f"bisections" if row["kernel"] == "pdhg"
-            else f"{row['steps']} steps")
+            else f"{row['steps']} steps, {row['projections']} projections "
+            f"bisected")
     plain = ("not timed above {} jobs".format(EG_PLAIN_MAX_JOBS)
              if row["plain_ms"] is None else f"{row['plain_ms']:.1f} ms")
-    return (f"{row['kernel']} {row['jobs']} jobs: {row['ms']:.3f} ms, "
-            f"{what}, {row['barriers']} barriers "
-            f"({row['us_per_barrier']:.3f} us each); bound "
+    where = "shared" if row["resident"] else "global"
+    return (f"{row['kernel']} {row['jobs']} jobs ({row['levels']} levels, "
+            f"state in {where} memory): {row['ms']:.4f} ms against "
+            f"{row['ms_before']:.4f} sequential, "
+            f"{'same bits' if row['identical'] else 'DIFFERENT BITS'}; "
+            f"{what}; {row['barriers']} barriers against "
+            f"{row['barriers_before']} ({row['us_per_barrier']:.3f} against "
+            f"{row['us_per_barrier_before']:.3f} us each); floor "
+            f"{row['floor_ms']:.4f} against {row['floor_ms_before']:.4f} ms; "
+            f"bound "
             f"{row['bound_ms']:.5f} ms by {row['bound_by']}; state "
             f"{row['state_bytes'] / 1e6:.2f} MB: {row['state_hbm_ms']:.4f} "
             f"ms at HBM, {row['state_l2_ms']:.4f} ms at L2 "
@@ -660,6 +917,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--first-order", action="store_true",
                         help="check and time kernels A and B (a card only)")
+    parser.add_argument("--levels", action="store_true",
+                        help="with --first-order, time every instantiation "
+                             "of kernels A and B per band instead")
     args = parser.parse_args(argv)
     from shockwave_tpu_torch.utils.device import resolve_device
 
@@ -669,6 +929,10 @@ def main(argv=None) -> dict:
     if args.first_order:
         if device.type != "cuda":
             raise SystemExit("--first-order times kernels: it needs a card")
+        if args.levels:
+            out = dict(card=card, levels=sweep_levels(device))
+            print(json.dumps(out))
+            return out
         bad, max_err = check_eg_kernels(
             [seeded_problem(jobs) for jobs in EG_CHECK_BANDS], device)
         if bad:
