@@ -107,6 +107,30 @@
 10. Prints one JSON line ``{"kernels": [...]}`` (a row for each kernel
    and mode) and, last, ``{"ok": true, "device": {...}}``. Every printed
    reading of the ring phase carries the card's name and power limit.
+11. Before item 10's lines, drives the Gavel round path (``run_gavel``):
+   Gavel's policies, whose allocation LPs run on the host (scipy's
+   HiGHS), through ``bench_sim.run_trace`` and the Figure-9 runner
+   (``shockwave_tpu_torch/tools/scale_experiments.py``): (a) the 12-job
+   trace on 8 GPUs under ``fifo`` and ``max_min_fairness``, each within
+   1e-3 of tests/test_golden.py; (b) Figure 9: the 220-job trace, 4 GPUs a
+   server, 120 s rounds, under ``max_min_fairness`` and ``shockwave_tpu``
+   at 64, 128 and 256 GPUs and under ``finish_time_fairness`` and
+   ``max_min_fairness_water_filling`` at 64, and the 2048-job trace on 256
+   GPUs under ``max_min_fairness`` beside item 8's ``shockwave_tpu`` run,
+   each within 1e-3 of the JAX package's run (``bench_sim.FIGURE9``,
+   ``TIER_2048_MMF``), with a table of makespan, average JCT, worst FTF
+   and unfair fraction and the Shockwave against max-min ratios; (c) the
+   220-job trace on ``v100:16 p100:16 k80:16`` under ``fifo``,
+   ``fifo_perf``, ``max_min_fairness``, ``max_min_fairness_perf``,
+   ``finish_time_fairness_perf``, ``max_sum_throughput_perf`` and
+   ``min_total_duration_perf``, each within 1e-3 of the JAX package's
+   (``bench_sim.HETERO``); every run is held to the JAX package's run
+   under the same scipy (``bench_sim.pinned``: the pins are scipy
+   1.17.0's, ``SCIPY_PINS`` the cells another scipy's HiGHS moves); (d)
+   for every run its wall time and its
+   allocation calls and their seconds, each line with the card's name
+   and power limit and scipy's version. It prints one JSON line
+   ``{"gavel": ...}``.
 
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
@@ -873,6 +897,85 @@ def run_first_order(device) -> dict:
             "timings": timings, "launches": launches}
 
 
+def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
+    """Phases (a)-(d) of the Gavel round path (docstring, item 11); fails
+    on any run past its tolerance. ``shockwave_tier`` is item 8's run of
+    the 2048-job trace under ``shockwave_tpu``."""
+    import scipy
+
+    from shockwave_tpu_torch.tools import bench_sim as sim
+    from shockwave_tpu_torch.tools import scale_experiments as fig9
+
+    tag = f"[{card}; scipy {scipy.__version__}]"
+    runs = {}
+
+    def check(label: str, r: dict, table: str, key=None) -> None:
+        expected = sim.pinned(table, key, scipy.__version__)
+        wall = r.get("wall_s", r.get("sim_wall_clock_s"))
+        print(f"  {label}: makespan {r['makespan']:.3f} avg JCT "
+              f"{r['avg_jct']:.3f} worst FTF {r['worst_ftf']:.3f} unfair "
+              f"{r['unfair_fraction']:.1f}%, {r['rounds']} rounds; "
+              f"{r['allocations']} allocations taking "
+              f"{r['allocation_s']:.3f} s of {wall:.2f} s wall {tag}",
+              flush=True)
+        if (table, key) in sim.SCIPY_PINS.get(scipy.__version__, {}):
+            print(f"    held to the JAX package's run under scipy "
+                  f"{scipy.__version__}: {expected}", flush=True)
+        bad = sim.check_run(r, expected)
+        if bad:
+            fail(f"{label} against the JAX package's run: " + ", ".join(bad))
+        runs[label] = {k: r[k] for k in (
+            "makespan", "avg_jct", "worst_ftf", "unfair_fraction", "rounds",
+            "allocations", "allocation_s", "solves")}
+        runs[label]["wall_s"] = wall
+
+    print(f"Gavel round path {tag}:", flush=True)
+    for policy in sim.GOLDEN_GAVEL:
+        check(f"golden trace, {policy} on 8 GPUs",
+              sim.run_trace(sim.GOLDEN_TRACE, policy, 8, device),
+              "GOLDEN_GAVEL", policy)
+    for policy, gpus in sim.FIGURE9:
+        check(f"Figure 9, {policy} on {gpus} GPUs",
+              fig9.run_cell(sim.TRACE_220, policy, gpus, device=device),
+              "FIGURE9", (policy, gpus))
+    check("2048-job tier, max_min_fairness on 256 GPUs",
+          sim.run_trace(sim.TRACE_2048, "max_min_fairness", 256, device),
+          "TIER_2048_MMF")
+    for policy in sim.HETERO:
+        check(f"v100:16 p100:16 k80:16, {policy}",
+              sim.run_trace(sim.TRACE_220, policy, 16, device,
+                            cluster=sim.HETERO_CLUSTER, gpus_per_server=4),
+              "HETERO", policy)
+
+    runs["2048-job tier, shockwave_tpu on 256 GPUs"] = {
+        k: shockwave_tier[k] for k in ("makespan", "avg_jct", "worst_ftf",
+                                       "unfair_fraction", "rounds")}
+    for title, kind in (("Figure 9", lambda l: "Figure 9" in l or "2048" in l),
+                        ("heterogeneous", lambda l: l.startswith("v100"))):
+        print(f"{title} table {tag}: run | makespan | avg JCT | worst FTF "
+              f"| unfair %", flush=True)
+        for label, r in runs.items():
+            if kind(label):
+                print(f"  {label} | {r['makespan']:.3f} | "
+                      f"{r['avg_jct']:.3f} | {r['worst_ftf']:.3f} | "
+                      f"{r['unfair_fraction']:.1f}", flush=True)
+    pairs = {f"220 jobs, {gpus} GPUs": (
+        f"Figure 9, shockwave_tpu on {gpus} GPUs",
+        f"Figure 9, max_min_fairness on {gpus} GPUs") for gpus in (64, 128,
+                                                                    256)}
+    pairs["2048 jobs, 256 GPUs"] = (
+        "2048-job tier, shockwave_tpu on 256 GPUs",
+        "2048-job tier, max_min_fairness on 256 GPUs")
+    ratios = {}
+    for cell, (sw, mmf) in pairs.items():
+        r = ratios[cell] = {k: runs[sw][k] / runs[mmf][k]
+                            for k in ("makespan", "avg_jct", "worst_ftf")}
+        print(f"  shockwave_tpu / max_min_fairness, {cell}: makespan "
+              f"{r['makespan']:.4f}, avg JCT {r['avg_jct']:.4f}, worst FTF "
+              f"{r['worst_ftf']:.4f} {tag}", flush=True)
+    return {"runs": runs, "ratios": ratios, "scipy": scipy.__version__}
+
+
 def main() -> None:
     started = time.time()
     if not torch.cuda.is_available():
@@ -963,6 +1066,10 @@ def main() -> None:
 
     simulation = run_simulation(device)
     first_order = run_first_order(device)
+    gavel_started = time.time()
+    gavel = run_gavel(device, card, simulation["tier_2048"])
+    gavel["phase_s"] = time.time() - gavel_started
+    print(f"Gavel phase: {gavel['phase_s']:.1f} s [{card}]", flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -1072,6 +1179,7 @@ def main() -> None:
         run.pop("records", None)
     print(json.dumps({"simulation": simulation, "card": card}))
     print(json.dumps({"first_order": first_order, "card": card}))
+    print(json.dumps({"gavel": gavel, "card": card}))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,

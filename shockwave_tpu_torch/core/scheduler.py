@@ -1,23 +1,30 @@
-"""The round-based scheduler's trace-driven simulation, under the
-Shockwave planner.
+"""The round-based scheduler's trace-driven simulation.
 
-The port of the simulation main path of the JAX package's
+The port of the simulation path of the JAX package's
 ``shockwave_tpu/core/scheduler.py``: ``Scheduler.simulate`` (:2046) over
-a static trace, the Shockwave planner hooks
-(``_shockwave_schedule_helper`` :1356, ``_shockwave_scheduler_update``
-:2011), strided worker assignment, micro-task completion merging,
-batch-size adaptation, and the metrics getters. Time is divided into
-fixed rounds (``time_per_iteration`` seconds); every round the planner
-picks which jobs occupy which workers.
+a static trace, strided worker assignment, micro-task completion
+merging, batch-size adaptation and the metrics getters. Time is divided
+into fixed rounds (``time_per_iteration`` seconds), and every round a
+policy picks which jobs occupy which workers, by one of two paths:
+
+* the Shockwave planner's hooks (``_shockwave_schedule_helper`` :1356,
+  ``_shockwave_scheduler_update`` :2011) under a Shockwave policy;
+* Gavel's round path under every other policy: the policy's allocation
+  (``_compute_allocation`` :1028, recomputed when jobs or workers come
+  and go, at most once per ``MIN_RESET_INTERVAL_S``),
+  per-type priorities from the allocation over the time each job
+  received (``_update_priorities`` :1113) and a greedy pass in priority
+  order (``_schedule_jobs_on_workers_helper`` :1157).
 
 Not ported yet, each raising ``NotImplementedError`` naming
-``ROADMAP.md``: the non-Shockwave policies, physical mode
-(``simulate=False``), HA state, streaming admission (a ``submitter``),
-fault plans, simulator checkpoints, online throughput estimation
-(``profiling_percentage < 1``) and pool sets (``hetero_pools``); cost
-accounting (per-worker-type prices) and lease-extension counting are not
-carried. The run has no fault injector, the reference's
-default (``faults.active()`` is ``None``).
+``ROADMAP.md``: the packed policies (pair throughputs,
+``_populate_job_combination_metadata`` :859), the SLO and cost policies,
+physical mode (``simulate=False``), HA state, streaming admission (a
+``submitter``), fault plans, simulator checkpoints, online throughput
+estimation (``profiling_percentage < 1``) and pool sets
+(``hetero_pools``); cost accounting (per-worker-type prices) and
+lease-extension counting are not carried. The run has no fault injector,
+the reference's default (``faults.active()`` is ``None``).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import copy
 import heapq
 import math
 import random
+import time
 from collections import OrderedDict
 from typing import Dict, List, Optional, Tuple
 
@@ -45,6 +53,10 @@ from shockwave_tpu_torch.utils.logging import make_logger
 
 DEFAULT_THROUGHPUT = 1
 MAX_FAILED_ATTEMPTS = 5
+# The least time between two recomputations of a Gavel policy's
+# allocation: the reference's default ``minimum_time_between_allocation_resets``
+# (scheduler.py:161), which only its physical mode changes.
+MIN_RESET_INTERVAL_S = 1920.0
 
 # Batch-size scaling directions.
 BS_BIG = 0
@@ -117,24 +129,25 @@ class Scheduler:
         preemption_overheads=None,
         round_overhead_fraction: Optional[float] = None,
     ):
-        if not policy.name.startswith("Shockwave"):
-            raise NotImplementedError(f"policy {policy.name} {_NOT_PORTED}")
+        self._is_shockwave = policy.name.startswith("Shockwave")
         if not simulate:
             raise NotImplementedError(f"physical mode {_NOT_PORTED}")
         if profiling_percentage < 1.0 or num_reference_models is not None:
             raise NotImplementedError(
                 f"online throughput estimation {_NOT_PORTED}")
-        if shockwave_config is None:
-            raise ValueError("Shockwave policies require shockwave_config")
-        if shockwave_config.get("hetero_pools"):
-            raise NotImplementedError(
-                f"per-worker-type pools (hetero_pools) {_NOT_PORTED}")
+        if self._is_shockwave:
+            if shockwave_config is None:
+                raise ValueError("Shockwave policies require shockwave_config")
+            if shockwave_config.get("hetero_pools"):
+                raise NotImplementedError(
+                    f"per-worker-type pools (hetero_pools) {_NOT_PORTED}")
+        self._policy = policy
         self._oracle_throughputs = throughputs
         self._time_per_iteration = float(time_per_iteration)
         # Preemption awareness: per-family relaunch overheads (seconds;
         # scalar or {family: seconds}) feed the planner's switching-cost
         # term, and with round_overhead_fraction auto-size the round.
-        if preemption_overheads is None:
+        if preemption_overheads is None and shockwave_config is not None:
             preemption_overheads = shockwave_config.get("preemption_overheads")
         self._preemption_overheads = preemption_overheads
         if round_overhead_fraction is not None:
@@ -145,8 +158,9 @@ class Scheduler:
             )
             if sized != self._time_per_iteration:
                 self._time_per_iteration = sized
-                shockwave_config = dict(shockwave_config)
-                shockwave_config["time_per_iteration"] = sized
+                if shockwave_config is not None:
+                    shockwave_config = dict(shockwave_config)
+                    shockwave_config["time_per_iteration"] = sized
         self._profiles = profiles or {}
 
         self._current_timestamp: float = 0.0
@@ -162,6 +176,7 @@ class Scheduler:
         self._running_jobs: set = set()
         self._steps_run_so_far: Dict[JobId, Dict[str, int]] = {}
         self._total_steps_run: Dict[JobId, int] = {}
+        self._job_time_so_far: Dict[JobId, Dict[str, float]] = {}
         self._throughputs: Dict[JobId, dict] = {}
         self._original_bs: Dict[JobId, int] = {}
         self._bs_scale: Dict[JobId, Optional[int]] = {}
@@ -182,7 +197,17 @@ class Scheduler:
         self._worker_type_to_worker_ids: Dict[str, List[List[int]]] = {}
         self._worker_start_times: Dict[int, float] = {}
         self._cumulative_worker_time_so_far: Dict[int, float] = {}
+        self._worker_time_so_far: Dict[str, float] = {}
 
+        # Allocation state of the Gavel round path.
+        self._allocation: Dict[JobId, Dict[str, float]] = {}
+        self._priorities: Dict[str, Dict[JobId, float]] = {}
+        self._deficits: Dict[str, Dict[JobId, float]] = {}
+        self._need_to_update_allocation = True
+        self._last_reset_time: float = 0.0
+        # The policy's allocation calls and their wall seconds.
+        self.num_allocations = 0
+        self.allocation_s = 0.0
         self._current_worker_assignments: "OrderedDict[JobId, tuple]" = OrderedDict()
         self._current_round_scheduled_jobs: List[JobId] = []
         # Preemptions: a still-active job that held workers last round
@@ -193,7 +218,9 @@ class Scheduler:
         self._logger = make_logger(
             "scheduler", lambda: self._current_timestamp, level=log_level
         )
-        self._shockwave = policy.make_planner(shockwave_config)
+        self._shockwave = (
+            policy.make_planner(shockwave_config) if self._is_shockwave
+            else None)
 
     # ------------------------------------------------------------------
     # Workers and jobs.
@@ -205,9 +232,15 @@ class Scheduler:
             self._worker_types = sorted([*self._worker_types, worker_type])
             self._cluster_spec[worker_type] = 0
             self._worker_type_to_worker_ids[worker_type] = []
+            self._worker_time_so_far[worker_type] = 0.0
+            self._priorities[worker_type] = {}
+            self._deficits[worker_type] = {}
             for job_id in self._jobs:
                 self._steps_run_so_far[job_id][worker_type] = 0
                 self._set_initial_throughput(job_id, worker_type)
+                self._job_time_so_far[job_id][worker_type] = (
+                    self._time_per_iteration / 2.0
+                )
         server_ids = []
         for _ in range(num_gpus):
             worker_id = self._worker_id_counter
@@ -219,6 +252,7 @@ class Scheduler:
             self._worker_start_times[worker_id] = self._current_timestamp
             self._cumulative_worker_time_so_far[worker_id] = 0.0
         self._worker_type_to_worker_ids[worker_type].append(server_ids)
+        self._need_to_update_allocation = True
         return server_ids
 
     def add_job(self, job: Job, timestamp: Optional[float] = None) -> JobId:
@@ -228,6 +262,7 @@ class Scheduler:
         job.job_id = job_id.integer
         self._jobs[job_id] = job
         self._steps_run_so_far[job_id] = {}
+        self._job_time_so_far[job_id] = {}
         self._throughputs[job_id] = {}
         self._original_bs[job_id] = job.batch_size
         self._num_jobs_in_trace += 1
@@ -236,32 +271,40 @@ class Scheduler:
         for worker_type in self._worker_types:
             self._steps_run_so_far[job_id][worker_type] = 0
             self._set_initial_throughput(job_id, worker_type)
+            self._job_time_so_far[job_id][worker_type] = (
+                self._time_per_iteration / 2.0
+            )
         self._per_job_latest_timestamps[job_id] = None
+        self._add_to_priorities(job_id)
+        self._need_to_update_allocation = True
         self._bs_scale[job_id] = None
-        if (
-            job_id.integer not in self._profiles
-            and self._oracle_throughputs is not None
-        ):
-            # No pre-computed profile: derive one from the throughput
-            # oracle, the math synthesize_profiles applies to a trace.
-            from shockwave_tpu_torch.data.profiles import synthesize_profile
+        if self._is_shockwave:
+            if (
+                job_id.integer not in self._profiles
+                and self._oracle_throughputs is not None
+            ):
+                # No pre-computed profile: derive one from the throughput
+                # oracle, the math synthesize_profiles applies to a trace.
+                from shockwave_tpu_torch.data.profiles import (
+                    synthesize_profile,
+                )
 
-            worker_type = (
-                self._worker_types[0] if self._worker_types else "v100"
+                worker_type = (
+                    self._worker_types[0] if self._worker_types else "v100"
+                )
+                self._profiles[job_id.integer] = synthesize_profile(
+                    job, self._oracle_throughputs, worker_type
+                )
+            self._shockwave.add_job(
+                job_id,
+                self._profiles[job_id.integer],
+                self._time_per_iteration,
+                job.scale_factor,
+                submit_time=self.get_current_timestamp(),
+                overhead_s=resolve_preemption_overhead(
+                    self._preemption_overheads, job.job_type
+                ),
             )
-            self._profiles[job_id.integer] = synthesize_profile(
-                job, self._oracle_throughputs, worker_type
-            )
-        self._shockwave.add_job(
-            job_id,
-            self._profiles[job_id.integer],
-            self._time_per_iteration,
-            job.scale_factor,
-            submit_time=self.get_current_timestamp(),
-            overhead_s=resolve_preemption_overhead(
-                self._preemption_overheads, job.job_type
-            ),
-        )
         if timestamp is None:
             timestamp = self.get_current_timestamp()
         self._per_job_start_timestamps[job_id] = timestamp
@@ -284,9 +327,12 @@ class Scheduler:
         else:
             self._job_completion_times[job_id] = duration
         del self._steps_run_so_far[job_id]
+        del self._job_time_so_far[job_id]
         del self._throughputs[job_id]
         del self._num_failures_per_job[job_id]
         self._in_progress_updates.pop(job_id, None)
+        self._remove_from_priorities(job_id)
+        self._need_to_update_allocation = True
         self._logger.info("Remaining active jobs: %d", len(self._jobs))
 
     def _set_initial_throughput(self, job_id: JobId, worker_type: str) -> None:
@@ -317,8 +363,203 @@ class Scheduler:
         return self._jobs[job_id].total_steps - self._total_steps_run[job_id]
 
     # ------------------------------------------------------------------
+    # Priorities and allocation: the Gavel round path. Every job id is a
+    # single job (no packed policy is ported), so the JAX package's
+    # branches for packed pairs have no counterpart here.
+    # ------------------------------------------------------------------
+    def _add_to_priorities(self, job_id: JobId) -> None:
+        """(the JAX package's scheduler.py:979)"""
+        for worker_type in self._worker_types:
+            self._priorities[worker_type][job_id] = 0.0
+            self._deficits[worker_type][job_id] = 0.0
+
+    def _remove_from_priorities(self, job_id: JobId) -> None:
+        """(the JAX package's scheduler.py:988)"""
+        for worker_type in self._worker_types:
+            self._priorities[worker_type].pop(job_id, None)
+            self._deficits[worker_type].pop(job_id, None)
+
+    def _get_allocation_state(self) -> dict:
+        """The policy's inputs (the JAX package's scheduler.py:1001)."""
+        throughputs = {}
+        scale_factors = {}
+        priority_weights = {}
+        times_since_start = {}
+        num_steps_remaining = {}
+        for job_id, per_type in self._throughputs.items():
+            job = self._jobs[job_id]
+            throughputs[job_id] = dict(per_type)
+            scale_factors[job_id] = job.scale_factor
+            priority_weights[job_id] = job.priority_weight
+            times_since_start[job_id] = self.get_current_timestamp() - (
+                self._per_job_start_timestamps.get(job_id, 0.0)
+            )
+            num_steps_remaining[job_id] = self._get_remaining_steps(job_id)
+        return {
+            "throughputs": throughputs,
+            "scale_factors": scale_factors,
+            "priority_weights": priority_weights,
+            "times_since_start": times_since_start,
+            "num_steps_remaining": num_steps_remaining,
+            "cluster_spec": dict(self._cluster_spec),
+        }
+
+    def _compute_allocation(self) -> Dict[JobId, Dict[str, float]]:
+        """Call the policy with the signature its family expects, by its
+        name's prefix (the JAX package's scheduler.py:1028)."""
+        state = self._get_allocation_state()
+        name = self._policy.name
+        throughputs = state["throughputs"]
+        scale_factors = state["scale_factors"]
+        cluster_spec = state["cluster_spec"]
+        if not throughputs or not cluster_spec:
+            return {}
+        if name.startswith("FinishTimeFairness"):
+            allocation = self._policy.get_allocation(
+                throughputs,
+                scale_factors,
+                state["priority_weights"],
+                state["times_since_start"],
+                state["num_steps_remaining"],
+                cluster_spec,
+            )
+        elif name.startswith("MaxMinFairness"):
+            allocation = self._policy.get_allocation(
+                throughputs, scale_factors, state["priority_weights"],
+                cluster_spec,
+            )
+        elif name.startswith("MinTotalDuration"):
+            allocation = self._policy.get_allocation(
+                throughputs, scale_factors, state["num_steps_remaining"],
+                cluster_spec,
+            )
+        else:
+            # FIFO, Isolated and ThroughputSumWithPerf.
+            allocation = self._policy.get_allocation(
+                throughputs, scale_factors, cluster_spec
+            )
+        return allocation or {}
+
+    def _reset_time_run_so_far(self) -> None:
+        """Fold the time each job received since the last reset against
+        what its allocation promised into its deficit (the JAX package's
+        scheduler.py:1089)."""
+        current_time = self.get_current_timestamp()
+        elapsed = current_time - self._last_reset_time
+        for worker_type in self._worker_types:
+            self._worker_time_so_far[worker_type] = 0.0
+            for job_id in self._job_time_so_far:
+                time_received = self._job_time_so_far[job_id].get(
+                    worker_type, self._time_per_iteration / 2.0
+                ) - (self._time_per_iteration / 2.0)
+                if job_id in self._allocation:
+                    should_have = self._allocation[job_id][worker_type] * elapsed
+                else:
+                    should_have = 0.0
+                self._deficits[worker_type].setdefault(job_id, 0.0)
+                self._deficits[worker_type][job_id] += should_have - time_received
+                self._job_time_so_far[job_id][worker_type] = (
+                    self._time_per_iteration / 2.0
+                )
+                self._worker_time_so_far[worker_type] += (
+                    self._time_per_iteration / 2.0
+                )
+        self._last_reset_time = current_time
+
+    def _update_priorities(self) -> None:
+        """Recompute the allocation when it is stale and the reset interval
+        has passed, then each job's priority per type: its allocation over
+        the share of time it received (the JAX package's scheduler.py:1113,
+        its simulation branch)."""
+        current_time = self.get_current_timestamp()
+        interval_ok = (
+            current_time - self._last_reset_time >= MIN_RESET_INTERVAL_S
+            or self._last_reset_time == 0
+        )
+        if self._need_to_update_allocation and interval_ok:
+            self._reset_time_run_so_far()
+            start = time.perf_counter()
+            self._allocation = self._compute_allocation()
+            self.allocation_s += time.perf_counter() - start
+            self.num_allocations += 1
+            self._need_to_update_allocation = False
+
+        fractions: Dict[str, Dict[JobId, float]] = {}
+        for worker_type in self._worker_types:
+            fractions[worker_type] = {}
+            worker_time = self._worker_time_so_far[worker_type]
+            for job_id in self._job_time_so_far:
+                if (worker_time == 0.0
+                        or worker_type not in self._job_time_so_far[job_id]):
+                    fractions[worker_type][job_id] = 0.0
+                else:
+                    fractions[worker_type][job_id] = (
+                        self._job_time_so_far[job_id][worker_type] / worker_time
+                    )
+            for job_id in self._priorities[worker_type]:
+                if job_id not in self._allocation:
+                    self._priorities[worker_type][job_id] = 0.0
+                    continue
+                alloc = self._allocation[job_id][worker_type]
+                new_priority = alloc * 1e9
+                if alloc == 0.0 or self._throughputs[job_id][worker_type] == 0:
+                    new_priority = 0.0
+                elif fractions[worker_type][job_id] > 0.0:
+                    new_priority = alloc / fractions[worker_type][job_id]
+                self._priorities[worker_type][job_id] = new_priority
+
+    # ------------------------------------------------------------------
     # Per-round scheduling.
     # ------------------------------------------------------------------
+    def _schedule_jobs_on_workers_helper(
+        self, worker_types: List[str]
+    ) -> Dict[str, List[Tuple[JobId, int]]]:
+        """Greedy selection in (priority, deficit, allocation) order,
+        highest first; equal keys keep the priorities' insertion order (the
+        JAX package's scheduler.py:1157)."""
+        already_scheduled: set = set()
+        scheduled_jobs: Dict[str, List[Tuple[JobId, int]]] = {
+            wt: [] for wt in worker_types
+        }
+        num_workers_left = {wt: self._cluster_spec[wt] for wt in worker_types}
+
+        entries = []
+        for worker_type in worker_types:
+            per_type = []
+            for job_id in self._priorities[worker_type]:
+                allocation = 0.0
+                if self._allocation and job_id in self._allocation:
+                    allocation = self._allocation[job_id][worker_type]
+                per_type.append(
+                    (
+                        job_id,
+                        worker_type,
+                        self._priorities[worker_type][job_id],
+                        self._deficits[worker_type][job_id],
+                        allocation,
+                    )
+                )
+            per_type.sort(key=lambda x: (x[2], x[3], x[4]), reverse=True)
+            entries += per_type
+
+        is_fifo = self._policy.name.startswith("FIFO")
+        for job_id, worker_type, priority, _, _ in entries:
+            if num_workers_left[worker_type] == 0:
+                continue
+            if job_id in already_scheduled:
+                continue
+            if self._throughputs[job_id][worker_type] <= 0:
+                continue
+            scale_factor = self._jobs[job_id].scale_factor
+            if is_fifo and priority <= 0.0:
+                continue
+            if scale_factor > num_workers_left[worker_type]:
+                continue
+            num_workers_left[worker_type] -= scale_factor
+            already_scheduled.add(job_id)
+            scheduled_jobs[worker_type].append((job_id, scale_factor))
+        return scheduled_jobs
+
     def _shockwave_pool_type(self) -> str:
         """The homogeneous pool the planner plans onto: v100 when present,
         else the cluster's sole worker type (reference: v100-only,
@@ -373,6 +614,9 @@ class Scheduler:
 
     def _schedule_jobs_on_workers(self) -> "OrderedDict[JobId, tuple]":
         """(reference: scheduler.py:1017-1129)"""
+        if not self._is_shockwave:
+            self._update_priorities()
+
         # The reference's fixed goodness order for its GPU vocabulary;
         # other worker types come after, alphabetically.
         known = ["v100", "p100", "k80"]
@@ -381,13 +625,18 @@ class Scheduler:
         ] + sorted(
             wt for wt in self._worker_type_to_worker_ids if wt not in known
         )
-        # Shockwave's policy names hold neither "Perf" nor "Packing", so
-        # the reference shuffles here, and the shuffle draws from the
-        # seeded stream.
-        self._worker_type_shuffler.shuffle(worker_types)
+        # Only policies whose name holds neither "Perf" nor "Packing"
+        # (Shockwave's among them) shuffle, and the shuffle draws from
+        # the seeded stream.
+        name = self._policy.name
+        if "Perf" not in name and "Packing" not in name:
+            self._worker_type_shuffler.shuffle(worker_types)
 
-        scheduled_jobs = self._shockwave_schedule_helper()
-        worker_types = [wt for wt in worker_types if wt in scheduled_jobs]
+        if self._is_shockwave:
+            scheduled_jobs = self._shockwave_schedule_helper()
+            worker_types = [wt for wt in worker_types if wt in scheduled_jobs]
+        else:
+            scheduled_jobs = self._schedule_jobs_on_workers_helper(worker_types)
 
         new_assignments: "OrderedDict[JobId, tuple]" = OrderedDict()
         worker_state = {}
@@ -427,6 +676,8 @@ class Scheduler:
                 # Second pass: everyone else, strided.
                 for job_id, sf in scheduled_jobs[worker_type]:
                     if sf != current_sf:
+                        continue
+                    if not self._is_shockwave and job_id not in self._allocation:
                         continue
                     self._assign_workers_to_job(
                         job_id, sf, state, new_assignments
@@ -507,6 +758,7 @@ class Scheduler:
                 self._num_failures_per_job[job_id] += 1
                 if self._num_failures_per_job[job_id] >= MAX_FAILED_ATTEMPTS:
                     to_remove.append(job_id)
+            self._need_to_update_allocation = True
         else:
             for single, num_steps in zip(job_id.singletons(), merged_steps):
                 if not is_active[single]:
@@ -518,10 +770,14 @@ class Scheduler:
                     if self._get_remaining_steps(single) <= 0:
                         to_remove.append(single)
             max_execution_time = max(merged_times)
+            if job_id in self._job_time_so_far:
+                self._job_time_so_far[job_id][worker_type] += max_execution_time
+                self._worker_time_so_far[worker_type] += max_execution_time
             for wid, _, _ in updates:
                 self._cumulative_worker_time_so_far[wid] += max_execution_time
 
-        self._update_throughput(job_id, merged_steps, merged_times)
+        if self._is_shockwave:
+            self._update_throughput(job_id, merged_steps, merged_times)
 
         for single in job_id.singletons():
             self._scale_bs_and_iters(single)
@@ -529,7 +785,8 @@ class Scheduler:
 
         for single in to_remove:
             self._remove_job(single)
-            self._shockwave.remove_job(single)
+            if self._is_shockwave:
+                self._shockwave.remove_job(single)
 
     # ------------------------------------------------------------------
     # Batch-size adaptation (simulation).
@@ -642,7 +899,8 @@ class Scheduler:
         self._total_steps_run[job_id] = new_steps_run
 
         self._bs_scale[job_id] = None
-        self._shockwave.set_recompute_flag(jobs=[job_id])
+        if self._is_shockwave:
+            self._shockwave.set_recompute_flag(jobs=[job_id])
 
     def _shockwave_scheduler_update(self) -> None:
         """Push epoch progress into the planner and advance its round
@@ -695,6 +953,7 @@ class Scheduler:
         remaining_jobs = len(jobs)
         queued_jobs = list(zip(arrival_times, jobs))
         running_jobs: list = []
+        consecutive_idle_rounds = 0
 
         for worker_type in sorted(cluster_spec):
             num_gpus = (
@@ -717,6 +976,8 @@ class Scheduler:
             if max_rounds is not None and self._num_completed_rounds >= max_rounds:
                 break
             next_job_arrival_time = queued_jobs[0][0] if queued_jobs else None
+            if next_job_arrival_time is None and not running_jobs:
+                self._last_reset_time = 0
 
             # Advance the clock to the end of the round (latest micro-task
             # finish) or to the next arrival when idle.
@@ -776,7 +1037,7 @@ class Scheduler:
                 elif self._jobs[job_id].mode == "gns":
                     self._simulate_gns(job_id)
 
-            if self._num_completed_rounds >= 1:
+            if self._is_shockwave and self._num_completed_rounds >= 1:
                 self._shockwave_scheduler_update()
 
             # Admit arrivals due by now.
@@ -791,8 +1052,21 @@ class Scheduler:
 
             scheduled_jobs = self._schedule_jobs_on_workers()
             # The planner's empty round means end of trace.
-            if len(scheduled_jobs) == 0:
+            if self._is_shockwave and len(scheduled_jobs) == 0:
                 break
+            if not scheduled_jobs and not running_jobs and not queued_jobs:
+                # One idle iteration is recoverable: the reset of
+                # _last_reset_time at the top of the loop forces an
+                # allocation recompute next time around. Two in a row is
+                # a deadlock.
+                consecutive_idle_rounds += 1
+                if consecutive_idle_rounds > 1:
+                    raise RuntimeError(
+                        "Scheduling deadlock: %d active jobs but nothing "
+                        "schedulable" % len(self._jobs)
+                    )
+            else:
+                consecutive_idle_rounds = 0
             for job_id in self._current_worker_assignments:
                 if job_id in self._jobs:
                     kept = job_id in scheduled_jobs and set(

@@ -1,14 +1,21 @@
 """Policy registry: name -> policy.
 
-The port has the Shockwave policies of the simulation main path:
-``shockwave_tpu`` (the production dispatch), ``shockwave_tpu_level``,
+The port has the Shockwave policies of the simulation main path
+(``shockwave_tpu``, the production dispatch, ``shockwave_tpu_level``,
 ``shockwave_native``, ``shockwave_tpu_pdhg`` and
-``shockwave_tpu_relaxed``. Every other name of the JAX package's registry
+``shockwave_tpu_relaxed``) and the Gavel policies of the round path:
+``fifo``, ``fifo_perf``, ``isolated``, ``max_min_fairness(_perf)``,
+``max_min_fairness_water_filling(_perf)``, ``finish_time_fairness(_perf)``,
+``min_total_duration(_perf)`` and ``max_sum_throughput_perf``, whose LPs
+run on the host (HiGHS). Every other name of the JAX package's registry
 (``shockwave_tpu/policies/__init__.py``) raises ``NotImplementedError``
 naming ``ROADMAP.md``.
 """
 
 from __future__ import annotations
+
+import importlib
+from typing import Optional
 
 from shockwave_tpu_torch.policies.base import Policy
 
@@ -20,31 +27,59 @@ _BACKENDS = {
     "shockwave_tpu_pdhg": "pdhg",
 }
 
+
+# Gavel policies: name -> (module of this package, class). The modules
+# load on first use, since scipy's import is slow.
+_GAVEL = {
+    "fifo": ("fifo", "FIFOPolicy"),
+    "fifo_perf": ("fifo", "FIFOPolicyWithPerf"),
+    "isolated": ("isolated", "IsolatedPolicy"),
+    "max_min_fairness": ("max_min_fairness", "MaxMinFairnessPolicy"),
+    "max_min_fairness_perf": ("max_min_fairness",
+                              "MaxMinFairnessPolicyWithPerf"),
+    "max_min_fairness_water_filling": ("water_filling",
+                                       "MaxMinFairnessWaterFillingPolicy"),
+    "max_min_fairness_water_filling_perf": (
+        "water_filling", "MaxMinFairnessWaterFillingPolicyWithPerf"),
+    "finish_time_fairness": ("finish_time_fairness",
+                             "FinishTimeFairnessPolicy"),
+    "finish_time_fairness_perf": ("finish_time_fairness",
+                                  "FinishTimeFairnessPolicyWithPerf"),
+    "min_total_duration": ("min_total_duration", "MinTotalDurationPolicy"),
+    "min_total_duration_perf": ("min_total_duration",
+                                "MinTotalDurationPolicyWithPerf"),
+    "max_sum_throughput_perf": ("max_sum_throughput",
+                                "ThroughputSumWithPerf"),
+}
+
 # The JAX package's vocabulary that is still to be ported.
 _NOT_PORTED = (
-    "allox", "fifo", "fifo_perf", "fifo_packed", "finish_time_fairness",
-    "finish_time_fairness_perf", "finish_time_fairness_packed", "gandiva",
-    "isolated", "max_min_fairness", "max_min_fairness_perf",
-    "max_min_fairness_packed", "max_min_fairness_water_filling",
-    "max_min_fairness_water_filling_perf",
-    "max_min_fairness_water_filling_packed",
-    "max_min_fairness_strategy_proof", "max_sum_throughput_perf",
+    "allox", "fifo_packed", "finish_time_fairness_packed", "gandiva",
+    "max_min_fairness_packed", "max_min_fairness_water_filling_packed",
+    "max_min_fairness_strategy_proof",
     "max_sum_throughput_normalized_by_cost_perf",
     "max_sum_throughput_normalized_by_cost_perf_SLOs",
     "max_sum_throughput_normalized_by_cost_packed_SLOs",
-    "min_total_duration", "min_total_duration_perf",
     "min_total_duration_packed", "shockwave", "shockwave_tpu_sharded",
     "shockwave_tpu_cells",
 )
 
 
-def get_policy(policy_name: str, device="cuda") -> Policy:
-    """The policy named ``policy_name``; ``device`` is where the
-    Shockwave planner's device solves (level, PDHG, relaxed) run."""
+def get_policy(policy_name: str, device="cuda",
+               seed: Optional[int] = None) -> Policy:
+    """The policy named ``policy_name``. ``device`` is where the Shockwave
+    planner's device solves (level, PDHG, relaxed) run; the Gavel
+    policies solve on the host and ignore it. ``seed`` seeds FIFO's
+    worker-type draws."""
     if policy_name in _BACKENDS:
         from shockwave_tpu_torch.policies.shockwave import ShockwavePolicy
 
         return ShockwavePolicy(backend=_BACKENDS[policy_name], device=device)
+    if policy_name in _GAVEL:
+        module, cls = _GAVEL[policy_name]
+        cls = getattr(importlib.import_module(
+            f"shockwave_tpu_torch.policies.{module}"), cls)
+        return cls(seed=seed) if policy_name == "fifo" else cls()
     if policy_name in _NOT_PORTED or policy_name.startswith("allox"):
         raise NotImplementedError(
             f"policy {policy_name!r} is not ported to shockwave_tpu_torch "
@@ -53,7 +88,7 @@ def get_policy(policy_name: str, device="cuda") -> Policy:
 
 
 def get_available_policies():
-    return list(_BACKENDS)
+    return [*_BACKENDS, *_GAVEL]
 
 
 __all__ = ["Policy", "get_policy", "get_available_policies"]

@@ -1,11 +1,106 @@
-"""Allocation-policy base class (the part of the JAX package's
-``shockwave_tpu/policies/base.py`` the Shockwave policy inherits; the
-LP-policy machinery is not ported: ROADMAP.md, queue 1)."""
+"""Allocation-policy base machinery.
+
+The port of the JAX package's ``shockwave_tpu/policies/base.py``. A
+policy maps a throughput matrix (jobs x worker types) plus per-job scale
+factors to a fractional time-share allocation ``{job_id: {worker_type:
+fraction}}`` subject to the cluster's capacity:
+
+  x >= 0
+  sum_j scale_factor_j * x[j, w] <= num_workers[w]   (capacity per type)
+  sum_w x[j, w] <= 1                                 (a job's total share)
+
+The Shockwave policy inherits only ``name``, which the scheduler
+dispatches on. The packed (space-shared pair) forms, ``PolicyWithPacking``
+and ``packed_constraint_matrices``, come with the first packed policy
+(ROADMAP.md, queue 1).
+"""
 
 from __future__ import annotations
 
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from shockwave_tpu_torch.core.ids import JobId
+
+Allocation = Dict[JobId, Dict[str, float]]
+
 
 class Policy:
-    """A named policy; the scheduler dispatches on ``name``."""
+    """A named policy; flattens dict-of-dicts throughputs to arrays and
+    back."""
 
     name: str = "Policy"
+
+    def __init__(self):
+        self._num_workers: Optional[List[int]] = None
+
+    def flatten(self, throughputs: dict, cluster_spec: Dict[str, int]):
+        job_ids = sorted(throughputs.keys())
+        if not job_ids:
+            return None, None
+        worker_types = sorted(throughputs[job_ids[0]].keys())
+        if not worker_types:
+            return None, None
+        self._num_workers = [cluster_spec[wt] for wt in worker_types]
+        matrix = np.array(
+            [[throughputs[j][wt] for wt in worker_types] for j in job_ids],
+            dtype=np.float64,
+        )
+        return matrix, (job_ids, worker_types)
+
+    def unflatten(self, matrix: np.ndarray, index) -> Allocation:
+        job_ids, worker_types = index
+        return {
+            job_id: {wt: float(matrix[i][k]) for k, wt in enumerate(worker_types)}
+            for i, job_id in enumerate(job_ids)
+        }
+
+    def scale_factors_array(
+        self, scale_factors: dict, job_ids: Sequence[JobId], m: int, n: int
+    ) -> np.ndarray:
+        col = np.array([scale_factors[j] for j in job_ids], dtype=np.float64)
+        return np.tile(col[:, None], (1, n))
+
+
+def constraint_matrices(
+    scale_factors_array: np.ndarray, num_workers: Sequence[int]
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Dense (A_ub, b_ub) for the base constraints over vec(x), without
+    x >= 0, which callers give as variable bounds. Rows: capacity per
+    worker type, then each job's total share."""
+    m, n = scale_factors_array.shape
+    rows = []
+    rhs = []
+    for w in range(n):
+        row = np.zeros(m * n)
+        for j in range(m):
+            row[j * n + w] = scale_factors_array[j, w]
+        rows.append(row)
+        rhs.append(num_workers[w])
+    for j in range(m):
+        row = np.zeros(m * n)
+        row[j * n : (j + 1) * n] = 1.0
+        rows.append(row)
+        rhs.append(1.0)
+    return np.array(rows), np.array(rhs)
+
+
+def canonical_throughputs(throughputs: dict) -> dict:
+    """Type-agnostic throughput view: every worker type gets the job's
+    canonical rate, its v100 number, or the sole type's on a single-type
+    cluster. A multi-type cluster without a v100 pool is ambiguous and
+    raises."""
+    flat = {}
+    for job_id, tput in throughputs.items():
+        if "v100" in tput:
+            canonical = tput["v100"]
+        elif len(tput) == 1:
+            canonical = next(iter(tput.values()))
+        else:
+            raise ValueError(
+                "type-agnostic policy needs a 'v100' pool or a single "
+                f"worker type, got {sorted(tput)} for job {job_id}"
+            )
+        flat[job_id] = {wt: canonical for wt in tput}
+    return flat

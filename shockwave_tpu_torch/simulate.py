@@ -2,15 +2,21 @@
 
     python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
         -p shockwave_tpu_level -c v100=8 --time_per_iteration 120 --device cuda
+    python -m shockwave_tpu_torch.simulate -t traces/generated_220_dynamic.trace \\
+        -p max_min_fairness_perf -c 16:16:16 --num_gpus_per_server 4:4:4 \\
+        --time_per_iteration 120 --device cpu
 
 The counterpart of the JAX package's ``scripts/simulate.py``: parses a
 trace, builds the throughput oracle and epoch profiles, runs the
 simulator under a Shockwave policy (``shockwave_tpu``,
 ``shockwave_tpu_level``, ``shockwave_native``, ``shockwave_tpu_pdhg`` or
-``shockwave_tpu_relaxed``), and prints makespan / average JCT /
+``shockwave_tpu_relaxed``) or a Gavel policy (``fifo``,
+``max_min_fairness``, ``finish_time_fairness`` and the others of
+``policies.get_available_policies``), and prints makespan / average JCT /
 utilization / finish-time fairness. ``--device`` (default ``cuda``) is
 where the planner's device solves run (the level-set solve, and the
-PDHG and relaxed kernels); ``cuda`` without a card raises. A
+PDHG and relaxed kernels); ``cuda`` without a card raises. The Gavel
+policies solve their LPs on the host and leave the device unused. A
 ``plan_deadline_s`` in ``--config`` runs every solve down the
 degradation ladder. The telemetry, flight-recorder and watchdog flags raise
 ``NotImplementedError``: they are not ported yet (ROADMAP.md).
@@ -93,29 +99,31 @@ def main(argv=None) -> dict:
     for i, job in enumerate(jobs):
         job.duration = sum(profiles[i]["duration_every_epoch"])
 
-    shockwave_config = {}
-    if args.config:
-        with open(args.config) as f:
-            shockwave_config = json.load(f)
-    shockwave_config.setdefault("future_rounds", 20)
-    shockwave_config.setdefault("lambda", 5.0)
-    shockwave_config.setdefault("k", 10.0)
-    shockwave_config.setdefault(
-        "log_approximation_bases", [0.0, 0.2, 0.4, 0.6, 0.8, 1.0]
-    )
-    shockwave_config["time_per_iteration"] = args.time_per_iteration
-    # Homogeneous planning capacity: the v100 pool in the reference
-    # vocabulary, else the whole (named-type) cluster.
-    shockwave_config["num_gpus"] = cluster_spec.get(
-        "v100", sum(cluster_spec.values())
-    )
+    shockwave_config = None
+    if args.policy.startswith("shockwave"):
+        shockwave_config = {}
+        if args.config:
+            with open(args.config) as f:
+                shockwave_config = json.load(f)
+        shockwave_config.setdefault("future_rounds", 20)
+        shockwave_config.setdefault("lambda", 5.0)
+        shockwave_config.setdefault("k", 10.0)
+        shockwave_config.setdefault(
+            "log_approximation_bases", [0.0, 0.2, 0.4, 0.6, 0.8, 1.0]
+        )
+        shockwave_config["time_per_iteration"] = args.time_per_iteration
+        # Homogeneous planning capacity: the v100 pool in the reference
+        # vocabulary, else the whole (named-type) cluster.
+        shockwave_config["num_gpus"] = cluster_spec.get(
+            "v100", sum(cluster_spec.values())
+        )
 
     preemption_overheads = None
     if args.preemption_overheads:
         preemption_overheads = _json_arg(
             args.preemption_overheads, "--preemption_overheads")
 
-    policy = get_policy(args.policy, device=device)
+    policy = get_policy(args.policy, device=device, seed=args.seed)
     sched = Scheduler(
         policy,
         simulate=True,
@@ -150,10 +158,12 @@ def main(argv=None) -> dict:
     utilization = sched.get_cluster_utilization()
     ftf_list, unfair_fraction = sched.get_finish_time_fairness()
     backends: dict = {}
-    for record in sched._shockwave.solve_records:
-        backends[record["backend"]] = backends.get(record["backend"], 0) + 1
-
-    print(f"Policy: {args.policy} (device solves on {device})")
+    if sched._shockwave is not None:
+        for record in sched._shockwave.solve_records:
+            backends[record["backend"]] = backends.get(record["backend"], 0) + 1
+        print(f"Policy: {args.policy} (device solves on {device})")
+    else:
+        print(f"Policy: {args.policy} (allocations on the host)")
     print(f"Makespan: {makespan:.3f} s ({makespan / 3600.0:.2f} h)")
     if avg_jct is not None:
         print(f"Average JCT: {avg_jct:.3f} s ({avg_jct / 3600.0:.2f} h)")
@@ -168,14 +178,19 @@ def main(argv=None) -> dict:
             f"Round auto-sized: {args.time_per_iteration} s -> "
             f"{sched._time_per_iteration:.0f} s"
         )
-    print(f"Rounds: {sched._num_completed_rounds}; solves by backend: "
-          f"{backends}; sim wall-clock: {wall:.1f} s")
+    if sched._shockwave is not None:
+        print(f"Rounds: {sched._num_completed_rounds}; solves by backend: "
+              f"{backends}; sim wall-clock: {wall:.1f} s")
+    else:
+        print(f"Rounds: {sched._num_completed_rounds}; allocations: "
+              f"{sched.num_allocations} taking {sched.allocation_s:.2f} s; "
+              f"sim wall-clock: {wall:.1f} s")
 
     result = {
         "trace_file": args.trace_file,
         "policy": args.policy,
         "device": str(device),
-        "num_gpus": str(shockwave_config["num_gpus"]),
+        "num_gpus": str(cluster_spec.get("v100", sum(cluster_spec.values()))),
         "makespan": makespan,
         "avg_jct": avg_jct,
         "utilization": utilization,
@@ -184,6 +199,8 @@ def main(argv=None) -> dict:
         "num_preemptions": sched.get_num_preemptions(),
         "rounds": sched._num_completed_rounds,
         "solves": backends,
+        "allocations": sched.num_allocations,
+        "allocation_s": sched.allocation_s,
         "wall_s": wall,
         "effective_round_s": sched._time_per_iteration,
     }

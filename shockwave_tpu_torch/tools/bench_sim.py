@@ -7,7 +7,8 @@
 
 ``chip_smoke.py`` and the tests use the helpers here: the trace runs and
 the constants they are held to (``run_trace``, ``check_run``, ``GOLDEN``,
-``TIER_2048``), the seeded planning problems (``seeded_problem`` for
+``TIER_2048``; Gavel's policies: ``GOLDEN_GAVEL``, ``FIGURE9``,
+``HETERO``, ``TIER_2048_MMF``), the seeded planning problems (``seeded_problem`` for
 timing, ``parity_problems`` for the checks), the check of the level
 solve on a device against the port's own CPU solve
 (``check_device_counts``), the per-solve timing of the level solve
@@ -78,6 +79,74 @@ TIER_2048 = dict(makespan=59578.486, avg_jct=12981.718, worst_ftf=1.410,
 # PDHG solves; the port's plain PDHG on the CPU gives the same digits).
 TIER_2048_PDHG = dict(makespan=58678.337, avg_jct=13412.053, worst_ftf=1.399,
                       rounds=489)
+# The JAX package's golden metrics of Gavel's baselines on the 12-job
+# trace (tests/test_golden.py:23-27).
+GOLDEN_GAVEL = {
+    "fifo": dict(makespan=12376.656, avg_jct=5691.573, worst_ftf=3.416),
+    "max_min_fairness": dict(makespan=12976.601, avg_jct=5178.854,
+                             worst_ftf=2.116),
+}
+TRACE_220 = TRACES / "generated_220_dynamic.trace"
+# Figure 9: the JAX package's runs of the 220-job trace on (policy, GPUs)
+# v100s, 4 a server, 120 s rounds, as its
+# scripts/replicate/scale_experiments.py::run_cell drives them (the
+# Shockwave runs with that script's planner config), on the CPU.
+FIGURE9 = {
+    ("max_min_fairness", 64): dict(makespan=29110.469, avg_jct=10463.705,
+                                   worst_ftf=3.985, rounds=243),
+    ("shockwave_tpu", 64): dict(makespan=24437.287, avg_jct=9272.551,
+                                worst_ftf=1.401, rounds=205),
+    ("finish_time_fairness", 64): dict(makespan=27022.987, avg_jct=13115.244,
+                                       worst_ftf=5.3, rounds=226),
+    ("max_min_fairness_water_filling", 64): dict(
+        makespan=29110.469, avg_jct=10464.253, worst_ftf=3.985, rounds=243),
+    ("max_min_fairness", 128): dict(makespan=21070.528, avg_jct=5796.349,
+                                    worst_ftf=3.048, rounds=176),
+    ("shockwave_tpu", 128): dict(makespan=19870.545, avg_jct=4903.215,
+                                 worst_ftf=1.121, rounds=166),
+    ("max_min_fairness", 256): dict(makespan=19870.528, avg_jct=5199.637,
+                                    worst_ftf=4.329, rounds=166),
+    ("shockwave_tpu", 256): dict(makespan=18430.545, avg_jct=4280.201,
+                                 worst_ftf=1.412, rounds=154),
+}
+# The same trace on a heterogeneous cluster, 4 GPUs a server.
+HETERO_CLUSTER = {"v100": 16, "p100": 16, "k80": 16}
+HETERO = {
+    "fifo": dict(makespan=107799.769, avg_jct=28028.425, worst_ftf=11.21,
+                 rounds=899),
+    "fifo_perf": dict(makespan=66580.632, avg_jct=27019.349,
+                      worst_ftf=12.326, rounds=555),
+    "max_min_fairness": dict(makespan=57822.204, avg_jct=24280.867,
+                             worst_ftf=7.299, rounds=482),
+    "max_min_fairness_perf": dict(makespan=53733.008, avg_jct=23722.098,
+                                  worst_ftf=6.995, rounds=448),
+    "finish_time_fairness_perf": dict(makespan=52710.731, avg_jct=23598.975,
+                                      worst_ftf=7.356, rounds=440),
+    "max_sum_throughput_perf": dict(makespan=55834.224, avg_jct=23639.123,
+                                    worst_ftf=8.725, rounds=466),
+    "min_total_duration_perf": dict(makespan=49982.105, avg_jct=45535.770,
+                                    worst_ftf=15.822, rounds=421),
+}
+# The 2048-job trace on 256 GPUs, 1 a server, 120 s rounds, under
+# max_min_fairness (the JAX package on the CPU): the Gavel side of
+# TIER_2048.
+TIER_2048_MMF = dict(makespan=63420.983, avg_jct=13266.974, worst_ftf=2.28,
+                     rounds=529)
+# scipy's HiGHS returns one vertex of a degenerate LP (max-min with every
+# throughput 1 has many optima), and the HiGHS of another scipy may
+# return another, which both packages then follow. The Gavel pins above
+# are the JAX package's runs under scipy 1.17.0. SCIPY_PINS holds, for
+# another scipy version, the cells whose JAX-package run under that
+# version differs (tests/gavel_reference.py on a host that has it), with
+# their metrics there.
+SCIPY_PINS = {
+    # Under scipy 1.18.1 (the H100 host's) the throughput-agnostic max-min
+    # LP on the three-type cluster takes another vertex in some round.
+    "1.18.1": {("HETERO", "max_min_fairness"): dict(
+        makespan=59072.568, avg_jct=24121.340, worst_ftf=6.633, rounds=493)},
+}
+_GAVEL_PINS = {"GOLDEN_GAVEL": GOLDEN_GAVEL, "FIGURE9": FIGURE9,
+               "HETERO": HETERO}
 TOLERANCE = 1e-3
 # A device's level-solve objective against the CPU's: the sum over jobs
 # is taken in another order, so its last bits may differ.
@@ -103,17 +172,25 @@ def card_line() -> str:
 
 def run_trace(trace, policy: str, num_gpus: int, device,
               capture: list = None, plans: list = None,
-              config: dict = None) -> dict:
+              config: dict = None, cluster: dict = None,
+              gpus_per_server: int = None, round_s: float = ROUND_S,
+              seed: int = 0) -> dict:
     """Simulate ``trace`` on ``num_gpus`` v100s with 120 s rounds under
     ``policy`` with the planner's device solves on ``device``, as
     tests/test_golden.py drives the JAX package (``config`` adds planner
-    keys, e.g. ``plan_deadline_s``). Returns the metrics, the rounds, the
-    solves by backend (with their summed wall seconds), the level solves
-    by the device their tensors lay on, the launches of the PDHG and
-    relaxed kernels, the planner's solve records and the run's wall
-    time. ``capture``, where given, receives every planning problem the
-    planner solves, and ``plans`` (round, schedule) of every solve. The
-    kernels' launches come by instantiation too (``variants``)."""
+    keys, e.g. ``plan_deadline_s``). ``cluster`` ({worker type: count})
+    replaces the v100s (``num_gpus`` is then the Shockwave planner's
+    pool), ``gpus_per_server`` GPUs make a server (1 if not given), and
+    ``round_s`` and ``seed`` set the round and the scheduler's and FIFO's
+    seed. Returns the metrics (makespan, average JCT, worst FTF, unfair
+    fraction, utilization), the rounds, the policy's allocation calls and
+    their seconds (Gavel policies), the solves by backend (with their
+    summed wall seconds), the level solves by the device their tensors
+    lay on, the launches of the PDHG and relaxed kernels, the planner's
+    solve records and the run's wall time. ``capture``, where given,
+    receives every planning problem the planner solves, and ``plans``
+    (round, schedule) of every solve. The kernels' launches come by
+    instantiation too (``variants``)."""
     from shockwave_tpu_torch.core.scheduler import Scheduler
     from shockwave_tpu_torch.data import load_or_synthesize_profiles, parse_trace
     from shockwave_tpu_torch.data.default_oracle import generate_oracle
@@ -122,17 +199,22 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     from shockwave_tpu_torch.solver import eg_level
 
     start = time.perf_counter()
+    cluster = cluster or {"v100": num_gpus}
     jobs, arrivals = parse_trace(str(trace))
     oracle = generate_oracle()
-    profiles = load_or_synthesize_profiles(str(trace), jobs, oracle,
-                                           cache=False)
+    profiles = load_or_synthesize_profiles(
+        str(trace), jobs, oracle, worker_type=next(iter(cluster)),
+        cache=False)
     for i, job in enumerate(jobs):
         job.duration = sum(profiles[i]["duration_every_epoch"])
-    config = {"num_gpus": num_gpus, "time_per_iteration": ROUND_S,
-              "future_rounds": 20, "lambda": 5.0, "k": 10.0, **(config or {})}
-    sched = Scheduler(get_policy(policy, device=device),
-                      throughputs=oracle, seed=0, time_per_iteration=ROUND_S,
-                      profiles=profiles, shockwave_config=config)
+    if policy.startswith("shockwave"):
+        config = {"num_gpus": num_gpus, "time_per_iteration": round_s,
+                  "future_rounds": 20, "lambda": 5.0, "k": 10.0,
+                  **(config or {})}
+    sched = Scheduler(get_policy(policy, device=device, seed=seed),
+                      throughputs=oracle, seed=seed,
+                      time_per_iteration=round_s, profiles=profiles,
+                      shockwave_config=config)
     if capture is not None or plans is not None:
         planner = sched._shockwave
         solve = planner._solve
@@ -149,25 +231,45 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     eg_level.SOLVES.clear()
     eg_pdhg.reset_launch_counts()
     eg_relaxed.reset_launch_counts()
-    makespan = sched.simulate({"v100": num_gpus}, arrivals, jobs)
+    per_server = None
+    if gpus_per_server is not None:
+        per_server = {wt: gpus_per_server for wt in cluster}
+    makespan = sched.simulate(dict(cluster), arrivals, jobs,
+                              num_gpus_per_server=per_server)
     device_solves = dict(eg_level.SOLVES)
     launches = {**eg_pdhg.LAUNCHES, **eg_relaxed.LAUNCHES}
     variants = {"eg_pdhg": dict(eg_pdhg.LAUNCHES_BY_VARIANT),
                 "eg_relaxed": dict(eg_relaxed.LAUNCHES_BY_VARIANT)}
-    ftf, _ = sched.get_finish_time_fairness()
+    ftf, unfair = sched.get_finish_time_fairness()
+    records = sched._shockwave.solve_records if sched._shockwave else []
     backends: dict = {}
     solve_s: dict = {}
-    for record in sched._shockwave.solve_records:
+    for record in records:
         name = record["backend"]
         backends[name] = backends.get(name, 0) + 1
         solve_s[name] = solve_s.get(name, 0.0) + record["seconds"]
     return dict(policy=policy, makespan=makespan,
                 avg_jct=sched.get_average_jct(), worst_ftf=max(ftf),
-                rounds=sched._num_completed_rounds, solves=backends,
+                unfair_fraction=unfair,
+                utilization=sched.get_cluster_utilization(),
+                rounds=sched._num_completed_rounds,
+                allocations=sched.num_allocations,
+                allocation_s=sched.allocation_s, solves=backends,
                 solve_s=solve_s, device_solves=device_solves,
-                launches=launches, variants=variants,
-                records=list(sched._shockwave.solve_records),
+                launches=launches, variants=variants, records=list(records),
                 wall_s=time.perf_counter() - start)
+
+
+def pinned(table: str, key, scipy_version: str) -> dict:
+    """The JAX package's metrics of a Gavel cell under ``scipy_version``:
+    ``table`` is ``"GOLDEN_GAVEL"``, ``"FIGURE9"``, ``"HETERO"`` (``key``
+    the cell's key there) or ``"TIER_2048_MMF"`` (``key`` None)."""
+    override = SCIPY_PINS.get(scipy_version, {}).get((table, key))
+    if override is not None:
+        return override
+    if table == "TIER_2048_MMF":
+        return TIER_2048_MMF
+    return _GAVEL_PINS[table][key]
 
 
 def check_run(result: dict, expected: dict) -> list:

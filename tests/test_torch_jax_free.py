@@ -88,6 +88,73 @@ def test_first_order_simulate_cli_runs_with_jax_blocked(policy):
     assert "LEAKED []" in proc.stdout
 
 
+_MODULE_SCRIPT = """
+import runpy, sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+module, sys.argv = sys.argv[1], [sys.argv[1], *sys.argv[2:]]
+runpy.run_module(module, run_name="__main__")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+                and sys.modules[m] is not None)
+print("LEAKED", leaked)
+"""
+
+# Gavel's round path through the simulate CLI: the golden baseline on
+# the 12-job trace, and a perf policy on the 220-job trace on the
+# heterogeneous cluster (v100:p100:k80 counts, 4 GPUs a server).
+GAVEL_CLI = {
+    "max_min_fairness": (
+        ["-t", "traces/small_12_dynamic.trace", "-p", "max_min_fairness",
+         "-c", "v100=8"], bench_sim.GOLDEN_GAVEL["max_min_fairness"]),
+    "fifo_perf": (
+        ["-t", "traces/generated_220_dynamic.trace", "-p", "fifo_perf",
+         "-c", "16:16:16", "--num_gpus_per_server", "4:4:4"],
+        bench_sim.HETERO["fifo_perf"]),
+}
+
+
+def _run_blocked(module: str, *args: str) -> str:
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _MODULE_SCRIPT, module, *args], cwd=ROOT,
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "LEAKED []" in proc.stdout
+    return proc.stdout
+
+
+@pytest.mark.parametrize("policy", sorted(GAVEL_CLI))
+def test_gavel_simulate_cli_runs_with_jax_blocked(policy):
+    """``python -m shockwave_tpu_torch.simulate`` under a Gavel policy with
+    JAX and the JAX package unimportable prints the JAX package's metrics
+    (the allocation LPs on the host) and leaves no module of either
+    loaded."""
+    args, expected = GAVEL_CLI[policy]
+    out = _run_blocked("shockwave_tpu_torch.simulate", *args,
+                       "--time_per_iteration", "120", "--device", "cpu",
+                       "--no_profile_cache")
+    assert f"Makespan: {expected['makespan']:.3f} s" in out
+    assert f"Average JCT: {expected['avg_jct']:.3f} s" in out
+    assert f"Worst FTF: {expected['worst_ftf']:.3f}" in out
+    if "rounds" in expected:
+        assert f"Rounds: {expected['rounds']}; allocations: " in out
+
+
+def test_figure9_runner_runs_with_jax_blocked(tmp_path):
+    """The Figure-9 runner (``tools/scale_experiments.py``) with JAX and
+    the JAX package unimportable: a max-min cell of Figure 9 with the JAX
+    package's metrics, and no module of either loaded."""
+    out = _run_blocked("shockwave_tpu_torch.tools.scale_experiments",
+                       "--device", "cpu", "--policies", "max_min_fairness",
+                       "--num_gpus", "256", "--out", str(tmp_path))
+    expected = bench_sim.FIGURE9[("max_min_fairness", 256)]
+    assert f"makespan={expected['makespan']:.3f}s" in out
+    assert f"avg_jct={expected['avg_jct']:.3f}s" in out
+    assert (tmp_path / "summary.json").exists()
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in FORBIDDEN
@@ -150,6 +217,9 @@ def test_port_sources_import_no_jax():
     files = sorted((ROOT / "shockwave_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    for walked in ("simulate.py", "tools/scale_experiments.py",
+                   "policies/lp_backend.py", "policies/water_filling.py"):
+        assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
     assert bad == []

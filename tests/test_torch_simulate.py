@@ -172,8 +172,8 @@ def test_cli_cuda_without_a_card_raises():
 
 
 @pytest.mark.parametrize("name", [
-    "fifo", "max_min_fairness", "shockwave", "shockwave_tpu_sharded",
-    "shockwave_tpu_cells"])
+    "fifo_packed", "max_min_fairness_packed", "shockwave",
+    "shockwave_tpu_sharded", "shockwave_tpu_cells"])
 def test_policies_not_ported_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_policy(name, device="cpu")
