@@ -131,6 +131,40 @@
    allocation calls and their seconds, each line with the card's name
    and power limit and scipy's version. It prints one JSON line
    ``{"gavel": ...}``.
+12. After item 11, drives the cells market and the what-if fleet, kernel A
+   launched as a grid of lanes, a block a lane (``run_cells``): (i) the
+   JAX package's quality A/B (``bench_cells_scale.quality_ab``: its bench
+   stress problem of 1000 jobs x 256 GPUs x 50 rounds, seed 0, split
+   round robin into 8 cells), one global launch and one launch of 8
+   lanes: every lane equal in every bit to its own one-lane launch and
+   within the limits of its plain version, the merged cell schedule
+   feasible for the global problem and its objective within
+   ``CELLS_GAP_PCT`` (0.5%) of the global solve's; (ii) the 12-job trace on
+   8 GPUs under ``shockwave_tpu_pdhg --cells 2`` within 1e-3 of the JAX
+   package's run (``bench_sim.GOLDEN_CELLS``) in its rounds, then
+   ``python -m shockwave_tpu_torch.simulate -t
+   traces/generated_2048_dynamic.trace -p shockwave_tpu_pdhg -c v100=256
+   --time_per_iteration 120 --cells 4``: every cell plan audited, every
+   lane of every launch equal to its one-lane launch, its metrics printed
+   beside the JAX package's run (``bench_sim.TIER_2048_CELLS``; another
+   summation order drifts from it, see ``TIER_2048_CELLS_H100``) and held
+   within 1e-3 of the card's pinned run in its rounds, with its launches,
+   lanes a launch, device head and host tail; (iii) ``python -m
+   shockwave_tpu_torch.tools.whatif
+   sweep`` on (a) round 91 of the committed decision log with the JAX
+   package's 1024-scenario fleet (``bench_whatif_fleet.build_grid``) and
+   (b) the tier's ``CellPlanner`` state at its round with the most
+   incomplete jobs, written as an export-state envelope, on a 65-scenario
+   grid (fleet sizes x weights x switch-cost scales): every lane audited
+   equal to its one-lane launch, the scenarios/s, the grid's kernel time
+   against its lanes launched one by one and its bound
+   (``bench_sim.time_lane_grid``, also at the 8 lanes of (i)), and the
+   card's busy share of a ``solve_scenarios`` call. Then re-times the
+   non-causal flash kernels and SDPA's ``is_causal=False`` forward at the
+   hop shape beside item 7's reading (back to back, the host's issue time
+   and queued behind a sleep kernel) with the card's clock and power. It
+   prints one JSON line ``{"cells": ...}``; the ``eg_pdhg`` row of item
+   10's line carries the lane grid's launches and times.
 
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
@@ -976,6 +1010,332 @@ def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
     return {"runs": runs, "ratios": ratios, "scipy": scipy.__version__}
 
 
+# The cells-vs-global objective gap the cells market is held to
+# (scripts/ci/cells_smoke.py:40, percent).
+CELLS_GAP_PCT = 0.5
+FLIGHT_LOG = ROOT / "results" / "flight_recorder" / "decisions.jsonl"
+CELLS_STATE = ROOT / "_smoke_out" / "cells_tier_state.json"
+
+
+def check_lanes_alone(what: str, launches) -> int:
+    """Fails unless every lane of each recorded cells launch ((problems,
+    s0s, keyword arguments, s list, objectives)) equals its own one-lane
+    launch in every bit. Returns the lanes checked."""
+    from shockwave_tpu_torch.cells import batched
+
+    lanes = 0
+    for problems, s0s, kwargs, s_list, objs in launches:
+        for i, problem in enumerate(problems):
+            s, obj, _ = batched.solve_cells_pdhg(
+                [problem], None if s0s is None else [s0s[i]], **kwargs)
+            if not (np.array_equal(s[0], s_list[i]) and obj[0] == objs[i]):
+                fail(f"{what}: lane {i} of {len(problems)} differs from its "
+                     "one-lane launch")
+            lanes += 1
+    return lanes
+
+
+def frozen_state(planner) -> dict:
+    """``planner.state_dict()`` that later rounds cannot change: the
+    state dict shares each job's metadata fields, of which only the
+    throughput schedule is updated in place."""
+    state = planner.state_dict()
+    for child in state["children"].values():
+        for md in child["job_metadata"].values():
+            md["throughput_schedule"] = dict(md["throughput_schedule"])
+    return state
+
+
+def run_cells(device, card: str) -> dict:
+    """Phase 12 (docstring, item 12): the cells market and the what-if
+    fleet on kernel A's lane grid; fails on any lane that differs in a bit
+    from its one-lane launch, a gap past CELLS_GAP_PCT, a plan that is not
+    feasible, or a tier metric past its tolerance."""
+    from shockwave_tpu_torch import simulate
+    from shockwave_tpu_torch.cells import batched
+    from shockwave_tpu_torch.cells.planner import CellPlanner
+    from shockwave_tpu_torch.obs import recorder
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
+    from shockwave_tpu_torch.solver.eg_level import num_slots_for
+    from shockwave_tpu_torch.tools import bench_sim as sim
+    from shockwave_tpu_torch.tools import whatif as wcli
+    from shockwave_tpu_torch.whatif import (ScenarioBatch,
+                                            base_problem_from_log,
+                                            base_problem_from_state,
+                                            solve_scenarios)
+
+    tag = f"[{card}]"
+    readings = {}
+
+    # (i) The quality A/B: one global launch, one 8-lane launch.
+    g = sim.stress_problem(1000, 50, 256, seed=0)
+    cells, indices = sim.split_cells(g, 8)
+    kernel.reset_launch_counts()
+    t0 = time.perf_counter()
+    Y_global = pdhg_solver.solve_eg_pdhg(g, device=device)
+    global_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s_list, objs, diags = batched.solve_cells_pdhg(cells, device=device)
+    cells_s = time.perf_counter() - t0
+    ab_launches = kernel.LAUNCHES["eg_pdhg"]
+    if ab_launches != 2 or diags[0]["lanes"] != 8:
+        fail(f"quality A/B: {ab_launches} launches, lanes {diags[0]}")
+    slots = num_slots_for(max(c.num_jobs for c in cells))
+    check_lanes_alone("quality A/B", [(cells, None, {"slots": slots,
+                                                     "device": device},
+                                       s_list, objs)])
+    merged = np.zeros_like(Y_global)
+    for cell, idx, s in zip(cells, indices, s_list):
+        merged[idx] = batched.schedule_cell(cell, s)
+    try:
+        g.audit_schedule(Y_global)
+        g.audit_schedule(merged)
+    except AssertionError as e:
+        fail(f"quality A/B: a schedule is not feasible for the global "
+             f"problem: {e}")
+    obj_g, obj_c = g.objective_value(Y_global), g.objective_value(merged)
+    gap_pct = 100.0 * (obj_g - obj_c) / abs(obj_g)
+    packed = torch.from_numpy(pdhg_solver.pack_problems(
+        cells, [None] * 8, slots, pdhg_solver.DEFAULT_TOL,
+        pdhg_solver._STALL_REL)).to(device)
+    out = kernel.pdhg(packed, pdhg_solver.DEFAULT_MAX_CYCLES,
+                      pdhg_solver.DEFAULT_INNER_ITERS).cpu().numpy()
+    worst = 0.0
+    for b, cell in enumerate(cells):
+        plain = pdhg_solver._pdhg_core(
+            packed[b], pdhg_solver.DEFAULT_MAX_CYCLES,
+            pdhg_solver.DEFAULT_INNER_ITERS).cpu().numpy()
+        J = cell.num_jobs
+        misses = sim.eg_misses(cell, out[b, :J].astype(np.float64),
+                               float(out[b, slots]),
+                               plain[:J].astype(np.float64),
+                               float(plain[slots]))
+        if misses:
+            fail(f"quality A/B lane {b} against the plain version: {misses}")
+        worst = max(worst, float(np.abs(out[b, :J] - plain[:J]).max()))
+    grid8 = sim.time_lane_grid(packed)
+    print(f"cells quality A/B (1000 jobs x 256 GPUs x 50 rounds, 8 cells) "
+          f"{tag}: objective global {obj_g!r}, cells {obj_c!r}, gap "
+          f"{gap_pct:.6f}% (limit {CELLS_GAP_PCT}%); merged schedule "
+          f"feasible; global solve {global_s:.3f} s, 8 cells "
+          f"{cells_s:.3f} s; {ab_launches} launches (1 global, 1 of 8 "
+          f"lanes); every lane equal to its one-lane launch; lanes against "
+          f"the plain version within the limits, largest |s| error "
+          f"{worst}", flush=True)
+    if gap_pct > CELLS_GAP_PCT:
+        fail(f"quality A/B: gap {gap_pct}% > {CELLS_GAP_PCT}%")
+    readings["quality_ab"] = dict(
+        objective_global=obj_g, objective_cells=obj_c, gap_pct=gap_pct,
+        global_solve_s=global_s, cells_solve_s=cells_s,
+        launches=ab_launches, max_abs_err=worst, grid=grid8)
+
+    # (ii) The golden trace under two cells against the JAX package's
+    # run, then the 2048-job tier through the CLI.
+    golden = sim.run_trace(sim.GOLDEN_TRACE, "shockwave_tpu_pdhg", 8, device,
+                           config={"cells": 2})
+    print(f"golden trace, shockwave_tpu_pdhg --cells 2 on 8 GPUs {tag}: "
+          f"makespan {golden['makespan']:.3f} avg JCT "
+          f"{golden['avg_jct']:.3f} worst FTF {golden['worst_ftf']:.3f}, "
+          f"{golden['rounds']} rounds, solves {golden['solves']}, kernel A "
+          f"launched {golden['launches']['eg_pdhg']} times", flush=True)
+    bad = sim.check_run(golden, sim.GOLDEN_CELLS)
+    if bad or not golden["launches"]["eg_pdhg"]:
+        fail("golden trace under --cells 2 against the JAX package's run: "
+             + ", ".join(bad or ["no launch of kernel A"]))
+    readings["golden"] = {k: golden[k] for k in (
+        "makespan", "avg_jct", "worst_ftf", "rounds", "solves", "launches")}
+
+    launches, head, audited = [], {"s": 0.0}, {"plans": 0}
+    snapshot = {"jobs": -1}
+    real_solve = batched.solve_cells_pdhg
+    real_write = CellPlanner._write_schedules
+    real_round = CellPlanner.current_round_schedule
+
+    def recording(problems, s0s=None, **kwargs):
+        start = time.perf_counter()
+        s, o, d = real_solve(problems, s0s, **kwargs)
+        head["s"] += time.perf_counter() - start
+        launches.append((list(problems), None if s0s is None else [
+            None if x is None else np.array(x) for x in s0s],
+            {k: kwargs[k] for k in ("tol", "max_cycles", "inner_iters",
+                                    "slots", "device")}, s, o))
+        return s, o, d
+
+    def auditing(self, built, solved):
+        real_write(self, built, solved)
+        for name, info in solved.items():
+            try:
+                built[name][0].audit_schedule(info["Y"])
+            except AssertionError as e:
+                fail(f"cells tier, round {self.round_index}, cell {name}: "
+                     f"{e}")
+            audited["plans"] += 1
+
+    def snapshotting(self):
+        snapshot["planner"] = self
+        incomplete = sum(1 for c in self.children.values()
+                         for md in c.job_metadata.values()
+                         if md.completed_epochs < md.total_epochs)
+        if incomplete > snapshot["jobs"]:
+            snapshot.update(jobs=incomplete, round=self.round_index,
+                            state=frozen_state(self))
+        return real_round(self)
+
+    argv = ["-t", str(sim.TRACE_2048), "-p", "shockwave_tpu_pdhg", "-c",
+            "v100=256", "--time_per_iteration", "120", "--cells", "4"]
+    batched.solve_cells_pdhg = recording
+    CellPlanner._write_schedules = auditing
+    CellPlanner.current_round_schedule = snapshotting
+    kernel.reset_launch_counts()
+    try:
+        tier = simulate.main(argv)
+    finally:
+        batched.solve_cells_pdhg = real_solve
+        CellPlanner._write_schedules = real_write
+        CellPlanner.current_round_schedule = real_round
+    tier_launches = kernel.LAUNCHES["eg_pdhg"]
+    lanes = [len(problems) for problems, *_ in launches]
+    if tier_launches != len(launches) or not launches:
+        fail(f"cells tier: {tier_launches} kernel launches for "
+             f"{len(launches)} batched solves")
+    solve_s = tier["solves"]
+    tail_s = sum(r["seconds"] for r in snapshot["planner"]
+                 .coord_solve_records) - head["s"]
+    checked = check_lanes_alone("cells tier", launches)
+    per_launch = {n: lanes.count(n) for n in sorted(set(lanes))}
+    print(f"cells tier, python -m shockwave_tpu_torch.simulate "
+          f"{' '.join(argv)} {tag}: makespan {tier['makespan']:.3f} avg JCT "
+          f"{tier['avg_jct']:.3f} worst FTF {tier['worst_ftf']:.3f}, "
+          f"{tier['rounds']} rounds; solves {solve_s}; kernel A launched "
+          f"{tier_launches} times, lanes a launch {per_launch}; device head "
+          f"{head['s']:.3f} s, host tail {tail_s:.3f} s; {audited['plans']} "
+          f"cell plans audited; {checked} lanes equal to their one-lane "
+          f"launches; wall {tier['wall_s']:.2f} s", flush=True)
+    drift = {k: tier[k] / v - 1.0 for k, v in sim.TIER_2048_CELLS.items()}
+    print(f"  against the JAX package's run on the CPU "
+          f"({sim.TIER_2048_CELLS}), relative: "
+          + ", ".join(f"{k} {v:+.4%}" for k, v in drift.items()), flush=True)
+    bad = sim.check_run(tier, sim.TIER_2048_CELLS_H100)
+    print(f"  against the card's pinned run ({sim.TIER_2048_CELLS_H100}): "
+          + (", ".join(bad) if bad else "within 1e-3"), flush=True)
+    if bad:
+        fail("cells tier against the card's pinned run: " + ", ".join(bad))
+    readings["tier"] = dict(
+        {k: tier[k] for k in ("makespan", "avg_jct", "worst_ftf", "rounds",
+                              "solves", "wall_s")},
+        launches=tier_launches, lanes_per_launch=per_launch,
+        device_head_s=head["s"], host_tail_s=tail_s,
+        plans_audited=audited["plans"], lanes_checked=checked,
+        drift_vs_jax=drift)
+
+    # (iii) The what-if fleet through its CLI: (a) round 91 of the
+    # committed log on the JAX package's 1024-scenario fleet; (b) the
+    # tier's state at its most incomplete jobs, 65 scenarios.
+    recorder.write_state(str(CELLS_STATE), snapshot["state"],
+                         snapshot["round"], "cells", source=" ".join(argv))
+    fleet_lists = [",".join(f"{x:g}" for x in values) for values in (
+        wcli.FLEET_CAPACITIES, wcli.FLEET_PRIORITY_SCALES,
+        wcli.FLEET_SWITCH_SCALES)]
+    grids = {
+        "a": (["--log", str(FLIGHT_LOG), "--round", "91"], fleet_lists,
+              f"round 91 of {FLIGHT_LOG.relative_to(ROOT)}"),
+        "b": (["--state", str(CELLS_STATE)],
+              ["128,192,256,320", "0.5,1,2,4", "0,0.5,1,2"],
+              f"the cells tier's state at round {snapshot['round']} "
+              f"({snapshot['jobs']} incomplete jobs)"),
+    }
+    fleet = {}
+    for name, (source_args, (caps, pscales, sscales), source) in grids.items():
+        out_path = ROOT / "_smoke_out" / f"whatif_grid_{name}.json"
+        kernel.reset_launch_counts()
+        rc = wcli.main(["sweep", *source_args, "--capacity", caps,
+                        "--priority-scale", pscales, "--switch-scale",
+                        sscales, "--out", str(out_path)])
+        grid_launches = kernel.LAUNCHES["eg_pdhg"]
+        with open(out_path) as f:
+            report = json.load(f)
+        if rc != 0 or not report["audit"]["bit_identical"] or report[
+                "audit"]["audited"] != report["timing"]["scenarios"]:
+            fail(f"what-if grid ({name}): audit {report['audit']}")
+        if name == "a":
+            base, _, warm, _ = base_problem_from_log(str(FLIGHT_LOG),
+                                                     round_index=91)
+        else:
+            base, _, warm = base_problem_from_state(recorder.load_exported_state(
+                str(CELLS_STATE))["planner_state"])
+        grid = wcli.build_grid(base, caps, pscales, sscales)
+        batch = ScenarioBatch(base, grid, s0=warm)
+        timing = sim.time_lane_grid(torch.from_numpy(batch.packed()).to(
+            device))
+        if timing["differ"]:
+            fail(f"what-if grid ({name}): lanes {timing['differ'][:8]} "
+                 "differ from their one-lane launches")
+        sync()
+        t0 = time.perf_counter()
+        solve_scenarios(batch, device=device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        t = report["timing"]
+        fleet[name] = dict(source=source, jobs=base.num_jobs,
+                           scenarios=t["scenarios"], lanes=t["lanes"],
+                           chunk=t["chunk"], slots=t["slots"],
+                           launches=grid_launches,
+                           scenarios_per_s=t["scenarios_per_s"],
+                           batch_solve_s=t["batch_solve_s"],
+                           one_by_one_s=report["audit"]["one_by_one_s"],
+                           audited=report["audit"]["audited"], grid=timing,
+                           solve_wall_ms=wall_ms,
+                           busy_share=timing["ms"] / wall_ms)
+        print(f"what-if grid ({name}), {source}: {base.num_jobs} jobs x "
+              f"{t['scenarios']} scenarios in {t['lanes']} lanes "
+              f"({t['chunk']} a launch, {t['slots']} slots) {tag}: "
+              f"{t['scenarios_per_s']:.1f} scenarios/s (batch "
+              f"{t['batch_solve_s']:.4f} s; the {report['audit']['audited']} "
+              f"lanes one by one {report['audit']['one_by_one_s']:.4f} s); "
+              f"kernel A {timing['ms']:.4f} ms for the grid against "
+              f"{timing['one_by_one_ms']:.4f} ms for its lanes one by one "
+              f"(bound {timing['bound_ms']:.5f} ms by {timing['bound_by']}; "
+              f"slowest lane {timing['max_cycles']} cycles); the card busy "
+              f"{timing['ms']:.4f} of {wall_ms:.4f} ms of a solve_scenarios "
+              f"call ({100 * timing['ms'] / wall_ms:.1f}%); "
+              f"{grid_launches} launches by the CLI; every lane equal to "
+              f"its one-lane launch", flush=True)
+    readings["whatif"] = fleet
+    return readings
+
+
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature (nvidia-smi)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+
+
+def retime_noncausal(fa, bench, ring: dict, card: str) -> dict:
+    """The non-causal kernels and SDPA's ``is_causal=False`` forward
+    re-timed at the hop shape after phase 12, beside the ring phase's
+    reading of the same call: back-to-back events, the host's issue time
+    a call and the card's time with the launches queued
+    (``bench_flash.retime_noncausal``), with the card's clock, power and
+    temperature before and after."""
+    before = card_state()
+    readings = bench.retime_noncausal(fa, torch.device("cuda", 0))
+    after = card_state()
+    ring_ms = {**{k: v[0] for k, v in ring["ms"].items()},
+               "sdpa_fwd": ring["sdpa_fwd_ms"]}
+    for name, r in readings.items():
+        r["ring_phase_ms"] = ring_ms[name]
+        print(f"{name} non-causal at the hop shape, after phase 12 [{card}]: "
+              f"{r['events_ms']:.4f} ms back to back (ring phase "
+              f"{ring_ms[name]:.4f}); the host issues a call in "
+              f"{r['host_ms']:.4f} ms; queued behind a sleep "
+              f"{r['queued_ms']:.4f} ms", flush=True)
+    print(f"  the card before and after (SM clock, power, temperature): "
+          f"{before}; {after}", flush=True)
+    return {"kernels": readings, "card_before": before, "card_after": after}
+
+
 def main() -> None:
     started = time.time()
     if not torch.cuda.is_available():
@@ -1070,6 +1430,12 @@ def main() -> None:
     gavel = run_gavel(device, card, simulation["tier_2048"])
     gavel["phase_s"] = time.time() - gavel_started
     print(f"Gavel phase: {gavel['phase_s']:.1f} s [{card}]", flush=True)
+    cells_started = time.time()
+    cells = run_cells(device, card)
+    cells["phase_s"] = time.time() - cells_started
+    print(f"cells and what-if phase: {cells['phase_s']:.1f} s, the smoke's "
+          f"growth [{card}]", flush=True)
+    cells["retimed_noncausal"] = retime_noncausal(fa, bench, ring, card)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -1167,6 +1533,21 @@ def main() -> None:
                 "barriers", "barriers_before", "floor_ms", "floor_ms_before",
                 "identical", "bound_ms", "plain_ms")} for r in rows],
         })
+        if name == "eg_pdhg":
+            # The lane grid (phase 12): launches on the cells tier and the
+            # what-if CLI's, and the grid's time against its lanes one by
+            # one at 8, 65 and 1024 lanes.
+            grids = [cells["quality_ab"]["grid"]] + [
+                cells["whatif"][g]["grid"] for g in ("b", "a")]
+            kernels[-1]["lane_grid"] = {
+                "cells_tier_launches": cells["tier"]["launches"],
+                "lanes_per_launch": cells["tier"]["lanes_per_launch"],
+                "whatif_launches": {g: cells["whatif"][g]["launches"]
+                                    for g in ("a", "b")},
+                "grids": [{k: grid[k] for k in (
+                    "lanes", "slots", "ms", "one_by_one_ms", "bound_ms",
+                    "bound_by", "max_cycles")} for grid in grids],
+            }
         print(f"{name}: {row['ms']:.4f} ms at {row['jobs']} jobs ({kernel}; "
               f"sequential {row['ms_before']:.4f} ms; bound "
               f"{row['bound_ms']:.5f} ms by {row['bound_by']}; "
@@ -1180,6 +1561,7 @@ def main() -> None:
     print(json.dumps({"simulation": simulation, "card": card}))
     print(json.dumps({"first_order": first_order, "card": card}))
     print(json.dumps({"gavel": gavel, "card": card}))
+    print(json.dumps({"cells": cells, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,

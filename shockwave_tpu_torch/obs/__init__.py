@@ -4,9 +4,9 @@ The JAX package's ``shockwave_tpu/obs`` (metrics registry, event tracer,
 flight recorder, calibration tracker, watchdog) is disabled by default,
 and then every call hands out a shared null instrument after one flag
 check. The port keeps exactly that default: the calls its scheduler,
-planner, its degradation ladder and the solves make (``counter``,
-``histogram``, ``instant``, ``backend_phases``) are here and do
-nothing. The reference's other
+planner, its degradation ladder, the cells market and the solves make
+(``counter``, ``histogram``, ``instant``, ``backend_phases``) are here
+and do nothing. The reference's other
 calls on this path sit in blocks that run only with a plane on, which
 the port does not carry. Turning any plane on is not ported yet and
 raises ``NotImplementedError`` naming ``ROADMAP.md``.

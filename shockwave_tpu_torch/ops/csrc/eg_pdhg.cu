@@ -23,6 +23,10 @@
 //            welfare_filled;
 //   stats    [P][4] int64: block barriers passed, dual projections
 //            bisected, budget projections bisected, welfare fills bisected.
+// Block b reads lane b of packed, uses lane b's scratch and writes lane
+// b's rows of out and stats, and no block reads gridDim: a lane of a grid
+// of P problems (the cells market's and the what-if fleet's) returns the
+// bits of its own one-problem launch.
 //
 // What bounds it: neither bytes nor operations. A step is ~400 flops a job
 // over ~70 bytes of per-job state, but it carries 1 to 31 dependent global

@@ -16,7 +16,10 @@ float32 row per problem: the best ``s`` over the slots, then the
 diagnostics (``solver/eg_pdhg.py::DIAG``). On a CUDA tensor it launches
 the kernel or raises; on a CPU tensor it runs the kernel's plain
 version, ``solver/eg_pdhg.py::_pdhg_core``. Each launch adds one to
-``LAUNCHES["eg_pdhg"]``.
+``LAUNCHES["eg_pdhg"]``. A launch takes every lane (the cells market's
+and the what-if fleet's grids) unless a global instantiation's state
+would not fit the card (:func:`lane_chunk`), and each lane returns its
+own one-problem launch's bits.
 
 The kernel is a template of (levels of its bisection tree, per-job state
 resident in shared memory or not); :func:`instantiation` picks one from
@@ -71,6 +74,19 @@ def instantiation(slots: int) -> tuple:
     return levels_for(slots, STATE_ROWS, LEVELS)
 
 
+def lane_chunk(packed: torch.Tensor) -> int:
+    """Lanes one launch takes for ``packed`` ([P, len(ROWS) + 1, slots]):
+    all P, since each block stops alone and a grid of any size is one
+    launch, unless the per-job state of a global instantiation (STATE_ROWS
+    floats a slot a lane) would take more than half of the card's free
+    memory; then as many lanes as fit in that half."""
+    P, _, slots = packed.shape
+    if packed.device.type != "cuda" or instantiation(slots)[1]:
+        return P
+    free, _ = torch.cuda.mem_get_info(packed.device)
+    return max(1, min(P, free // 2 // (4 * STATE_ROWS * slots)))
+
+
 def reset_launch_counts() -> None:
     LAUNCHES["eg_pdhg"] = 0
     LAUNCHES_BY_VARIANT.clear()
@@ -89,11 +105,15 @@ def _check(packed: torch.Tensor) -> None:
 
 
 def pdhg(packed: torch.Tensor, max_cycles: int, inner_iters: int,
-         stats: torch.Tensor = None, variant: tuple = None) -> torch.Tensor:
+         stats: torch.Tensor = None, variant: tuple = None,
+         chunk: int = None) -> torch.Tensor:
     """Solve each packed problem; returns [P, slots + len(DIAG)] on the
     inputs' device. ``stats``, where given on a card (int64 [P, STATS]),
     receives each solve's counters; ``variant`` (levels, resident)
-    overrides :func:`instantiation`."""
+    overrides :func:`instantiation`; ``chunk`` (default P) is the lanes a
+    launch takes, one launch a chunk. Block ``b`` of a launch reads lane
+    ``b`` and writes its rows alone and the kernel reads no grid size, so
+    each lane's bits are those of its own one-problem launch."""
     from shockwave_tpu_torch.solver import eg_pdhg as plain
 
     _check(packed)
@@ -106,22 +126,29 @@ def pdhg(packed: torch.Tensor, max_cycles: int, inner_iters: int,
     levels, resident = variant or instantiation(slots)
     lib = _build.library("eg_pdhg", () if (levels, resident) in BUILT
                          else _build.ALL_LEVELS)
-    # Per-job state of a global instantiation's solve (L2-resident).
+    chunk = P if chunk is None else int(chunk)
+    if chunk < 1:
+        raise ValueError(f"chunk must be at least 1, got {chunk}")
+    # Per-job state of a global instantiation's solve (L2-resident), one
+    # chunk's worth, reused by each launch in turn on the stream.
     scratch = None if resident else torch.empty(
-        P * lib.eg_pdhg_state_floats(slots), device=packed.device,
-        dtype=torch.float32)
+        min(chunk, P) * lib.eg_pdhg_state_floats(slots),
+        device=packed.device, dtype=torch.float32)
     if stats is None:
         stats = torch.empty((P, STATS), device=packed.device,
                             dtype=torch.int64)
-    with torch.cuda.device(packed.device):
-        code = lib.eg_pdhg(
-            packed.data_ptr(), None if scratch is None else
-            scratch.data_ptr(), out.data_ptr(), stats.data_ptr(), P, slots,
-            int(max_cycles), int(inner_iters), int(levels), int(resident),
-            torch.cuda.current_stream(packed.device).cuda_stream,
-        )
-    _build.check(code, "eg_pdhg")
-    LAUNCHES["eg_pdhg"] += 1
     name = f"{levels}-{'resident' if resident else 'global'}"
-    LAUNCHES_BY_VARIANT[name] = LAUNCHES_BY_VARIANT.get(name, 0) + 1
+    with torch.cuda.device(packed.device):
+        for lo in range(0, P, chunk):
+            n = min(chunk, P - lo)
+            code = lib.eg_pdhg(
+                packed[lo].data_ptr(), None if scratch is None else
+                scratch.data_ptr(), out[lo].data_ptr(),
+                stats[lo].data_ptr(), n, slots, int(max_cycles),
+                int(inner_iters), int(levels), int(resident),
+                torch.cuda.current_stream(packed.device).cuda_stream,
+            )
+            _build.check(code, "eg_pdhg")
+            LAUNCHES["eg_pdhg"] += 1
+            LAUNCHES_BY_VARIANT[name] = LAUNCHES_BY_VARIANT.get(name, 0) + 1
     return out

@@ -2,8 +2,8 @@
 
 The port has the Shockwave policies of the simulation main path
 (``shockwave_tpu``, the production dispatch, ``shockwave_tpu_level``,
-``shockwave_native``, ``shockwave_tpu_pdhg`` and
-``shockwave_tpu_relaxed``) and the Gavel policies of the round path:
+``shockwave_native``, ``shockwave_tpu_pdhg``, ``shockwave_tpu_relaxed``
+and ``shockwave_tpu_cells``, the cell-decomposed market) and the Gavel policies of the round path:
 ``fifo``, ``fifo_perf``, ``isolated``, ``max_min_fairness(_perf)``,
 ``max_min_fairness_water_filling(_perf)``, ``finish_time_fairness(_perf)``,
 ``min_total_duration(_perf)`` and ``max_sum_throughput_perf``, whose LPs
@@ -25,6 +25,7 @@ _BACKENDS = {
     "shockwave_native": "native",
     "shockwave_tpu_relaxed": "relaxed",
     "shockwave_tpu_pdhg": "pdhg",
+    "shockwave_tpu_cells": "cells",
 }
 
 
@@ -61,7 +62,6 @@ _NOT_PORTED = (
     "max_sum_throughput_normalized_by_cost_perf_SLOs",
     "max_sum_throughput_normalized_by_cost_packed_SLOs",
     "min_total_duration_packed", "shockwave", "shockwave_tpu_sharded",
-    "shockwave_tpu_cells",
 )
 
 

@@ -19,11 +19,16 @@ With ``plan_deadline_s`` in the config, or a fault injector armed
 degradation ladder: the configured backend, then ``pdhg``, ``relaxed``
 and ``native``, each rung bounded by what is left of the deadline.
 
-The other backends (``reference``, ``sharded``, ``cells``), plan-ahead
-speculation and its repair solves, ``PoolSetPlanner`` and
-``planner_from_state`` raise ``NotImplementedError`` naming
-``ROADMAP.md``. The device of the device solves is passed explicitly
-(``ShockwavePolicy(backend, device=...)``).
+The ``cells`` backend, or any backend with ``cells`` >= 2 in the config,
+plans through the cell-decomposed market
+(:class:`shockwave_tpu_torch.cells.planner.CellPlanner`). A planner's
+``state_dict`` is the JAX package's, key for key, and
+:func:`planner_from_state` restores a flat or ``cell_set`` state that
+either package wrote. The other backends (``reference``, ``sharded``),
+plan-ahead speculation and its repair solves and ``PoolSetPlanner``
+raise ``NotImplementedError`` naming ``ROADMAP.md``. The device of the
+device solves is passed explicitly (``ShockwavePolicy(backend,
+device=...)``).
 
 A rung that blows the deadline is abandoned as a thread and runs on to
 its end, as in the reference. On a card its kernel would hold the
@@ -189,6 +194,17 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         if md is not None:
             md.complete(min(int(num_epochs), md.total_epochs))
 
+    def set_capacity(self, num_gpus: int) -> None:
+        """Capacity changed under the planner: solve the next plan against
+        the fleet that exists, clamped to >= 1 chip (reference
+        shockwave.py:196-206)."""
+        num_gpus = max(1, int(num_gpus))
+        if num_gpus == self.num_gpus:
+            return
+        self.num_gpus = num_gpus
+        self.config["num_gpus"] = num_gpus
+        self.recompute_flag = True
+
     def increment_round(self) -> None:
         # The round at the cursor has just executed: its jobs are the
         # incumbents the next replan's switching-cost term protects.
@@ -202,6 +218,60 @@ class ShockwavePlanner(SpeculativePlannerMixin):
     @property
     def num_jobs(self) -> int:
         return len(self.job_metadata)
+
+    # -- serialization ----------------------------------------------------
+    def state_dict(self) -> dict:
+        """Plain dicts and arrays: config, round cursor, plan cache,
+        per-job predictor metadata and finish-time history (reference
+        shockwave.py:220-245, the same keys)."""
+        return {
+            "config": dict(self.config),
+            "backend": self.backend,
+            "round_index": self.round_index,
+            "recompute_flag": self.recompute_flag,
+            "schedules": OrderedDict(
+                (r, list(s)) for r, s in self.schedules.items()
+            ),
+            "job_metadata": OrderedDict(
+                (j, md.state_dict()) for j, md in self.job_metadata.items()
+            ),
+            "finish_time_estimates": {
+                j: list(h) for j, h in self.finish_time_estimates.items()
+            },
+            "job_overheads": dict(self.job_overheads),
+            "last_round_jobs": list(self.last_round_jobs),
+            "solve_times": [r["seconds"] for r in self.solve_records],
+            "solve_records": [dict(r) for r in self.solve_records],
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, device="cuda") -> "ShockwavePlanner":
+        """Restore a :meth:`state_dict` either package wrote (reference
+        shockwave.py:247-271); its device solves run on ``device``."""
+        planner = cls(state["config"], backend=state["backend"],
+                      device=device)
+        planner.round_index = int(state["round_index"])
+        planner.recompute_flag = bool(state["recompute_flag"])
+        planner.schedules = OrderedDict(
+            (r, list(s)) for r, s in state["schedules"].items()
+        )
+        planner.job_metadata = OrderedDict(
+            (j, JobMetadata.from_state(md))
+            for j, md in state["job_metadata"].items()
+        )
+        planner.finish_time_estimates = {
+            j: list(h) for j, h in state["finish_time_estimates"].items()
+        }
+        planner.job_overheads = dict(state.get("job_overheads", {}))
+        planner.last_round_jobs = list(state.get("last_round_jobs", []))
+        if state.get("pdhg_warm_start") is not None:
+            # Replayed snapshot: the plan cache this vector was derived
+            # from is not in the record — carry the vector itself.
+            planner._replay_warm_start = list(state["pdhg_warm_start"])
+        planner.solve_records = [
+            dict(r) for r in state.get("solve_records", [])
+        ]
+        return planner
 
     def current_round_schedule(self) -> list:
         """This round's job list, from the plan cache or a fresh solve
@@ -834,9 +904,17 @@ class PoolSetPlanner:
         raise NotImplementedError(f"PoolSetPlanner (hetero_pools) {_NOT_PORTED}")
 
 
-def planner_from_state(state: dict):
-    raise NotImplementedError(
-        f"planner checkpoints (planner_from_state) {_NOT_PORTED}")
+def planner_from_state(state: dict, device="cuda"):
+    """Restore whichever planner kind a state dict carries (reference
+    shockwave.py:1429): a ``cell_set`` federation or a flat planner; a
+    ``pool_set`` raises, as ``PoolSetPlanner`` does."""
+    if state.get("kind") == "pool_set":
+        return PoolSetPlanner()
+    if state.get("kind") == "cell_set":
+        from shockwave_tpu_torch.cells.planner import CellPlanner
+
+        return CellPlanner.from_state(state, device=device)
+    return ShockwavePlanner.from_state(state, device=device)
 
 
 class ShockwavePolicy(Policy):
@@ -852,10 +930,17 @@ class ShockwavePolicy(Policy):
             "level": "Shockwave_TPU_Level",
             "relaxed": "Shockwave_TPU_Relaxed",
             "pdhg": "Shockwave_TPU_PDHG",
+            "cells": "Shockwave_TPU_Cells",
         }.get(backend, "Shockwave_TPU")
 
-    def make_planner(self, config: dict) -> ShockwavePlanner:
-        if int(config.get("cells", 0) or 0) >= 2:
-            raise NotImplementedError(f"the cells market {_NOT_PORTED}")
+    def make_planner(self, config: dict):
+        """The ``cells`` backend, or any backend with ``cells`` >= 2 in
+        the config, plans through the cell-decomposed market; otherwise
+        one global planner (reference shockwave.py:1451-1460)."""
+        if self.backend == "cells" or int(config.get("cells", 0) or 0) >= 2:
+            from shockwave_tpu_torch.cells.planner import CellPlanner
+
+            return CellPlanner(config, backend=self.backend,
+                               device=self.device)
         return ShockwavePlanner(config, backend=self.backend,
                                 device=self.device)

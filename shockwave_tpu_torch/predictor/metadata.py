@@ -85,6 +85,19 @@ class JobMetadata:
         self._rescale_key: Optional[int] = None
         self._bs_durations_cache: Optional[Dict[int, float]] = None
 
+    # -- serialization --------------------------------------------------
+    def state_dict(self) -> dict:
+        """Every field as it is (host numpy and Python state): the JAX
+        package's snapshot, field for field, so a state dict either
+        package writes restores in the other."""
+        return dict(self.__dict__)
+
+    @classmethod
+    def from_state(cls, state: dict) -> "JobMetadata":
+        obj = cls.__new__(cls)
+        obj.__dict__.update(state)
+        return obj
+
     # -- lifecycle ------------------------------------------------------
     def submit(self, time: float) -> None:
         if self.submit_time is None:

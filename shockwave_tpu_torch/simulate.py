@@ -5,12 +5,16 @@
     python -m shockwave_tpu_torch.simulate -t traces/generated_220_dynamic.trace \\
         -p max_min_fairness_perf -c 16:16:16 --num_gpus_per_server 4:4:4 \\
         --time_per_iteration 120 --device cpu
+    python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
+        -p shockwave_tpu_pdhg -c v100=8 --time_per_iteration 120 --cells 2
 
 The counterpart of the JAX package's ``scripts/simulate.py``: parses a
 trace, builds the throughput oracle and epoch profiles, runs the
 simulator under a Shockwave policy (``shockwave_tpu``,
 ``shockwave_tpu_level``, ``shockwave_native``, ``shockwave_tpu_pdhg`` or
-``shockwave_tpu_relaxed``) or a Gavel policy (``fifo``,
+``shockwave_tpu_relaxed``; with ``--cells N`` or ``-p
+shockwave_tpu_cells`` the cell-decomposed market, its stale cells one
+launch of kernel A) or a Gavel policy (``fifo``,
 ``max_min_fairness``, ``finish_time_fairness`` and the others of
 ``policies.get_available_policies``), and prints makespan / average JCT /
 utilization / finish-time fairness. ``--device`` (default ``cuda``) is
@@ -117,6 +121,10 @@ def main(argv=None) -> dict:
         shockwave_config["num_gpus"] = cluster_spec.get(
             "v100", sum(cluster_spec.values())
         )
+        if args.cells:
+            # Cell-decomposed market: the fleet in N cells, stale cells
+            # solved as one launch of kernel A (shockwave_tpu_torch/cells/).
+            shockwave_config["cells"] = int(args.cells)
 
     preemption_overheads = None
     if args.preemption_overheads:
@@ -233,6 +241,11 @@ def parse_args(argv=None):
     parser.add_argument("-e", "--window-end", type=int, default=None)
     parser.add_argument("--config", type=str, default=None,
                         help="Shockwave JSON config")
+    parser.add_argument(
+        "--cells", type=int, default=0,
+        help="partition the Shockwave fleet into N cells (cell-decomposed "
+        "market; 0 or 1 = one global solve)",
+    )
     parser.add_argument("--output_pickle", type=str, default=None)
     parser.add_argument("--no_profile_cache", action="store_true")
     parser.add_argument(

@@ -2,9 +2,11 @@
 
 The counterpart of the JAX package's ``shockwave_tpu/solver/eg_pdhg.py``
 on one device: the plain PyTorch ``_pdhg_core`` (eg_pdhg.py:121-500 with
-``axis_name=None``) and the entry points ``solve_pdhg`` (:503),
-``_default_s0`` (:633), ``_packed_args`` (:647), ``solve_pdhg_relaxed``
-(:672), ``polish_relaxed`` (:787) and ``solve_eg_pdhg`` (:850). The
+``axis_name=None``) and the entry points ``_default_s0`` (:633),
+``_packed_args`` (:647), ``solve_pdhg_relaxed`` (:672),
+``polish_relaxed`` (:787) and ``solve_eg_pdhg`` (:850); the lanes of the
+cells market and the what-if fleet are packed here too
+(:func:`pack_problems`, :func:`overlay_lanes`, :func:`solve_lanes`). The
 method is the reference's; its docstring gives the saddle-point
 formulation, the restart-to-average scheme, the objective-stall stop
 and the closed-form welfare fill.
@@ -306,17 +308,6 @@ def _pdhg_core(packed: torch.Tensor, max_cycles: int,
     return torch.cat([best_s, diag])
 
 
-def solve_pdhg(packed: torch.Tensor, max_cycles: int = DEFAULT_MAX_CYCLES,
-               inner_iters: int = DEFAULT_INNER_ITERS) -> torch.Tensor:
-    """Single-device restarted PDHG on one packed problem, on its
-    tensor's device: kernel A on a card, :func:`_pdhg_core` on the CPU.
-    Returns the output row (best ``s`` over the slots, then
-    :data:`DIAG`) on that device."""
-    from shockwave_tpu_torch.ops import eg_pdhg as kernel
-
-    return kernel.pdhg(packed[None], max_cycles, inner_iters)[0]
-
-
 def _default_s0(problem: EGProblem) -> np.ndarray:
     """Demand-point warm start: every job asks for exactly the rounds it
     needs to finish (clipped to the window)."""
@@ -358,6 +349,57 @@ def _packed_args(problem: EGProblem, slots: int, s0, tol: float,
     return host
 
 
+def pack_problems(problems, s0s, slots: int, tol: float,
+                  stall_rel: float) -> np.ndarray:
+    """Several problems as one host buffer of lanes ([C, len(ROWS) + 1,
+    slots] float32), each lane :func:`_packed_args` of its problem with
+    its own scalar row (``num_gpus`` first): the counterpart of the JAX
+    package's ``cells/batched.py::_stack_cells`` without its inert
+    padding lanes."""
+    return np.stack([_packed_args(p, slots, s0, tol, stall_rel)
+                     for p, s0 in zip(problems, s0s)])
+
+
+def overlay_lanes(base: np.ndarray, job_mask: np.ndarray,
+                  priority_scale: np.ndarray, num_gpus, switch_scale,
+                  round_duration, future_rounds, regularizer) -> np.ndarray:
+    """Scenario lanes over one packed problem ``base`` ([len(ROWS) + 1,
+    slots]): lane i holds ``active * job_mask[i]``, ``priorities *
+    priority_scale[i]`` and ``switch_bonus * switch_scale[i]`` as float32
+    products (the JAX package's ``whatif/scenario.py:129-131``), the base's
+    other rows, and its own ``num_gpus``, ``round_duration``,
+    ``future_rounds`` and ``regularizer`` in its scalar row (``tol`` and
+    ``stall_rel`` stay the base's). Masks and scales are [L, slots]
+    float32, the rest [L]."""
+    lanes = np.repeat(base[None], len(num_gpus), axis=0)
+    f32 = np.float32
+    lanes[:, 0] = base[0] * np.asarray(job_mask, f32)
+    lanes[:, 1] = base[1] * np.asarray(priority_scale, f32)
+    lanes[:, 7] = base[7] * np.asarray(switch_scale, f32)[:, None]
+    scalars = lanes[:, len(ROWS)]
+    for i, values in enumerate((num_gpus, round_duration, future_rounds,
+                                regularizer)):
+        scalars[:, i] = np.asarray(values, f32)
+    return lanes
+
+
+def solve_lanes(packed: np.ndarray, max_cycles: int = DEFAULT_MAX_CYCLES,
+                inner_iters: int = DEFAULT_INNER_ITERS,
+                device="cuda") -> Tuple[np.ndarray, int]:
+    """Solve packed lanes ([P, len(ROWS) + 1, slots]) on ``device``: one
+    copy in, kernel A as a grid of P blocks (one launch, or one a chunk
+    where a global instantiation's state would not fit the card:
+    ``ops/eg_pdhg.py::lane_chunk``), one fetch out. Returns the output
+    rows ([P, slots + len(DIAG)] float32) and the lanes a launch took."""
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+
+    lanes = torch.from_numpy(np.ascontiguousarray(packed)).to(
+        torch.device(device))
+    chunk = kernel.lane_chunk(lanes)
+    out = kernel.pdhg(lanes, int(max_cycles), int(inner_iters), chunk=chunk)
+    return out.cpu().numpy(), chunk
+
+
 def _diag_to_host(row: np.ndarray) -> dict:
     d = dict(zip(DIAG, row))
     return {
@@ -385,8 +427,7 @@ def solve_pdhg_relaxed(
     float64, objective, diagnostics)."""
     slots = num_slots_for(problem.num_jobs)
     host = _packed_args(problem, slots, s0, tol, stall_rel)
-    packed = torch.from_numpy(host).to(torch.device(device))
-    out = solve_pdhg(packed, int(max_cycles), int(inner_iters)).cpu().numpy()
+    out = solve_lanes(host[None], max_cycles, inner_iters, device)[0][0]
     return (out[:problem.num_jobs].astype(np.float64),
             float(out[slots]), _diag_to_host(out[slots:]))
 

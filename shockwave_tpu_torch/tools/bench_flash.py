@@ -6,7 +6,9 @@
 ``chip_smoke.py`` and the card tests use the helpers here: the inputs
 (``make_inputs``), each kernel held against its plain version under
 ``flash_attention.KERNEL_TOLERANCE`` (``check_kernels``) and the CUDA-event
-timing (``time_ms``, ``time_kernels``).
+timing (``time_ms``, ``time_kernels``; ``retime_noncausal`` reads the
+non-causal kernels' back-to-back time beside the host's issue time and
+the card's time with the launches queued).
 
 As a tool it builds the kernels, holds them against their plain versions
 at the training shape (B=8, S=2048, H=8, D=128, bf16, causal) and at the
@@ -171,6 +173,66 @@ def time_kernels(fa, B, S, H, D, dtype, device, causal=True):
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(
         o4, leaves, g4, retain_graph=True), 10)
     return ms, sdpa_fwd, sdpa_bwd
+
+
+def time_host_and_queued(fn, iters: int = ITERS) -> dict:
+    """Three readings of ``fn``'s launches: ``events_ms``, the ms a call of
+    ``time_ms`` (CUDA events around ``iters`` calls back to back);
+    ``host_ms``, the host's time to issue one call (host clock around
+    ``iters`` calls, no synchronise inside); and ``queued_ms``, the card's
+    time a call with every launch already queued behind a sleep kernel
+    (``torch.cuda._sleep``), which no host delay between launches can
+    stretch. Where ``host_ms`` is above ``queued_ms``, back-to-back events
+    time the host's issue rate and not the kernel."""
+    import time as clock
+
+    import torch
+
+    events_ms = time_ms(fn, iters)
+    torch.cuda.synchronize()
+    start_s = clock.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_ms = 1e3 * (clock.perf_counter() - start_s) / iters
+    torch.cuda.synchronize()
+    # Sleep long enough (at 2 GHz, twice over) to cover issuing them all.
+    torch.cuda._sleep(int(2e9 * 2 * (iters * host_ms / 1e3 + 1e-3)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return dict(events_ms=events_ms, host_ms=host_ms,
+                queued_ms=start.elapsed_time(end) / iters)
+
+
+def retime_noncausal(fa, device) -> dict:
+    """The three non-causal kernels and SDPA's ``is_causal=False`` forward
+    at the ring-hop shape (``HOP_SHAPE``, bf16, inputs from seed 1), each
+    read by :func:`time_host_and_queued`."""
+    import torch
+    import torch.nn.functional as F
+
+    B, S, H, D = HOP_SHAPE
+    q, k, v, g = make_inputs(1, B, S, H, H, D, torch.bfloat16, device)
+    qs = fa.scale_q(q)
+    out, lse = fa.flash_fwd(qs, k, v, H, None, causal=False)
+    delta = (g.float() * out.float()).sum(-1)
+    args = (qs, k, v, g, lse, delta, H, None)
+    q4, k4, v4 = (x.view(B, H, S, D) for x in (q, k, v))
+    return {
+        "flash_fwd": time_host_and_queued(
+            lambda: fa.flash_fwd(qs, k, v, H, None, causal=False)),
+        "flash_dkv": time_host_and_queued(
+            lambda: fa.flash_dkv(*args, causal=False)),
+        "flash_dq": time_host_and_queued(
+            lambda: fa.flash_dq(*args, causal=False)),
+        "sdpa_fwd": time_host_and_queued(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=False)),
+    }
 
 
 def _rule_of_this_checkout():

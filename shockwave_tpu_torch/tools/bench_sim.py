@@ -7,7 +7,9 @@
 
 ``chip_smoke.py`` and the tests use the helpers here: the trace runs and
 the constants they are held to (``run_trace``, ``check_run``, ``GOLDEN``,
-``TIER_2048``; Gavel's policies: ``GOLDEN_GAVEL``, ``FIGURE9``,
+``TIER_2048``; the cells market: ``GOLDEN_CELLS``, ``TIER_2048_CELLS``,
+``TIER_2048_CELLS_H100``;
+Gavel's policies: ``GOLDEN_GAVEL``, ``FIGURE9``,
 ``HETERO``, ``TIER_2048_MMF``), the seeded planning problems (``seeded_problem`` for
 timing, ``parity_problems`` for the checks), the check of the level
 solve on a device against the port's own CPU solve
@@ -79,6 +81,29 @@ TIER_2048 = dict(makespan=59578.486, avg_jct=12981.718, worst_ftf=1.410,
 # PDHG solves; the port's plain PDHG on the CPU gives the same digits).
 TIER_2048_PDHG = dict(makespan=58678.337, avg_jct=13412.053, worst_ftf=1.399,
                       rounds=489)
+# The JAX package's run of the 12-job trace on 8 GPUs, 120 s rounds, under
+# shockwave_tpu_pdhg with --cells 2 (its scripts/simulate.py on the CPU):
+# 16 coordinated replans, each one batched solve of the stale cells.
+GOLDEN_CELLS = dict(makespan=10816.712, avg_jct=4949.683, worst_ftf=1.241,
+                    rounds=91)
+# The 2048-job trace on 256 GPUs, 120 s rounds, under shockwave_tpu_pdhg
+# with --cells 4 (the JAX package's scripts/simulate.py on the CPU): the
+# reference's own churn configuration of four cells at 256 GPUs
+# (scripts/ci/cells_smoke.py:63-71).
+TIER_2048_CELLS = dict(makespan=57838.503, avg_jct=14939.915,
+                       worst_ftf=1.812, rounds=482)
+# The same command on an H100 (kernel A's lanes; chip_smoke.py phase 12,
+# NVIDIA H100 80GB HBM3, 700.00 W). Kernel A is bitwise repeatable, so a
+# card run gives these digits again. They differ from TIER_2048_CELLS, as
+# the port's plain version on the CPU (58018.422 / 15009.305 / 1.812 in
+# 484 rounds) does: both follow the JAX package's decisions through round
+# 292 and leave them at round 293, after lanes that sit on degenerate
+# optima (the objective equal in float32, s apart by up to 3.6: the
+# welfare fill's `delta > 0` decided by the last bits of float32 sums,
+# which XLA forms in its own order and with fused multiply-adds), where a
+# capacity move goes the other way.
+TIER_2048_CELLS_H100 = dict(makespan=57298.422, avg_jct=14989.403,
+                            worst_ftf=1.812, rounds=478)
 # The JAX package's golden metrics of Gavel's baselines on the 12-job
 # trace (tests/test_golden.py:23-27).
 GOLDEN_GAVEL = {
@@ -306,6 +331,57 @@ def seeded_problem(num_jobs: int, seed: int = 0, num_gpus: int = 256,
         regularizer=10.0,
         log_bases=np.array([0.0, 0.2, 0.4, 0.6, 0.8, 1.0]),
     )
+
+
+def stress_problem(num_jobs: int, future_rounds: int, num_gpus: int,
+                   seed: int = 0, regularizer: float = 10.0):
+    """The JAX package's bench stress problem (``bench.py::make_problem``,
+    the same numpy draws): epochs 5-60, a fifth of the jobs incumbents
+    with a 35-90 s relaunch overhead, gangs of 1, 2 or 4, 120 s rounds."""
+    from shockwave_tpu_torch.solver.eg_problem import EGProblem
+
+    rng = np.random.default_rng(seed)
+    total = rng.integers(5, 60, num_jobs).astype(float)
+    completed = np.floor(total * rng.uniform(0, 0.8, num_jobs))
+    epoch_dur = rng.uniform(60, 2000, num_jobs)
+    incumbent = (rng.random(num_jobs) < 0.2).astype(np.float64)
+    switch_cost = rng.uniform(35.0, 90.0, num_jobs) * incumbent
+    return EGProblem(
+        priorities=rng.uniform(0.5, 30.0, num_jobs),
+        completed_epochs=completed,
+        total_epochs=total,
+        epoch_duration=epoch_dur,
+        remaining_runtime=(total - completed) * epoch_dur,
+        nworkers=rng.choice([1, 1, 1, 2, 2, 4], num_jobs).astype(float),
+        num_gpus=num_gpus,
+        round_duration=120.0,
+        future_rounds=future_rounds,
+        regularizer=regularizer,
+        log_bases=LOG_BASES.copy(),
+        switch_cost=switch_cost,
+        incumbent=incumbent,
+    )
+
+
+def split_cells(problem, num_cells: int):
+    """``problem`` split row-wise into ``num_cells`` cells, round robin,
+    capacity split evenly (the JAX package's
+    ``bench_cells_scale.quality_ab``): (cell problems, row indices)."""
+    import dataclasses
+
+    from shockwave_tpu_torch.cells import partition
+
+    caps = partition.partition_capacity(problem.num_gpus, num_cells)
+    cells, indices = [], []
+    for c in range(num_cells):
+        idx = np.arange(c, problem.num_jobs, num_cells)
+        fields = {f: getattr(problem, f)[idx] for f in (
+            "priorities", "completed_epochs", "total_epochs",
+            "epoch_duration", "remaining_runtime", "nworkers",
+            "switch_cost", "incumbent")}
+        cells.append(dataclasses.replace(problem, num_gpus=caps[c], **fields))
+        indices.append(idx)
+    return cells, indices
 
 
 def parity_problem(seed: int, band: int, bonus: bool):
@@ -736,7 +812,8 @@ def eg_work(kind: str, slots: int, counts: dict) -> dict:
     """Per-job state touched and operations done by one solve of ``slots``
     job slots that ran ``counts`` (``eg_counts``), one bisection step at a
     time, and the bound they give: inputs and outputs once over HBM, or
-    the operations over the float32 peak."""
+    the operations over the float32 peak (``io_bytes`` and ``ops`` are
+    the two sides)."""
     if kind == "pdhg":
         c, inner = counts["cycles"], 40
         steps = c * (inner + 2)
@@ -763,7 +840,7 @@ def eg_work(kind: str, slots: int, counts: dict) -> dict:
         io = (9 * slots + slots + 2) * 4
     state_bytes = 4.0 * floats * slots
     t_io, t_ops = io / HBM_BYTES, ops * slots / F32_PEAK
-    return dict(state_bytes=state_bytes,
+    return dict(state_bytes=state_bytes, io_bytes=io, ops=ops * slots,
                 state_hbm_ms=1e3 * state_bytes / HBM_BYTES,
                 bound_ms=1e3 * max(t_io, t_ops),
                 bound_by="operations" if t_ops >= t_io else "bytes")
@@ -897,6 +974,42 @@ def time_eg_kernels(device, bands=EG_TIME_BANDS) -> list:
             rows.append(row)
             print("  " + describe_eg(row), flush=True)
     return rows
+
+
+def time_lane_grid(packed: torch.Tensor, iters: int = 3) -> dict:
+    """Kernel A on ``packed`` lanes ([P, rows, slots] on a card) as one
+    launch of P blocks against the same lanes launched one by one: the
+    grid's ms (CUDA events, median of ``iters`` after a warm-up), the sum
+    of each lane's one-lane launch (one run each), the cycles of the
+    slowest lane, and the bound of the grid's work: the lanes' inputs and
+    outputs over HBM or their operations over the float32 peak, whichever
+    is larger. Fails unless each lane of the grid equals its one-lane
+    launch in every bit."""
+    from shockwave_tpu_torch.ops import eg_pdhg
+    from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
+
+    args = (pdhg_solver.DEFAULT_MAX_CYCLES, pdhg_solver.DEFAULT_INNER_ITERS)
+    P, _, slots = packed.shape
+    stats = torch.zeros((P, 4), dtype=torch.int64, device=packed.device)
+    grid = eg_pdhg.pdhg(packed, *args, stats=stats)
+    times = [_event_ms(lambda: eg_pdhg.pdhg(packed, *args))
+             for _ in range(iters)]
+    alone, one_ms = [], 0.0
+    for b in range(P):
+        lane = packed[b:b + 1]
+        one_ms += _event_ms(lambda: alone.append(eg_pdhg.pdhg(lane, *args)))
+    differ = [b for b in range(P) if not same_bits(grid[b], alone[b][0])]
+    io = ops = 0.0
+    rows, stats = grid.cpu().numpy(), stats.cpu().numpy()
+    for row, st in zip(rows, stats):
+        work = eg_work("pdhg", slots, eg_counts("pdhg", slots, row, st))
+        io, ops = io + work["io_bytes"], ops + work["ops"]
+    t_io, t_ops = io / HBM_BYTES, ops / F32_PEAK
+    return dict(lanes=P, slots=slots, ms=statistics.median(times),
+                one_by_one_ms=one_ms, differ=differ,
+                max_cycles=int(rows[:, slots + 1].max()),
+                bound_ms=1e3 * max(t_io, t_ops),
+                bound_by="operations" if t_ops >= t_io else "bytes")
 
 
 def ptxas_usage(path) -> dict:

@@ -1,10 +1,12 @@
-// Runs one planning kernel's block on the host (cuda_runtime.h here):
+// Runs a planning kernel's grid on the host (cuda_runtime.h here):
 //   run_kernel <packed.bin> <out.bin> <rows> <slots> <levels> <resident>
 //              <arg> [<arg>]
-// reads one packed problem ([rows][slots] float32), runs the kernel's C
-// entry point (eg_pdhg or eg_relaxed) with EG_THREADS threads for the
-// instantiation of `levels` levels, state in shared memory or not, and
-// writes the output row and the stats row (4 int64). Build with
+// reads P packed problems ([P][rows][slots] float32, P from the file's
+// size), runs the kernel's C entry point (eg_pdhg or eg_relaxed) for a
+// launch of P problems, block by block (blockIdx.x = 0 .. P-1, each with
+// EG_THREADS threads), for the instantiation of `levels` levels, state in
+// shared memory or not, and writes the P output rows and then the P stats
+// rows (4 int64 each). Build with
 // -DKERNEL_SOURCE=\"<path to eg_pdhg.cu or eg_relaxed.cu>\" and
 // -DKERNEL_PDHG for kernel A.
 #include "cuda_runtime.h"
@@ -68,26 +70,34 @@ int main(int argc, char** argv) {
 #else
   const int state = eg_relaxed_state_floats(slots), shared = eg_relaxed_shared_bytes(slots);
 #endif
-  std::vector<float> in((size_t)rows * slots), scratch(state), dynamic(shared / 4),
-      out(slots + DIAG);
-  std::vector<long long> stats(STATS, -1);
+  FILE* f = fopen(argv[1], "rb");
+  if (!f || fseek(f, 0, SEEK_END) != 0) return 3;
+  const long bytes = ftell(f);
+  const int problems = (int)(bytes / (4L * rows * slots));
+  if (problems < 1 || bytes != 4L * rows * slots * problems) return 3;
+  rewind(f);
+  std::vector<float> in((size_t)problems * rows * slots), scratch((size_t)problems * state),
+      dynamic(shared / 4), out((size_t)problems * (slots + DIAG));
+  std::vector<long long> stats((size_t)problems * STATS, -1);
   std::vector<int> codes(eg::THREADS, -1);
   host_dynamic_shared = dynamic.data();
-  FILE* f = fopen(argv[1], "rb");
-  if (!f || fread(in.data(), 4, in.size(), f) != in.size()) return 3;
+  if (fread(in.data(), 4, in.size(), f) != in.size()) return 3;
   fclose(f);
-  host_run_block([&] {
-    const int t = threadIdx.x;
+  for (int block = 0; block < problems; ++block) {
+    blockIdx.x = block;
+    host_run_block([&] {
+      const int t = threadIdx.x;
 #ifdef KERNEL_PDHG
-    codes[t] = eg_pdhg(in.data(), resident ? nullptr : scratch.data(), out.data(), stats.data(),
-                       1, slots, a, b, levels, resident, nullptr);
+      codes[t] = eg_pdhg(in.data(), resident ? nullptr : scratch.data(), out.data(),
+                         stats.data(), problems, slots, a, b, levels, resident, nullptr);
 #else
-    codes[t] = eg_relaxed(in.data(), resident ? nullptr : scratch.data(), out.data(),
-                          stats.data(), 1, slots, a, levels, resident, nullptr);
+      codes[t] = eg_relaxed(in.data(), resident ? nullptr : scratch.data(), out.data(),
+                            stats.data(), problems, slots, a, levels, resident, nullptr);
 #endif
-  });
-  for (int code : codes)
-    if (code != 0) return 4;
+    });
+    for (int code : codes)
+      if (code != 0) return 4;
+  }
   f = fopen(argv[2], "wb");
   fwrite(out.data(), 4, out.size(), f);
   fwrite(stats.data(), 8, stats.size(), f);

@@ -26,6 +26,7 @@ import pytest
 
 import bench
 from shockwave_tpu_torch.ops import eg_pdhg, eg_relaxed
+from shockwave_tpu_torch.solver import eg_pdhg as eg_pdhg_solver
 from shockwave_tpu_torch.tools import bench_sim
 from test_torch_solver import port_problem
 
@@ -83,18 +84,25 @@ ARGS = {"pdhg": (96, 40), "relaxed": (64,)}
 
 
 def run_host(binary, packed: np.ndarray, tmp_path, variant, *args):
-    """One solve of ``packed`` by the host build of the ``variant``
-    (levels, resident) instantiation: (output row, stats row)."""
+    """The solve of ``packed`` by the host build of the ``variant``
+    (levels, resident) instantiation: (output row, stats row) of one
+    problem ([rows, slots]), or (output rows, stats rows) of a launch of
+    P problems ([P, rows, slots]), run block by block."""
     inp, out = tmp_path / "packed.bin", tmp_path / "out.bin"
     packed.astype(np.float32).tofile(inp)
-    rows, slots = packed.shape
+    lanes = packed.shape[0] if packed.ndim == 3 else None
+    rows, slots = packed.shape[-2:]
     levels, resident = variant
     subprocess.run([str(binary), str(inp), str(out), str(rows), str(slots),
                     str(levels), str(int(resident)), *map(str, args)],
                    check=True, timeout=600)
     raw = out.read_bytes()
-    stats = np.frombuffer(raw[-8 * eg_pdhg.STATS:], np.int64)
-    return np.frombuffer(raw[:-8 * eg_pdhg.STATS], np.float32), stats
+    cut = len(raw) - 8 * eg_pdhg.STATS * (lanes or 1)
+    rows_out = np.frombuffer(raw[:cut], np.float32)
+    stats = np.frombuffer(raw[cut:], np.int64)
+    if lanes is None:
+        return rows_out, stats
+    return rows_out.reshape(lanes, -1), stats.reshape(lanes, -1)
 
 
 def module_of(kind: str):
@@ -170,6 +178,33 @@ def test_kernels_repeat_bit_for_bit_on_the_host(binaries, tmp_path):
         assert np.array_equal(first[0].view(np.int32),
                               second[0].view(np.int32))
         assert np.array_equal(first[1], second[1])
+
+
+@pytest.mark.parametrize("variant", [(2, True), eg_pdhg.SEQUENTIAL],
+                         ids=["2-resident", "1-global"])
+def test_kernel_a_lanes_of_one_launch_equal_their_own_launches(
+        binaries, tmp_path, variant):
+    """The lane grid: a launch of P problems (the cells market's and the
+    what-if fleet's) reads lane b's rows and writes its output and stats
+    rows at block b, state in shared memory or at block b's place in the
+    scratch, so every lane returns its own one-problem launch's bits and
+    counters; a lane's neighbours do not change them."""
+    lanes = [bench_sim.eg_pack("pdhg", p, "cpu")[0].numpy()
+             for p in (bench_sim.seeded_problem(40, seed=0, num_gpus=16),
+                       bench_sim.parity_problem(64 * 1000 + 500, 64, True),
+                       bench_sim.seeded_problem(64, seed=3, num_gpus=8))]
+    grid, grid_stats = run_host(binaries["pdhg"], np.stack(lanes), tmp_path,
+                                variant, *ARGS["pdhg"])
+    assert grid.shape == (3, 64 + len(eg_pdhg_solver.DIAG))
+    for b, packed in enumerate(lanes):
+        out, stats = run_host(binaries["pdhg"], packed, tmp_path, variant,
+                              *ARGS["pdhg"])
+        assert np.array_equal(grid[b].view(np.int32), out.view(np.int32))
+        assert np.array_equal(grid_stats[b], stats)
+    reversed_grid, _ = run_host(binaries["pdhg"], np.stack(lanes[::-1]),
+                                tmp_path, variant, *ARGS["pdhg"])
+    assert np.array_equal(reversed_grid[::-1].view(np.int32),
+                          grid.view(np.int32))
 
 
 @pytest.fixture(scope="module")

@@ -93,7 +93,11 @@ import runpy, sys
 for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
     sys.modules[name] = None  # any import of them now raises ImportError
 module, sys.argv = sys.argv[1], [sys.argv[1], *sys.argv[2:]]
-runpy.run_module(module, run_name="__main__")
+try:
+    runpy.run_module(module, run_name="__main__")
+except SystemExit as e:  # a CLI that exits with its status
+    if e.code:
+        raise
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
                 and sys.modules[m] is not None)
@@ -153,6 +157,39 @@ def test_figure9_runner_runs_with_jax_blocked(tmp_path):
     assert f"makespan={expected['makespan']:.3f}s" in out
     assert f"avg_jct={expected['avg_jct']:.3f}s" in out
     assert (tmp_path / "summary.json").exists()
+
+
+def test_cells_simulate_cli_runs_with_jax_blocked():
+    """``simulate -p shockwave_tpu_pdhg --cells 2 --device cpu`` on the
+    golden trace (the cells market, its lanes kernel A's plain version)
+    with JAX and the JAX package unimportable: the JAX package's metrics
+    (``bench_sim.GOLDEN_CELLS``) in its rounds, no module of either
+    loaded."""
+    out = _run_blocked("shockwave_tpu_torch.simulate", "-t",
+                       "traces/small_12_dynamic.trace", "-p",
+                       "shockwave_tpu_pdhg", "-c", "v100=8",
+                       "--time_per_iteration", "120", "--cells", "2",
+                       "--device", "cpu", "--no_profile_cache")
+    golden = bench_sim.GOLDEN_CELLS
+    assert f"Makespan: {golden['makespan']:.3f} s" in out
+    assert f"Average JCT: {golden['avg_jct']:.3f} s" in out
+    assert f"Worst FTF: {golden['worst_ftf']:.3f}" in out
+    assert f"Rounds: {golden['rounds']}; solves by backend: {{'cells'" in out
+
+
+def test_whatif_sweep_runs_with_jax_blocked(tmp_path):
+    """``tools.whatif sweep`` on round 91 of the committed decision log
+    (written by the JAX package, read by the port's recorder) with JAX
+    and the JAX package unimportable: every lane audited equal to its
+    one-lane solve, no module of either loaded."""
+    report = tmp_path / "sweep.json"
+    out = _run_blocked("shockwave_tpu_torch.tools.whatif", "sweep", "--log",
+                       "results/flight_recorder/decisions.jsonl", "--round",
+                       "91", "--capacity", "2,4", "--device", "cpu",
+                       "--out", str(report))
+    assert "12 jobs x 3 scenarios on cpu" in out
+    assert "bit_identical=True" in out
+    assert report.exists()
 
 
 def _forbidden(module: str) -> bool:
@@ -218,7 +255,10 @@ def test_port_sources_import_no_jax():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for walked in ("simulate.py", "tools/scale_experiments.py",
-                   "policies/lp_backend.py", "policies/water_filling.py"):
+                   "policies/lp_backend.py", "policies/water_filling.py",
+                   "cells/planner.py", "cells/batched.py",
+                   "whatif/scenario.py", "obs/recorder.py",
+                   "tools/whatif.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

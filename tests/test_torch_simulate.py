@@ -173,7 +173,7 @@ def test_cli_cuda_without_a_card_raises():
 
 @pytest.mark.parametrize("name", [
     "fifo_packed", "max_min_fairness_packed", "shockwave",
-    "shockwave_tpu_sharded", "shockwave_tpu_cells"])
+    "shockwave_tpu_sharded", "gandiva"])
 def test_policies_not_ported_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_policy(name, device="cpu")
@@ -182,7 +182,7 @@ def test_policies_not_ported_raise(name):
 @pytest.mark.parametrize("config, kwargs", [
     ({"speculate": True}, {}),
     ({"hetero_pools": True}, {}),
-    ({"cells": 4}, {}),
+    ({"cells": 4, "cell_mesh": True}, {}),
     ({}, {"simulate": False}),
     ({}, {"profiling_percentage": 0.5}),
 ])
