@@ -166,6 +166,29 @@
    prints one JSON line ``{"cells": ...}``; the ``eg_pdhg`` row of item
    10's line carries the lane grid's launches and times.
 
+13. After item 12, drives the rest of the policy library (``run_library``),
+   whose LPs, assignments and MILP run on the host: (a) the 12-job trace
+   on 8 GPUs under every policy of ``bench_sim.GOLDEN_LIBRARY`` (the
+   packed policies with the scheduler's pair throughputs, ``gandiva``,
+   the cost-normalized throughput sums and ``shockwave``, the exact
+   MILP), ``allox`` on its single-GPU jobs, the SLO programs with every
+   job's deadline at 1.2 x its isolated duration, and the 220-job trace
+   on 64 GPUs, 4 a server, under ``gandiva`` and
+   ``max_min_fairness_packed``, each within 1e-3 of the JAX package's
+   run in its rounds (``bench_sim.library_runs``, held to
+   ``bench_sim.pinned`` as in item 11), none launching a kernel or a
+   device solve, with ``allox`` and
+   ``max_min_fairness_strategy_proof`` failing on the golden trace where
+   the JAX package fails; (b) the MILP's solves by HiGHS status, failing
+   if a pinned run had a solve stop at its time limit; (c) on a seeded
+   problem of 200 jobs x 64 GPUs x 20 rounds (``bench_sim.MILP_WINDOW``)
+   the MILP in both formulations on the host (each must end optimal
+   within its gap, under 15 s) against the card's level solve and kernel
+   A: host seconds, card seconds and objective gaps, every plan audited
+   (``EGProblem.audit_schedule``). It prints one JSON line
+   ``{"library": ...}``; each line carries the card's name and power
+   limit and scipy's version.
+
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
 """
@@ -1304,6 +1327,88 @@ def run_cells(device, card: str) -> dict:
     return readings
 
 
+def run_library(device, card: str) -> dict:
+    """Item 13: the rest of the policy library (docstring); fails on a run
+    past its pin, a pinned MILP solve stopped at its time limit, a policy
+    that does not fail where the JAX package fails, or an infeasible card
+    plan."""
+    import scipy
+
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    tag = f"[{card}; scipy {scipy.__version__}]"
+    runs = {}
+    milp_statuses = {}
+    print(f"policy library {tag}:", flush=True)
+    for table, key, args, kwargs in sim.library_runs():
+        r = sim.run_trace(*args, device, **kwargs)
+        label = f"{table} {key or args[1]}"
+        expected = sim.pinned(table, key, scipy.__version__)
+        print(f"  {label}: makespan {r['makespan']:.3f} avg JCT "
+              f"{r['avg_jct']:.3f} worst FTF {r['worst_ftf']:.3f}, "
+              f"{r['rounds']} rounds, {r['slo_violations']} SLO violations; "
+              f"{r['allocations']} allocations taking "
+              f"{r['allocation_s']:.3f} s of {r['wall_s']:.2f} s wall"
+              + (f"; MILP solves by HiGHS status {r['milp_statuses']}"
+                 if r["milp_statuses"] else "") + f" {tag}", flush=True)
+        bad = sim.check_run(r, expected)
+        if bad:
+            fail(f"{label} against the JAX package's run: " + ", ".join(bad))
+        if any(r["launches"].values()) or r["device_solves"]:
+            fail(f"{label} launched a kernel or a device solve "
+                 f"({r['launches']}, {r['device_solves']}): the library's "
+                 "programs run on the host")
+        for status, n in r["milp_statuses"].items():
+            milp_statuses[status] = milp_statuses.get(status, 0) + n
+        if r["milp_statuses"].get(1):
+            fail(f"{label}: {r['milp_statuses'][1]} MILP solves stopped at "
+                 "their time limit, so the pinned run hung on the clock")
+        runs[label] = {k: r[k] for k in (
+            "makespan", "avg_jct", "worst_ftf", "unfair_fraction", "rounds",
+            "slo_violations", "allocations", "allocation_s",
+            "milp_statuses", "wall_s")}
+    print(f"  MILP solves by HiGHS status over the pinned runs (0 optimal "
+          f"within the gap, 1 the time limit): {milp_statuses} {tag}",
+          flush=True)
+    # Where the JAX package fails, the port fails too: AlloX on the
+    # trace's multi-GPU jobs, strategy-proof max-min on its
+    # (allocation, discounts) result.
+    failures = {}
+    for policy, error in (("allox", ValueError),
+                          ("max_min_fairness_strategy_proof",
+                           (ValueError, RuntimeError))):
+        try:
+            sim.run_trace(sim.GOLDEN_TRACE, policy, 8, device)
+        except error as e:
+            failures[policy] = f"{type(e).__name__}: {e}"
+            print(f"  {policy} on the golden trace fails as the JAX "
+                  f"package's does: {failures[policy]}", flush=True)
+        else:
+            fail(f"{policy} completed the golden trace, where the JAX "
+                 "package fails")
+    try:
+        window = sim.milp_window(device)
+    except AssertionError as e:
+        fail(f"a plan of the MILP window is infeasible: {e}")
+    shape = "{num_jobs} jobs x {num_gpus} GPUs x {future_rounds} rounds, " \
+        "seed {seed}".format(**window["problem"])
+    for m in window["milp"]:
+        print(f"  MILP window ({shape}): {sim.describe_milp(m)} {tag}",
+              flush=True)
+        if m["status"] != 0:
+            fail(f"the MILP window's {m['formulation']} solve did not end "
+                 f"optimal within its gap (status {m['status']})")
+    for c in window["card"]:
+        gaps = ", ".join(f"{100 * g:.5f}% against the {f} MILP"
+                         for f, g in c["gap"].items())
+        print(f"  MILP window: {c['backend']} on the card "
+              f"{c['seconds']:.4f} s, objective {c['objective']:.4f} "
+              f"(plan audited); above the MILP by {gaps} {tag}", flush=True)
+    return {"runs": runs, "milp_statuses": milp_statuses,
+            "fails_as_reference": failures, "milp_window": window,
+            "scipy": scipy.__version__}
+
+
 def card_state() -> str:
     """The card's SM clock, power draw and temperature (nvidia-smi)."""
     return subprocess.run(
@@ -1436,6 +1541,11 @@ def main() -> None:
     print(f"cells and what-if phase: {cells['phase_s']:.1f} s, the smoke's "
           f"growth [{card}]", flush=True)
     cells["retimed_noncausal"] = retime_noncausal(fa, bench, ring, card)
+    library_started = time.time()
+    library = run_library(device, card)
+    library["phase_s"] = time.time() - library_started
+    print(f"policy library phase: {library['phase_s']:.1f} s, the smoke's "
+          f"growth [{card}]", flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -1562,6 +1672,7 @@ def main() -> None:
     print(json.dumps({"first_order": first_order, "card": card}))
     print(json.dumps({"gavel": gavel, "card": card}))
     print(json.dumps({"cells": cells, "card": card}, default=str))
+    print(json.dumps({"library": library, "card": card}))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,

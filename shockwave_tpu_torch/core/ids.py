@@ -60,6 +60,9 @@ class JobId:
             raise ValueError("integer id undefined for a packed pair")
         return self._ids[0]
 
+    def as_tuple(self) -> Tuple[int, ...]:
+        return self._ids
+
     def __getitem__(self, i: int) -> Optional[int]:
         if i == 0:
             return self._ids[0]

@@ -16,12 +16,20 @@ policy picks which jobs occupy which workers, by one of two paths:
   received (``_update_priorities`` :1113) and a greedy pass in priority
   order (``_schedule_jobs_on_workers_helper`` :1157).
 
+Under a packed policy (``Packing`` in its name) the schedulable units are
+single jobs and pairs of jobs of the same scale factor that space-share
+a worker (``JobId(a, b)``): every admitted job registers its pairs with
+the jobs already there, their co-located throughputs from the oracle
+(``_populate_job_combination_metadata`` :859), and a pair is allocated,
+prioritised, placed and run like a job, each member at its co-located
+rate. Under an SLO policy (``SLO`` in its name) each job with an SLO gets
+the deadline SLO x its isolated duration from its submission, and the
+policy sees the time left to it.
+
 Not ported yet, each raising ``NotImplementedError`` naming
-``ROADMAP.md``: the packed policies (pair throughputs,
-``_populate_job_combination_metadata`` :859), the SLO and cost policies,
-physical mode (``simulate=False``), HA state, streaming admission (a
-``submitter``), fault plans, simulator checkpoints, online throughput
-estimation (``profiling_percentage < 1``) and pool sets
+``ROADMAP.md``: physical mode (``simulate=False``), HA state, streaming
+admission (a ``submitter``), fault plans, simulator checkpoints, online
+throughput estimation (``profiling_percentage < 1``) and pool sets
 (``hetero_pools``); cost accounting (per-worker-type prices) and
 lease-extension counting are not carried. The run has no fault injector,
 the reference's default (``faults.active()`` is ``None``).
@@ -186,6 +194,13 @@ class Scheduler:
         self._job_completion_times: "OrderedDict[JobId, Optional[float]]" = OrderedDict()
         self._num_jobs_in_trace = 0
         self._in_progress_updates: Dict[JobId, list] = {}
+        # Absolute deadlines, kept only under SLO policies and kept after
+        # completion for get_num_SLO_violations.
+        self._slos: Optional[Dict[JobId, float]] = (
+            {} if "SLO" in policy.name else None
+        )
+        # Packed policies schedule pairs of jobs beside single jobs.
+        self._job_packing = "Packing" in policy.name
 
         # Worker state.
         self._worker_id_counter = 0
@@ -268,9 +283,16 @@ class Scheduler:
         self._num_jobs_in_trace += 1
         self._num_failures_per_job[job_id] = 0
         self._total_steps_run[job_id] = 0
+        if self._slos is not None and job.SLO is not None and job.duration:
+            # Deadline = SLO factor x isolated duration, from submission.
+            self._slos[job_id] = (
+                job.SLO * job.duration + self.get_current_timestamp()
+            )
         for worker_type in self._worker_types:
             self._steps_run_so_far[job_id][worker_type] = 0
             self._set_initial_throughput(job_id, worker_type)
+            if self._job_packing:
+                self._populate_job_combination_metadata(job_id, worker_type)
             self._job_time_so_far[job_id][worker_type] = (
                 self._time_per_iteration / 2.0
             )
@@ -331,11 +353,23 @@ class Scheduler:
         del self._throughputs[job_id]
         del self._num_failures_per_job[job_id]
         self._in_progress_updates.pop(job_id, None)
+        # Deadlines are kept after completion for get_num_SLO_violations.
+        if self._job_packing:
+            stale_pairs = [
+                other
+                for other in self._throughputs
+                if other.is_pair and job_id.overlaps_with(other)
+            ]
+            for other in stale_pairs:
+                del self._throughputs[other]
+                self._job_time_so_far.pop(other, None)
+                self._in_progress_updates.pop(other, None)
         self._remove_from_priorities(job_id)
         self._need_to_update_allocation = True
         self._logger.info("Remaining active jobs: %d", len(self._jobs))
 
     def _set_initial_throughput(self, job_id: JobId, worker_type: str) -> None:
+        assert not job_id.is_pair
         if self._oracle_throughputs is not None:
             key = self._jobs[job_id].job_type_key()
             self._throughputs[job_id][worker_type] = self._oracle_throughputs[
@@ -343,6 +377,41 @@ class Scheduler:
             ][key]["null"]
         else:
             self._throughputs[job_id][worker_type] = DEFAULT_THROUGHPUT
+
+    def _populate_job_combination_metadata(
+        self, job_id: JobId, worker_type: str
+    ) -> None:
+        """Register the co-located throughputs of every same-scale pair of
+        ``job_id`` with a job already admitted (the JAX package's
+        scheduler.py:859, its oracle branch: online estimation is not
+        ported)."""
+        job = self._jobs[job_id]
+        job_type_key = job.job_type_key()
+        for other_job_id in self._jobs:
+            if other_job_id == job_id:
+                continue
+            other = self._jobs[other_job_id]
+            if job.scale_factor != other.scale_factor:
+                continue
+            merged = JobId(job_id[0], other_job_id[0])
+            if merged not in self._throughputs:
+                self._throughputs[merged] = {}
+                self._job_time_so_far[merged] = {}
+            self._job_time_so_far[merged][worker_type] = 0.0
+            if self._oracle_throughputs is None:
+                self._throughputs[merged][worker_type] = [0.0, 0.0]
+                continue
+            oracle = self._oracle_throughputs[worker_type]
+            other_key = other.job_type_key()
+            keys = (
+                (job_type_key, other_key)
+                if job_id < other_job_id
+                else (other_key, job_type_key)
+            )
+            pair_entry = oracle.get(keys[0], {}).get(keys[1])
+            self._throughputs[merged][worker_type] = (
+                list(pair_entry) if pair_entry is not None else [0.0, 0.0]
+            )
 
     def _update_throughput(self, job_id, all_num_steps, all_execution_times):
         """The planner's measured-throughput record of the round
@@ -363,38 +432,55 @@ class Scheduler:
         return self._jobs[job_id].total_steps - self._total_steps_run[job_id]
 
     # ------------------------------------------------------------------
-    # Priorities and allocation: the Gavel round path. Every job id is a
-    # single job (no packed policy is ported), so the JAX package's
-    # branches for packed pairs have no counterpart here.
+    # Priorities and allocation: the Gavel round path. A schedulable unit
+    # is a single job or, under a packed policy, a pair.
     # ------------------------------------------------------------------
     def _add_to_priorities(self, job_id: JobId) -> None:
-        """(the JAX package's scheduler.py:979)"""
+        """The job and, under a packed policy, its pairs (the JAX
+        package's scheduler.py:979; only packed policies have pairs, so
+        the others skip the walk over every unit)."""
         for worker_type in self._worker_types:
             self._priorities[worker_type][job_id] = 0.0
             self._deficits[worker_type][job_id] = 0.0
+            if not self._job_packing:
+                continue
+            for other in self._throughputs:
+                if other.is_pair and job_id.overlaps_with(other):
+                    self._priorities[worker_type][other] = 0.0
+                    self._deficits[worker_type][other] = 0.0
 
     def _remove_from_priorities(self, job_id: JobId) -> None:
-        """(the JAX package's scheduler.py:988)"""
+        """Drop the job and every pair holding it (the JAX package's
+        scheduler.py:988)."""
         for worker_type in self._worker_types:
-            self._priorities[worker_type].pop(job_id, None)
-            self._deficits[worker_type].pop(job_id, None)
+            stale = [job_id]
+            if self._job_packing:
+                stale = [other for other in self._priorities[worker_type]
+                         if job_id.overlaps_with(other)]
+            for other in stale:
+                self._priorities[worker_type].pop(other, None)
+                self._deficits[worker_type].pop(other, None)
 
     def _get_allocation_state(self) -> dict:
-        """The policy's inputs (the JAX package's scheduler.py:1001)."""
+        """The policy's inputs, keyed by single job (throughputs by
+        schedulable unit) (the JAX package's scheduler.py:1001)."""
         throughputs = {}
         scale_factors = {}
         priority_weights = {}
         times_since_start = {}
         num_steps_remaining = {}
         for job_id, per_type in self._throughputs.items():
-            job = self._jobs[job_id]
+            singles = job_id.singletons()
+            if not all(s in self._jobs for s in singles):
+                continue
             throughputs[job_id] = dict(per_type)
-            scale_factors[job_id] = job.scale_factor
-            priority_weights[job_id] = job.priority_weight
-            times_since_start[job_id] = self.get_current_timestamp() - (
-                self._per_job_start_timestamps.get(job_id, 0.0)
-            )
-            num_steps_remaining[job_id] = self._get_remaining_steps(job_id)
+            for s in singles:
+                scale_factors[s] = self._jobs[s].scale_factor
+                priority_weights[s] = self._jobs[s].priority_weight
+                times_since_start[s] = self.get_current_timestamp() - (
+                    self._per_job_start_timestamps.get(s, 0.0)
+                )
+                num_steps_remaining[s] = self._get_remaining_steps(s)
         return {
             "throughputs": throughputs,
             "scale_factors": scale_factors,
@@ -414,7 +500,15 @@ class Scheduler:
         cluster_spec = state["cluster_spec"]
         if not throughputs or not cluster_spec:
             return {}
-        if name.startswith("FinishTimeFairness"):
+        if name == "AlloX_Perf":
+            allocation = self._policy.get_allocation(
+                throughputs,
+                scale_factors,
+                state["times_since_start"],
+                state["num_steps_remaining"],
+                cluster_spec,
+            )
+        elif name.startswith("FinishTimeFairness"):
             allocation = self._policy.get_allocation(
                 throughputs,
                 scale_factors,
@@ -433,10 +527,33 @@ class Scheduler:
                 throughputs, scale_factors, state["num_steps_remaining"],
                 cluster_spec,
             )
+        elif "SLO" in name:
+            # The policy sees each active job's time left to its deadline.
+            now = self.get_current_timestamp()
+            slos_remaining = {
+                job_id: max(deadline - now, 1e-3)
+                for job_id, deadline in self._slos.items()
+                if job_id in self._jobs
+            }
+            allocation = self._policy.get_allocation(
+                throughputs,
+                scale_factors,
+                cluster_spec,
+                SLOs=slos_remaining,
+                num_steps_remaining=state["num_steps_remaining"],
+            )
         else:
-            # FIFO, Isolated and ThroughputSumWithPerf.
+            # FIFO, Isolated, Gandiva and the throughput sums.
             allocation = self._policy.get_allocation(
                 throughputs, scale_factors, cluster_spec
+            )
+        if isinstance(allocation, tuple):
+            # Strategy-proof max-min returns (allocation, discounts),
+            # which the round path cannot take; the JAX package's
+            # scheduler fails on it as well (a ValueError from numpy).
+            raise ValueError(
+                f"the {name} policy returned (allocation, discount "
+                "factors); the round path takes an allocation"
             )
         return allocation or {}
 
@@ -502,7 +619,12 @@ class Scheduler:
                     continue
                 alloc = self._allocation[job_id][worker_type]
                 new_priority = alloc * 1e9
-                if alloc == 0.0 or self._throughputs[job_id][worker_type] == 0:
+                tput = self._throughputs[job_id][worker_type]
+                tput_zero = (
+                    (tput[0] == 0 or tput[1] == 0) if job_id.is_pair
+                    else tput == 0
+                )
+                if alloc == 0.0 or tput_zero:
                     new_priority = 0.0
                 elif fractions[worker_type][job_id] > 0.0:
                     new_priority = alloc / fractions[worker_type][job_id]
@@ -546,17 +668,27 @@ class Scheduler:
         for job_id, worker_type, priority, _, _ in entries:
             if num_workers_left[worker_type] == 0:
                 continue
-            if job_id in already_scheduled:
+            singles = job_id.singletons()
+            if any(s in already_scheduled for s in singles):
                 continue
-            if self._throughputs[job_id][worker_type] <= 0:
-                continue
-            scale_factor = self._jobs[job_id].scale_factor
+            tput = self._throughputs[job_id][worker_type]
+            if job_id.is_pair:
+                if tput[0] <= 0 or tput[1] <= 0:
+                    continue
+                sf0 = self._jobs[singles[0]].scale_factor
+                if sf0 != self._jobs[singles[1]].scale_factor:
+                    continue
+                scale_factor = sf0
+            else:
+                if tput <= 0:
+                    continue
+                scale_factor = self._jobs[job_id].scale_factor
             if is_fifo and priority <= 0.0:
                 continue
             if scale_factor > num_workers_left[worker_type]:
                 continue
             num_workers_left[worker_type] -= scale_factor
-            already_scheduled.add(job_id)
+            already_scheduled.update(singles)
             scheduled_jobs[worker_type].append((job_id, scale_factor))
         return scheduled_jobs
 
@@ -694,20 +826,31 @@ class Scheduler:
     # ------------------------------------------------------------------
     # Micro-task accounting.
     # ------------------------------------------------------------------
-    def _get_num_steps(self, job_id, worker_type) -> int:
-        """(reference: scheduler.py:1131-1165)"""
-        tput = self._throughputs[job_id][worker_type]
+    def _get_num_steps(self, job_id, worker_type, single_job_id) -> int:
+        """The steps ``single_job_id`` of ``job_id`` makes in a round: at
+        its isolated rate, or, in a pair, at the oracle's co-located rate
+        of the pair's current job types (reference: scheduler.py:1131-1165)."""
+        if job_id.is_pair:
+            oracle = self._oracle_throughputs[worker_type]
+            index = job_id.as_tuple().index(single_job_id[0])
+            sf = self._jobs[single_job_id].scale_factor
+            keys = [(self._jobs[s].job_type, sf) for s in job_id.singletons()]
+            tput = oracle[keys[0]][keys[1]][index]
+        else:
+            tput = self._throughputs[job_id][worker_type]
         num_steps = int(tput * self._time_per_iteration)
-        return min(num_steps, self._get_remaining_steps(job_id))
+        return min(num_steps, self._get_remaining_steps(single_job_id))
 
     def _get_job_steps_and_finish_times(self, job_id, worker_type):
         """(reference: scheduler.py:1166-1212)"""
         max_finish_time = self.get_current_timestamp()
         all_num_steps = []
-        for single in job_id.singletons():
-            num_steps = self._get_num_steps(single, worker_type)
+        for i, single in enumerate(job_id.singletons()):
+            num_steps = self._get_num_steps(job_id, worker_type, single)
             all_num_steps.append(num_steps)
-            tput = self._throughputs[single][worker_type]
+            tput = self._throughputs[job_id][worker_type]
+            if job_id.is_pair:
+                tput = tput[i]
             if tput <= 0:
                 raise RuntimeError(
                     f"Throughput for job {single} on {worker_type} is <= 0"
@@ -754,7 +897,7 @@ class Scheduler:
 
         if not micro_task_succeeded:
             self._logger.info("[Micro-task failed]\tJob ID: %s", job_id)
-            if is_active[job_id]:
+            if not job_id.is_pair and is_active[job_id]:
                 self._num_failures_per_job[job_id] += 1
                 if self._num_failures_per_job[job_id] >= MAX_FAILED_ATTEMPTS:
                     to_remove.append(job_id)
@@ -1068,7 +1211,7 @@ class Scheduler:
             else:
                 consecutive_idle_rounds = 0
             for job_id in self._current_worker_assignments:
-                if job_id in self._jobs:
+                if any(s in self._jobs for s in job_id.singletons()):
                     kept = job_id in scheduled_jobs and set(
                         self._current_worker_assignments[job_id]
                     ) == set(scheduled_jobs[job_id])
@@ -1143,7 +1286,7 @@ class Scheduler:
             if total <= 0:
                 continue
             utilization = worker_time / total
-            if utilization > 1.0:
+            if utilization > 1.0 and not self._job_packing:
                 return None
             utilizations.append(utilization)
         if not utilizations:
@@ -1184,6 +1327,19 @@ class Scheduler:
             return [], 0.0
         unfair_fraction = 100.0 * sum(f > 1.1 for f in ftf_list) / len(ftf_list)
         return ftf_list, unfair_fraction
+
+    def get_num_SLO_violations(self):
+        """Jobs that finished past their absolute deadline, or never
+        finished (the JAX package's scheduler.py:2902, which compares the
+        absolute finish time with the deadline)."""
+        violations = 0
+        for job_id, deadline in (self._slos or {}).items():
+            if job_id in self._jobs:
+                continue  # still running: not yet decided
+            finished_at = self._per_job_latest_timestamps.get(job_id)
+            completed = self._job_completion_times.get(job_id) is not None
+            violations += int((not completed) or finished_at > deadline)
+        return violations
 
     def get_num_preemptions(self):
         """Round transitions where a still-active job lost its workers

@@ -1,15 +1,17 @@
 """Policy registry: name -> policy.
 
-The port has the Shockwave policies of the simulation main path
-(``shockwave_tpu``, the production dispatch, ``shockwave_tpu_level``,
-``shockwave_native``, ``shockwave_tpu_pdhg``, ``shockwave_tpu_relaxed``
-and ``shockwave_tpu_cells``, the cell-decomposed market) and the Gavel policies of the round path:
-``fifo``, ``fifo_perf``, ``isolated``, ``max_min_fairness(_perf)``,
-``max_min_fairness_water_filling(_perf)``, ``finish_time_fairness(_perf)``,
-``min_total_duration(_perf)`` and ``max_sum_throughput_perf``, whose LPs
-run on the host (HiGHS). Every other name of the JAX package's registry
-(``shockwave_tpu/policies/__init__.py``) raises ``NotImplementedError``
-naming ``ROADMAP.md``.
+Every name of the JAX package's registry
+(``shockwave_tpu/policies/__init__.py``) but one: the Shockwave policies
+(``shockwave``, the exact MILP on the host; ``shockwave_tpu``, the
+production dispatch; ``shockwave_tpu_level``, ``shockwave_native``,
+``shockwave_tpu_pdhg``, ``shockwave_tpu_relaxed`` and
+``shockwave_tpu_cells``, the cell-decomposed market) and Gavel's policies
+(FIFO, isolated, max-min fairness and its water-filling and
+strategy-proof forms, finish-time fairness, min-total-duration, the
+throughput-sum programs with cost and SLOs, Gandiva, AlloX and the packed
+forms), whose LPs and assignments run on the host. The sharded
+multi-device solve (``shockwave_tpu_sharded``) raises
+``NotImplementedError`` naming ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Optional
 from shockwave_tpu_torch.policies.base import Policy
 
 _BACKENDS = {
+    "shockwave": "reference",
     "shockwave_tpu": "tpu",
     "shockwave_tpu_level": "level",
     "shockwave_native": "native",
@@ -51,36 +54,55 @@ _GAVEL = {
                                 "MinTotalDurationPolicyWithPerf"),
     "max_sum_throughput_perf": ("max_sum_throughput",
                                 "ThroughputSumWithPerf"),
+    "fifo_packed": ("fifo", "FIFOPolicyWithPacking"),
+    "max_min_fairness_packed": ("max_min_fairness_packed",
+                                "MaxMinFairnessPolicyWithPacking"),
+    "max_min_fairness_water_filling_packed": (
+        "water_filling", "MaxMinFairnessWaterFillingPolicyWithPacking"),
+    "max_min_fairness_strategy_proof": (
+        "strategy_proof", "MaxMinFairnessStrategyProofPolicyWithPerf"),
+    "finish_time_fairness_packed": ("finish_time_fairness",
+                                    "FinishTimeFairnessPolicyWithPacking"),
+    "min_total_duration_packed": ("min_total_duration",
+                                  "MinTotalDurationPolicyWithPacking"),
+    "max_sum_throughput_normalized_by_cost_perf": (
+        "max_sum_throughput", "ThroughputNormalizedByCostSumWithPerf"),
+    "max_sum_throughput_normalized_by_cost_perf_SLOs": (
+        "max_sum_throughput", "ThroughputNormalizedByCostSumWithPerfSLOs"),
+    "max_sum_throughput_normalized_by_cost_packed_SLOs": (
+        "max_sum_throughput", "ThroughputNormalizedByCostSumWithPackingSLOs"),
+    "gandiva": ("gandiva", "GandivaPolicy"),
+    "allox": ("allox", "AlloXPolicy"),
 }
+# Policies that draw from a seeded stream: FIFO's worker types and
+# Gandiva's pairs.
+_SEEDED = ("fifo", "gandiva")
 
 # The JAX package's vocabulary that is still to be ported.
-_NOT_PORTED = (
-    "allox", "fifo_packed", "finish_time_fairness_packed", "gandiva",
-    "max_min_fairness_packed", "max_min_fairness_water_filling_packed",
-    "max_min_fairness_strategy_proof",
-    "max_sum_throughput_normalized_by_cost_perf",
-    "max_sum_throughput_normalized_by_cost_perf_SLOs",
-    "max_sum_throughput_normalized_by_cost_packed_SLOs",
-    "min_total_duration_packed", "shockwave", "shockwave_tpu_sharded",
-)
+_NOT_PORTED = ("shockwave_tpu_sharded",)
 
 
 def get_policy(policy_name: str, device="cuda",
                seed: Optional[int] = None) -> Policy:
     """The policy named ``policy_name``. ``device`` is where the Shockwave
-    planner's device solves (level, PDHG, relaxed) run; the Gavel
-    policies solve on the host and ignore it. ``seed`` seeds FIFO's
-    worker-type draws."""
+    planner's device solves (level, PDHG, relaxed) run; the exact MILP
+    (``shockwave``) and the Gavel policies solve on the host. ``seed``
+    seeds FIFO's worker-type draws and Gandiva's pairs;
+    ``allox_alpha=<a>`` truncates AlloX's queue to a times its jobs."""
     if policy_name in _BACKENDS:
         from shockwave_tpu_torch.policies.shockwave import ShockwavePolicy
 
         return ShockwavePolicy(backend=_BACKENDS[policy_name], device=device)
+    if policy_name.startswith("allox_alpha="):
+        from shockwave_tpu_torch.policies.allox import AlloXPolicy
+
+        return AlloXPolicy(alpha=float(policy_name.split("allox_alpha=")[1]))
     if policy_name in _GAVEL:
         module, cls = _GAVEL[policy_name]
         cls = getattr(importlib.import_module(
             f"shockwave_tpu_torch.policies.{module}"), cls)
-        return cls(seed=seed) if policy_name == "fifo" else cls()
-    if policy_name in _NOT_PORTED or policy_name.startswith("allox"):
+        return cls(seed=seed) if policy_name in _SEEDED else cls()
+    if policy_name in _NOT_PORTED:
         raise NotImplementedError(
             f"policy {policy_name!r} is not ported to shockwave_tpu_torch "
             "yet (ROADMAP.md, queue 1)")

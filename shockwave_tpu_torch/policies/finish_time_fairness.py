@@ -20,8 +20,10 @@ import numpy as np
 
 from shockwave_tpu_torch.policies.base import (
     Policy,
+    PolicyWithPacking,
     canonical_throughputs,
     constraint_matrices,
+    packed_constraint_matrices,
 )
 from shockwave_tpu_torch.policies.isolated import IsolatedPolicy
 from shockwave_tpu_torch.policies.lp_backend import feasibility_lp_general
@@ -169,3 +171,80 @@ class FinishTimeFairnessPolicy(Policy):
             num_steps_remaining,
             cluster_spec,
         )
+
+
+class FinishTimeFairnessPolicyWithPacking(PolicyWithPacking):
+    name = "FinishTimeFairness_Packing"
+
+    def __init__(self):
+        super().__init__()
+        self._isolated_policy = IsolatedPolicy()
+        self._cumulative_isolated_time: Dict = {}
+        self._isolated_throughputs_prev_iteration: Dict = {}
+        self._num_steps_remaining_prev_iteration: Dict = {}
+
+    def get_allocation(
+        self,
+        throughputs,
+        scale_factors,
+        priority_weights,
+        times_since_start,
+        num_steps_remaining,
+        cluster_spec,
+    ):
+        all_m, index = self.flatten(
+            throughputs, cluster_spec, priority_weights=priority_weights
+        )
+        if all_m is None or len(all_m) == 0:
+            self._isolated_throughputs_prev_iteration = {}
+            self._num_steps_remaining_prev_iteration = {}
+            return None
+        job_ids, single_job_ids, worker_types, relevant = index
+        C, W = len(job_ids), len(worker_types)
+        S = len(single_job_ids)
+        sf = self.scale_factors_array(scale_factors, job_ids, C, W)
+
+        singles_matrix = np.array(
+            [[throughputs[s][wt] for wt in worker_types] for s in single_job_ids]
+        )
+        isolated_throughputs = self._isolated_policy.get_throughputs(
+            singles_matrix,
+            (single_job_ids, worker_types),
+            scale_factors,
+            self._num_workers,
+        ).reshape(-1)
+
+        expected_isolated = np.zeros(S)
+        for i, job_id in enumerate(single_job_ids):
+            self._cumulative_isolated_time.setdefault(job_id, 0)
+            if job_id in self._num_steps_remaining_prev_iteration:
+                self._cumulative_isolated_time[job_id] += (
+                    self._num_steps_remaining_prev_iteration[job_id]
+                    - num_steps_remaining[job_id]
+                ) / self._isolated_throughputs_prev_iteration[job_id]
+            expected_isolated[i] = self._cumulative_isolated_time[job_id] + (
+                num_steps_remaining[job_id] / isolated_throughputs[i]
+            )
+
+        coeff_rows = all_m.reshape(S, C * W)
+        A_base, b_base = packed_constraint_matrices(
+            sf, self._num_workers, single_job_ids, relevant
+        )
+        zero_mask = (sf.reshape(-1) == 0).astype(bool)
+        _, x = _bisect_rho(
+            coeff_rows,
+            [times_since_start[s] for s in single_job_ids],
+            [num_steps_remaining[s] for s in single_job_ids],
+            expected_isolated,
+            A_base,
+            b_base,
+            zero_mask=zero_mask,
+        )
+
+        self._num_steps_remaining_prev_iteration = copy.copy(num_steps_remaining)
+        self._isolated_throughputs_prev_iteration = {
+            single_job_ids[i]: isolated_throughputs[i] for i in range(S)
+        }
+        if x is None:
+            return None
+        return self.unflatten(x.reshape(C, W).clip(0.0, 1.0), index)

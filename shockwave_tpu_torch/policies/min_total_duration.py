@@ -10,8 +10,10 @@ import numpy as np
 
 from shockwave_tpu_torch.policies.base import (
     Policy,
+    PolicyWithPacking,
     canonical_throughputs,
     constraint_matrices,
+    packed_constraint_matrices,
 )
 from shockwave_tpu_torch.policies.lp_backend import feasibility_lp_general
 
@@ -90,3 +92,33 @@ class MinTotalDurationPolicy(Policy):
             canonical_throughputs(throughputs), scale_factors,
             num_steps_remaining, cluster_spec,
         )
+
+
+class MinTotalDurationPolicyWithPacking(PolicyWithPacking):
+    name = "MinTotalDuration_Packing"
+
+    def get_allocation(
+        self, throughputs, scale_factors, num_steps_remaining, cluster_spec
+    ):
+        all_m, index = self.flatten(throughputs, cluster_spec)
+        if all_m is None or len(all_m) == 0:
+            return None
+        job_ids, single_job_ids, worker_types, relevant = index
+        C, W = len(job_ids), len(worker_types)
+        S = len(single_job_ids)
+        sf = self.scale_factors_array(scale_factors, job_ids, C, W)
+        coeff_rows = all_m.reshape(S, C * W)
+        A_base, b_base = packed_constraint_matrices(
+            sf, self._num_workers, single_job_ids, relevant
+        )
+        zero_mask = (sf.reshape(-1) == 0).astype(bool)
+        x = _binary_search_T(
+            coeff_rows,
+            [num_steps_remaining[s] for s in single_job_ids],
+            A_base,
+            b_base,
+            zero_mask=zero_mask,
+        )
+        if x is None:
+            return None
+        return self.unflatten(x.reshape(C, W).clip(0.0, 1.0), index)

@@ -13,7 +13,12 @@ for the backends of the simulation main path:
     of kernel A on a card), warm-started from the previous plan;
   * ``relaxed`` — the projected-gradient solve
     (:func:`shockwave_tpu_torch.solver.eg_relaxed.solve_eg_relaxed`, one
-    launch of kernel B, then a bounded PDHG polish).
+    launch of kernel B, then a bounded PDHG polish);
+  * ``reference`` — the exact MILP on the host
+    (:func:`shockwave_tpu_torch.solver.eg_milp.solve_eg_milp`, scipy's
+    HiGHS within ``solver_rel_gap`` and ``solver_timeout``), then the
+    MILP reorder of the unfair jobs; each call's HiGHS status lands in
+    ``milp_statuses``.
 With ``plan_deadline_s`` in the config, or a fault injector armed
 (``shockwave_tpu_torch/runtime/faults.py``), a solve runs down the
 degradation ladder: the configured backend, then ``pdhg``, ``relaxed``
@@ -24,9 +29,9 @@ plans through the cell-decomposed market
 (:class:`shockwave_tpu_torch.cells.planner.CellPlanner`). A planner's
 ``state_dict`` is the JAX package's, key for key, and
 :func:`planner_from_state` restores a flat or ``cell_set`` state that
-either package wrote. The other backends (``reference``, ``sharded``),
-plan-ahead speculation and its repair solves and ``PoolSetPlanner``
-raise ``NotImplementedError`` naming ``ROADMAP.md``. The device of the
+either package wrote. The ``sharded`` backend, plan-ahead speculation
+and its repair solves and ``PoolSetPlanner`` raise
+``NotImplementedError`` naming ``ROADMAP.md``. The device of the
 device solves is passed explicitly (``ShockwavePolicy(backend,
 device=...)``).
 
@@ -82,7 +87,7 @@ SHARDED_DISPATCH_MIN_JOBS = 8192
 # measured crossover between the two is in PERF.md.
 NATIVE_MAX_WORK = 4e6
 
-BACKENDS = ("tpu", "level", "native", "pdhg", "relaxed")
+BACKENDS = ("tpu", "level", "native", "pdhg", "relaxed", "reference")
 _NOT_PORTED = "is not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1)"
 
 
@@ -118,6 +123,9 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         self.log_bases = list(
             config.get("log_approximation_bases", DEFAULT_LOG_BASES)
         )
+        # The exact MILP's (``reference``) relative gap and time limit.
+        self.solver_rel_gap = float(config.get("solver_rel_gap", 1e-3))
+        self.solver_timeout = float(config.get("solver_timeout", 15.0))
         self.solver_num_steps = int(config.get("solver_num_steps", 256))
         # Fixed-point tolerance of the restarted-PDHG backend (the
         # objective-stall stop usually fires first; see eg_pdhg).
@@ -162,6 +170,9 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         # problem size — "seconds" of wall clock, "ok", "round",
         # "num_jobs", and "error" on failures}).
         self.solve_records: List[dict] = []
+        # HiGHS's status of every MILP call of the ``reference`` backend
+        # (solver/eg_milp.py: 0 optimal within the gap, 1 the time limit).
+        self.milp_statuses: List[int] = []
 
     # -- scheduler-facing interface -------------------------------------
     def add_job(
@@ -613,6 +624,24 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         from shockwave_tpu_torch.solver.rounding import reorder_rounds
 
         self._attempted_backend = backend
+        if backend == "reference":
+            # The exact MILP on the host, then the MILP reorder of the
+            # unfair jobs into the earliest rounds.
+            from shockwave_tpu_torch.solver.eg_milp import (
+                reorder_unfair_jobs_milp,
+                solve_eg_milp,
+            )
+
+            Y = solve_eg_milp(problem, rel_gap=self.solver_rel_gap,
+                              time_limit=self.solver_timeout,
+                              statuses=self.milp_statuses)
+            return (
+                reorder_unfair_jobs_milp(
+                    Y, problem, rel_gap=self.solver_rel_gap,
+                    time_limit=self.solver_timeout,
+                    statuses=self.milp_statuses),
+                "reference",
+            )
         used = backend
         if backend == "native":
             Y = native.solve_eg_greedy_native(problem)
@@ -926,6 +955,7 @@ class ShockwavePolicy(Policy):
         self.backend = backend
         self.device = torch.device(device)
         self.name = {
+            "reference": "Shockwave",
             "native": "Shockwave_Native",
             "level": "Shockwave_TPU_Level",
             "relaxed": "Shockwave_TPU_Relaxed",

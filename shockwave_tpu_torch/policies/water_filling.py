@@ -10,7 +10,7 @@ time). The port of the JAX package's
 HiGHS, and bottleneck detection a per-job feasibility LP (job i is
 saturated iff no feasible allocation pushes it ``SLACK`` above its
 current level while every job keeps its lower bound). The packed variant
-is not ported yet (ROADMAP.md, queue 1).
+runs the same algorithm over the combinations of ``PolicyWithPacking``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,12 @@ from typing import Dict
 import numpy as np
 from scipy.optimize import linprog
 
-from shockwave_tpu_torch.policies.base import Policy, constraint_matrices
+from shockwave_tpu_torch.policies.base import (
+    Policy,
+    PolicyWithPacking,
+    constraint_matrices,
+    packed_constraint_matrices,
+)
 from shockwave_tpu_torch.policies.isolated import ProportionalPolicy
 
 SLACK = 1.0001
@@ -302,3 +307,57 @@ class MaxMinFairnessWaterFillingPolicy(Policy):
             entity_weights=entity_weights,
             entity_to_job_mapping=entity_to_job_mapping,
         )
+
+
+class MaxMinFairnessWaterFillingPolicyWithPacking(
+    PolicyWithPacking, WaterFillingAlgorithm
+):
+    name = "MaxMinFairnessWaterFilling_Packing"
+
+    def __init__(self, priority_reweighting_policies=None):
+        PolicyWithPacking.__init__(self)
+        WaterFillingAlgorithm.__init__(self, priority_reweighting_policies)
+        self._proportional = ProportionalPolicy()
+
+    def get_allocation(
+        self,
+        throughputs,
+        scale_factors,
+        priority_weights,
+        cluster_spec,
+        entity_weights=None,
+        entity_to_job_mapping=None,
+    ):
+        all_m, index = self.flatten(throughputs, cluster_spec)
+        if all_m is None or len(all_m) == 0:
+            return None
+        job_ids, single_job_ids, worker_types, relevant = index
+        C, W = len(job_ids), len(worker_types)
+        S = len(single_job_ids)
+        sf = self.scale_factors_array(scale_factors, job_ids, C, W)
+        singles_matrix = np.array(
+            [[throughputs[s][wt] for wt in worker_types] for s in single_job_ids]
+        )
+        proportional = self._proportional.get_throughputs(
+            singles_matrix, (single_job_ids, worker_types), self._num_workers
+        ).reshape(-1)
+        coeff_rows = all_m.reshape(S, C * W) / proportional[:, None]
+        A_base, b_base = packed_constraint_matrices(
+            sf, self._num_workers, single_job_ids, relevant
+        )
+        zero_mask = (sf.reshape(-1) == 0).astype(bool)
+        sf_vec = np.array([scale_factors[s] for s in single_job_ids], dtype=float)
+        x = self._run(
+            single_job_ids,
+            coeff_rows,
+            sf_vec,
+            priority_weights,
+            entity_weights,
+            entity_to_job_mapping,
+            A_base,
+            b_base,
+            zero_mask=zero_mask,
+        )
+        if x is None:
+            return None
+        return self.unflatten(x.reshape(C, W).clip(0.0, 1.0), index)

@@ -7,20 +7,24 @@
         --time_per_iteration 120 --device cpu
     python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
         -p shockwave_tpu_pdhg -c v100=8 --time_per_iteration 120 --cells 2
+    python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
+        -p shockwave -c v100=8 --time_per_iteration 120 --device cpu
 
 The counterpart of the JAX package's ``scripts/simulate.py``: parses a
 trace, builds the throughput oracle and epoch profiles, runs the
-simulator under a Shockwave policy (``shockwave_tpu``,
-``shockwave_tpu_level``, ``shockwave_native``, ``shockwave_tpu_pdhg`` or
-``shockwave_tpu_relaxed``; with ``--cells N`` or ``-p
-shockwave_tpu_cells`` the cell-decomposed market, its stale cells one
-launch of kernel A) or a Gavel policy (``fifo``,
-``max_min_fairness``, ``finish_time_fairness`` and the others of
+simulator under a Shockwave policy (``shockwave``, the exact MILP on the
+host, ``shockwave_tpu``, ``shockwave_tpu_level``, ``shockwave_native``,
+``shockwave_tpu_pdhg`` or ``shockwave_tpu_relaxed``; with ``--cells N``
+or ``-p shockwave_tpu_cells`` the cell-decomposed market, its stale cells
+one launch of kernel A) or a Gavel policy (``fifo``,
+``max_min_fairness``, ``finish_time_fairness``, the packed policies,
+``gandiva``, ``allox`` and the others of
 ``policies.get_available_policies``), and prints makespan / average JCT /
-utilization / finish-time fairness. ``--device`` (default ``cuda``) is
+utilization / finish-time fairness (and, under ``shockwave``, the MILP's
+solves by HiGHS status). ``--device`` (default ``cuda``) is
 where the planner's device solves run (the level-set solve, and the
-PDHG and relaxed kernels); ``cuda`` without a card raises. The Gavel
-policies solve their LPs on the host and leave the device unused. A
+PDHG and relaxed kernels); ``cuda`` without a card raises. The MILP and
+the Gavel policies solve on the host and leave the device unused. A
 ``plan_deadline_s`` in ``--config`` runs every solve down the
 degradation ladder. The telemetry, flight-recorder and watchdog flags raise
 ``NotImplementedError``: they are not ported yet (ROADMAP.md).
@@ -186,9 +190,15 @@ def main(argv=None) -> dict:
             f"Round auto-sized: {args.time_per_iteration} s -> "
             f"{sched._time_per_iteration:.0f} s"
         )
+    milp_statuses: dict = {}
+    for status in getattr(sched._shockwave, "milp_statuses", ()):
+        milp_statuses[status] = milp_statuses.get(status, 0) + 1
     if sched._shockwave is not None:
         print(f"Rounds: {sched._num_completed_rounds}; solves by backend: "
               f"{backends}; sim wall-clock: {wall:.1f} s")
+        if milp_statuses:
+            print(f"MILP solves by HiGHS status (0 optimal within the gap, "
+                  f"1 time limit): {milp_statuses}")
     else:
         print(f"Rounds: {sched._num_completed_rounds}; allocations: "
               f"{sched.num_allocations} taking {sched.allocation_s:.2f} s; "
@@ -207,6 +217,7 @@ def main(argv=None) -> dict:
         "num_preemptions": sched.get_num_preemptions(),
         "rounds": sched._num_completed_rounds,
         "solves": backends,
+        "milp_statuses": milp_statuses,
         "allocations": sched.num_allocations,
         "allocation_s": sched.allocation_s,
         "wall_s": wall,

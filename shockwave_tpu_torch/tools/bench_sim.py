@@ -4,6 +4,7 @@
     python -m shockwave_tpu_torch.tools.bench_sim --device cpu
     python -m shockwave_tpu_torch.tools.bench_sim --first-order  # card only
     python -m shockwave_tpu_torch.tools.bench_sim --first-order --levels
+    python -m shockwave_tpu_torch.tools.bench_sim --milp-baseline
 
 ``chip_smoke.py`` and the tests use the helpers here: the trace runs and
 the constants they are held to (``run_trace``, ``check_run``, ``GOLDEN``,
@@ -35,7 +36,16 @@ of ``EG_CHECK_BANDS`` and times the wrapper's instantiation and the
 sequential one in turns per band of ``EG_TIME_BANDS``
 (``time_eg_kernels``); with ``--levels`` as well, it times every
 instantiation per band (``sweep_levels``), the data the wrapper's levels
-are chosen from.
+are chosen from. With ``--milp-baseline`` it times the exact MILP on the
+host (the reference's formulation, scipy's HiGHS) at bench.py's stress
+shape (1000 jobs x 256 GPUs x 50 rounds, seed 0) with a 120 s and a 15 s
+time limit against the card's production solve (level) and kernel A on
+the stress seeds, and prints the ratios of wall seconds and the
+objective gaps beside the card's name and power limit and the host's CPU
+(``milp_baseline``; ``milp_window`` is chip_smoke.py's smaller check).
+The policy library's pins (``GOLDEN_LIBRARY``, ``ALLOX_SINGLE``,
+``GOLDEN_SLO``, ``PACKED_220``; ``library_runs``) are the JAX package's
+runs of the rest of Gavel's library and of the MILP.
 """
 
 from __future__ import annotations
@@ -157,6 +167,59 @@ HETERO = {
 # TIER_2048.
 TIER_2048_MMF = dict(makespan=63420.983, avg_jct=13266.974, worst_ftf=2.28,
                      rounds=529)
+# The JAX package's runs of the 12-job trace on 8 GPUs under the rest of
+# its policy library (tests/gavel_reference.py, scipy 1.17.0, on the
+# CPU): the packed policies with the scheduler's pair throughputs,
+# Gandiva, the cost-normalized throughput sums, and ``shockwave``, the
+# exact MILP, whose 32 HiGHS calls there each end optimal within the gap
+# (so the program, not the wall clock, decides the run). The trace's SLO
+# column is -1: the SLO policy has no deadline here (GOLDEN_SLO has).
+GOLDEN_LIBRARY = {
+    "gandiva": dict(makespan=13482.807, avg_jct=4954.756,
+                    worst_ftf=2.28, rounds=113),
+    "fifo_packed": dict(makespan=12376.656, avg_jct=5611.989,
+                        worst_ftf=3.416, rounds=104),
+    "max_min_fairness_packed": dict(makespan=12776.850, avg_jct=5046.776,
+                                    worst_ftf=1.964, rounds=107),
+    "finish_time_fairness_packed": dict(makespan=13148.475,
+                                        avg_jct=5104.543, worst_ftf=1.766,
+                                        rounds=110),
+    "min_total_duration_packed": dict(makespan=12558.162, avg_jct=5114.030,
+                                      worst_ftf=2.279, rounds=105),
+    "max_min_fairness_water_filling_packed": dict(
+        makespan=12776.962, avg_jct=4884.123, worst_ftf=1.964, rounds=107),
+    "max_sum_throughput_normalized_by_cost_perf": dict(
+        makespan=13576.547, avg_jct=5146.140, worst_ftf=2.499, rounds=114),
+    "max_sum_throughput_normalized_by_cost_perf_SLOs": dict(
+        makespan=13576.547, avg_jct=5146.140, worst_ftf=2.499, rounds=114),
+    "max_sum_throughput_normalized_by_cost_packed_SLOs": dict(
+        makespan=15173.386, avg_jct=5419.092, worst_ftf=1.917, rounds=128),
+    "shockwave": dict(makespan=13456.400, avg_jct=5942.317, worst_ftf=4.304,
+                      rounds=113),
+}
+# AlloX takes single-GPU jobs only (the JAX package raises on the golden
+# trace): its run of the trace's 8 single-GPU jobs on the 8 GPUs.
+ALLOX_SINGLE = dict(makespan=12376.330, avg_jct=4440.035, worst_ftf=2.355,
+                    rounds=104)
+# The SLO programs on the golden trace with every job's SLO at
+# SLO_FACTOR x its isolated duration, with the deadlines they miss.
+SLO_FACTOR = 1.2
+GOLDEN_SLO = {
+    "max_sum_throughput_normalized_by_cost_perf_SLOs": dict(
+        makespan=12616.675, avg_jct=5255.235, worst_ftf=2.991, rounds=106,
+        slo_violations=6),
+    "max_sum_throughput_normalized_by_cost_packed_SLOs": dict(
+        makespan=12634.517, avg_jct=5391.185, worst_ftf=2.226, rounds=106,
+        slo_violations=8),
+}
+# The 220-job trace on 64 v100s, 4 a server (as FIGURE9 drives it), under
+# two policies that pair jobs.
+PACKED_220 = {
+    "gandiva": dict(makespan=29004.181, avg_jct=9810.374, worst_ftf=3.915,
+                    rounds=242),
+    "max_min_fairness_packed": dict(makespan=29802.212, avg_jct=10025.923,
+                                    worst_ftf=3.156, rounds=249),
+}
 # scipy's HiGHS returns one vertex of a degenerate LP (max-min with every
 # throughput 1 has many optima), and the HiGHS of another scipy may
 # return another, which both packages then follow. The Gavel pins above
@@ -166,12 +229,19 @@ TIER_2048_MMF = dict(makespan=63420.983, avg_jct=13266.974, worst_ftf=2.28,
 # their metrics there.
 SCIPY_PINS = {
     # Under scipy 1.18.1 (the H100 host's) the throughput-agnostic max-min
-    # LP on the three-type cluster takes another vertex in some round.
+    # LP on the three-type cluster takes another vertex in some round, and
+    # the MILP's HiGHS stops at another plan within its gap (its 32 calls
+    # all optimal within the gap there too).
     "1.18.1": {("HETERO", "max_min_fairness"): dict(
-        makespan=59072.568, avg_jct=24121.340, worst_ftf=6.633, rounds=493)},
+        makespan=59072.568, avg_jct=24121.340, worst_ftf=6.633, rounds=493),
+        ("GOLDEN_LIBRARY", "shockwave"): dict(
+        makespan=13456.412, avg_jct=5647.776, worst_ftf=2.029, rounds=113)},
 }
 _GAVEL_PINS = {"GOLDEN_GAVEL": GOLDEN_GAVEL, "FIGURE9": FIGURE9,
-               "HETERO": HETERO}
+               "HETERO": HETERO, "GOLDEN_LIBRARY": GOLDEN_LIBRARY,
+               "GOLDEN_SLO": GOLDEN_SLO, "PACKED_220": PACKED_220}
+# Tables of a single cell (their key is None).
+_SINGLE_PINS = {"TIER_2048_MMF": TIER_2048_MMF, "ALLOX_SINGLE": ALLOX_SINGLE}
 TOLERANCE = 1e-3
 # A device's level-solve objective against the CPU's: the sum over jobs
 # is taken in another order, so its last bits may differ.
@@ -199,25 +269,30 @@ def run_trace(trace, policy: str, num_gpus: int, device,
               capture: list = None, plans: list = None,
               config: dict = None, cluster: dict = None,
               gpus_per_server: int = None, round_s: float = ROUND_S,
-              seed: int = 0) -> dict:
+              seed: int = 0, scale_factor: int = None,
+              slo: float = None) -> dict:
     """Simulate ``trace`` on ``num_gpus`` v100s with 120 s rounds under
     ``policy`` with the planner's device solves on ``device``, as
     tests/test_golden.py drives the JAX package (``config`` adds planner
     keys, e.g. ``plan_deadline_s``). ``cluster`` ({worker type: count})
     replaces the v100s (``num_gpus`` is then the Shockwave planner's
     pool), ``gpus_per_server`` GPUs make a server (1 if not given), and
-    ``round_s`` and ``seed`` set the round and the scheduler's and FIFO's
-    seed. Returns the metrics (makespan, average JCT, worst FTF, unfair
+    ``round_s`` and ``seed`` set the round and the scheduler's and the
+    policies' seed. ``scale_factor``, where given, keeps only the trace's
+    jobs of that scale factor, and ``slo`` gives every job that SLO (its
+    deadline: ``slo`` x its isolated duration from its arrival). Returns the metrics (makespan, average JCT, worst FTF, unfair
     fraction, utilization), the rounds, the policy's allocation calls and
     their seconds (Gavel policies), the solves by backend (with their
     summed wall seconds), the level solves by the device their tensors
     lay on, the launches of the PDHG and relaxed kernels, the planner's
-    solve records and the run's wall time. ``capture``, where given,
+    solve records, the MILP's solves by HiGHS status (``shockwave``: 0
+    optimal within the gap, 1 stopped at the time limit) and the run's
+    wall time. ``capture``, where given,
     receives every planning problem the planner solves, and ``plans``
     (round, schedule) of every solve. The kernels' launches come by
     instantiation too (``variants``)."""
     from shockwave_tpu_torch.core.scheduler import Scheduler
-    from shockwave_tpu_torch.data import load_or_synthesize_profiles, parse_trace
+    from shockwave_tpu_torch.data import load_or_synthesize_profiles
     from shockwave_tpu_torch.data.default_oracle import generate_oracle
     from shockwave_tpu_torch.ops import eg_pdhg, eg_relaxed
     from shockwave_tpu_torch.policies import get_policy
@@ -225,13 +300,15 @@ def run_trace(trace, policy: str, num_gpus: int, device,
 
     start = time.perf_counter()
     cluster = cluster or {"v100": num_gpus}
-    jobs, arrivals = parse_trace(str(trace))
+    jobs, arrivals = trace_jobs(trace, scale_factor)
     oracle = generate_oracle()
     profiles = load_or_synthesize_profiles(
         str(trace), jobs, oracle, worker_type=next(iter(cluster)),
         cache=False)
     for i, job in enumerate(jobs):
         job.duration = sum(profiles[i]["duration_every_epoch"])
+        if slo is not None:
+            job.SLO = slo
     if policy.startswith("shockwave"):
         config = {"num_gpus": num_gpus, "time_per_iteration": round_s,
                   "future_rounds": 20, "lambda": 5.0, "k": 10.0,
@@ -267,6 +344,9 @@ def run_trace(trace, policy: str, num_gpus: int, device,
                 "eg_relaxed": dict(eg_relaxed.LAUNCHES_BY_VARIANT)}
     ftf, unfair = sched.get_finish_time_fairness()
     records = sched._shockwave.solve_records if sched._shockwave else []
+    milp_statuses = {}
+    for status in getattr(sched._shockwave, "milp_statuses", ()):
+        milp_statuses[status] = milp_statuses.get(status, 0) + 1
     backends: dict = {}
     solve_s: dict = {}
     for record in records:
@@ -277,24 +357,54 @@ def run_trace(trace, policy: str, num_gpus: int, device,
                 avg_jct=sched.get_average_jct(), worst_ftf=max(ftf),
                 unfair_fraction=unfair,
                 utilization=sched.get_cluster_utilization(),
+                slo_violations=sched.get_num_SLO_violations(),
                 rounds=sched._num_completed_rounds,
                 allocations=sched.num_allocations,
                 allocation_s=sched.allocation_s, solves=backends,
                 solve_s=solve_s, device_solves=device_solves,
                 launches=launches, variants=variants, records=list(records),
+                milp_statuses=milp_statuses,
                 wall_s=time.perf_counter() - start)
 
 
+def trace_jobs(trace, scale_factor: int = None) -> tuple:
+    """The trace's jobs and arrival times, only those of ``scale_factor``
+    where it is given."""
+    from shockwave_tpu_torch.data import parse_trace
+
+    jobs, arrivals = parse_trace(str(trace))
+    if scale_factor is None:
+        return jobs, arrivals
+    kept = [(j, a) for j, a in zip(jobs, arrivals)
+            if j.scale_factor == scale_factor]
+    return [j for j, _ in kept], [a for _, a in kept]
+
+
 def pinned(table: str, key, scipy_version: str) -> dict:
-    """The JAX package's metrics of a Gavel cell under ``scipy_version``:
-    ``table`` is ``"GOLDEN_GAVEL"``, ``"FIGURE9"``, ``"HETERO"`` (``key``
-    the cell's key there) or ``"TIER_2048_MMF"`` (``key`` None)."""
+    """The JAX package's metrics of a Gavel or library cell under
+    ``scipy_version``: ``table`` names a table of cells (``key`` the
+    cell's key there) or of one cell (``key`` None)."""
     override = SCIPY_PINS.get(scipy_version, {}).get((table, key))
     if override is not None:
         return override
-    if table == "TIER_2048_MMF":
-        return TIER_2048_MMF
+    if table in _SINGLE_PINS:
+        return _SINGLE_PINS[table]
     return _GAVEL_PINS[table][key]
+
+
+def library_runs() -> list:
+    """(table, key, run arguments, keyword arguments) of every pinned cell
+    of the rest of the policy library; ``run_trace`` and
+    tests/gavel_reference.py's ``ref_run`` take both."""
+    runs = [("GOLDEN_LIBRARY", policy, (GOLDEN_TRACE, policy, 8), {})
+            for policy in GOLDEN_LIBRARY]
+    runs.append(("ALLOX_SINGLE", None, (GOLDEN_TRACE, "allox", 8),
+                 {"scale_factor": 1}))
+    runs += [("GOLDEN_SLO", policy, (GOLDEN_TRACE, policy, 8),
+              {"slo": SLO_FACTOR}) for policy in GOLDEN_SLO]
+    runs += [("PACKED_220", policy, (TRACE_220, policy, 64),
+              {"gpus_per_server": 4}) for policy in PACKED_220]
+    return runs
 
 
 def check_run(result: dict, expected: dict) -> list:
@@ -1086,6 +1196,157 @@ def sweep_levels(device, bands=EG_SWEEP_BANDS) -> list:
     return rows
 
 
+# The exact MILP against the card (``--milp-baseline`` and chip_smoke.py
+# phase 13). bench.py's stress shape and seeds (``make_problem``, RUNS):
+# 1000 jobs x 256 GPUs x 50 rounds, seeds 0-4, the MILP on seed 0.
+MILP_STRESS = dict(num_jobs=1000, future_rounds=50, num_gpus=256)
+MILP_STRESS_SEEDS = tuple(range(5))
+# The reference formulation's time limits there: near-complete, and the
+# 15 s budget the reference pays a round (bench.py:646-665).
+MILP_TIME_LIMITS = (120.0, 15.0)
+# A seeded problem both formulations solve to their gap in well under
+# 15 s on a host: bench.py's generator at the shape of a planning window
+# of the 220-job trace on 64 GPUs (200 jobs, 20 rounds).
+MILP_WINDOW = dict(num_jobs=200, future_rounds=20, num_gpus=64, seed=0)
+
+
+def host_cpu() -> str:
+    """The host's CPU model (``lscpu``'s vendor and model name, else
+    ``/proc/cpuinfo``'s model name, else the machine type) and its logical
+    CPUs."""
+    import os
+    import platform
+
+    fields = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            fields.setdefault(key.strip(), value.strip())
+    except (OSError, subprocess.SubprocessError):
+        pass
+    model = " ".join(v for v in (fields.get("Vendor ID"),
+                                 fields.get("Model name")) if v)
+    if model and fields.get("CPU family"):
+        model += (f", family {fields['CPU family']} model "
+                  f"{fields.get('Model')}")
+    if not model:
+        try:
+            for line in Path("/proc/cpuinfo").read_text().splitlines():
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+        except OSError:
+            pass
+    return f"{model or platform.machine()} ({os.cpu_count()} logical CPUs)"
+
+
+def milp_solve(problem, formulation: str, time_limit: float) -> dict:
+    """One MILP solve on the host: ``formulation`` "tightened"
+    (``solve_eg_milp``) or "reference" (the reference's encoding), its
+    wall seconds, HiGHS's status and its plan's objective (None when
+    HiGHS ended with no incumbent)."""
+    from shockwave_tpu_torch.solver import eg_milp
+
+    solve = (eg_milp.solve_eg_milp if formulation == "tightened"
+             else eg_milp.solve_eg_milp_reference_formulation)
+    statuses = []
+    start = time.perf_counter()
+    try:
+        Y = solve(problem, rel_gap=1e-3, time_limit=time_limit,
+                  statuses=statuses)
+    except RuntimeError:
+        Y = None
+    seconds = time.perf_counter() - start
+    if Y is not None:
+        problem.audit_schedule(Y)
+    return dict(formulation=formulation, time_limit=time_limit,
+                seconds=seconds, status=statuses[0],
+                objective=None if Y is None else problem.objective_value(Y))
+
+
+def card_solve(problem, backend: str, device) -> dict:
+    """The planner's ``level`` (the production solve above the native
+    threshold) or ``pdhg`` (kernel A) solve of ``problem`` on ``device``,
+    end to end (copy, solve, fetch, the host's rounding and placement):
+    the median wall seconds of 3 after a warm-up, the plan audited and
+    its objective."""
+    from shockwave_tpu_torch.solver.eg_level import solve_eg_level
+    from shockwave_tpu_torch.solver.eg_pdhg import solve_eg_pdhg
+
+    def solve():
+        if backend == "level":
+            return solve_eg_level(problem, device)
+        return solve_eg_pdhg(problem, device=device)
+
+    Y = solve()
+    times = []
+    for _ in range(3):
+        start = time.perf_counter()
+        Y = solve()
+        times.append(time.perf_counter() - start)
+    problem.audit_schedule(Y)
+    return dict(backend=backend, seconds=statistics.median(times),
+                objective=problem.objective_value(Y))
+
+
+def objective_gap(card_obj: float, milp_obj) -> float:
+    """How far the card's plan is above the MILP's, relative to the
+    card's objective (negative: the MILP's plan is the better)."""
+    if milp_obj is None:
+        return None
+    return (card_obj - milp_obj) / abs(card_obj)
+
+
+def milp_window(device) -> dict:
+    """``MILP_WINDOW``: both formulations on the host within 15 s against
+    the card's level solve and kernel A on the same problem, with the
+    objective gaps; every plan audited (``audit_schedule`` raises)."""
+    problem = stress_problem(**MILP_WINDOW)
+    milp = [milp_solve(problem, f, 15.0) for f in ("tightened", "reference")]
+    card = [card_solve(problem, b, device) for b in ("level", "pdhg")]
+    for c in card:
+        c["gap"] = {m["formulation"]: objective_gap(c["objective"],
+                                                    m["objective"])
+                    for m in milp}
+    return dict(problem=dict(MILP_WINDOW), milp=milp, card=card)
+
+
+def milp_baseline(device) -> dict:
+    """The north star on ``device``: the reference-formulation MILP at
+    bench.py's stress shape (seed 0) with each of ``MILP_TIME_LIMITS``
+    against the card's production solve (level: the work, 1.28e7, is
+    above the native threshold) and kernel A (pdhg), each timed end to
+    end over the stress seeds (median) with seed 0's objective; the ratio
+    of wall seconds and the objective gap at equal time."""
+    problems = [stress_problem(seed=s, **MILP_STRESS)
+                for s in MILP_STRESS_SEEDS]
+    card = []
+    for backend in ("level", "pdhg"):
+        runs = [card_solve(p, backend, device) for p in problems]
+        card.append(dict(backend=backend,
+                         seconds=statistics.median(r["seconds"] for r in runs),
+                         seconds_all=[r["seconds"] for r in runs],
+                         objective=runs[0]["objective"]))
+    milp = [milp_solve(problems[0], "reference", t) for t in MILP_TIME_LIMITS]
+    for c in card:
+        c["vs_milp"] = {str(m["time_limit"]): dict(
+            ratio=m["seconds"] / c["seconds"],
+            gap=objective_gap(c["objective"], m["objective"]))
+            for m in milp}
+    return dict(shape=dict(MILP_STRESS), seeds=list(MILP_STRESS_SEEDS),
+                milp=milp, card=card)
+
+
+def describe_milp(row: dict) -> str:
+    obj = ("no incumbent" if row["objective"] is None
+           else f"objective {row['objective']:.4f}")
+    return (f"MILP ({row['formulation']} formulation, time limit "
+            f"{row['time_limit']:.0f} s): {row['seconds']:.3f} s on the "
+            f"host, HiGHS status {row['status']}, {obj}")
+
+
 def describe_eg(row: dict) -> str:
     what = (f"{row['cycles']} cycles, {row['dual_projections']} dual, "
             f"{row['projections']} budget and {row['fills']} fill "
@@ -1135,12 +1396,36 @@ def main(argv=None) -> dict:
     parser.add_argument("--levels", action="store_true",
                         help="with --first-order, time every instantiation "
                              "of kernels A and B per band instead")
+    parser.add_argument("--milp-baseline", action="store_true",
+                        help="the exact MILP on the host against the "
+                             "card's solves at bench.py's stress shape")
     args = parser.parse_args(argv)
     from shockwave_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     card = card_line() if device.type == "cuda" else "cpu"
     print(card, flush=True)
+    if args.milp_baseline:
+        import scipy
+
+        where = f"[{card}; host {host_cpu()}; scipy {scipy.__version__}]"
+        out = milp_baseline(device)
+        for m in out["milp"]:
+            print(f"{describe_milp(m)} {where}", flush=True)
+        for c in out["card"]:
+            print(f"{c['backend']} on {device}: {c['seconds']:.4f} s median "
+                  f"over seeds {out['seeds']} "
+                  f"({', '.join(f'{t:.4f}' for t in c['seconds_all'])}), "
+                  f"objective {c['objective']:.4f} on seed 0; "
+                  + "; ".join(
+                      f"against the {limit} s MILP {v['ratio']:.1f}x, gap "
+                      + ("n/a" if v["gap"] is None
+                         else f"{100 * v['gap']:.4f}%")
+                      for limit, v in c["vs_milp"].items())
+                  + f" {where}", flush=True)
+        out.update(card=card, host=host_cpu(), scipy=scipy.__version__)
+        print(json.dumps(out))
+        return out
     if args.first_order:
         if device.type != "cuda":
             raise SystemExit("--first-order times kernels: it needs a card")

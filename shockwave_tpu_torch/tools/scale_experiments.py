@@ -8,17 +8,18 @@ The counterpart of the JAX package's
 ``scripts/replicate/scale_experiments.py`` (``run_cell`` and ``main``):
 the 220-job dynamic trace (``traces/generated_220_dynamic.trace``) on
 {64, 128, 256}-GPU clusters of 4 GPUs a server with 120 s rounds, under
-``max_min_fairness`` and ``shockwave_tpu``, the Shockwave policies with
-the replication's planner config. Gavel's policies solve their LPs on
-the host; the Shockwave planner's device solves run on ``--device``
-(default ``cuda``, which raises without a card). Each cell writes a
+``max_min_fairness``, ``shockwave`` (the exact MILP on the host) and
+``shockwave_tpu``, the Shockwave policies with the replication's planner
+config. Gavel's policies and the MILP solve on the host; the Shockwave
+planner's device solves run on ``--device`` (default ``cuda``, which
+raises without a card). Each cell writes a
 result pickle (makespan, average JCT, worst FTF, unfair fraction,
 utilization, rounds, wall seconds, and the allocation calls and their
 seconds) and the sweep one merged ``summary.json`` of its own cells. A
 cell's pickle is reused without ``--force`` only when it was run on the
-same trace, round, seed and server size. The exact-MILP
-``shockwave`` policy of the JAX package's sweep is not ported yet
-(ROADMAP.md, queue 1).
+same trace, round, seed and server size. A ``shockwave`` cell also
+records its MILP solves by HiGHS status (``milp_statuses``): a solve
+that stopped at its time limit makes the cell depend on the wall clock.
 """
 
 from __future__ import annotations
@@ -31,13 +32,14 @@ import pickle
 from shockwave_tpu_torch.tools.bench_sim import TRACES, run_trace
 
 TRACE = TRACES / "generated_220_dynamic.trace"
-DEFAULT_POLICIES = ["max_min_fairness", "shockwave_tpu"]
+DEFAULT_POLICIES = ["max_min_fairness", "shockwave", "shockwave_tpu"]
 DEFAULT_SIZES = [64, 128, 256]
 GPUS_PER_SERVER = 4
 
 # The replication configs' planner settings (the JAX package's
-# scripts/replicate/scale_experiments.py:54-64; the solver_* keys belong
-# to the MILP backend, which the other backends ignore).
+# scripts/replicate/scale_experiments.py:55-63; the solver_* keys belong
+# to the MILP backend, which the other backends ignore, and HiGHS takes
+# no thread count).
 SHOCKWAVE_CONFIG = {
     "future_rounds": 20,
     "lambda": 5.0,
@@ -79,6 +81,7 @@ def run_cell(trace_file, policy_name: str, num_gpus: int,
         "allocations": r["allocations"],
         "allocation_s": r["allocation_s"],
         "solves": r["solves"],
+        "milp_statuses": r["milp_statuses"],
     }
 
 
@@ -131,7 +134,10 @@ def main(argv=None) -> dict:
                   f"unfair={result['unfair_fraction']:.1f}% "
                   f"(sim {result['sim_wall_clock_s']:.1f} s, "
                   f"{result['allocations']} allocations in "
-                  f"{result['allocation_s']:.2f} s)")
+                  f"{result['allocation_s']:.2f} s"
+                  + (f"; MILP solves by HiGHS status "
+                     f"{result['milp_statuses']}"
+                     if result["milp_statuses"] else "") + ")")
 
     out = {"trace": os.path.basename(args.trace_file), "results": summary}
     summary_path = os.path.join(args.out, "summary.json")

@@ -35,9 +35,7 @@ def test_runner_keeps_the_reference_configuration():
     assert scale_experiments.DEFAULT_SIZES == ref_scale.DEFAULT_SIZES
     assert scale_experiments.TRACE == bench_sim.TRACE_220
     assert os.path.samefile(scale_experiments.TRACE, ref_scale.FALLBACK_TRACE)
-    # The exact-MILP "shockwave" is not ported; the others are the same.
-    assert scale_experiments.DEFAULT_POLICIES == [
-        p for p in ref_scale.DEFAULT_POLICIES if p != "shockwave"]
+    assert scale_experiments.DEFAULT_POLICIES == ref_scale.DEFAULT_POLICIES
 
 
 @pytest.mark.parametrize("policy", [

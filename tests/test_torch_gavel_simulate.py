@@ -81,12 +81,18 @@ def test_heterogeneous_cluster_equals_the_reference(policy):
 
 
 def test_scipy_pins_name_pinned_cells():
-    """Every per-version pin names a pinned Gavel cell, and
-    tests/gavel_reference.py runs every pinned Gavel cell."""
+    """Every per-version pin names a pinned cell, and
+    tests/gavel_reference.py runs every pinned Gavel and library cell."""
     cells = {(table, key) for table, key, _, _ in gavel_cells()}
+    library = {(table, key) for table, key, _, _ in bench_sim.library_runs()}
     for pins in bench_sim.SCIPY_PINS.values():
-        assert set(pins) <= cells
+        assert set(pins) <= cells | library
     assert cells == {("GOLDEN_GAVEL", p) for p in bench_sim.GOLDEN_GAVEL} | {
         ("FIGURE9", k) for k in bench_sim.FIGURE9
         if not k[0].startswith("shockwave")} | {
         ("HETERO", p) for p in bench_sim.HETERO} | {("TIER_2048_MMF", None)}
+    assert library == {("GOLDEN_LIBRARY", p)
+                       for p in bench_sim.GOLDEN_LIBRARY} | {
+        ("GOLDEN_SLO", p) for p in bench_sim.GOLDEN_SLO} | {
+        ("PACKED_220", p) for p in bench_sim.PACKED_220} | {
+        ("ALLOX_SINGLE", None)}

@@ -146,6 +146,33 @@ def test_gavel_simulate_cli_runs_with_jax_blocked(policy):
         assert f"Rounds: {expected['rounds']}; allocations: " in out
 
 
+@pytest.mark.parametrize("policy", ["shockwave", "gandiva",
+                                    "max_min_fairness_packed"])
+def test_library_simulate_cli_runs_with_jax_blocked(policy):
+    """``python -m shockwave_tpu_torch.simulate`` on the golden trace under
+    the exact MILP, Gandiva and packed max-min (the scheduler's pair
+    machinery) with JAX and the JAX package unimportable prints the JAX
+    package's metrics (``bench_sim.GOLDEN_LIBRARY``) and leaves no module
+    of either loaded; under ``shockwave`` every MILP solve ends optimal
+    within its gap. ``--seed 0`` seeds Gandiva's pairs (without it they
+    are unseeded, in both packages' CLIs)."""
+    out = _run_blocked("shockwave_tpu_torch.simulate", "-t",
+                       "traces/small_12_dynamic.trace", "-p", policy, "-c",
+                       "v100=8", "--time_per_iteration", "120", "--seed",
+                       "0", "--device", "cpu", "--no_profile_cache")
+    expected = bench_sim.GOLDEN_LIBRARY[policy]
+    assert f"Makespan: {expected['makespan']:.3f} s" in out
+    assert f"Average JCT: {expected['avg_jct']:.3f} s" in out
+    assert f"Worst FTF: {expected['worst_ftf']:.3f}" in out
+    if policy == "shockwave":
+        assert (f"Rounds: {expected['rounds']}; solves by backend: "
+                "{'reference': 16}") in out
+        assert "MILP solves by HiGHS status (0 optimal within the gap, " \
+            "1 time limit): {0: 32}" in out
+    else:
+        assert f"Rounds: {expected['rounds']}; allocations: " in out
+
+
 def test_figure9_runner_runs_with_jax_blocked(tmp_path):
     """The Figure-9 runner (``tools/scale_experiments.py``) with JAX and
     the JAX package unimportable: a max-min cell of Figure 9 with the JAX
@@ -258,7 +285,10 @@ def test_port_sources_import_no_jax():
                    "policies/lp_backend.py", "policies/water_filling.py",
                    "cells/planner.py", "cells/batched.py",
                    "whatif/scenario.py", "obs/recorder.py",
-                   "tools/whatif.py"):
+                   "tools/whatif.py", "solver/eg_milp.py",
+                   "policies/gandiva.py", "policies/allox.py",
+                   "policies/strategy_proof.py",
+                   "policies/max_min_fairness_packed.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

@@ -3,9 +3,13 @@
 Each ported policy's ``get_allocation`` gets the same seeded inputs (one
 worker type and three; scale factors 1, 2 and 4; priority weights that
 differ) as its counterpart in the JAX package, twice in a row (the
-stateful policies, FIFO and finish-time fairness, carry state from the
-first call into the second), and the two allocations must be equal in
-every bit. Both packages hand HiGHS the same programs, so where a program
+stateful policies, FIFO, finish-time fairness, Gandiva and AlloX, carry
+state from the first call into the second), and the two allocations must
+be equal in every bit. The packed policies get the pairs of jobs of one
+scale factor with their co-located throughputs from the port's oracle
+(``data/default_oracle.generate_oracle``), as the scheduler gives them;
+AlloX gets single-GPU jobs; strategy-proof max-min returns its discount
+factors beside the allocation, and both must be equal. Both packages hand HiGHS the same programs, so where a program
 has many optima (max-min with every throughput 1) they still return the
 same vertex. The LP backends and the base machinery are held to the JAX
 package's the same way. Then the single-policy contracts of
@@ -52,30 +56,83 @@ ARGS = {
                                   "cluster"),
     "min_total_duration": ("tputs", "sf", "steps", "cluster"),
     "min_total_duration_perf": ("tputs", "sf", "steps", "cluster"),
+    "max_sum_throughput_normalized_by_cost_perf": ("tputs", "sf", "cluster"),
+    "max_sum_throughput_normalized_by_cost_perf_SLOs": ("tputs", "sf",
+                                                        "cluster"),
+    "max_min_fairness_strategy_proof": ("tputs", "sf", "pw", "cluster"),
+    "allox": ("tputs", "sf", "tss", "steps", "cluster"),
+    "fifo_packed": ("tputs", "sf", "cluster"),
+    "gandiva": ("tputs", "sf", "cluster"),
+    "max_min_fairness_packed": ("tputs", "sf", "pw", "cluster"),
+    "max_min_fairness_water_filling_packed": ("tputs", "sf", "pw",
+                                              "cluster"),
+    "finish_time_fairness_packed": ("tputs", "sf", "pw", "tss", "steps",
+                                    "cluster"),
+    "min_total_duration_packed": ("tputs", "sf", "steps", "cluster"),
+    "max_sum_throughput_normalized_by_cost_packed_SLOs": ("tputs", "sf",
+                                                          "cluster"),
 }
+# The SLO programs' keyword arguments, as the scheduler passes them.
+KWARGS = {
+    "max_sum_throughput_normalized_by_cost_perf_SLOs": {
+        "SLOs": "slos", "num_steps_remaining": "steps"},
+    "max_sum_throughput_normalized_by_cost_packed_SLOs": {
+        "SLOs": "slos", "num_steps_remaining": "steps"},
+}
+PACKED = {name for name in ARGS if name.endswith("packed")
+          or name in ("gandiva",
+                      "max_sum_throughput_normalized_by_cost_packed_SLOs")}
 
 
-def seeded_state(seed: int, cluster: dict, num_jobs: int = 7) -> dict:
-    """Seeded policy inputs keyed by integer job id (numpy draws)."""
+def seeded_state(seed: int, cluster: dict, num_jobs: int = 7,
+                 packed: bool = False, scale_factors=(1, 2, 4)) -> dict:
+    """Seeded policy inputs keyed by integer job id, or by a pair of ids
+    for the pairs (numpy draws). Packed inputs draw each job's type from
+    the oracle, with its isolated throughput there and each pair of one
+    scale factor with its co-located throughputs
+    (``Scheduler._populate_job_combination_metadata``)."""
     rng = np.random.default_rng(seed)
     types = sorted(cluster)
+    sf = {i: int(rng.choice(scale_factors)) for i in range(num_jobs)}
+    if packed:
+        oracle = generate_oracle()
+        keys = sorted(k for k in oracle["v100"] if k[1] == 1)
+        kinds = {i: keys[int(rng.integers(len(keys)))][0]
+                 for i in range(num_jobs)}
+        tputs = {i: {wt: oracle[wt][(kinds[i], sf[i])]["null"]
+                     for wt in types} for i in range(num_jobs)}
+        for i in range(num_jobs):
+            for j in range(i + 1, num_jobs):
+                if sf[i] == sf[j]:
+                    tputs[(i, j)] = {wt: list(oracle[wt][(kinds[i], sf[i])]
+                                              .get((kinds[j], sf[j]),
+                                                   [0.0, 0.0]))
+                                     for wt in types}
+    else:
+        tputs = {i: {wt: float(rng.uniform(0.5, 20.0)) for wt in types}
+                 for i in range(num_jobs)}
+    steps = {i: int(rng.integers(500, 20000)) for i in range(num_jobs)}
     return {
-        "tputs": {i: {wt: float(rng.uniform(0.5, 20.0)) for wt in types}
-                  for i in range(num_jobs)},
-        "sf": {i: int(rng.choice([1, 2, 4])) for i in range(num_jobs)},
+        "tputs": tputs,
+        "sf": sf,
         "pw": {i: float(rng.choice([0.5, 1.0, 2.0, 3.0]))
                for i in range(num_jobs)},
         "tss": {i: float(rng.uniform(0.0, 5000.0)) for i in range(num_jobs)},
-        "steps": {i: int(rng.integers(500, 20000)) for i in range(num_jobs)},
+        "steps": steps,
+        # A deadline for every other job, some out of reach.
+        "slos": {i: float(steps[i] / rng.uniform(0.5, 15.0))
+                 for i in range(0, num_jobs, 2)},
         "cluster": dict(cluster),
     }
 
 
 def next_state(state: dict, seed: int) -> dict:
-    """The state one allocation later: job 0 done, the others progressed."""
+    """The state one allocation later: job 0 done (with its pairs), the
+    others progressed."""
     rng = np.random.default_rng(seed + 1000)
-    out = {k: ({i: v for i, v in d.items() if i != 0} if k != "cluster"
-               else dict(d)) for k, d in state.items()}
+    out = {k: ({i: v for i, v in d.items()
+                if i != 0 and not (isinstance(i, tuple) and 0 in i)}
+               if k != "cluster" else dict(d)) for k, d in state.items()}
     for i in out["steps"]:
         out["steps"][i] = max(1, out["steps"][i] - int(rng.integers(0, 400)))
         out["tss"][i] += 120.0
@@ -84,15 +141,30 @@ def next_state(state: dict, seed: int) -> dict:
 
 def keyed(state: dict, job_id) -> dict:
     """``state`` with its job dicts keyed by ``job_id`` (a package's JobId)."""
+    def key(i):
+        return job_id(*i) if isinstance(i, tuple) else job_id(i)
+
     return {k: (dict(d) if k == "cluster" else
-                {job_id(i): v for i, v in d.items()})
+                {key(i): v for i, v in d.items()})
             for k, d in state.items()}
 
 
 def as_matrix(allocation: dict) -> np.ndarray:
-    jobs = sorted(allocation, key=lambda j: j[0])
+    jobs = sorted(allocation, key=lambda j: tuple(j))
     types = sorted(allocation[jobs[0]])
     return np.array([[allocation[j][wt] for wt in types] for j in jobs])
+
+
+def allocate(policy, name: str, state: dict, job_id):
+    """``policy``'s allocation of ``state`` as a matrix (and strategy-proof
+    max-min's discount factors beside it)."""
+    inputs = keyed(state, job_id)
+    out = policy.get_allocation(
+        *[inputs[k] for k in ARGS[name]],
+        **{kw: inputs[k] for kw, k in KWARGS.get(name, {}).items()})
+    if isinstance(out, tuple):
+        return as_matrix(out[0]), out[1]
+    return as_matrix(out), None
 
 
 @pytest.mark.parametrize("cluster", sorted(CLUSTERS))
@@ -101,13 +173,16 @@ def test_allocations_equal_the_reference_in_every_bit(name, cluster):
     port, ref = get_policy(name, device="cpu", seed=0), ref_get_policy(
         name, seed=0)
     assert port.name == ref.name
-    state = seeded_state(3, CLUSTERS[cluster])
+    state = seeded_state(3, CLUSTERS[cluster], packed=name in PACKED,
+                         scale_factors=(1,) if name == "allox"
+                         else (1, 2, 4))
+    if name in PACKED:
+        assert any(isinstance(i, tuple) for i in state["tputs"])
     for step in range(2):
-        got = port.get_allocation(
-            *[keyed(state, JobId)[k] for k in ARGS[name]])
-        want = ref.get_allocation(
-            *[keyed(state, RefJobId)[k] for k in ARGS[name]])
-        assert np.array_equal(as_matrix(got), as_matrix(want)), (name, step)
+        got, got_extra = allocate(port, name, state, JobId)
+        want, want_extra = allocate(ref, name, state, RefJobId)
+        assert np.array_equal(got, want), (name, step)
+        assert np.array_equal(got_extra, want_extra), (name, step)
         state = next_state(state, step)
 
 
@@ -162,11 +237,84 @@ def test_base_machinery_equals_the_reference():
     with pytest.raises(ValueError, match="v100"):
         base.canonical_throughputs({JobId(0): {"p100": 1.0, "k80": 2.0}})
 
+    # The packed half: combinations of singles and same-scale pairs, a
+    # mixed-scale pair (zero effective scale factor), priority weights.
+    state = seeded_state(5, CLUSTERS["three_types"], packed=True)
+    state["tputs"][(0, 1)] = {wt: [1.5, 2.5] for wt in state["cluster"]}
+    state["sf"].update({0: 1, 1: 2})
+    got_in, want_in = keyed(state, JobId), keyed(state, RefJobId)
+    port, ref = base.PolicyWithPacking(), ref_base.PolicyWithPacking()
+    got_m, got_index = port.flatten(got_in["tputs"], state["cluster"],
+                                    priority_weights=got_in["pw"])
+    want_m, want_index = ref.flatten(want_in["tputs"], state["cluster"],
+                                     priority_weights=want_in["pw"])
+    assert np.array_equal(got_m, want_m)
+    assert port._num_workers == ref._num_workers
+    job_ids, singles, types, relevant = got_index
+    assert [tuple(j) for j in job_ids] == [tuple(j) for j in want_index[0]]
+    assert [tuple(j) for j in singles] == [tuple(j) for j in want_index[1]]
+    assert types == want_index[2]
+    assert {s.integer: v for s, v in relevant.items()} == {
+        s.integer: v for s, v in want_index[3].items()}
+    C, W = len(job_ids), len(types)
+    got_sf = port.scale_factors_array(got_in["sf"], job_ids, C, W)
+    want_sf = ref.scale_factors_array(want_in["sf"], want_index[0], C, W)
+    assert np.array_equal(got_sf, want_sf)
+    assert not got_sf[[tuple(j) for j in job_ids].index((0, 1))].any()
+    for got, want in zip(
+            base.packed_constraint_matrices(got_sf, port._num_workers,
+                                            singles, relevant),
+            ref_base.packed_constraint_matrices(want_sf, ref._num_workers,
+                                                want_index[1],
+                                                want_index[3])):
+        assert np.array_equal(got, want)
+    x = np.random.default_rng(0).random((C, W))
+    assert {tuple(j): v for j, v in port.unflatten(x, got_index).items()} == {
+        tuple(j): v for j, v in ref.unflatten(x, want_index).items()}
+    assert JobId(4, 2).as_tuple() == RefJobId(4, 2).as_tuple() == (2, 4)
+
+
+def test_fifo_packing_mode_equals_the_reference():
+    """FIFO's packing mode (``fifo_packed``) over four calls as jobs come
+    and go: queued jobs pair with running ones where the pair's
+    normalized throughput beats the threshold, a pair whose member leaves
+    frees its partner, and every allocation equals the JAX package's."""
+    rng = np.random.default_rng(11)
+    tputs = {i: {"v100": float(rng.uniform(2.0, 6.0))} for i in range(6)}
+    for i in range(6):
+        for j in range(i + 1, 6):
+            tputs[(i, j)] = {"v100": [float(tputs[i]["v100"] * f) for f in
+                                      rng.uniform(0.55, 1.0, 2)]}
+    state = {"tputs": tputs, "sf": {i: 1 for i in range(6)},
+             "cluster": {"v100": 2}}
+    port = get_policy("fifo_packed", device="cpu")
+    ref = ref_get_policy("fifo_packed")
+    packed_calls = 0
+    for step in range(4):
+        got = port.get_allocation(*[keyed(state, JobId)[k]
+                                    for k in ARGS["fifo_packed"]])
+        want = ref.get_allocation(*[keyed(state, RefJobId)[k]
+                                    for k in ARGS["fifo_packed"]])
+        assert np.array_equal(as_matrix(got), as_matrix(want)), step
+        packed_calls += any(j.is_pair and v["v100"] == 1.0
+                            for j, v in got.items())
+        # The oldest job finishes: it and its pairs leave.
+        gone = min(i for i in state["tputs"] if not isinstance(i, tuple))
+        state["tputs"] = {i: v for i, v in state["tputs"].items()
+                          if i != gone and not (isinstance(i, tuple)
+                                                and gone in i)}
+        state["sf"].pop(gone)
+    assert packed_calls >= 2
+
 
 def test_registry_covers_the_reference_vocabulary():
     ported = set(policies.get_available_policies())
     assert ported.isdisjoint(policies._NOT_PORTED)
     assert set(_ALL_POLICY_NAMES) <= ported | set(policies._NOT_PORTED)
+    assert policies._NOT_PORTED == ("shockwave_tpu_sharded",)
+    allox = get_policy("allox_alpha=0.5")
+    assert allox.name == ref_get_policy("allox_alpha=0.5").name
+    assert allox._alpha == 0.5
 
 
 @pytest.mark.parametrize("name", policies._NOT_PORTED)
@@ -178,15 +326,21 @@ def test_names_not_ported_raise(name):
 # -- single-policy contracts (tests/test_policies.py) -----------------------
 
 def validity(alloc, scale_factors, cluster_spec):
-    """Base-polytope validity: capacity per type; each job's share <= 1."""
+    """Base-polytope validity: capacity per type; each single job's share
+    (over every combination it is in) <= 1."""
     per_type = {wt: 0.0 for wt in cluster_spec}
+    per_single = {}
     for job_id, shares in alloc.items():
+        sf = max(scale_factors[s] for s in job_id.singletons())
         for wt, v in shares.items():
             assert v >= -1e-6
-            per_type[wt] += v * scale_factors[job_id]
-        assert sum(shares.values()) <= 1.0 + 1e-4, job_id
+            per_type[wt] += v * sf
+        for s in job_id.singletons():
+            per_single[s] = per_single.get(s, 0.0) + sum(shares.values())
     for wt in per_type:
         assert per_type[wt] <= cluster_spec[wt] + 1e-4, (wt, per_type[wt])
+    for s, total in per_single.items():
+        assert total <= 1.0 + 1e-4, (s, total)
 
 
 def simple_throughputs(m=3, v=4.0, k=1.0):
@@ -342,6 +496,221 @@ class TestWaterFilling:
             for j in jobs:
                 if j != first:
                     assert first_share >= sum(alloc[j].values()) - 0.05
+
+
+class TestPackedPolicies:
+    """tests/test_policies.py's packed variants, Gandiva and the packed
+    max-min contracts (:60, :97, :187, :330, :354) on the port."""
+
+    @staticmethod
+    def two_jobs_and_their_pair():
+        tputs = simple_throughputs(2)
+        tputs[JobId(0, 1)] = {"v100": [2.5, 2.5], "k80": [0.6, 0.6]}
+        sf = {JobId(i): 1 for i in range(2)}
+        return tputs, sf
+
+    def test_finish_time_fairness_packed_is_valid(self):
+        tputs, sf = self.two_jobs_and_their_pair()
+        pw = {JobId(i): 1.0 for i in range(2)}
+        tss = {JobId(i): 100.0 for i in range(2)}
+        steps = {JobId(i): 1000 for i in range(2)}
+        alloc = get_policy("finish_time_fairness_packed").get_allocation(
+            tputs, sf, pw, tss, steps, CLUSTER)
+        validity(alloc, sf, CLUSTER)
+
+    def test_min_total_duration_packed_is_valid(self):
+        tputs, sf = self.two_jobs_and_their_pair()
+        steps = {JobId(i): 1000 for i in range(2)}
+        alloc = get_policy("min_total_duration_packed").get_allocation(
+            tputs, sf, steps, CLUSTER)
+        validity(alloc, sf, CLUSTER)
+
+    def test_water_filling_packed_is_valid(self):
+        tputs, sf = self.two_jobs_and_their_pair()
+        pw = {JobId(i): 1.0 for i in range(2)}
+        alloc = get_policy(
+            "max_min_fairness_water_filling_packed").get_allocation(
+            tputs, sf, pw, CLUSTER)
+        validity(alloc, sf, CLUSTER)
+
+    def test_gandiva_undersubscribed_does_not_pack(self):
+        tputs = simple_throughputs(2)
+        tputs[JobId(0, 1)] = {"v100": [2.0, 2.0], "k80": [0.5, 0.5]}
+        sf = {JobId(i): 1 for i in range(2)}
+        alloc = get_policy("gandiva", seed=0).get_allocation(tputs, sf,
+                                                             CLUSTER)
+        validity(alloc, sf, CLUSTER)
+        assert sum(alloc[JobId(0, 1)].values()) == 0.0
+
+    def test_gandiva_oversubscribed_packs_jobs(self):
+        m = 6
+        tputs = simple_throughputs(m)
+        for i in range(m):
+            for j in range(i + 1, m):
+                tputs[JobId(i, j)] = {"v100": [3.0, 3.0], "k80": [0.8, 0.8]}
+        sf = {JobId(i): 1 for i in range(m)}
+        alloc = get_policy("gandiva", seed=0).get_allocation(tputs, sf,
+                                                             CLUSTER)
+        validity(alloc, sf, CLUSTER)
+        assert sum(sum(alloc[j].values()) for j in alloc if j.is_pair) > 0.0
+
+    def test_max_min_packed_uses_beneficial_packing(self):
+        m = 4
+        tputs = {JobId(i): {"v100": 4.0} for i in range(m)}
+        for i in range(m):
+            for j in range(i + 1, m):
+                # Packing is nearly free: each gets 90% of isolated.
+                tputs[JobId(i, j)] = {"v100": [3.6, 3.6]}
+        sf = {JobId(i): 1 for i in range(m)}
+        pw = {JobId(i): 1.0 for i in range(m)}
+        cluster = {"v100": 2}
+        alloc = get_policy("max_min_fairness_packed").get_allocation(
+            tputs, sf, pw, cluster)
+        validity(alloc, sf, cluster)
+        assert sum(sum(alloc[j].values()) for j in alloc if j.is_pair) > 0.5
+
+    def test_max_min_packed_agrees_with_unpacked_when_packing_is_useless(
+            self):
+        m = 3
+        tputs_plain = {JobId(i): {"v100": 4.0} for i in range(m)}
+        tputs = dict(tputs_plain)
+        for i in range(m):
+            for j in range(i + 1, m):
+                tputs[JobId(i, j)] = {"v100": [0.0, 0.0]}
+        sf = {JobId(i): 1 for i in range(m)}
+        pw = {JobId(i): 1.0 for i in range(m)}
+        cluster = {"v100": 2}
+        packed = get_policy("max_min_fairness_packed").get_allocation(
+            tputs, sf, pw, cluster)
+        plain = get_policy("max_min_fairness_perf").get_allocation(
+            tputs_plain, sf, pw, cluster)
+        validity(packed, sf, cluster)
+        for i in range(m):
+            assert sum(packed[JobId(i)].values()) == pytest.approx(
+                sum(plain[JobId(i)].values()), abs=0.05)
+
+
+class TestAlloxAndStrategyProof:
+    """tests/test_policies.py's AlloX (:154) and strategy-proof (:340)
+    contracts on the port."""
+
+    def test_allox_assigns_jobs_to_their_best_workers(self):
+        tputs = {JobId(0): {"v100": 10.0, "k80": 1.0},
+                 JobId(1): {"v100": 10.0, "k80": 5.0}}
+        sf = {JobId(i): 1 for i in range(2)}
+        tss = {JobId(0): 200.0, JobId(1): 100.0}
+        steps = {JobId(i): 1000 for i in range(2)}
+        cluster = {"v100": 1, "k80": 1}
+        alloc = get_policy("allox").get_allocation(tputs, sf, tss, steps,
+                                                   cluster)
+        validity(alloc, sf, cluster)
+        assert sum(1 for j in alloc if sum(alloc[j].values()) > 0.99) == 2
+        # Job 1 gains 5x on a k80 against job 0's 1x: job 0 takes the v100.
+        assert alloc[JobId(0)]["v100"] == 1.0
+        assert alloc[JobId(1)]["k80"] == 1.0
+
+    def test_allox_rejects_multi_gpu_jobs(self):
+        with pytest.raises(ValueError, match="scale factor 1"):
+            get_policy("allox").get_allocation(
+                {JobId(0): {"v100": 1.0}}, {JobId(0): 2}, {JobId(0): 0.0},
+                {JobId(0): 100}, {"v100": 2})
+
+    def test_strategy_proof_returns_allocation_and_discounts(self):
+        tputs = simple_throughputs(3)
+        sf = {JobId(i): 1 for i in range(3)}
+        pw = {JobId(i): 1.0 for i in range(3)}
+        alloc, discounts = get_policy(
+            "max_min_fairness_strategy_proof").get_allocation(
+            tputs, sf, pw, CLUSTER)
+        validity(alloc, sf, CLUSTER)
+        assert len(discounts) == 3
+        # Identical jobs, identical discounts, about <= 1.
+        assert np.allclose(discounts, discounts[0], rtol=0.05)
+        assert np.all(discounts <= 1.05)
+
+    def test_strategy_proof_names_a_leave_one_out_without_allocation(self):
+        """One job alone: its leave-one-out sub-problem has no jobs, so no
+        allocation. The port raises naming it; the JAX package fails on
+        the missing result (an AttributeError)."""
+        args = ({0: {"v100": 4.0}}, {0: 1}, {0: 1.0}, {"v100": 2})
+        with pytest.raises(RuntimeError, match="without job 0"):
+            get_policy("max_min_fairness_strategy_proof").get_allocation(
+                *[{JobId(k): v for k, v in a.items()} if i < 3 else a
+                  for i, a in enumerate(args)])
+        with pytest.raises(AttributeError):
+            ref_get_policy("max_min_fairness_strategy_proof").get_allocation(
+                *[{RefJobId(k): v for k, v in a.items()} if i < 3 else a
+                  for i, a in enumerate(args)])
+
+
+class TestSLOs:
+    """tests/test_policies.py's throughput-sum SLO contracts (:107-151,
+    :394-475) on the port."""
+
+    def test_slo_constraint_reserves_rate(self):
+        tputs = {JobId(0): {"v100": 10.0, "k80": 1.0},
+                 JobId(1): {"v100": 1.0, "k80": 0.5}}
+        sf = {JobId(i): 1 for i in range(2)}
+        cluster = {"v100": 1, "k80": 0}
+        alloc = get_policy(
+            "max_sum_throughput_normalized_by_cost_perf_SLOs").get_allocation(
+            tputs, sf, cluster, SLOs={JobId(1): 2000.0},
+            num_steps_remaining={JobId(0): 1000, JobId(1): 1000})
+        validity(alloc, sf, cluster)
+        # 1000 steps in 2000 s: rate 0.5, half the v100.
+        assert alloc[JobId(1)]["v100"] >= 0.5 - 1e-4
+
+    def test_infeasible_slos_are_dropped(self):
+        alloc = get_policy(
+            "max_sum_throughput_normalized_by_cost_perf_SLOs").get_allocation(
+            {JobId(0): {"v100": 1.0}}, {JobId(0): 1}, {"v100": 1},
+            SLOs={JobId(0): 1.0}, num_steps_remaining={JobId(0): 10**6})
+        assert alloc is not None
+
+    def test_pruning_keeps_meetable_deadlines_enforceable(self):
+        pol = get_policy("max_sum_throughput_normalized_by_cost_perf_SLOs")
+        tputs = {0: {"v100": 10.0}, 1: {"v100": 1.0}}
+        sf = {0: 1, 1: 1}
+        cluster = {"v100": 1}
+        assert pol.get_allocation(tputs, sf, cluster)[1]["v100"] < 1e-6
+        a = pol.get_allocation(tputs, sf, cluster, SLOs={1: 100.0},
+                               num_steps_remaining={1: 80.0})
+        assert a[1]["v100"] >= 0.8 - 1e-6
+        # A doomed job must not drop job 1's constraint.
+        tputs[2] = {"v100": 1.0}
+        sf[2] = 1
+        a = pol.get_allocation(tputs, sf, cluster, SLOs={1: 100.0, 2: 1.0},
+                               num_steps_remaining={1: 80.0, 2: 1e9})
+        assert a[1]["v100"] >= 0.8 - 1e-6
+        assert a[2]["v100"] < 1e-6
+
+    def test_pruning_accounts_for_the_scale_factor_cap(self):
+        a = get_policy(
+            "max_sum_throughput_normalized_by_cost_perf_SLOs").get_allocation(
+            {0: {"v100": 10.0}, 1: {"v100": 1.0}, 2: {"v100": 10.0}},
+            {0: 1, 1: 1, 2: 4}, {"v100": 2}, SLOs={1: 100.0, 2: 1.0},
+            num_steps_remaining={1: 80.0, 2: 8.0})
+        assert a[1]["v100"] >= 0.8 - 1e-6
+
+    def test_bound_allows_splitting_across_types(self):
+        a = get_policy(
+            "max_sum_throughput_normalized_by_cost_perf_SLOs").get_allocation(
+            {0: {"v100": 10.0, "p100": 9.0}, 1: {"v100": 100.0, "p100": 1.0}},
+            {0: 2, 1: 1}, {"v100": 1, "p100": 2}, SLOs={0: 10.0},
+            num_steps_remaining={0: 93.0})
+        assert 10.0 * a[0]["v100"] + 9.0 * a[0]["p100"] >= 9.3 - 1e-6, a
+
+    def test_packed_slo_policy_runs_and_prunes(self):
+        pol = get_policy("max_sum_throughput_normalized_by_cost_packed_SLOs")
+        tputs = {JobId(0): {"v100": 10.0}, JobId(1): {"v100": 1.0}}
+        sf = {JobId(0): 1, JobId(1): 1}
+        cluster = {"v100": 1}
+        assert pol.get_allocation(tputs, sf, cluster) is not None
+        a = pol.get_allocation(tputs, sf, cluster,
+                               SLOs={JobId(1): 100.0, JobId(0): 1.0},
+                               num_steps_remaining={JobId(1): 80.0,
+                                                    JobId(0): 1e9})
+        assert a[JobId(1)]["v100"] >= 0.8 - 1e-6, a
 
 
 # -- single-policy contracts (tests/test_simulator.py) ----------------------

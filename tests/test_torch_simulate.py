@@ -171,9 +171,7 @@ def test_cli_cuda_without_a_card_raises():
                        "shockwave_native", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("name", [
-    "fifo_packed", "max_min_fairness_packed", "shockwave",
-    "shockwave_tpu_sharded", "gandiva"])
+@pytest.mark.parametrize("name", ["shockwave_tpu_sharded"])
 def test_policies_not_ported_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         get_policy(name, device="cpu")
