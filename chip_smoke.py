@@ -189,6 +189,41 @@
    ``{"library": ...}``; each line carries the card's name and power
    limit and scipy's version.
 
+14. After item 13, drives the rest of the Shockwave planner
+   (``run_planner``; the JAX package's runs it is held to are
+   ``bench_sim.PLANNER`` and ``SPECULATE_SMOKE``, from
+   tests/planner_reference.py): (a) checkpoints: the 220-job trace on 64
+   GPUs, 4 a server, under ``shockwave_tpu_pdhg``, saving once 110 jobs
+   were admitted and running on, within 1e-3 of the JAX package's
+   unbroken run in its rounds, then a fresh scheduler resumed from the
+   file, equal to it in every printed digit and round, every solve on
+   kernel A; (b) speculation: (i) the pipelining smoke trace at t0 under
+   ``shockwave_tpu`` and ``shockwave_tpu_pdhg``, serial and speculative,
+   the same rounds and every boundary a hit; (ii) the 220-job trace on 64
+   GPUs under ``shockwave_tpu``, serial and ``--speculate``, with the JAX
+   package's hit / repair / miss counts and each run's exposed planning
+   seconds; (iii) the golden trace under ``shockwave_tpu_pdhg --cells 2
+   --speculate``, every lane of every launch equal to its one-lane launch;
+   (iv) the smoke trace with an arrival every 60 s under ``shockwave_tpu
+   --speculate``, whose repair solves run on kernel A, timed alone with
+   CUDA events; (c) pool sets: the 120-job trace on v100:8 p100:4 k80:4
+   under ``shockwave_tpu`` and the 220-job trace on v100:16 p100:16
+   k80:16 under ``shockwave_tpu_pdhg``, both with ``hetero_pools``, with
+   their solves by pool and backend; (d) the PyTorch greedy on the card
+   on tests/test_native_solver.py's problems and 8 windows of the
+   2048-job tier: equal to its CPU run, feasible, its objective and the
+   native greedy's within 2% of each other (the JAX package's bar;
+   where the 16-grant steps the reference takes above 4096 grants fall
+   further below the native greedy, as the JAX package's do on the same
+   windows, the single-grant greedy must meet it), its time a solve
+   beside the native greedy's; and the golden trace on 5 GPUs under
+   ``shockwave_tpu_level`` with the native greedy unavailable, which takes
+   the fallback on the card; (e) ``solve_eg_pdhg_with_duals`` on the 8
+   windows, each report equal to ``dual_report`` of its ``s`` on the host
+   and to a second call's, each plan audited. It prints one JSON line
+   ``{"planner": ...}``; the ``eg_pdhg`` row of item 10's line carries
+   the phase's launches of kernel A (``planner_launches``).
+
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
 """
@@ -951,7 +986,9 @@ def run_first_order(device) -> dict:
                 "solve_s", "device_head_s", "launches", "wall_s")},
             "windows_vs_level": vs_level, "golden": golden,
             "max_abs_err": max_err, "ladder": degraded,
-            "timings": timings, "launches": launches}
+            "timings": timings, "launches": launches,
+            # The tier's 8 windows, for phase 14 (dropped from the line).
+            "windows": windows}
 
 
 def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
@@ -1110,7 +1147,7 @@ def run_cells(device, card: str) -> dict:
                                        s_list, objs)])
     merged = np.zeros_like(Y_global)
     for cell, idx, s in zip(cells, indices, s_list):
-        merged[idx] = batched.schedule_cell(cell, s)
+        merged[idx] = batched.schedule_cell(cell, s, device)
     try:
         g.audit_schedule(Y_global)
         g.audit_schedule(merged)
@@ -1409,6 +1446,277 @@ def run_library(device, card: str) -> dict:
             "scipy": scipy.__version__}
 
 
+PLANNER_CKPT = ROOT / "_smoke_out" / "planner_220_pdhg.ckpt"
+
+
+def pin_line(r: dict) -> str:
+    return (f"makespan {r['makespan']:.3f} avg JCT {r['avg_jct']:.3f} worst "
+            f"FTF {r['worst_ftf']:.3f}, {r['rounds']} rounds")
+
+
+def planner_cell(sim, key: str, device, tag: str, **overrides) -> dict:
+    """One cell of ``bench_sim.planner_runs`` on ``device``, held to the
+    JAX package's run (``bench_sim.PLANNER``): metrics within 1e-3 in its
+    rounds and, where pinned, the hit / repair / miss counts equal."""
+    (args, kwargs), = [(a, k) for name, a, k in sim.planner_runs()
+                       if name == key]
+    kwargs = {**kwargs, **overrides}
+    r = sim.run_trace(*args, device, **kwargs)
+    print(f"  {key}: {pin_line(r)}; solves {r['solves']}"
+          + (f" by pool {r['solves_by_pool']}" if r["solves_by_pool"] else "")
+          + (f"; speculation {r['spec_stats']}, exposed planning "
+             f"{r['exposed_plan_s']:.3f} s" if r["spec_stats"] and any(
+                 r["spec_stats"].values()) else "")
+          + f"; kernel A launched {r['launches']['eg_pdhg']} times; "
+          f"{r['wall_s']:.2f} s {tag}", flush=True)
+    bad = sim.check_run(r, sim.PLANNER[key])
+    if bad:
+        fail(f"planner cell {key} against the JAX package's run: "
+             + ", ".join(bad))
+    return r
+
+
+def run_planner(device, card: str, windows) -> dict:
+    """Phase 14 (docstring, item 14): the rest of the Shockwave planner on
+    the card; fails on any run past the JAX package's, a resumed run that
+    differs from the run that saved, a speculative run that differs from
+    its serial run or the JAX package's counts, a lane that differs from
+    its one-lane launch, a greedy schedule that is infeasible, below the
+    native greedy's bar or off the CPU's, or a dual report that differs
+    from the host's."""
+    from shockwave_tpu_torch import native
+    from shockwave_tpu_torch.cells import batched
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.solver import duals
+    from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
+    from shockwave_tpu_torch.solver.eg_level import num_slots_for
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    tag = f"[{card}]"
+    readings, launches = {}, {}
+    print(f"planner phase {tag}:", flush=True)
+
+    # (a) Checkpoints: save once 110 jobs were admitted and run on, then a
+    # fresh scheduler resumes from the file; every solve on kernel A.
+    PLANNER_CKPT.parent.mkdir(parents=True, exist_ok=True)
+    PLANNER_CKPT.unlink(missing_ok=True)
+    saving = planner_cell(sim, "checkpoint_save", device, tag,
+                          checkpoint_file=str(PLANNER_CKPT))
+    if not PLANNER_CKPT.exists():
+        fail("the checkpointing run wrote no checkpoint")
+    resumed = planner_cell(sim, "checkpoint_resume", device, tag,
+                           checkpoint_file=str(PLANNER_CKPT))
+    PLANNER_CKPT.unlink(missing_ok=True)
+    if pin_line(resumed) != pin_line(saving) or (
+            resumed["rounds"] != saving["rounds"]):
+        fail(f"resumed run ({pin_line(resumed)}) differs from the run that "
+             f"saved ({pin_line(saving)})")
+    for what, r in (("saving", saving), ("resumed", resumed)):
+        if set(r["solves"]) != {"pdhg"} or not r["launches"]["eg_pdhg"]:
+            fail(f"checkpoint {what} run: solves {r['solves']}, kernel A "
+                 f"launches {r['launches']}")
+    launches["checkpoint"] = (saving["launches"]["eg_pdhg"]
+                              + resumed["launches"]["eg_pdhg"])
+    readings["checkpoint"] = {what: {k: r[k] for k in (
+        "makespan", "avg_jct", "worst_ftf", "rounds", "solves", "launches",
+        "wall_s")} for what, r in (("saving", saving), ("resumed", resumed))}
+
+    # (b) Speculation. (i) The static smoke trace, serial and speculative:
+    # the same rounds, every boundary a hit.
+    smoke = {}
+    for policy in ("shockwave_tpu", "shockwave_tpu_pdhg"):
+        serial = sim.run_smoke_trace(policy, False, 0.0, device)
+        spec = sim.run_smoke_trace(policy, True, 0.0, device)
+        pin = sim.SPECULATE_SMOKE[(policy, 0.0)]
+        print(f"  smoke trace at t0, {policy}: serial makespan "
+              f"{serial['makespan']:.3f}, speculative "
+              f"{spec['makespan']:.3f}, speculation {spec['spec_stats']} "
+              f"{tag}", flush=True)
+        if spec["rounds"] != serial["rounds"] or spec["spec_stats"] != (
+                pin["spec_stats"]) or spec["spec_stats"]["hit"] < 1:
+            fail(f"smoke trace under {policy}: the speculative rounds differ "
+                 f"from the serial ones or a boundary was not a hit "
+                 f"({spec['spec_stats']})")
+        for r in (serial, spec):
+            if abs(r["makespan"] - pin["makespan"]) > sim.TOLERANCE:
+                fail(f"smoke trace under {policy}: makespan {r['makespan']} "
+                     f"vs the JAX package's {pin['makespan']}")
+        smoke[policy] = {"makespan": spec["makespan"],
+                         "spec_stats": spec["spec_stats"],
+                         "rounds": len(spec["rounds"])}
+    # (iv) Arrivals every 60 s: a churned boundary repairs through kernel
+    # A whatever the configured backend; its device head timed.
+    heads = []
+    real_head = pdhg_solver.solve_pdhg_relaxed
+
+    def timed_head(problem, s0=None, *args, **kwargs):
+        start = time.perf_counter()
+        out = real_head(problem, s0, *args, **kwargs)
+        heads.append((time.perf_counter() - start, problem, s0))
+        return out
+
+    pdhg_solver.solve_pdhg_relaxed = timed_head
+    kernel.reset_launch_counts()
+    try:
+        churn = sim.run_smoke_trace("shockwave_tpu", True, 60.0, device)
+    finally:
+        pdhg_solver.solve_pdhg_relaxed = real_head
+    repair_launches = kernel.LAUNCHES["eg_pdhg"]
+    pin = sim.SPECULATE_SMOKE[("shockwave_tpu", 60.0)]
+    repairs = [r for r in churn["records"] if r.get("repair")]
+    print(f"  smoke trace, arrivals every 60 s, shockwave_tpu --speculate: "
+          f"makespan {churn['makespan']:.3f}, speculation "
+          f"{churn['spec_stats']}, repair solves {len(repairs)} on "
+          f"{[r['backend'] for r in repairs]}, kernel A launched "
+          f"{repair_launches} times {tag}", flush=True)
+    if (churn["spec_stats"] != pin["spec_stats"]
+            or abs(churn["makespan"] - pin["makespan"]) > sim.TOLERANCE
+            or not repairs or any(r["backend"] != "pdhg" for r in repairs)
+            or repair_launches != len(repairs)):
+        fail(f"churned smoke trace: {churn['spec_stats']}, repairs "
+             f"{repairs}, {repair_launches} launches, against {pin}")
+    # The repair solves' kernel A, timed alone with CUDA events on the
+    # problem and warm start each repair gave it.
+    repair_ms = []
+    for head_s, problem, s0 in heads:
+        packed = torch.from_numpy(pdhg_solver._packed_args(
+            problem, num_slots_for(problem.num_jobs), s0,
+            pdhg_solver.DEFAULT_TOL, pdhg_solver._STALL_REL)).to(device)[None]
+        times = sorted(sim._event_ms(lambda: sim.eg_solve("pdhg", packed))
+                       for _ in range(5))
+        repair_ms.append(dict(jobs=problem.num_jobs, head_s=head_s,
+                              kernel_ms=times[2]))
+    print(f"  repair solves' kernel A (CUDA events, median of 5): "
+          f"{repair_ms} {tag}", flush=True)
+    launches["repair"] = repair_launches
+    # (ii) The 220-job trace on 64 GPUs, serial and speculative: the
+    # exposed planning seconds of each.
+    serial = sim.run_trace(sim.TRACE_220, "shockwave_tpu", 64, device,
+                           gpus_per_server=4)
+    spec = planner_cell(sim, "speculate_220", device, tag)
+    if abs(serial["makespan"] - spec["makespan"]) > sim.TOLERANCE:
+        fail(f"220-job trace: serial makespan {serial['makespan']} against "
+             f"speculative {spec['makespan']}")
+    print(f"  220-job trace, shockwave_tpu on 64 GPUs: exposed planning "
+          f"{serial['exposed_plan_s']:.3f} s serial, "
+          f"{spec['exposed_plan_s']:.3f} s speculative "
+          f"({spec['spec_stats']['repair']} repair solves on kernel A) "
+          f"{tag}", flush=True)
+    launches["speculate_220"] = spec["launches"]["eg_pdhg"]
+    # (iii) The golden trace under --cells 2 --speculate: every lane of
+    # every launch equal to its one-lane launch.
+    recorded = []
+    real_solve = batched.solve_cells_pdhg
+
+    def recording(problems, s0s=None, **kwargs):
+        s, o, d = real_solve(problems, s0s, **kwargs)
+        recorded.append((list(problems), None if s0s is None else [
+            None if x is None else np.array(x) for x in s0s],
+            {k: kwargs[k] for k in ("tol", "max_cycles", "inner_iters",
+                                    "slots", "device")}, s, o))
+        return s, o, d
+
+    batched.solve_cells_pdhg = recording
+    try:
+        cells = planner_cell(sim, "speculate_golden_cells", device, tag)
+    finally:
+        batched.solve_cells_pdhg = real_solve
+    launches["cells_speculate"] = cells["launches"]["eg_pdhg"]
+    lanes = check_lanes_alone("golden --cells 2 --speculate", recorded)
+    print(f"  golden --cells 2 --speculate: {len(recorded)} launches, every "
+          f"one of their {lanes} lanes equal to its one-lane launch {tag}",
+          flush=True)
+    readings["speculation"] = {
+        "smoke_t0": smoke,
+        "smoke_churn": {k: churn[k] for k in ("makespan", "spec_stats",
+                                              "exposed_plan_s")},
+        "repair_kernel": repair_ms,
+        "trace_220": {"serial_exposed_s": serial["exposed_plan_s"],
+                      "speculative_exposed_s": spec["exposed_plan_s"],
+                      "serial_wall_s": serial["wall_s"],
+                      "speculative_wall_s": spec["wall_s"],
+                      "spec_stats": spec["spec_stats"],
+                      "makespan": spec["makespan"]},
+        "golden_cells": {"makespan": cells["makespan"],
+                         "spec_stats": cells["spec_stats"],
+                         "launches": len(recorded), "lanes": lanes}}
+
+    # (c) Pool sets.
+    pools = {}
+    for key in ("pools_120", "pools_220_pdhg"):
+        r = planner_cell(sim, key, device, tag)
+        pools[key] = {k: r[k] for k in ("makespan", "avg_jct", "worst_ftf",
+                                        "rounds", "solves_by_pool",
+                                        "launches", "wall_s")}
+    if not pools["pools_220_pdhg"]["launches"]["eg_pdhg"]:
+        fail("the pdhg pool set launched kernel A no time")
+    launches["pools"] = pools["pools_220_pdhg"]["launches"]["eg_pdhg"]
+    readings["pools"] = pools
+
+    # (d) The PyTorch greedy on the card against its CPU run and the native
+    # greedy, then one golden run with the native greedy unavailable.
+    problems = sim.greedy_problems() + [
+        (f"2048-tier window of {p.num_jobs} jobs", p) for p in windows]
+    bad, rows = sim.check_greedy(problems, device)
+    for row in rows:
+        single = row.get("objective_single_grant")
+        print(f"  greedy {row['problem']} (grant batch {row['grant_batch']}): "
+              f"{row['differ']} cells differ from the CPU's; objective "
+              f"{row['objective']!r} (native {row['objective_native']!r}"
+              + (f"; single grants {single!r}" if single is not None else "")
+              + f"); {1e3 * row['greedy_s']:.1f} ms a solve on the card, "
+              f"native {1e3 * row['native_s']:.2f} ms {tag}", flush=True)
+    if bad:
+        fail("the PyTorch greedy on the card: " + "; ".join(bad))
+    fallback = planner_cell(sim, "greedy_fallback_golden", device, tag)
+    if not fallback["greedy_solves"].get(device.type):
+        fail(f"the golden run without the native greedy took no greedy "
+             f"fallback on the card: {fallback['greedy_solves']}")
+    if not native.available():
+        fail("the native greedy is unavailable after the patched run")
+    readings["greedy"] = {"problems": rows,
+                          "fallback_run": {k: fallback[k] for k in (
+                              "makespan", "avg_jct", "worst_ftf", "rounds",
+                              "greedy_solves", "wall_s")}}
+
+    # (e) Duals: kernel A's solve with its report on the 8 windows.
+    kernel.reset_launch_counts()
+    reports = []
+    for problem in windows:
+        Y, report = pdhg_solver.solve_eg_pdhg_with_duals(problem,
+                                                         device=device)
+        Y2, report2 = pdhg_solver.solve_eg_pdhg_with_duals(problem,
+                                                           device=device)
+        host = duals.dual_report(problem, s=report.s)
+        for other, what in ((host, "the host's report of its s"),
+                            (report2, "a second call")):
+            same = all(getattr(report, f).tobytes()
+                       == getattr(other, f).tobytes()
+                       for f in ("s", "fair_share", "marginal_welfare",
+                                 "price", "welfare_contribution", "spend",
+                                 "makespan_binding"))
+            if not same or report.to_dict() != other.to_dict():
+                fail(f"dual report of the {problem.num_jobs}-job window "
+                     f"differs from {what}")
+        if not np.array_equal(Y, Y2):
+            fail(f"{problem.num_jobs}-job window: two plans differ")
+        try:
+            problem.audit_schedule(Y)
+        except AssertionError as e:
+            fail(f"{problem.num_jobs}-job window with duals: {e}")
+        reports.append({"jobs": problem.num_jobs, **report.to_dict()})
+    launches["duals"] = kernel.LAUNCHES["eg_pdhg"]
+    print(f"  duals on {len(windows)} windows: every report equal to the "
+          f"host's of the same s and to a second call's, every plan audited; "
+          f"kernel A launched {launches['duals']} times {tag}", flush=True)
+    readings["duals"] = reports
+    if not all(launches[k] for k in ("checkpoint", "repair", "pools",
+                                      "cells_speculate", "duals")):
+        fail(f"a planner path launched kernel A no time: {launches}")
+    readings["launches"] = launches
+    return readings
+
+
 def card_state() -> str:
     """The card's SM clock, power draw and temperature (nvidia-smi)."""
     return subprocess.run(
@@ -1546,6 +1854,11 @@ def main() -> None:
     library["phase_s"] = time.time() - library_started
     print(f"policy library phase: {library['phase_s']:.1f} s, the smoke's "
           f"growth [{card}]", flush=True)
+    planner_started = time.time()
+    planner = run_planner(device, card, first_order.pop("windows"))
+    planner["phase_s"] = time.time() - planner_started
+    print(f"planner phase: {planner['phase_s']:.1f} s, the smoke's growth "
+          f"[{card}]", flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -1644,6 +1957,9 @@ def main() -> None:
                 "identical", "bound_ms", "plain_ms")} for r in rows],
         })
         if name == "eg_pdhg":
+            # Phase 14's launches of kernel A: checkpointed pdhg runs,
+            # repair solves, the speculative cells run, pdhg pools, duals.
+            kernels[-1]["planner_launches"] = planner["launches"]
             # The lane grid (phase 12): launches on the cells tier and the
             # what-if CLI's, and the grid's time against its lanes one by
             # one at 8, 65 and 1024 lanes.
@@ -1673,6 +1989,7 @@ def main() -> None:
     print(json.dumps({"gavel": gavel, "card": card}))
     print(json.dumps({"cells": cells, "card": card}, default=str))
     print(json.dumps({"library": library, "card": card}))
+    print(json.dumps({"planner": planner, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,

@@ -98,18 +98,19 @@ def solve_cells_pdhg(
             [float(row[slots]) for row in out], diags)
 
 
-def schedule_cell(problem: EGProblem, s: np.ndarray,
+def schedule_cell(problem: EGProblem, s: np.ndarray, device,
                   polish: bool = True) -> np.ndarray:
     """Host tail of one cell's solve: the integer rounding, placement and
     reorder every counts-producing backend shares, so a cell's boolean
     plan is what the standalone pdhg backend would emit for the same
-    relaxed iterate."""
+    relaxed iterate (``device`` runs the PyTorch greedy where placement
+    drops grants and no compiler builds the native one)."""
     from shockwave_tpu_torch.solver.eg_level import counts_to_schedule
     from shockwave_tpu_torch.solver.rounding import (reorder_rounds,
                                                      round_counts)
 
     counts = round_counts(s, problem.nworkers, problem.num_gpus,
                           problem.future_rounds)
-    Y = counts_to_schedule(counts, problem, polish=polish)
+    Y = counts_to_schedule(counts, problem, device, polish=polish)
     return reorder_rounds(Y, problem.priorities, problem.nworkers,
                           problem.num_gpus)

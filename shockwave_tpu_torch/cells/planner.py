@@ -29,8 +29,14 @@ market with its own child planner:
   fault (a kernel that does not build or launch, a fault the card
   reported) is raised, not isolated.
 
-Not ported yet (ROADMAP.md, queue 1): plan-ahead speculation
-(``speculate=True`` raises, as for the flat planner), the
+* **Plan-ahead speculation.** With ``"speculate": true`` the federation
+  speculates as a whole (one clone, one coordinated replan over the
+  predicted stale set) and reconciles per cell: on a hit the live
+  federation adopts the clone's windows and replays its capacity moves
+  and migrations; on churn only the stale cells re-solve, warm-started
+  from their speculative windows, as lanes of one launch of kernel A.
+
+Not ported yet (ROADMAP.md, queue 1): the
 ``shard_map`` of the cell axis (``cell_mesh`` raises), the flight
 recorder's plan records and market attribution, which run only with the
 recorder or metrics on (turning either on raises in
@@ -286,17 +292,137 @@ class CellPlanner(SpeculativePlannerMixin):
         return any(self._cell_stale(c) for c in self.children.values())
 
     def current_round_schedule(self) -> list:
-        """This round's fleet-wide job list; a coordinated replan first
-        when any cell is stale."""
+        """This round's fleet-wide job list; a pending speculation for this
+        boundary is reconciled first, then a coordinated replan when any
+        cell is stale. The wall time spent here on the reconcile and any
+        replan is the exposed planning time."""
         start = time.perf_counter()
+        reconciled = self._reconcile_speculation()
         if self._needs_replan():
             self._replan()
             for name, child in self.children.items():
                 if name not in self._failed_cells:
                     child.recompute_flag = False
             self._observe_boundary(time.perf_counter() - start)
+        elif reconciled is not None:
+            self._observe_boundary(time.perf_counter() - start)
         return [j for child in self.children.values()
                 for j in child.schedules.get(child.round_index, [])]
+
+    # -- plan-ahead pipelining ------------------------------------------
+    # speculate_next_round, _reconcile_speculation and _observe_boundary
+    # come from SpeculativePlannerMixin; the hooks below are the
+    # federation's reconcile semantics (reference planner.py:363-560).
+    def _spec_solve_base(self) -> dict:
+        return {
+            "coord": len(self.coord_solve_records),
+            "cells": {n: len(c.solve_records)
+                      for n, c in self.children.items()},
+        }
+
+    def _augment_mismatch(self, mismatch: dict) -> dict:
+        """A recompute-flagged cell is churned even where the fingerprints
+        cannot see why (a batch-size switch, a capacity change)."""
+        flagged = [n for n, c in self.children.items() if c.recompute_flag]
+        if flagged:
+            mismatch = dict(mismatch)
+            for name in flagged:
+                mismatch.setdefault(name, []).append("recompute_flagged")
+        return mismatch
+
+    def _install_speculation(self, spec) -> None:
+        """No-churn boundary: adopt the clone's coordinated replan whole,
+        replaying its migrations and capacity moves on the live federation
+        so its topology matches the installed windows. The live
+        children's predictor state stays as it is (in simulation it
+        equals the clone's by exact prediction)."""
+        clone = spec.clone
+        if not spec.solved:
+            return  # every cell serves its cache either way
+        # Migrations first: a move may be why capacities differ.
+        for job_id, dst in list(clone.job_cell.items()):
+            src = self.job_cell.get(job_id)
+            if src is not None and src != dst:
+                self._install_migration(job_id, src, dst)
+        for name, cap in clone.cells.items():
+            if name in self.cells and self.cells[name] != int(cap):
+                # Direct writes, not set_capacity: the installed windows
+                # were solved at this capacity, so the change must not
+                # flag the cell for another replan.
+                self.cells[name] = int(cap)
+                child = self.children[name]
+                child.num_gpus = int(cap)
+                child.config["num_gpus"] = int(cap)
+        self.num_gpus = sum(self.cells.values())
+        self.config["num_gpus"] = self.num_gpus
+        base = spec.base_solve_records
+        for name, child in self.children.items():
+            cchild = clone.children.get(name)
+            if cchild is None:
+                continue
+            child.schedules = OrderedDict(
+                (r, list(s)) for r, s in cchild.schedules.items())
+            child.finish_time_estimates = {
+                j: list(h) for j, h in cchild.finish_time_estimates.items()}
+            child.solve_records.extend(
+                dict(r)
+                for r in cchild.solve_records[base["cells"].get(name, 0):])
+            child.recompute_flag = bool(cchild.recompute_flag)
+        self.coord_solve_records.extend(
+            dict(r) for r in clone.coord_solve_records[base["coord"]:])
+        self.prices = dict(clone.prices)
+        self.spares = dict(clone.spares)
+        self.imbalance_rounds = int(clone.imbalance_rounds)
+        self.migrations_total = int(self.migrations_total) + max(
+            0, int(clone.migrations_total) - int(self.migrations_total))
+        self._failed_cells = set(clone._failed_cells)
+
+    def _install_migration(self, job_id, src: str, dst: str) -> None:
+        """Replay one speculative migration on the live federation (the
+        mechanics of :meth:`_move_job`; the install governs the recompute
+        flags, since the job's window is already in the installed plan)."""
+        src_child, dst_child = self.children[src], self.children[dst]
+        md = src_child.job_metadata.pop(job_id, None)
+        if md is None:
+            return
+        dst_child.job_metadata[job_id] = md
+        history = src_child.finish_time_estimates.pop(job_id, None)
+        if history is not None:
+            dst_child.finish_time_estimates[job_id] = history
+        dst_child.job_overheads[job_id] = src_child.job_overheads.pop(
+            job_id, 0.0)
+        if job_id in src_child.last_round_jobs:
+            src_child.last_round_jobs = [
+                j for j in src_child.last_round_jobs if j != job_id]
+            dst_child.last_round_jobs = list(
+                dst_child.last_round_jobs) + [job_id]
+        self._shift_load(job_id, src, dst)
+        self.job_cell[job_id] = dst
+        self.migrations_total += 1
+
+    def _prepare_repair(self, spec, mismatch: dict) -> bool:
+        """Churned boundary. Only when the federation was going to replan
+        anyway: each stale cell adopts its speculative window (the rows of
+        jobs it still owns) as its warm basis and is flagged, so the
+        boundary's batched solve warm-starts from it through
+        ``_solution_warm_start``. Cells that are not stale keep their
+        caches; the clone's cross-cell moves are dropped, and the
+        boundary coordinator decides them again from live prices."""
+        if not self._needs_replan():
+            return False
+        if spec.solved:
+            for name, child in self.children.items():
+                if not self._cell_stale(child):
+                    continue
+                cchild = spec.clone.children.get(name)
+                if cchild is None:
+                    continue
+                child.schedules = OrderedDict(
+                    (r, [j for j in s if j in child.job_metadata])
+                    for r, s in cchild.schedules.items())
+                child.recompute_flag = True
+        self._last_repair = True
+        return True
 
     def _slot_band(self) -> int:
         from shockwave_tpu_torch.solver.eg_level import num_slots_for
@@ -309,8 +435,11 @@ class CellPlanner(SpeculativePlannerMixin):
         docstring)."""
         from shockwave_tpu_torch.runtime import faults
 
+        self._replan_epoch += 1
         stale = [n for n, c in self.children.items()
                  if self._cell_stale(c)] or list(self.children)
+        # A speculative clone takes the path the live boundary would take,
+        # and its children consume no injected fault (their _solve).
         individual = (faults.active() is not None
                       or self.plan_deadline_s is not None)
         self._failed_cells = set()
@@ -463,7 +592,8 @@ class CellPlanner(SpeculativePlannerMixin):
             problem = built[n][0]
             if problem is None:
                 continue
-            solved[n] = {"Y": batched.schedule_cell(problem, entry["s"]),
+            solved[n] = {"Y": batched.schedule_cell(problem, entry["s"],
+                                                    self.device),
                          "backend": "cells", "fallback": False,
                          "diag": diags[n]}
         reconcile = {"iterations": len(moves), "moves": moves,
@@ -525,7 +655,7 @@ class CellPlanner(SpeculativePlannerMixin):
         """The coordinator's solve record of this replan (reference
         planner.py:933-960; its plan record for the flight recorder is not
         ported)."""
-        self.coord_solve_records.append({
+        record = {
             "backend": "cells",
             "seconds": solve_seconds,
             "ok": True,
@@ -544,7 +674,13 @@ class CellPlanner(SpeculativePlannerMixin):
             "failed_cells": sorted(self._failed_cells),
             "reconcile": reconcile,
             "migrations": migrations,
-        })
+        }
+        if self._last_repair:
+            # A repair: the churned stale cells re-planned warm-started
+            # from their speculative windows.
+            record["repair"] = True
+            self._last_repair = False
+        self.coord_solve_records.append(record)
 
     # -- serialization --------------------------------------------------
     def state_dict(self) -> dict:

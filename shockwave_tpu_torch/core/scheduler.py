@@ -26,13 +26,25 @@ rate. Under an SLO policy (``SLO`` in its name) each job with an SLO gets
 the deadline SLO x its isolated duration from its submission, and the
 policy sees the time left to it.
 
+Under a Shockwave policy with ``"hetero_pools": true`` a mixed cluster
+plans one pool a worker type (``PoolSetPlanner``): each job joins the
+pool with the earliest fair-share completion estimate for its gang, its
+profile rescaled to that pool's speed, and its finish-time fairness is
+judged against that pool's isolated duration. With ``"speculate":
+true`` the scheduler predicts each round's outcome as it dispatches the
+round, and the planner solves the next round from it ahead of the
+boundary (``policies/speculation.py``). ``simulate(checkpoint_threshold=,
+checkpoint_file=)`` saves the scheduler's and the planner's state once
+that many jobs were admitted and resumes from an existing file
+(:meth:`Scheduler.save_checkpoint`).
+
 Not ported yet, each raising ``NotImplementedError`` naming
 ``ROADMAP.md``: physical mode (``simulate=False``), HA state, streaming
-admission (a ``submitter``), fault plans, simulator checkpoints, online
-throughput estimation (``profiling_percentage < 1``) and pool sets
-(``hetero_pools``); cost accounting (per-worker-type prices) and
-lease-extension counting are not carried. The run has no fault injector,
-the reference's default (``faults.active()`` is ``None``).
+admission (a ``submitter``), fault plans and online throughput
+estimation (``profiling_percentage < 1``); cost accounting
+(per-worker-type prices), lease-extension counting and the round log are
+not carried. The run has no fault injector, the reference's default
+(``faults.active()`` is ``None``).
 """
 
 from __future__ import annotations
@@ -40,6 +52,8 @@ from __future__ import annotations
 import copy
 import heapq
 import math
+import os
+import pickle
 import random
 import time
 from collections import OrderedDict
@@ -143,12 +157,8 @@ class Scheduler:
         if profiling_percentage < 1.0 or num_reference_models is not None:
             raise NotImplementedError(
                 f"online throughput estimation {_NOT_PORTED}")
-        if self._is_shockwave:
-            if shockwave_config is None:
-                raise ValueError("Shockwave policies require shockwave_config")
-            if shockwave_config.get("hetero_pools"):
-                raise NotImplementedError(
-                    f"per-worker-type pools (hetero_pools) {_NOT_PORTED}")
+        if self._is_shockwave and shockwave_config is None:
+            raise ValueError("Shockwave policies require shockwave_config")
         self._policy = policy
         self._oracle_throughputs = throughputs
         self._time_per_iteration = float(time_per_iteration)
@@ -191,6 +201,10 @@ class Scheduler:
         self._num_failures_per_job: Dict[JobId, int] = {}
         self._per_job_start_timestamps: Dict[JobId, float] = {}
         self._per_job_latest_timestamps: Dict[JobId, Optional[float]] = {}
+        # Under hetero_pools a job admitted to a pool has its profile
+        # rescaled by base/pool throughput, and its finish-time fairness
+        # is judged against the same pool-speed baseline (absent: 1.0).
+        self._pool_ftf_scale: Dict[int, float] = {}
         self._job_completion_times: "OrderedDict[JobId, Optional[float]]" = OrderedDict()
         self._num_jobs_in_trace = 0
         self._in_progress_updates: Dict[JobId, list] = {}
@@ -233,6 +247,10 @@ class Scheduler:
         self._logger = make_logger(
             "scheduler", lambda: self._current_timestamp, level=log_level
         )
+        # Plan-ahead pipelining: the scheduler owns the execution model,
+        # so it supplies the predicted round outcome; the planner
+        # snapshots, solves and reconciles (policies/speculation.py).
+        self._speculate = bool((shockwave_config or {}).get("speculate"))
         self._shockwave = (
             policy.make_planner(shockwave_config) if self._is_shockwave
             else None)
@@ -244,6 +262,14 @@ class Scheduler:
         """Register one server with ``num_gpus`` workers of ``worker_type``
         (reference: scheduler.py:2854-2940)."""
         if worker_type not in self._worker_type_to_worker_ids:
+            if self._shockwave_is_pool_set():
+                # The pool set took the cluster at first admission; chips
+                # of a type registered later are never planned.
+                self._logger.warning(
+                    "worker type %r registered after the Shockwave pool "
+                    "set was fixed; its chips will not be planned",
+                    worker_type,
+                )
             self._worker_types = sorted([*self._worker_types, worker_type])
             self._cluster_spec[worker_type] = 0
             self._worker_type_to_worker_ids[worker_type] = []
@@ -317,6 +343,14 @@ class Scheduler:
                 self._profiles[job_id.integer] = synthesize_profile(
                     job, self._oracle_throughputs, worker_type
                 )
+            self._maybe_upgrade_shockwave_to_pools()
+            pool_kwargs = {}
+            if self._shockwave_is_pool_set():
+                pool, scale = self._pick_shockwave_pool(
+                    job, self._profiles[job_id.integer]
+                )
+                pool_kwargs = dict(pool=pool, duration_scale=scale)
+                self._pool_ftf_scale[job_id.integer] = scale
             self._shockwave.add_job(
                 job_id,
                 self._profiles[job_id.integer],
@@ -326,6 +360,7 @@ class Scheduler:
                 overhead_s=resolve_preemption_overhead(
                     self._preemption_overheads, job.job_type
                 ),
+                **pool_kwargs,
             )
         if timestamp is None:
             timestamp = self.get_current_timestamp()
@@ -692,6 +727,106 @@ class Scheduler:
             scheduled_jobs[worker_type].append((job_id, scale_factor))
         return scheduled_jobs
 
+    # ------------------------------------------------------------------
+    # Shockwave pool sets (hetero_pools).
+    # ------------------------------------------------------------------
+    def _shockwave_is_pool_set(self) -> bool:
+        from shockwave_tpu_torch.policies.shockwave import PoolSetPlanner
+
+        return isinstance(self._shockwave, PoolSetPlanner)
+
+    def _maybe_upgrade_shockwave_to_pools(self) -> None:
+        """With ``"hetero_pools": true`` in the Shockwave config, a
+        heterogeneous cluster swaps the single-pool planner for a
+        PoolSetPlanner (one EG plan per worker type) before any job is
+        admitted (the JAX package's scheduler.py:1224). Opt-in, so the
+        reference's single-pool plans stay the default."""
+        from shockwave_tpu_torch.policies.shockwave import (
+            PoolSetPlanner,
+            ShockwavePlanner,
+        )
+
+        if isinstance(self._shockwave, PoolSetPlanner):
+            return  # already upgraded
+        if not isinstance(self._shockwave, ShockwavePlanner):
+            # A CellPlanner is not upgraded: cells x pools is not a
+            # composition either package has.
+            if getattr(self._shockwave, "config", {}).get(
+                "hetero_pools", False
+            ):
+                self._logger.warning(
+                    "hetero_pools requested but the planner is %s; "
+                    "per-worker-type pools are not composed with it, "
+                    "keeping the existing planner",
+                    type(self._shockwave).__name__,
+                )
+            return
+        if not self._shockwave.config.get("hetero_pools", False):
+            return
+        if self._oracle_throughputs is None:
+            self._logger.warning(
+                "hetero_pools requested but no throughput oracle is "
+                "configured; keeping single-pool planning"
+            )
+            return
+        if self._shockwave.num_jobs > 0:
+            return
+        if len(self._worker_type_to_worker_ids) <= 1:
+            return
+        # The pool set takes the cluster as it stands at first admission.
+        pools = {
+            wt: self._cluster_spec[wt]
+            for wt in self._worker_type_to_worker_ids
+        }
+        self._shockwave = PoolSetPlanner(
+            self._shockwave.config, self._shockwave.backend, pools,
+            device=self._shockwave.device,
+        )
+
+    def _pick_shockwave_pool(self, job, profile) -> Tuple[str, float]:
+        """(pool, duration_scale) for a newly admitted job (the JAX
+        package's scheduler.py:1282): among the pools wide enough for its
+        gang, the one with the earliest fair-share completion estimate,
+        duration (at the pool's speed) x (the pool's incomplete jobs + 1)
+        / capacity. ``duration_scale`` rebases the profile's durations to
+        that pool's speed from the type they were synthesized against
+        (the config's ``profile_base_type``, else v100 if present, else
+        the first registered type)."""
+        base_type = self._shockwave.config.get("profile_base_type") or (
+            "v100" if "v100" in self._worker_type_to_worker_ids
+            else next(iter(self._worker_type_to_worker_ids))
+        )
+        key = job.job_type_key()
+
+        def tput(wt):
+            try:
+                return float(self._oracle_throughputs[wt][key]["null"])
+            except (KeyError, TypeError):
+                return 0.0
+
+        base_tput = max(tput(base_type), 1e-9)
+        duration = float(sum(profile.get("duration_every_epoch", ())))
+        best_wt, best_finish = None, float("inf")
+        widest_wt = max(
+            self._shockwave.pools, key=lambda wt: self._shockwave.pools[wt]
+        )
+        for wt, capacity in self._shockwave.pools.items():
+            if capacity < job.scale_factor:
+                continue  # a gang the pool can never place
+            t = tput(wt)
+            if t <= 0:
+                continue
+            population = self._shockwave.pool_incomplete_jobs(wt)
+            finish = (duration * (base_tput / t) * (population + 1)
+                      / max(capacity, 1))
+            if finish < best_finish:
+                best_wt, best_finish = wt, finish
+        if best_wt is None:
+            # No pool fits: the widest pool, durations unscaled, as on a
+            # homogeneous cluster.
+            return widest_wt, 1.0
+        return best_wt, base_tput / max(tput(best_wt), 1e-9)
+
     def _shockwave_pool_type(self) -> str:
         """The homogeneous pool the planner plans onto: v100 when present,
         else the cluster's sole worker type (reference: v100-only,
@@ -708,7 +843,20 @@ class Scheduler:
 
     def _shockwave_schedule_helper(self) -> Dict[str, List[Tuple[JobId, int]]]:
         """This round's job list from the planner (reference:
-        scheduler.py:991-1014)."""
+        scheduler.py:991-1014); under a pool set, every pool's own."""
+        if self._shockwave_is_pool_set():
+            by_pool = self._shockwave.current_round_schedule_by_pool()
+            self._current_round_scheduled_jobs = [
+                j for schedule in by_pool.values() for j in schedule
+            ]
+            return {
+                wt: [
+                    (j, self._jobs[j].scale_factor)
+                    for j in schedule
+                    if j in self._jobs
+                ]
+                for wt, schedule in by_pool.items()
+            }
         worker_type = self._shockwave_pool_type()
         scheduled: Dict[str, List[Tuple[JobId, int]]] = {worker_type: []}
         self._current_round_scheduled_jobs = self._shockwave.current_round_schedule()
@@ -1047,16 +1195,22 @@ class Scheduler:
 
     def _shockwave_scheduler_update(self) -> None:
         """Push epoch progress into the planner and advance its round
-        (reference: scheduler.py:3598-3621)."""
-        pool_type = (
+        (reference: scheduler.py:3598-3621); under a pool set each job's
+        steps on its own pool's type."""
+        is_pool_set = self._shockwave_is_pool_set()
+        default_pool = (
             self._shockwave_pool_type()
-            if self._current_round_scheduled_jobs
+            if not is_pool_set and self._current_round_scheduled_jobs
             else None
         )
         for job_id in self._current_round_scheduled_jobs:
             if job_id in self._completed_jobs:
                 self._shockwave.mark_complete(job_id)
                 continue
+            pool_type = (
+                self._shockwave.pool_of(job_id) if is_pool_set
+                else default_pool
+            )
             steps_run = self._steps_run_so_far.get(job_id, {}).get(
                 pool_type, 0
             )
@@ -1066,6 +1220,71 @@ class Scheduler:
                 current_epoch = steps_run // steps_per_epoch(model, bs)
                 self._shockwave.set_progress(job_id, current_epoch)
         self._shockwave.increment_round()
+
+    # ------------------------------------------------------------------
+    # Plan-ahead pipelining (policies/speculation.py).
+    # ------------------------------------------------------------------
+    def _shockwave_can_speculate(self) -> bool:
+        return (
+            self._speculate
+            and self._shockwave is not None
+            and hasattr(self._shockwave, "speculate_next_round")
+            and not self._shockwave_is_pool_set()
+            and bool(self._current_round_scheduled_jobs)
+        )
+
+    def _predict_round_outcome(self, dispatch_preview):
+        """The planner delta between now (round r's micro-tasks just
+        dispatched) and the next boundary (the JAX package's
+        scheduler.py:1929-2010): the throughput records the completion
+        merge will append, each scheduled job's epoch progress after the
+        boundary's ``set_progress`` pass, and the jobs that will finish.
+        In simulation the prediction is exact: ``dispatch_preview`` maps
+        each dispatched single job to the (steps, execution seconds) the
+        completion merge will take. Returns None when the boundary is
+        known to churn: a dispatched job with a pending batch-size switch
+        has its steps rescaled and the planner flagged at the merge."""
+        from shockwave_tpu_torch.policies.speculation import SpecOutcome
+
+        pool = self._shockwave_pool_type()
+        next_round = self._num_completed_rounds
+        progress: dict = {}
+        throughputs: list = []
+        completions: list = []
+        for job_id in self._current_round_scheduled_jobs:
+            job = self._jobs.get(job_id)
+            if job is None:
+                continue
+            if (
+                self._bs_scale.get(job_id) is not None
+                and job_id in dispatch_preview
+            ):
+                return None
+            steps_add, exec_s = dispatch_preview.get(job_id, (0, 0.0))
+            tput = steps_add / exec_s if exec_s > 0 else 0.0
+            if steps_add > 0:
+                throughputs.append((job_id, next_round, tput, job.batch_size))
+            if (
+                steps_add > 0
+                and self._total_steps_run[job_id] + steps_add
+                >= job.total_steps
+            ):
+                completions.append(job_id)
+            else:
+                steps_after = (
+                    self._steps_run_so_far.get(job_id, {}).get(pool, 0)
+                    + steps_add
+                )
+                progress[job_id] = steps_after // steps_per_epoch(
+                    job.model, job.batch_size
+                )
+        return SpecOutcome(
+            target_round=self._shockwave.round_index + 1,
+            progress=progress,
+            throughputs=throughputs,
+            completions=completions,
+            capacity=self._shockwave.num_gpus,
+        )
 
     # ------------------------------------------------------------------
     # Simulation.
@@ -1086,9 +1305,14 @@ class Scheduler:
         submitter=None,
     ) -> float:
         """Trace-driven simulation; returns the makespan
-        (reference: scheduler.py:1365-1796, from_trace path)."""
-        if checkpoint_threshold is not None or checkpoint_file is not None:
-            raise NotImplementedError(f"simulator checkpoints {_NOT_PORTED}")
+        (reference: scheduler.py:1365-1796, from_trace path).
+
+        With ``checkpoint_threshold`` and ``checkpoint_file`` set, the
+        scheduler's state, the planner's and the loop's are pickled to
+        the file at the top of the loop once that many jobs have been
+        admitted; a fresh scheduler given an existing ``checkpoint_file``
+        resumes from there and ends where the unbroken run ends (the JAX
+        package's scheduler.py:2054-2190)."""
         if submitter is not None:
             raise NotImplementedError(f"streaming admission {_NOT_PORTED}")
         if arrival_times is None or jobs is None:
@@ -1097,6 +1321,7 @@ class Scheduler:
         queued_jobs = list(zip(arrival_times, jobs))
         running_jobs: list = []
         consecutive_idle_rounds = 0
+        checkpoint_saved = False
 
         for worker_type in sorted(cluster_spec):
             num_gpus = (
@@ -1107,9 +1332,42 @@ class Scheduler:
             for _ in range(cluster_spec[worker_type] // num_gpus):
                 self.register_worker(worker_type, num_gpus=num_gpus)
 
-        self._current_timestamp = arrival_times[0]
+        if checkpoint_file is not None and os.path.exists(checkpoint_file):
+            extra = self.load_checkpoint(checkpoint_file)
+            queued_jobs = extra["queued_jobs"]
+            running_jobs = extra["running_jobs"]
+            remaining_jobs = extra["remaining_jobs"]
+            consecutive_idle_rounds = extra["consecutive_idle_rounds"]
+            checkpoint_saved = True
+            self._logger.info(
+                "Resumed from checkpoint %s at t=%.1f (%d jobs queued)",
+                checkpoint_file, self._current_timestamp, len(queued_jobs),
+            )
+        else:
+            self._current_timestamp = arrival_times[0]
 
         while True:
+            # Saved at the top of the loop, the point a resume enters.
+            if (
+                checkpoint_threshold is not None
+                and checkpoint_file is not None
+                and not checkpoint_saved
+                and self._job_id_counter >= checkpoint_threshold
+            ):
+                self.save_checkpoint(
+                    checkpoint_file,
+                    extra=dict(
+                        queued_jobs=queued_jobs,
+                        running_jobs=running_jobs,
+                        remaining_jobs=remaining_jobs,
+                        consecutive_idle_rounds=consecutive_idle_rounds,
+                    ),
+                )
+                checkpoint_saved = True
+                self._logger.info(
+                    "Saved checkpoint to %s after job %d",
+                    checkpoint_file, self._job_id_counter - 1,
+                )
             if jobs_to_complete is not None and jobs_to_complete.issubset(
                 self._completed_jobs
             ):
@@ -1227,11 +1485,20 @@ class Scheduler:
                 "scheduler_rounds_total", "scheduling rounds started"
             ).inc()
 
+            dispatch_preview: dict = {}
             for job_id, worker_ids in scheduled_jobs.items():
                 worker_type = self._worker_id_to_worker_type[worker_ids[0]]
                 all_num_steps, max_finish_time = self._get_job_steps_and_finish_times(
                     job_id, worker_type
                 )
+                for i, single in enumerate(job_id.singletons()):
+                    # What the completion merge will take for this
+                    # micro-task: its steps, and its finish less the
+                    # round's start.
+                    dispatch_preview[single] = (
+                        all_num_steps[i],
+                        max_finish_time - self._current_timestamp,
+                    )
                 heapq.heappush(
                     running_jobs,
                     (
@@ -1245,12 +1512,110 @@ class Scheduler:
 
             self._num_completed_rounds += 1
 
+            # Plan-ahead pipelining: with this round's execution decided,
+            # solve the next round from a snapshot and the predicted
+            # outcome. Inline: solver wall time never advances virtual
+            # time, so the overlap is free by construction.
+            if self._shockwave_can_speculate():
+                outcome = self._predict_round_outcome(dispatch_preview)
+                if outcome is not None:
+                    self._shockwave.speculate_next_round(outcome)
+
         self._logger.info(
             "Total duration: %.3f seconds (%.2f hours)",
             self._current_timestamp,
             self._current_timestamp / 3600.0,
         )
         return self._current_timestamp
+
+    # ------------------------------------------------------------------
+    # Simulator checkpoints (the JAX package's scheduler.py:2483-2595).
+    # ------------------------------------------------------------------
+    # The JAX package's checkpoint fields that the port's scheduler has,
+    # plus its allocation counters. Like the JAX package, the checkpoint
+    # leaves out the worker-type shuffle's RNG: a resumed run draws that
+    # stream from the seed again, as the JAX package's resumed run does.
+    _CHECKPOINT_FIELDS = [
+        "_current_timestamp",
+        "_num_completed_rounds",
+        "_job_id_counter",
+        "_jobs",
+        "_completed_jobs",
+        "_steps_run_so_far",
+        "_total_steps_run",
+        "_job_time_so_far",
+        "_throughputs",
+        "_original_bs",
+        "_bs_scale",
+        "_num_failures_per_job",
+        "_per_job_start_timestamps",
+        "_per_job_latest_timestamps",
+        "_pool_ftf_scale",
+        "_job_completion_times",
+        "_num_jobs_in_trace",
+        "_allocation",
+        "_priorities",
+        "_deficits",
+        "_last_reset_time",
+        "_worker_time_so_far",
+        "_cumulative_worker_time_so_far",
+        "_num_preemptions",
+        "_slos",
+        "_in_progress_updates",
+        "_current_worker_assignments",
+        # Loop-coupled state the checkpointed running_jobs heap depends
+        # on: _done_callback credits steps only to singles in
+        # _running_jobs, and the allocation's dirty flag steers the first
+        # round after the resume.
+        "_running_jobs",
+        "_need_to_update_allocation",
+        # Read by _shockwave_scheduler_update on the first round after
+        # the resume.
+        "_current_round_scheduled_jobs",
+        "num_allocations",
+        "allocation_s",
+    ]
+
+    def save_checkpoint(self, path: str, extra: Optional[dict] = None) -> None:
+        """Pickle the scheduler's fields, ``extra`` (the simulate loop's
+        queued and running jobs) and the planner's ``state_dict``. The
+        pickle holds the port's own ``Job`` and ``JobId`` types, so only
+        the port reads it back; a planner's state dict alone loads in
+        either package."""
+        state = {f: getattr(self, f) for f in self._CHECKPOINT_FIELDS}
+        shockwave_state = (
+            self._shockwave.state_dict() if self._shockwave is not None
+            else None
+        )
+        with open(path, "wb") as f:
+            pickle.dump({"fields": state, "extra": extra or {},
+                         "shockwave": shockwave_state}, f)
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Restore the fields and the planner (its device solves on this
+        scheduler's planner's device); returns the ``extra`` dict."""
+        from shockwave_tpu_torch.policies.shockwave import planner_from_state
+
+        with open(path, "rb") as f:
+            state = pickle.load(f)
+        for field, value in state["fields"].items():
+            setattr(self, field, value)
+        shockwave_state = state.get("shockwave")
+        if shockwave_state is not None:
+            assert self._shockwave is not None, (
+                "checkpoint carries Shockwave planner state but the "
+                "resuming scheduler's policy is not Shockwave"
+            )
+            self._shockwave = planner_from_state(
+                shockwave_state, device=self._shockwave.device)
+        else:
+            # A Shockwave run resumed from a planner-less checkpoint would
+            # drive a planner that forgot the run.
+            assert self._shockwave is None, (
+                "Shockwave scheduler resuming from a checkpoint without "
+                "planner state"
+            )
+        return state["extra"]
 
     # ------------------------------------------------------------------
     # Metrics.
@@ -1299,7 +1664,11 @@ class Scheduler:
         profile = self._profiles.get(job_id.integer)
         if profile is None:
             return None
-        isolated = sum(profile["duration_every_epoch"])
+        # A job of a slower pool runs at that pool's speed, so its
+        # isolated baseline takes its profile's rescale.
+        isolated = sum(profile["duration_every_epoch"]) * (
+            self._pool_ftf_scale.get(job_id.integer, 1.0)
+        )
         if isolated <= 0:
             return None
         contention = max(

@@ -5,8 +5,8 @@ flight recorder, calibration tracker, watchdog) is disabled by default,
 and then every call hands out a shared null instrument after one flag
 check. The port keeps exactly that default: the calls its scheduler,
 planner, its degradation ladder, the cells market and the solves make
-(``counter``, ``histogram``, ``instant``, ``backend_phases``) are here
-and do nothing. The reference's other
+(``counter``, ``gauge``, ``histogram``, ``instant``, ``span``,
+``backend_phases``) are here and do nothing. The reference's other
 calls on this path sit in blocks that run only with a plane on, which
 the port does not carry. Turning any plane on is not ported yet and
 raises ``NotImplementedError`` naming ``ROADMAP.md``.
@@ -21,11 +21,14 @@ _NOT_PORTED = (
 
 
 class _Null:
-    """No-op counter, histogram and backend-phase timer."""
+    """No-op counter, gauge, histogram, span and backend-phase timer."""
 
     __slots__ = ()
 
     def inc(self, amount=1.0, **labels):
+        pass
+
+    def set(self, value, **labels):
         pass
 
     def observe(self, value, **labels):
@@ -61,7 +64,15 @@ def counter(name: str, help: str = "") -> _Null:
     return _NULL
 
 
+def gauge(name: str, help: str = "") -> _Null:
+    return _NULL
+
+
 def histogram(name: str, help: str = "") -> _Null:
+    return _NULL
+
+
+def span(name: str, **kwargs) -> _Null:
     return _NULL
 
 

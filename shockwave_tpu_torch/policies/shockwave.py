@@ -28,12 +28,17 @@ The ``cells`` backend, or any backend with ``cells`` >= 2 in the config,
 plans through the cell-decomposed market
 (:class:`shockwave_tpu_torch.cells.planner.CellPlanner`). A planner's
 ``state_dict`` is the JAX package's, key for key, and
-:func:`planner_from_state` restores a flat or ``cell_set`` state that
-either package wrote. The ``sharded`` backend, plan-ahead speculation
-and its repair solves and ``PoolSetPlanner`` raise
-``NotImplementedError`` naming ``ROADMAP.md``. The device of the
-device solves is passed explicitly (``ShockwavePolicy(backend,
-device=...)``).
+:func:`planner_from_state` restores a flat, ``cell_set`` or ``pool_set``
+state that either package wrote. ``"hetero_pools": true`` plans a mixed
+cluster as one planner a worker type (:class:`PoolSetPlanner`). With
+``"speculate": true`` the scheduler solves the next round ahead and the
+planner reconciles it at the boundary
+(:mod:`shockwave_tpu_torch.policies.speculation`); a churned boundary
+that replans anyway re-solves through the ``pdhg`` backend, warm-started
+from the speculative window, whatever the configured backend (kernel A
+on a card). The ``sharded`` backend raises ``NotImplementedError``
+naming ``ROADMAP.md``. The device of the device solves is passed
+explicitly (``ShockwavePolicy(backend, device=...)``).
 
 A rung that blows the deadline is abandoned as a thread and runs on to
 its end, as in the reference. On a card its kernel would hold the
@@ -44,8 +49,9 @@ problem's kernel takes one block, one of the card's 132 SMs, and the
 next rung's launch runs beside it. The final rung runs in the calling
 thread on the current stream, and ``native`` needs no card at all.
 
-The ladder steps past a rung's timeout, an injected fault or a solver
-error, but not past a broken card or kernel: a
+The ladder, and a repair solve's fallback to the configured backend,
+step past a rung's timeout, an injected fault or a solver error, but not
+past a broken card or kernel: a
 :class:`~shockwave_tpu_torch.ops._build.KernelError` (a kernel that does
 not build, load or launch) or a ``torch.AcceleratorError`` (a fault the
 card reported) propagates, so no device rung's failure ends in a plan
@@ -153,7 +159,12 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         # (thread, result box) of rungs abandoned at their deadline; a
         # device fault one of them ends in is raised by the next ladder.
         self._abandoned: List[tuple] = []
+        # Plan-ahead pipelining (policies/speculation.py): the scheduler
+        # supplies predicted outcomes; the planner reconciles. A repair
+        # reconcile sets the flag: the next solve goes through the
+        # delta-patched, warm-started PDHG path first.
         self._init_speculation(config)
+        self._repair_with_spec = False
 
         self.round_index = 0
         self.recompute_flag = False
@@ -284,13 +295,84 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         ]
         return planner
 
+    # -- plan-ahead pipelining ------------------------------------------
+    # speculate_next_round, _reconcile_speculation and _observe_boundary
+    # come from SpeculativePlannerMixin; the hooks below are this planner
+    # kind's reconcile semantics (reference shockwave.py:274-350).
+    def _spec_solve_base(self) -> int:
+        """Solve-record count at snapshot time (an install appends only
+        the clone's records past it)."""
+        return len(self.solve_records)
+
+    def _augment_mismatch(self, mismatch: dict) -> dict:
+        """External staleness (a batch-size switch, a capacity change) the
+        fingerprints cannot see is churn too."""
+        if self.recompute_flag:
+            mismatch = dict(mismatch)
+            mismatch.setdefault("", []).append("recompute_flagged")
+        return mismatch
+
+    def _install_speculation(self, spec) -> None:
+        """No-churn boundary: adopt the clone's plan window, the
+        finish-time history its problem build appended, and its solve
+        records. The live predictor inputs stay as they are (in
+        simulation they equal the clone's by exact prediction)."""
+        clone = spec.clone
+        if not spec.solved:
+            return  # the boundary serves from cache either way
+        self.schedules = OrderedDict(
+            (r, list(s)) for r, s in clone.schedules.items()
+        )
+        self.finish_time_estimates = {
+            j: list(h) for j, h in clone.finish_time_estimates.items()
+        }
+        self.solve_records.extend(
+            dict(r) for r in clone.solve_records[spec.base_solve_records:]
+        )
+        self.recompute_flag = False
+
+    def _boundary_stale(self) -> bool:
+        """Whether the boundary would replan: recompute flagged, no cached
+        round at the cursor, or a cached round whose jobs all completed
+        while incomplete jobs remain (as :meth:`current_round_schedule`)."""
+        if self.recompute_flag or self.round_index not in self.schedules:
+            return True
+        schedule = self.schedules[self.round_index]
+        live = [
+            j
+            for j in schedule
+            if j in self.job_metadata
+            and self.job_metadata[j].completed_epochs
+            < self.job_metadata[j].total_epochs
+        ]
+        return not live and self._has_incomplete_jobs()
+
+    def _prepare_repair(self, spec, mismatch: dict) -> bool:
+        """Churned boundary. Only when the boundary was going to replan
+        anyway (so pipelining never replans more eagerly than serial):
+        the speculative window, when one was solved, becomes the plan
+        cache's warm basis, and the replan goes through the delta-patched
+        PDHG path. Returns whether a repair solve was armed."""
+        if not self._boundary_stale():
+            return False
+        if spec.solved:
+            self.schedules = OrderedDict(
+                (r, list(s)) for r, s in spec.clone.schedules.items()
+            )
+        self.recompute_flag = True
+        self._repair_with_spec = True
+        return True
+
     def current_round_schedule(self) -> list:
         """This round's job list, from the plan cache or a fresh solve
         (reference: shockwave.py:77-91). A cached round whose scheduled
         jobs have all since completed triggers a replan while incomplete
         jobs remain (the reference returns the stale empty round, which
-        the scheduler reads as end-of-trace)."""
+        the scheduler reads as end-of-trace). A pending speculation for
+        this boundary is reconciled first; the wall time this call spends
+        on the reconcile and any solve is the exposed planning time."""
         start = time.perf_counter()
+        reconciled = self._reconcile_speculation()
         if not self.recompute_flag and self.round_index in self.schedules:
             schedule = self.schedules[self.round_index]
             live = [
@@ -301,6 +383,8 @@ class ShockwavePlanner(SpeculativePlannerMixin):
                 < self.job_metadata[j].total_epochs
             ]
             if live or not self._has_incomplete_jobs():
+                if reconciled is not None:
+                    self._observe_boundary(time.perf_counter() - start)
                 return schedule
         self._replan()
         self.recompute_flag = False
@@ -411,17 +495,30 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         (``plan_deadline_s``) or armed fault injection the solve runs
         down the degradation ladder (:meth:`_solve_with_ladder`);
         otherwise it is a straight dispatch to the configured backend
-        (reference shockwave.py:485-544; the speculation-repair branch
-        is not ported, as speculation is not)."""
+        (reference shockwave.py:485-544).
+
+        A repair reconcile's solve goes through the ``pdhg`` backend
+        first, warm-started from the speculative window, whatever the
+        configured backend is: on a card, one launch of kernel A. Where
+        that solve raises, the configured backend is the fallback, as in
+        the reference, except for a device fault, which is raised."""
         from shockwave_tpu_torch.runtime import faults
 
-        injector = faults.active()
+        # A speculative clone never consumes injected solver faults: they
+        # are the live ladder's events.
+        injector = (
+            None if getattr(self, "_speculative", False) else faults.active()
+        )
         self._last_ladder = None
+        repair = self._repair_with_spec
+        self._repair_with_spec = False
+        self._last_repair = repair
         self._attempted_backend = self.backend
         # Computed once per solve, before the plan cache is overwritten,
         # and only when a pdhg solve can happen this round.
         pdhg_possible = (
             self.backend == "pdhg"
+            or repair
             or self.plan_deadline_s is not None
             or injector is not None
         )
@@ -429,8 +526,20 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             self._solution_warm_start() if pdhg_possible else None
         )
         if self.plan_deadline_s is None and injector is None:
+            if repair and self.backend != "pdhg":
+                try:
+                    return self._solve_backend("pdhg", problem)
+                except Exception as e:
+                    if _is_device_fault(e):
+                        raise
+                    obs.counter(
+                        "speculation_repair_fallbacks_total",
+                        "repair solves that fell back to the "
+                        "configured backend",
+                    ).inc()
+                    self._attempted_backend = self.backend
             return self._solve_backend(self.backend, problem)
-        return self._solve_with_ladder(problem, injector)
+        return self._solve_with_ladder(problem, injector, repair=repair)
 
     def _ladder_rungs(self) -> List[str]:
         """Degradation ladder: configured backend, then the restarted
@@ -455,7 +564,7 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         return torch.cuda.stream(torch.cuda.Stream(self.device))
 
     def _solve_with_ladder(
-        self, problem: EGProblem, injector
+        self, problem: EGProblem, injector, repair: bool = False
     ) -> "Tuple[np.ndarray, str]":
         """Run the solve down the degradation ladder under the round's
         planning budget (reference shockwave.py:562-710). Every rung but
@@ -465,7 +574,8 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         plan is mandatory. Injected solver faults are consumed one per
         attempt: ``solver_timeout`` charges the rung as timed out
         without burning wall clock, ``solver_slowdown`` stretches the
-        attempt by ``delay_s`` so a real deadline can overrun."""
+        attempt by ``delay_s`` so a real deadline can overrun. A repair
+        solve puts the ``pdhg`` rung first."""
         import threading
 
         self._raise_abandoned_device_fault()
@@ -477,6 +587,8 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         start = time.monotonic()
         deadline = self.plan_deadline_s
         rungs = self._ladder_rungs()
+        if repair and "pdhg" in rungs:
+            rungs = ["pdhg"] + [r for r in rungs if r != "pdhg"]
         attempts: List[dict] = []
         faults_hit: list = []
         last_error: Optional[BaseException] = None
@@ -803,6 +915,10 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             record["degraded"] = True
             record["fallback_from"] = ladder["fallback_from"]
             record["ladder"] = [dict(a) for a in ladder["attempts"]]
+        if getattr(self, "_last_repair", False):
+            # A repair solve: churn re-planned against a speculative
+            # window through the delta-patched PDHG path.
+            record["repair"] = True
         self.solve_records.append(record)
         obs.histogram(
             "shockwave_solve_seconds",
@@ -810,6 +926,7 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         ).observe(seconds, backend=backend, ok=str(ok))
 
     def _replan(self) -> None:
+        self._replan_epoch += 1
         # Past rounds are never read again; keep the cache bounded.
         for r in [r for r in self.schedules if r < self.round_index]:
             del self.schedules[r]
@@ -927,18 +1044,182 @@ class ShockwavePlanner(SpeculativePlannerMixin):
 
 
 class PoolSetPlanner:
-    """Heterogeneous Shockwave (one EG plan per worker-type pool)."""
+    """Heterogeneous Shockwave: one independent EG plan per worker-type
+    pool (reference shockwave.py:1245-1427).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"PoolSetPlanner (hetero_pools) {_NOT_PORTED}")
+    The reference's own Shockwave plans a single homogeneous pool and
+    leaves every other worker type idle; with ``"hetero_pools": true`` a
+    mixed cluster gets one child :class:`ShockwavePlanner` per worker
+    type, on the planner's device, so a pool above the native greedy's
+    work threshold solves there, and a ``pdhg`` pool launches kernel A.
+    The scheduler assigns each job to a pool at admission (it owns the
+    throughput oracle) with its profile durations rescaled to that
+    pool's speed, and every pool plans and runs its own jobs each round.
+
+    It takes the calls a single planner takes, routed through the
+    job-to-pool map, plus ``current_round_schedule_by_pool`` for
+    pool-aware dispatch and ``pool_of`` for per-pool progress.
+    """
+
+    def __init__(self, config: dict, backend: str, pools: Dict[str, int],
+                 device="cuda"):
+        self.config = dict(config)
+        self.backend = backend
+        self.device = torch.device(device)
+        self.pools = dict(pools)
+        self.children: "OrderedDict[str, ShockwavePlanner]" = OrderedDict(
+            (wt, ShockwavePlanner({**config, "num_gpus": n}, backend=backend,
+                                  device=self.device))
+            for wt, n in sorted(pools.items())
+        )
+        self.job_pool: Dict[object, str] = {}
+        # Cumulative admissions per pool (the live load used for
+        # balancing is pool_incomplete_jobs).
+        self.assignments: Dict[str, int] = {wt: 0 for wt in self.children}
+
+    # -- scheduler-facing interface (a single planner's vocabulary) ------
+    def add_job(
+        self, job_id, profile: dict, round_len: float, scale_factor: int,
+        submit_time: Optional[float] = None, pool: Optional[str] = None,
+        duration_scale: float = 1.0, overhead_s: float = 0.0,
+    ) -> None:
+        pool = pool if pool in self.children else next(iter(self.children))
+        if duration_scale != 1.0:
+            profile = dict(profile)
+            profile["duration_every_epoch"] = [
+                d * duration_scale for d in profile["duration_every_epoch"]
+            ]
+        self.job_pool[job_id] = pool
+        self.assignments[pool] = self.assignments.get(pool, 0) + 1
+        self.children[pool].add_job(
+            job_id, profile, round_len, scale_factor, submit_time,
+            overhead_s=overhead_s,
+        )
+
+    def pool_incomplete_jobs(self, pool: str) -> int:
+        """Live count of the pool's incomplete jobs (the fair-share
+        population the scheduler's assignment estimate divides by)."""
+        child = self.children.get(pool)
+        if child is None:
+            return 0
+        return sum(
+            1
+            for md in child.job_metadata.values()
+            if md.completed_epochs < md.total_epochs
+        )
+
+    def _child_of(self, job_id) -> Optional[ShockwavePlanner]:
+        pool = self.job_pool.get(job_id)
+        return self.children.get(pool) if pool is not None else None
+
+    def pool_of(self, job_id) -> Optional[str]:
+        return self.job_pool.get(job_id)
+
+    def remove_job(self, job_id) -> None:
+        child = self._child_of(job_id)
+        if child is not None:
+            child.remove_job(job_id)
+        self.job_pool.pop(job_id, None)
+
+    def record_round_throughput(self, job_id, round_id, throughput, bs) -> None:
+        child = self._child_of(job_id)
+        if child is not None:
+            child.record_round_throughput(job_id, round_id, throughput, bs)
+
+    def mark_complete(self, job_id) -> None:
+        child = self._child_of(job_id)
+        if child is not None:
+            child.mark_complete(job_id)
+
+    def set_progress(self, job_id, num_epochs: int) -> None:
+        child = self._child_of(job_id)
+        if child is not None:
+            child.set_progress(job_id, num_epochs)
+
+    def increment_round(self) -> None:
+        for child in self.children.values():
+            child.increment_round()
+
+    def set_recompute_flag(self, jobs=None) -> None:
+        """With ``jobs`` given, only the pools owning them go stale; a bare
+        call, or a job no pool owns, stales every pool."""
+        if jobs is not None:
+            owners = [
+                child
+                for child in self.children.values()
+                if any(j in child.job_metadata for j in jobs)
+            ]
+            if all(
+                any(j in c.job_metadata for c in self.children.values())
+                for j in jobs
+            ):
+                for child in owners:
+                    child.set_recompute_flag(jobs)
+                return
+        for child in self.children.values():
+            child.set_recompute_flag()
+
+    @property
+    def num_jobs(self) -> int:
+        return sum(c.num_jobs for c in self.children.values())
+
+    @property
+    def solve_records(self) -> List[dict]:
+        return [
+            {**r, "pool": wt}
+            for wt, c in self.children.items()
+            for r in c.solve_records
+        ]
+
+    def current_round_schedule_by_pool(self) -> "OrderedDict[str, list]":
+        return OrderedDict(
+            (wt, child.current_round_schedule())
+            for wt, child in self.children.items()
+        )
+
+    def current_round_schedule(self) -> list:
+        return [
+            j
+            for schedule in self.current_round_schedule_by_pool().values()
+            for j in schedule
+        ]
+
+    # -- serialization --------------------------------------------------
+    def state_dict(self) -> dict:
+        """The JAX package's ``pool_set`` state, key for key."""
+        return {
+            "kind": "pool_set",
+            "config": dict(self.config),
+            "backend": self.backend,
+            "pools": dict(self.pools),
+            "children": OrderedDict(
+                (wt, c.state_dict()) for wt, c in self.children.items()
+            ),
+            "job_pool": dict(self.job_pool),
+            "assignments": dict(self.assignments),
+        }
+
+    @classmethod
+    def from_state(cls, state: dict, device="cuda") -> "PoolSetPlanner":
+        """Restore a ``pool_set`` state either package wrote; every pool's
+        device solves run on ``device``."""
+        planner = cls(state["config"], state["backend"], state["pools"],
+                      device=device)
+        planner.children = OrderedDict(
+            (wt, ShockwavePlanner.from_state(cs, device=device))
+            for wt, cs in state["children"].items()
+        )
+        planner.job_pool = dict(state["job_pool"])
+        planner.assignments = dict(state.get("assignments", {}))
+        return planner
 
 
 def planner_from_state(state: dict, device="cuda"):
     """Restore whichever planner kind a state dict carries (reference
-    shockwave.py:1429): a ``cell_set`` federation or a flat planner; a
-    ``pool_set`` raises, as ``PoolSetPlanner`` does."""
+    shockwave.py:1429): a ``pool_set``, a ``cell_set`` federation or a
+    flat planner, its device solves on ``device``."""
     if state.get("kind") == "pool_set":
-        return PoolSetPlanner()
+        return PoolSetPlanner.from_state(state, device=device)
     if state.get("kind") == "cell_set":
         from shockwave_tpu_torch.cells.planner import CellPlanner
 

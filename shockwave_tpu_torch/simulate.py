@@ -9,6 +9,13 @@
         -p shockwave_tpu_pdhg -c v100=8 --time_per_iteration 120 --cells 2
     python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
         -p shockwave -c v100=8 --time_per_iteration 120 --device cpu
+    python -m shockwave_tpu_torch.simulate -t traces/generated_220_dynamic.trace \\
+        -p shockwave_tpu -c v100=64 --num_gpus_per_server v100=4 \\
+        --time_per_iteration 120 --speculate
+    python -m shockwave_tpu_torch.simulate -t traces/generated_220_dynamic.trace \\
+        -p shockwave_tpu_pdhg -c v100=64 --num_gpus_per_server v100=4 \\
+        --time_per_iteration 120 --checkpoint_threshold 110 \\
+        --checkpoint_file run.ckpt
 
 The counterpart of the JAX package's ``scripts/simulate.py``: parses a
 trace, builds the throughput oracle and epoch profiles, runs the
@@ -26,8 +33,14 @@ where the planner's device solves run (the level-set solve, and the
 PDHG and relaxed kernels); ``cuda`` without a card raises. The MILP and
 the Gavel policies solve on the host and leave the device unused. A
 ``plan_deadline_s`` in ``--config`` runs every solve down the
-degradation ladder. The telemetry, flight-recorder and watchdog flags raise
-``NotImplementedError``: they are not ported yet (ROADMAP.md).
+degradation ladder, and ``"hetero_pools": true`` there plans a mixed
+cluster as one pool a worker type. ``--speculate`` solves each next
+round ahead and reconciles it at the boundary (a churned boundary
+re-solves through kernel A), and ``--checkpoint_threshold N
+--checkpoint_file F`` saves the run to ``F`` once N jobs were admitted,
+or resumes from ``F`` where it exists. The telemetry, flight-recorder
+and watchdog flags raise ``NotImplementedError``: they are not ported
+yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -129,6 +142,9 @@ def main(argv=None) -> dict:
             # Cell-decomposed market: the fleet in N cells, stale cells
             # solved as one launch of kernel A (shockwave_tpu_torch/cells/).
             shockwave_config["cells"] = int(args.cells)
+        if args.speculate:
+            # Plan-ahead pipelining (policies/speculation.py).
+            shockwave_config["speculate"] = True
 
     preemption_overheads = None
     if args.preemption_overheads:
@@ -163,6 +179,8 @@ def main(argv=None) -> dict:
         jobs,
         num_gpus_per_server=num_gpus_per_server,
         jobs_to_complete=jobs_to_complete,
+        checkpoint_threshold=args.checkpoint_threshold,
+        checkpoint_file=args.checkpoint_file,
     )
     wall = time.time() - start
 
@@ -193,9 +211,14 @@ def main(argv=None) -> dict:
     milp_statuses: dict = {}
     for status in getattr(sched._shockwave, "milp_statuses", ()):
         milp_statuses[status] = milp_statuses.get(status, 0) + 1
+    spec_stats = getattr(sched._shockwave, "spec_stats", None)
+    exposed_s = sum(getattr(sched._shockwave, "exposed_plan_times", ()))
     if sched._shockwave is not None:
         print(f"Rounds: {sched._num_completed_rounds}; solves by backend: "
               f"{backends}; sim wall-clock: {wall:.1f} s")
+        if args.speculate:
+            print(f"Speculation: {spec_stats}; exposed planning "
+                  f"{exposed_s:.3f} s")
         if milp_statuses:
             print(f"MILP solves by HiGHS status (0 optimal within the gap, "
                   f"1 time limit): {milp_statuses}")
@@ -217,6 +240,8 @@ def main(argv=None) -> dict:
         "num_preemptions": sched.get_num_preemptions(),
         "rounds": sched._num_completed_rounds,
         "solves": backends,
+        "spec_stats": spec_stats if args.speculate else None,
+        "exposed_plan_s": exposed_s,
         "milp_statuses": milp_statuses,
         "allocations": sched.num_allocations,
         "allocation_s": sched.allocation_s,
@@ -256,6 +281,19 @@ def parse_args(argv=None):
         "--cells", type=int, default=0,
         help="partition the Shockwave fleet into N cells (cell-decomposed "
         "market; 0 or 1 = one global solve)",
+    )
+    parser.add_argument(
+        "--speculate", action="store_true",
+        help="plan-ahead pipelining: solve round r+1 while round r runs "
+        "and reconcile at the boundary (Shockwave policies)",
+    )
+    parser.add_argument(
+        "--checkpoint_threshold", type=int, default=None,
+        help="save a simulator checkpoint once this many jobs were admitted",
+    )
+    parser.add_argument(
+        "--checkpoint_file", type=str, default=None,
+        help="checkpoint path; the run resumes from it if it exists",
     )
     parser.add_argument("--output_pickle", type=str, default=None)
     parser.add_argument("--no_profile_cache", action="store_true")

@@ -209,12 +209,12 @@ def solve_eg_level(problem: EGProblem, device) -> np.ndarray:
     """End-to-end level-set solve on ``device``; returns a feasible
     boolean schedule Y ([J, R]). Counts the level solve makes are
     aggregate-budget feasible but not always packable per round under
-    gang widths; :func:`counts_to_schedule` then weighs the native greedy
+    gang widths; :func:`counts_to_schedule` then weighs the greedy
     against the placement."""
     with obs.backend_phases("level", problem.num_jobs) as bp:
         counts, _ = solve_level_counts(problem, device)
         bp.phase("device")
-        Y = counts_to_schedule(counts, problem)
+        Y = counts_to_schedule(counts, problem, device)
         bp.phase("host")
     return Y
 
@@ -244,14 +244,16 @@ def solve_level_counts(problem: EGProblem,
 
 
 def counts_to_schedule(
-    counts: np.ndarray, problem: EGProblem, polish: bool = True
+    counts: np.ndarray, problem: EGProblem, device, polish: bool = True
 ) -> np.ndarray:
     """Host tail of the level solve: exchange polish, per-round
     placement, and, where placement dropped grants (gang widths that do
-    not tile the cluster), the native greedy if it scores better. The
-    reference falls back to its jitted greedy without a C++ compiler;
-    that greedy is not ported (ROADMAP.md, queue 2 item 4), so here the
-    fallback needs the native one."""
+    not tile the cluster), the greedy if it scores better: the native
+    greedy where a C++ compiler builds it, else the PyTorch greedy
+    (:func:`shockwave_tpu_torch.solver.eg_greedy.solve_eg_greedy`) on
+    ``device``. Unlike the reference (eg_jax.py:651-664), a native greedy
+    that was built and then raises is an error, raised here, not a
+    reason to switch solvers."""
     if polish:
         counts = refine_counts(counts, problem)
     Y = order_schedule(
@@ -262,12 +264,12 @@ def counts_to_schedule(
         problem.future_rounds,
     )
     if np.any(Y.sum(axis=1) < counts):
-        if not native.available():
-            raise NotImplementedError(
-                "placement dropped grants and no C++ compiler builds the "
-                "native greedy; the jitted greedy fallback is not ported "
-                "(ROADMAP.md, queue 2 item 4)")
-        Y_alt = native.solve_eg_greedy_native(problem)
+        if native.available():
+            Y_alt = native.solve_eg_greedy_native(problem)
+        else:
+            from shockwave_tpu_torch.solver.eg_greedy import solve_eg_greedy
+
+            Y_alt = solve_eg_greedy(problem, device)
         if problem.objective_value(Y_alt) > problem.objective_value(Y):
             Y = Y_alt
     return Y

@@ -4,7 +4,9 @@ The counterpart of the JAX package's ``shockwave_tpu/solver/eg_pdhg.py``
 on one device: the plain PyTorch ``_pdhg_core`` (eg_pdhg.py:121-500 with
 ``axis_name=None``) and the entry points ``_default_s0`` (:633),
 ``_packed_args`` (:647), ``solve_pdhg_relaxed`` (:672),
-``polish_relaxed`` (:787) and ``solve_eg_pdhg`` (:850); the lanes of the
+``polish_relaxed`` (:787), ``solve_eg_pdhg_with_duals`` (:806, its
+report from :mod:`shockwave_tpu_torch.solver.duals`) and
+``solve_eg_pdhg`` (:850); the lanes of the
 cells market and the what-if fleet are packed here too
 (:func:`pack_problems`, :func:`overlay_lanes`, :func:`solve_lanes`). The
 method is the reference's; its docstring gives the saddle-point
@@ -29,7 +31,6 @@ round trip; its one host read per cycle is the while-loop's test.
 The sharded path (``solve_pdhg_relaxed_sharded``, one problem's job axis
 over several cards) is not ported: at the reference's dispatch scale
 with more than one card visible, :func:`solve_eg_pdhg` raises.
-``solve_eg_pdhg_with_duals`` waits with ``solver/duals.py`` (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -451,6 +452,18 @@ def polish_relaxed(
     return s2
 
 
+def _refuse_sharded_scale(problem: EGProblem, device) -> None:
+    """The reference shards a solve this large over several cards; that
+    solve is not ported, so the port raises rather than quietly solving
+    on one."""
+    if (problem.num_jobs >= sharded_min_jobs() and device.type == "cuda"
+            and torch.cuda.device_count() > 1):
+        raise NotImplementedError(
+            f"the sharded PDHG solve is not ported to shockwave_tpu_torch "
+            f"yet (ROADMAP.md, queue 2); at {problem.num_jobs} jobs with "
+            f"{torch.cuda.device_count()} cards the reference would shard")
+
+
 def solve_eg_pdhg(
     problem: EGProblem,
     s0: Optional[np.ndarray] = None,
@@ -468,12 +481,7 @@ def solve_eg_pdhg(
     from shockwave_tpu_torch.solver.rounding import round_counts
 
     device = torch.device(device)
-    if (problem.num_jobs >= sharded_min_jobs() and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"the sharded PDHG solve is not ported to shockwave_tpu_torch "
-            f"yet (ROADMAP.md, queue 2); at {problem.num_jobs} jobs with "
-            f"{torch.cuda.device_count()} cards the reference would shard")
+    _refuse_sharded_scale(problem, device)
     with obs.backend_phases("pdhg", problem.num_jobs) as bp:
         s, _, _ = solve_pdhg_relaxed(
             problem, s0=s0, max_cycles=max_cycles, inner_iters=inner_iters,
@@ -483,6 +491,44 @@ def solve_eg_pdhg(
         counts = round_counts(
             s, problem.nworkers, problem.num_gpus, problem.future_rounds
         )
-        Y = counts_to_schedule(counts, problem, polish=polish)
+        Y = counts_to_schedule(counts, problem, device, polish=polish)
         bp.phase("host")
     return Y
+
+
+def solve_eg_pdhg_with_duals(
+    problem: EGProblem,
+    s0: Optional[np.ndarray] = None,
+    polish: bool = True,
+    max_cycles: int = DEFAULT_MAX_CYCLES,
+    inner_iters: int = DEFAULT_INNER_ITERS,
+    tol: float = DEFAULT_TOL,
+    device="cuda",
+):
+    """The PDHG backend solve on ``device`` (one launch of kernel A on a
+    card) plus its :class:`~shockwave_tpu_torch.solver.duals.DualReport`,
+    taken at the relaxed iterate before integer rounding, where the
+    saddle's duals are exact; then the host tail of
+    :func:`solve_eg_pdhg`. Returns ``(Y, report)``. The report is the
+    host function ``dual_report(problem, s=s)`` of the kernel's ``s``, so
+    a bitwise repeatable kernel gives a bit-equal report (the JAX
+    package's eg_pdhg.py:806-846)."""
+    from shockwave_tpu_torch.solver.duals import dual_report
+    from shockwave_tpu_torch.solver.eg_level import counts_to_schedule
+    from shockwave_tpu_torch.solver.rounding import round_counts
+
+    device = torch.device(device)
+    _refuse_sharded_scale(problem, device)
+    with obs.backend_phases("pdhg", problem.num_jobs) as bp:
+        s, _, _ = solve_pdhg_relaxed(
+            problem, s0=s0, max_cycles=max_cycles, inner_iters=inner_iters,
+            tol=tol, device=device,
+        )
+        bp.phase("device")
+        report = dual_report(problem, s=s)
+        counts = round_counts(
+            s, problem.nworkers, problem.num_gpus, problem.future_rounds
+        )
+        Y = counts_to_schedule(counts, problem, device, polish=polish)
+        bp.phase("host")
+    return Y, report

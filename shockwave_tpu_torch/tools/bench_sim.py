@@ -51,6 +51,7 @@ runs of the rest of Gavel's library and of the MILP.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import statistics
@@ -237,6 +238,61 @@ SCIPY_PINS = {
         ("GOLDEN_LIBRARY", "shockwave"): dict(
         makespan=13456.412, avg_jct=5647.776, worst_ftf=2.029, rounds=113)},
 }
+TRACE_120 = TRACES / "generated_120_dynamic.trace"
+# The rest of the Shockwave planner: the JAX package's runs on the CPU
+# (tests/planner_reference.py, each driven as run_trace drives the
+# port's; none calls HiGHS, so they hold under any scipy). Checkpoints:
+# the 220-job trace on 64 v100s, 4 a server, under shockwave_tpu_pdhg,
+# unbroken, saving once 110 jobs were admitted, and resumed from that
+# file. Speculation: the same trace under shockwave_tpu --speculate, and
+# the golden trace under shockwave_tpu_pdhg --cells 2 --speculate, with
+# their hit / repair / miss counts. Pool sets: the JAX package's own A/B
+# (scripts/analysis/hetero_pools_ab.py:52-63, the 120-job trace on
+# v100:8 p100:4 k80:4 under shockwave_tpu) and the 220-job trace on
+# HETERO_CLUSTER under shockwave_tpu_pdhg, both with hetero_pools. The
+# greedy fallback: the golden trace under shockwave_tpu_level with the
+# native greedy unavailable, on 5 GPUs: on 8 the placement never drops a
+# grant, so the fallback is never reached; on 5 it runs 3 times.
+PLANNER = {
+    "checkpoint_unbroken": dict(makespan=23999.914, avg_jct=9403.489,
+                                worst_ftf=1.420, rounds=200),
+    "checkpoint_save": dict(makespan=23999.914, avg_jct=9403.489,
+                            worst_ftf=1.420, rounds=200),
+    "checkpoint_resume": dict(makespan=23999.914, avg_jct=9403.489,
+                              worst_ftf=1.420, rounds=200),
+    "speculate_220": dict(makespan=24437.287, avg_jct=9272.551,
+                          worst_ftf=1.401, rounds=205,
+                          spec_stats={"hit": 93, "repair": 0, "miss": 4}),
+    "speculate_golden_cells": dict(
+        makespan=10816.712, avg_jct=4949.683, worst_ftf=1.241, rounds=91,
+        spec_stats={"hit": 75, "repair": 1, "miss": 5}),
+    # The committed reading of the JAX package's A/B
+    # (results/hetero/shockwave_pools.json: 68484.917 / 38284.849 / 3.080
+    # in 571 rounds) is not what the JAX package gives now on the CPU;
+    # this is.
+    "pools_120": dict(makespan=68355.028, avg_jct=38896.749,
+                      worst_ftf=3.164, rounds=571),
+    "pools_220_pdhg": dict(makespan=63114.063, avg_jct=33396.615,
+                           worst_ftf=5.716, rounds=526),
+    "greedy_fallback_golden": dict(makespan=12976.735, avg_jct=7873.211,
+                                   worst_ftf=1.541, rounds=109),
+}
+# The pipelining smoke trace (data/generate.py::smoke_trace_jobs: 6 jobs,
+# 2 epochs; scripts/ci/pipelining_smoke.py's) on 4 v100s, 6 future
+# rounds, lambda 2, k 1e-3, under (policy, seconds between arrivals) with
+# --speculate: the JAX package's makespan and hit / repair / miss counts
+# on the CPU. With every job at t0 the serial run's makespan is the same.
+SPECULATE_SMOKE = {
+    ("shockwave_tpu", 0.0): dict(
+        makespan=328.040, spec_stats={"hit": 3, "repair": 0, "miss": 0}),
+    ("shockwave_tpu_pdhg", 0.0): dict(
+        makespan=328.040, spec_stats={"hit": 3, "repair": 0, "miss": 0}),
+    ("shockwave_tpu", 60.0): dict(
+        makespan=879.048, spec_stats={"hit": 4, "repair": 1, "miss": 3}),
+}
+POOLS_120_CLUSTER = {"v100": 8, "p100": 4, "k80": 4}
+CHECKPOINT_THRESHOLD = 110
+GREEDY_FALLBACK_GPUS = 5
 _GAVEL_PINS = {"GOLDEN_GAVEL": GOLDEN_GAVEL, "FIGURE9": FIGURE9,
                "HETERO": HETERO, "GOLDEN_LIBRARY": GOLDEN_LIBRARY,
                "GOLDEN_SLO": GOLDEN_SLO, "PACKED_220": PACKED_220}
@@ -270,7 +326,8 @@ def run_trace(trace, policy: str, num_gpus: int, device,
               config: dict = None, cluster: dict = None,
               gpus_per_server: int = None, round_s: float = ROUND_S,
               seed: int = 0, scale_factor: int = None,
-              slo: float = None) -> dict:
+              slo: float = None, checkpoint_threshold: int = None,
+              checkpoint_file: str = None, no_native: bool = False) -> dict:
     """Simulate ``trace`` on ``num_gpus`` v100s with 120 s rounds under
     ``policy`` with the planner's device solves on ``device``, as
     tests/test_golden.py drives the JAX package (``config`` adds planner
@@ -280,23 +337,32 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     ``round_s`` and ``seed`` set the round and the scheduler's and the
     policies' seed. ``scale_factor``, where given, keeps only the trace's
     jobs of that scale factor, and ``slo`` gives every job that SLO (its
-    deadline: ``slo`` x its isolated duration from its arrival). Returns the metrics (makespan, average JCT, worst FTF, unfair
+    deadline: ``slo`` x its isolated duration from its arrival).
+    ``checkpoint_threshold`` and ``checkpoint_file`` go to
+    ``Scheduler.simulate``, and ``no_native`` reports the native greedy
+    unavailable for the run, so the PyTorch greedy is the fallback.
+    Returns the metrics (makespan, average JCT, worst FTF, unfair
     fraction, utilization), the rounds, the policy's allocation calls and
     their seconds (Gavel policies), the solves by backend (with their
     summed wall seconds), the level solves by the device their tensors
     lay on, the launches of the PDHG and relaxed kernels, the planner's
     solve records, the MILP's solves by HiGHS status (``shockwave``: 0
     optimal within the gap, 1 stopped at the time limit) and the run's
-    wall time. ``capture``, where given,
+    wall time, the speculation's hit / repair / miss counts and exposed
+    planning seconds, the PyTorch greedy's solves by device and the
+    solves by pool and backend under a pool set. ``capture``, where given,
     receives every planning problem the planner solves, and ``plans``
     (round, schedule) of every solve. The kernels' launches come by
     instantiation too (``variants``)."""
+    from unittest import mock
+
+    from shockwave_tpu_torch import native
     from shockwave_tpu_torch.core.scheduler import Scheduler
     from shockwave_tpu_torch.data import load_or_synthesize_profiles
     from shockwave_tpu_torch.data.default_oracle import generate_oracle
     from shockwave_tpu_torch.ops import eg_pdhg, eg_relaxed
     from shockwave_tpu_torch.policies import get_policy
-    from shockwave_tpu_torch.solver import eg_level
+    from shockwave_tpu_torch.solver import eg_greedy, eg_level
 
     start = time.perf_counter()
     cluster = cluster or {"v100": num_gpus}
@@ -331,13 +397,18 @@ def run_trace(trace, policy: str, num_gpus: int, device,
 
         planner._solve = capturing
     eg_level.SOLVES.clear()
+    eg_greedy.SOLVES.clear()
     eg_pdhg.reset_launch_counts()
     eg_relaxed.reset_launch_counts()
     per_server = None
     if gpus_per_server is not None:
         per_server = {wt: gpus_per_server for wt in cluster}
-    makespan = sched.simulate(dict(cluster), arrivals, jobs,
-                              num_gpus_per_server=per_server)
+    with (mock.patch.object(native, "available", lambda: False)
+          if no_native else contextlib.nullcontext()):
+        makespan = sched.simulate(
+            dict(cluster), arrivals, jobs, num_gpus_per_server=per_server,
+            checkpoint_threshold=checkpoint_threshold,
+            checkpoint_file=checkpoint_file)
     device_solves = dict(eg_level.SOLVES)
     launches = {**eg_pdhg.LAUNCHES, **eg_relaxed.LAUNCHES}
     variants = {"eg_pdhg": dict(eg_pdhg.LAUNCHES_BY_VARIANT),
@@ -349,10 +420,14 @@ def run_trace(trace, policy: str, num_gpus: int, device,
         milp_statuses[status] = milp_statuses.get(status, 0) + 1
     backends: dict = {}
     solve_s: dict = {}
+    by_pool: dict = {}
     for record in records:
         name = record["backend"]
         backends[name] = backends.get(name, 0) + 1
         solve_s[name] = solve_s.get(name, 0.0) + record["seconds"]
+        if "pool" in record:
+            key = f"{record['pool']}:{name}"
+            by_pool[key] = by_pool.get(key, 0) + 1
     return dict(policy=policy, makespan=makespan,
                 avg_jct=sched.get_average_jct(), worst_ftf=max(ftf),
                 unfair_fraction=unfair,
@@ -363,7 +438,11 @@ def run_trace(trace, policy: str, num_gpus: int, device,
                 allocation_s=sched.allocation_s, solves=backends,
                 solve_s=solve_s, device_solves=device_solves,
                 launches=launches, variants=variants, records=list(records),
-                milp_statuses=milp_statuses,
+                milp_statuses=milp_statuses, solves_by_pool=by_pool,
+                greedy_solves=dict(eg_greedy.SOLVES),
+                spec_stats=getattr(sched._shockwave, "spec_stats", None),
+                exposed_plan_s=sum(getattr(sched._shockwave,
+                                           "exposed_plan_times", ())),
                 wall_s=time.perf_counter() - start)
 
 
@@ -407,11 +486,204 @@ def library_runs() -> list:
     return runs
 
 
+def greedy_test_problem(seed: int, J: int = 8, R: int = 5,
+                        num_gpus: int = 4, switch_cost: bool = False):
+    """The seeded problems the JAX package holds its greedies to: a copy
+    of tests/test_shockwave_solver.py::random_problem on
+    ``np.random.default_rng(seed)``, and with ``switch_cost`` of
+    ``TestSwitchingCost.switchy_problem`` (incumbents with relaunch
+    costs), as the port's EGProblem."""
+    from shockwave_tpu_torch.solver.eg_problem import EGProblem
+
+    rng = np.random.default_rng(seed)
+    total = rng.integers(2, 10, J).astype(float)
+    completed = np.floor(total * rng.uniform(0, 0.9, J))
+    epoch_dur = rng.uniform(30, 300, J)
+    remaining = (total - completed) * epoch_dur * rng.uniform(0.8, 1.2, J)
+    priorities = rng.uniform(0.5, 4.0, J)
+    nworkers = rng.integers(1, 3, J).astype(float)
+    fields = dict(
+        priorities=priorities, completed_epochs=completed,
+        total_epochs=total, epoch_duration=epoch_dur,
+        remaining_runtime=remaining, nworkers=nworkers, num_gpus=num_gpus,
+        round_duration=100.0, future_rounds=R, regularizer=1e-4,
+        log_bases=LOG_BASES)
+    if switch_cost:
+        incumbent = (rng.random(J) < 0.5).astype(np.float64)
+        if not incumbent.any():
+            incumbent[int(rng.integers(J))] = 1.0
+        fields.update(switch_cost=rng.uniform(200.0, 3000.0, J) * incumbent,
+                      incumbent=incumbent)
+    return EGProblem(**fields)
+
+
+def greedy_problems() -> list:
+    """(name, problem) of the greedy's checks: tests/test_native_solver.py's
+    (J=8, R=5, 4 GPUs, seeds 0-5; the switch-cost ones, seeds 0-3) and its
+    large instance (J=200, R=20, 64 GPUs)."""
+    problems = [(f"native seed {seed}", greedy_test_problem(seed))
+                for seed in range(6)]
+    problems += [(f"switch-cost seed {seed}",
+                  greedy_test_problem(seed, switch_cost=True))
+                 for seed in range(4)]
+    problems.append(("J=200 R=20 64 GPUs",
+                     greedy_test_problem(0, J=200, R=20, num_gpus=64)))
+    return problems
+
+
+# The JAX package's bar between its greedy's objective and the native
+# greedy's (tests/test_native_solver.py:25-28), at 2% of the objective.
+GREEDY_OBJECTIVE_GAP = 0.02
+
+
+def check_greedy(problems, device) -> tuple:
+    """The PyTorch greedy on ``device`` against the port's CPU greedy (held
+    to the JAX package's by the tests) on each (name, problem): the
+    schedules equal (else the count of differing cells, and the
+    objectives within 1e-5 relative), the schedule feasible, the native
+    greedy's objective at least the greedy's less GREEDY_OBJECTIVE_GAP
+    (the JAX package's bar) and the greedy's at least the native's less
+    the same. Above 4096 grants the greedy grants 16 cells a step on
+    stale marginals (the reference's ``grant_batch_for``), and on some
+    2048-tier windows its plan falls further below the native one (the
+    JAX package's on the same windows too); there the single-grant
+    greedy, the native greedy's twin, must meet the bar instead. Each
+    solve's seconds beside the native greedy's. Returns (failures,
+    rows)."""
+    from shockwave_tpu_torch import native
+    from shockwave_tpu_torch.solver.eg_greedy import (grant_batch_for,
+                                                      num_grants_for,
+                                                      solve_eg_greedy)
+    from shockwave_tpu_torch.solver.eg_level import num_slots_for
+
+    def gap(obj):
+        return GREEDY_OBJECTIVE_GAP * max(1.0, abs(obj))
+
+    bad, rows = [], []
+    if problems:
+        solve_eg_greedy(problems[0][1], device)  # warm-up
+    for name, problem in problems:
+        start = time.perf_counter()
+        Y = solve_eg_greedy(problem, device)
+        card_s = time.perf_counter() - start
+        Y_cpu = solve_eg_greedy(problem, "cpu")
+        start = time.perf_counter()
+        Y_native = native.solve_eg_greedy_native(problem)
+        native_s = time.perf_counter() - start
+        obj = problem.objective_value(Y)
+        obj_cpu = problem.objective_value(Y_cpu)
+        obj_native = problem.objective_value(Y_native)
+        differ = int(np.sum(Y != Y_cpu))
+        batch = grant_batch_for(num_grants_for(
+            problem, num_slots_for(problem.num_jobs)))
+        row = dict(problem=name, jobs=problem.num_jobs,
+                   grants=int(problem.num_gpus) * problem.future_rounds,
+                   grant_batch=batch, differ=differ, objective=obj,
+                   objective_cpu=obj_cpu, objective_native=obj_native,
+                   greedy_s=card_s, native_s=native_s)
+        rows.append(row)
+        if differ and abs(obj - obj_cpu) > 1e-5 * max(1.0, abs(obj_cpu)):
+            bad.append(f"{name}: {differ} cells differ from the CPU's, "
+                       f"objective {obj} vs {obj_cpu}")
+        if np.any(problem.nworkers @ Y > problem.num_gpus + 1e-9):
+            bad.append(f"{name}: a round over capacity")
+        if obj_native < obj - gap(obj):
+            bad.append(f"{name}: the native greedy's objective {obj_native} "
+                       f"below the greedy's {obj} by more than 2%")
+        if obj >= obj_native - gap(obj_native):
+            continue
+        if batch == 1:
+            bad.append(f"{name}: objective {obj} below the native greedy's "
+                       f"{obj_native} by more than 2%")
+            continue
+        Y_single = solve_eg_greedy(problem, device, grant_batch=1)
+        row["objective_single_grant"] = obj_single = (
+            problem.objective_value(Y_single))
+        if obj_single < obj_native - gap(obj_native):
+            bad.append(f"{name}: the single-grant greedy's objective "
+                       f"{obj_single} below the native greedy's "
+                       f"{obj_native} by more than 2%")
+    return bad, rows
+
+
+def run_smoke_trace(policy: str, speculate: bool, arrival_gap: float,
+                    device) -> dict:
+    """The pipelining smoke trace as ``SPECULATE_SMOKE`` pins it, the
+    planner's device solves on ``device``: the metrics, each round's
+    assignment (job -> workers), the reconcile counts, the exposed
+    planning seconds and the solve records."""
+    from shockwave_tpu_torch.core.scheduler import Scheduler
+    from shockwave_tpu_torch.data.default_oracle import generate_oracle
+    from shockwave_tpu_torch.data.generate import smoke_trace_jobs
+    from shockwave_tpu_torch.data.profiles import synthesize_profiles
+    from shockwave_tpu_torch.policies import get_policy
+
+    jobs, arrivals = smoke_trace_jobs(6, 2, arrival_gap)
+    oracle = generate_oracle()
+    sched = Scheduler(
+        get_policy(policy, device=device), throughputs=oracle, seed=0,
+        time_per_iteration=ROUND_S,
+        profiles=synthesize_profiles(jobs, oracle),
+        shockwave_config={"num_gpus": 4, "time_per_iteration": ROUND_S,
+                          "future_rounds": 6, "lambda": 2.0, "k": 1e-3,
+                          "speculate": speculate})
+    rounds = []
+    dispatch = sched._schedule_jobs_on_workers
+
+    def logged():
+        assignments = dispatch()
+        rounds.append({str(j): list(w) for j, w in assignments.items()})
+        return assignments
+
+    sched._schedule_jobs_on_workers = logged
+    makespan = sched.simulate({"v100": 4}, arrivals, jobs)
+    planner = sched._shockwave
+    return dict(makespan=makespan, rounds=rounds,
+                spec_stats=dict(planner.spec_stats),
+                exposed_plan_s=sum(planner.exposed_plan_times),
+                records=list(planner.solve_records))
+
+
+def planner_runs() -> list:
+    """(key of ``PLANNER``, run arguments, keyword arguments) of every
+    pinned planner cell, in the order they must run (a resume reads the
+    file the save wrote; ``checkpoint_file`` is a name to put in a
+    directory of the caller's); ``run_trace`` and
+    tests/planner_reference.py's ``ref_run`` take both."""
+    ckpt = (TRACE_220, "shockwave_tpu_pdhg", 64)
+    return [
+        ("checkpoint_unbroken", ckpt, {"gpus_per_server": 4}),
+        ("checkpoint_save", ckpt, {
+            "gpus_per_server": 4,
+            "checkpoint_threshold": CHECKPOINT_THRESHOLD,
+            "checkpoint_file": "pdhg_220.ckpt"}),
+        ("checkpoint_resume", ckpt, {
+            "gpus_per_server": 4, "checkpoint_file": "pdhg_220.ckpt"}),
+        ("speculate_220", (TRACE_220, "shockwave_tpu", 64), {
+            "gpus_per_server": 4, "config": {"speculate": True}}),
+        ("speculate_golden_cells", (GOLDEN_TRACE, "shockwave_tpu_pdhg", 8),
+         {"config": {"cells": 2, "speculate": True}}),
+        ("pools_120", (TRACE_120, "shockwave_tpu",
+                       sum(POOLS_120_CLUSTER.values())), {
+            "cluster": POOLS_120_CLUSTER,
+            "config": {"hetero_pools": True}}),
+        ("pools_220_pdhg", (TRACE_220, "shockwave_tpu_pdhg",
+                            sum(HETERO_CLUSTER.values())), {
+            "cluster": HETERO_CLUSTER, "gpus_per_server": 4,
+            "config": {"hetero_pools": True}}),
+        ("greedy_fallback_golden",
+         (GOLDEN_TRACE, "shockwave_tpu_level", GREEDY_FALLBACK_GPUS),
+         {"no_native": True}),
+    ]
+
+
 def check_run(result: dict, expected: dict) -> list:
     """The metrics (and rounds, where given) that miss ``expected`` by more
-    than ``TOLERANCE``."""
+    than ``TOLERANCE``, and the counts (a dict, e.g. ``spec_stats``) that
+    differ from it."""
     return [f"{k} {result[k]} vs {v}" for k, v in expected.items()
-            if abs(result[k] - v) > TOLERANCE]
+            if (result[k] != v if isinstance(v, dict)
+                else abs(result[k] - v) > TOLERANCE)]
 
 
 def seeded_problem(num_jobs: int, seed: int = 0, num_gpus: int = 256,
@@ -652,7 +924,7 @@ def time_solves(problem, device) -> dict:
     counts, _ = solve_level_counts(problem, device)
 
     def tail():
-        Y = counts_to_schedule(counts, problem)
+        Y = counts_to_schedule(counts, problem, device)
         return reorder_rounds(Y, problem.priorities, problem.nworkers,
                               problem.num_gpus)
 

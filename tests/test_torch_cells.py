@@ -312,8 +312,9 @@ def test_mismatched_planning_configs_and_mesh_raise():
         batched.solve_cells_pdhg(cells, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         CellPlanner({**CONFIG, "cell_mesh": True}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CellPlanner({**CONFIG, "speculate": True}, device="cpu")
+    # Speculation is ported (tests/test_torch_speculation.py).
+    planner = CellPlanner({**CONFIG, "speculate": True}, device="cpu")
+    assert planner.spec_stats == {"hit": 0, "repair": 0, "miss": 0}
 
 
 def test_cells_vs_global_objective_gap_and_capacity():
@@ -328,7 +329,7 @@ def test_cells_vs_global_objective_gap_and_capacity():
     s_list, _, _ = batched.solve_cells_pdhg(cells, device="cpu")
     merged = np.zeros_like(Y_global)
     for cell, idx, s in zip(cells, indices, s_list):
-        merged[idx] = batched.schedule_cell(cell, s)
+        merged[idx] = batched.schedule_cell(cell, s, "cpu")
     g.audit_schedule(merged)
     obj_g, obj_m = g.objective_value(Y_global), g.objective_value(merged)
     assert (obj_g - obj_m) / abs(obj_g) <= 1e-3, (obj_g, obj_m)

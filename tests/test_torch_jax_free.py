@@ -118,10 +118,19 @@ GAVEL_CLI = {
 }
 
 
-def _run_blocked(module: str, *args: str) -> str:
+# _MODULE_SCRIPT with the native greedy reported unavailable, as on a
+# host with no C++ compiler.
+_NO_NATIVE_SCRIPT = _MODULE_SCRIPT.replace(
+    "module, sys.argv =",
+    "from shockwave_tpu_torch import native\n"
+    "native.available = lambda: False\n"
+    "module, sys.argv =")
+
+
+def _run_blocked(module: str, *args: str, script: str = _MODULE_SCRIPT) -> str:
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
     proc = subprocess.run(
-        [sys.executable, "-c", _MODULE_SCRIPT, module, *args], cwd=ROOT,
+        [sys.executable, "-c", script, module, *args], cwd=ROOT,
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-4000:]
@@ -219,6 +228,78 @@ def test_whatif_sweep_runs_with_jax_blocked(tmp_path):
     assert report.exists()
 
 
+def _golden_args(policy: str, gpus: int = 8) -> list:
+    return ["-t", "traces/small_12_dynamic.trace", "-p", policy, "-c",
+            f"v100={gpus}", "--time_per_iteration", "120", "--device", "cpu",
+            "--no_profile_cache"]
+
+
+def _assert_metrics(out: str, expected: dict) -> None:
+    assert f"Makespan: {expected['makespan']:.3f} s" in out
+    assert f"Average JCT: {expected['avg_jct']:.3f} s" in out
+    assert f"Worst FTF: {expected['worst_ftf']:.3f}" in out
+    assert f"Rounds: {expected['rounds']}; solves by backend: " in out
+
+
+def test_speculate_cli_runs_with_jax_blocked():
+    """``simulate --speculate`` (the two-cell market under pdhg on the
+    golden trace) with JAX and the JAX package unimportable: the JAX
+    package's metrics and hit / repair / miss counts
+    (``bench_sim.PLANNER``), no module of either loaded."""
+    out = _run_blocked("shockwave_tpu_torch.simulate",
+                       *_golden_args("shockwave_tpu_pdhg"), "--cells", "2",
+                       "--speculate")
+    expected = bench_sim.PLANNER["speculate_golden_cells"]
+    _assert_metrics(out, expected)
+    assert f"Speculation: {expected['spec_stats']}; exposed planning " in out
+
+
+def test_checkpoint_cli_saves_then_resumes_with_jax_blocked(tmp_path):
+    """``simulate --checkpoint_threshold 6 --checkpoint_file F`` saves and
+    runs on; the same command with only ``--checkpoint_file F`` resumes
+    from F; both print the golden metrics in its rounds, with JAX and the
+    JAX package unimportable."""
+    ckpt = tmp_path / "golden.ckpt"
+    saving = _run_blocked("shockwave_tpu_torch.simulate",
+                          *_golden_args("shockwave_tpu_level"),
+                          "--checkpoint_threshold", "6",
+                          "--checkpoint_file", str(ckpt))
+    assert ckpt.exists()
+    resumed = _run_blocked("shockwave_tpu_torch.simulate",
+                           *_golden_args("shockwave_tpu_level"),
+                           "--checkpoint_file", str(ckpt))
+    expected = dict(bench_sim.GOLDEN["shockwave_tpu_level"], rounds=113)
+    for out in (saving, resumed):
+        _assert_metrics(out, expected)
+
+
+def test_hetero_pools_cli_runs_with_jax_blocked(tmp_path):
+    """``"hetero_pools": true`` in ``--config`` on the JAX package's A/B
+    (the 120-job trace on v100:8 p100:4 k80:4) with JAX and the JAX
+    package unimportable: the JAX package's run
+    (``bench_sim.PLANNER["pools_120"]``)."""
+    config = tmp_path / "pools.json"
+    config.write_text('{"hetero_pools": true}')
+    out = _run_blocked("shockwave_tpu_torch.simulate", "-t",
+                       "traces/generated_120_dynamic.trace", "-p",
+                       "shockwave_tpu", "-c", "v100=8,p100=4,k80=4",
+                       "--time_per_iteration", "120", "--config",
+                       str(config), "--device", "cpu", "--no_profile_cache")
+    _assert_metrics(out, bench_sim.PLANNER["pools_120"])
+
+
+def test_greedy_fallback_cli_runs_with_jax_blocked():
+    """The level backend on the golden trace on 5 GPUs, where placement
+    drops grants, with the native greedy unavailable, so the PyTorch
+    greedy is the fallback, and JAX and the JAX package unimportable: the
+    JAX package's run under the same patch."""
+    out = _run_blocked("shockwave_tpu_torch.simulate",
+                       *_golden_args("shockwave_tpu_level",
+                                     bench_sim.GREEDY_FALLBACK_GPUS),
+                       script=_NO_NATIVE_SCRIPT)
+    _assert_metrics(out, bench_sim.PLANNER["greedy_fallback_golden"])
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in FORBIDDEN
@@ -288,7 +369,9 @@ def test_port_sources_import_no_jax():
                    "tools/whatif.py", "solver/eg_milp.py",
                    "policies/gandiva.py", "policies/allox.py",
                    "policies/strategy_proof.py",
-                   "policies/max_min_fairness_packed.py"):
+                   "policies/max_min_fairness_packed.py",
+                   "policies/speculation.py", "solver/eg_greedy.py",
+                   "solver/duals.py", "data/generate.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

@@ -177,12 +177,13 @@ def test_policies_not_ported_raise(name):
         get_policy(name, device="cpu")
 
 
+# Speculation and hetero_pools are ported (tests/test_torch_speculation.py,
+# tests/test_torch_hetero.py).
 @pytest.mark.parametrize("config, kwargs", [
-    ({"speculate": True}, {}),
-    ({"hetero_pools": True}, {}),
     ({"cells": 4, "cell_mesh": True}, {}),
     ({}, {"simulate": False}),
     ({}, {"profiling_percentage": 0.5}),
+    ({}, {"num_reference_models": 4}),
 ])
 def test_options_not_ported_raise(config, kwargs):
     shockwave_config = {"num_gpus": 8, "time_per_iteration": 120, **config}

@@ -106,7 +106,7 @@ def test_host_helpers_are_bit_identical(band):
             rounding.reorder_rounds(Y.copy(), *args),
             ref_rounding.reorder_rounds(Y.copy(), *args))
         np.testing.assert_array_equal(
-            eg_level.counts_to_schedule(counts, port),
+            eg_level.counts_to_schedule(counts, port, "cpu"),
             eg_jax.counts_to_schedule(counts, problem))
         if i < 2 and ref_native.available():
             np.testing.assert_array_equal(
@@ -145,19 +145,37 @@ def test_solves_are_counted_by_device():
 
 
 def test_unpackable_counts_without_a_compiler_raise(monkeypatch):
-    """Placement that drops grants falls back to the native greedy; with
-    no compiler to build it the port raises instead of returning the
-    short schedule."""
-    problem = PortEGProblem(
+    """Placement that drops grants falls back to the greedy. With no
+    compiler to build the native one, the port takes its PyTorch greedy
+    and returns the JAX package's schedule (which takes its jitted greedy
+    there); a native greedy that was built and raises is raised, not
+    swapped for the PyTorch one."""
+    from shockwave_tpu.solver.eg_problem import EGProblem as RefEGProblem
+
+    fields = dict(
         priorities=np.ones(2), completed_epochs=np.zeros(2),
         total_epochs=np.full(2, 10.0), epoch_duration=np.full(2, 100.0),
         remaining_runtime=np.full(2, 1000.0), nworkers=np.full(2, 2.0),
         num_gpus=3, round_duration=100.0, future_rounds=2,
         regularizer=1e-3, log_bases=bench_sim.LOG_BASES)
+    problem, ref = PortEGProblem(**fields), RefEGProblem(**fields)
     counts = np.array([2, 1])
     monkeypatch.setattr(native, "available", lambda: False)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        eg_level.counts_to_schedule(counts, problem, polish=False)
+    monkeypatch.setattr(ref_native, "available", lambda: False)
+    Y = eg_level.counts_to_schedule(counts, problem, "cpu", polish=False)
+    np.testing.assert_array_equal(
+        Y, eg_jax.counts_to_schedule(counts, ref, polish=False))
+    # The greedy's plan: one round each, feasible in both rounds.
+    assert Y.sum(axis=1).tolist() == [1, 1]
+    assert np.all(problem.nworkers @ Y <= problem.num_gpus)
+
+    def broken(problem):
+        raise RuntimeError("a built native greedy that fails")
+
+    monkeypatch.setattr(native, "available", lambda: True)
+    monkeypatch.setattr(native, "solve_eg_greedy_native", broken)
+    with pytest.raises(RuntimeError, match="built native greedy"):
+        eg_level.counts_to_schedule(counts, problem, "cpu", polish=False)
 
 
 @pytest.mark.parametrize("name", ["solve_eg_level", "solve_level_counts",
