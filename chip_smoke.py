@@ -224,6 +224,38 @@
    ``{"planner": ...}``; the ``eg_pdhg`` row of item 10's line carries
    the phase's launches of kernel A (``planner_launches``).
 
+15. After item 14, drives the simulator's remaining features
+   (``run_sim_features``; the pins are ``bench_sim.SIM_FEATURES``,
+   ``SIM_FEATURE_COUNTS``, ``SIM_FEATURE_DIGESTS`` and ``PRICING``, from
+   tests/sim_features_reference.py): (a) ``python -m
+   shockwave_tpu_torch.simulate -t traces/generated_220_dynamic.trace -c
+   v100=64 --num_gpus_per_server v100=4 --time_per_iteration 120
+   --fault-plan P --round_log L`` under ``shockwave_tpu_pdhg`` (kernel A)
+   and ``max_min_fairness``, ``P`` the seeded churn plan
+   ``bench_sim.CHURN_PLAN`` (200 events: worker crashes, reclaims and
+   re-adds, two solver faults, two scheduler kills), each held to the
+   JAX package's run of the same plan: metrics within 1e-3 in its rounds,
+   the injector's summary, the survivors' worker ids, the unfinished and
+   dropped jobs, every recovery record, every scheduler kill a bit-exact
+   round trip through the HA codec's JSON, and the round log equal record
+   for record (exact under max-min, 1e-3 under pdhg), with kernel A's
+   launches; (b) online estimation, masked ALS on the card: the six
+   cells of the JAX package's estimator sweep (the golden trace on 8
+   v100s under ``max_min_fairness_packed``) and the 220-job trace on 64
+   v100s through ``simulate --profiling_percentage 0.5
+   --num_reference_models 8``, each held to its pin with its
+   reference-job matches, and the ALS's ms a call; (c) pricing: ``python
+   -m shockwave_tpu_torch.tools.whatif price`` on round 91 of the
+   committed decision log (tests/test_whatif.py's burst) and on item 12's
+   ``--cells 4`` tier state (round 253, 1053 jobs) with a burst of 8,
+   and a ``price_batch`` of 16 bursts on that state as one launch, each
+   decision the JAX package's, every lane equal to its one-lane launch,
+   each burst's one-burst batch equal to its ``price`` in every bit and
+   the batch's verdicts the sequential ones, with ``solve_s``. It prints
+   one JSON line ``{"sim_features": ...}``; the ``eg_pdhg`` row of item
+   10's line carries the phase's launches of kernel A
+   (``sim_features_launches``).
+
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
 """
@@ -1717,6 +1749,301 @@ def run_planner(device, card: str, windows) -> dict:
     return readings
 
 
+SIM_OUT = ROOT / "_smoke_out" / "sim_features"
+JAX_SIM_REFERENCE = ROOT / "results" / "sim_features" / "jax_reference.json.gz"
+
+
+def run_sim_features(device, card: str) -> dict:
+    """Phase 15 (docstring, item 15): the simulator's remaining features
+    on the card. Every check runs, and the phase fails at its end on any
+    run, count, digest, round log or decision past its pin, an inexact
+    HA round trip, or a price_batch lane that differs from its one-lane
+    launch or its single-burst price."""
+    import gzip
+
+    from shockwave_tpu_torch import simulate
+    from shockwave_tpu_torch.core import throughput_estimator as te
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.core.scheduler import Scheduler
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.ops import matrix_completion as mc
+    from shockwave_tpu_torch.runtime import faults
+    from shockwave_tpu_torch.tools import bench_sim as sim
+    from shockwave_tpu_torch.tools import whatif as wcli
+    from shockwave_tpu_torch.whatif import AdmissionPricer
+
+    tag = f"[{card}]"
+    kind = torch.cuda.get_device_name(0)
+    bad, readings, launches = [], {}, {}
+    SIM_OUT.mkdir(parents=True, exist_ok=True)
+    with gzip.open(JAX_SIM_REFERENCE, "rt") as f:
+        jax_runs = json.load(f)["runs"]
+    runs = {key: (args, kwargs) for key, args, kwargs in
+            sim.sim_feature_runs()}
+    print(f"simulator features phase {tag}:", flush=True)
+
+    # The scheduler each CLI run builds, for its features.
+    built = {}
+    real_simulate = Scheduler.simulate
+
+    def capturing(self, *args, **kwargs):
+        built["sched"] = self
+        return real_simulate(self, *args, **kwargs)
+
+    def cli_run(argv, key):
+        Scheduler.simulate = capturing
+        try:
+            result = simulate.main([*argv, "--device", str(device)])
+        finally:
+            Scheduler.simulate = real_simulate
+            injector = faults.active()
+            faults.reset()
+        r = {**result, **sim.sim_features(built.pop("sched"), injector)}
+        misses = sim.check_features(r, key, kind)
+        if misses:
+            bad.append(f"{key}: " + ", ".join(misses))
+        return r
+
+    # (a) Churn: the 220-job trace on 64 v100s under a seeded churn plan,
+    # through the simulate CLI with --fault-plan and --round_log.
+    seconds = {}
+    part_started = time.time()
+    plan_path = SIM_OUT / "churn_plan.json"
+    plan = sim.churn_plan(faults)
+    plan_path.write_text(plan.to_json())
+    churn = {}
+    for policy in sim.CHURN_POLICIES:
+        key = f"churn_{policy}"
+        log_path = SIM_OUT / f"{key}.jsonl"
+        kernel.reset_launch_counts()
+        r = cli_run(["-t", str(sim.TRACE_220), "-p", policy, "-c", "v100=64",
+                     "--num_gpus_per_server", "v100=4",
+                     "--time_per_iteration", "120", "--fault-plan",
+                     str(plan_path), "--round_log", str(log_path),
+                     "--no_profile_cache"], key)
+        launches[key] = kernel.LAUNCHES["eg_pdhg"]
+        written = [json.loads(line) for line in
+                   log_path.read_text().splitlines()]
+        tol = sim.TOLERANCE if policy.startswith("shockwave") else 0.0
+        log_misses = sim.round_log_misses(written, jax_runs[key]["round_log"],
+                                          tol)
+        if written != r["round_log"] or log_misses:
+            bad.append(f"{key}: the round log against the JAX package's: "
+                       f"{log_misses[:3]}")
+        kills = [v for v in r["recoveries"].values()
+                 if v["how"].startswith("journal")]
+        if len(kills) != sum(e.kind in faults.SCHEDULER_KINDS
+                             for e in plan.events) or not all(
+                                 v["roundtrip_exact"] for v in kills):
+            bad.append(f"{key}: scheduler kills {kills}")
+        if sim.recoveries_without_hashes(r["recoveries"]) != (
+                sim.recoveries_without_hashes(
+                    {int(k): v for k, v in
+                     jax_runs[key]["recoveries"].items()})):
+            bad.append(f"{key}: recovery records differ from the JAX "
+                       "package's")
+        churn[key] = {k: r[k] for k in (
+            "makespan", "avg_jct", "worst_ftf", "rounds", "faults",
+            "lost_jobs", "dropped_jobs", "solves", "wall_s")}
+        churn[key].update(kernel_launches=launches[key],
+                          round_log_records=len(written),
+                          kills_exact=[v["roundtrip_exact"] for v in kills])
+        print(f"  {key}: {pin_line(r)}; faults {r['faults']['applied']} "
+              f"applied, {r['faults']['recovered']} recovered, "
+              f"unrecovered {r['faults']['unrecovered']}; {len(kills)} "
+              f"scheduler kills, exact {churn[key]['kills_exact']}; "
+              f"unfinished {r['lost_jobs']}, dropped {r['dropped_jobs']}; "
+              f"{len(written)} round-log records; kernel A launched "
+              f"{launches[key]} times; {r['wall_s']:.2f} s {tag}",
+              flush=True)
+    if not launches["churn_shockwave_tpu_pdhg"]:
+        bad.append("the pdhg churn run launched kernel A no time")
+    readings["churn"] = churn
+    seconds["churn"] = time.time() - part_started
+    part_started = time.time()
+
+    # (b) Estimation, masked ALS on the card: the six sweep cells, then
+    # the 220-job trace through the CLI.
+    als = []
+    real_als = mc.masked_als
+
+    def timed_als(*args, **kwargs):
+        sync()
+        start = time.perf_counter()
+        out = real_als(*args, **kwargs)
+        sync()
+        als.append(time.perf_counter() - start)
+        return out
+
+    # Each completion on the card is also made on the host from the same
+    # start: where the two pick other reference types, the card's
+    # distances to both must be a near-tie.
+    flips = []
+    real_complete = te.complete
+
+    def both_completions(X, mask, *args, **kwargs):
+        card_m = real_complete(X, mask, *args, **kwargs)
+        host_m = real_complete(X, mask, *args, **{**kwargs, "device": "cpu"})
+        dist = [[te.cosine_distance(m[i], m[-1]) for i in range(len(m) - 1)]
+                for m in (card_m, host_m)]
+        pick = [int(np.argmin(d)) for d in dist]
+        if pick[0] != pick[1]:
+            flips.append(abs(dist[0][pick[0]] - dist[0][pick[1]]))
+        return card_m
+
+    mc.masked_als = timed_als
+    te.complete = both_completions
+    estimate = {}
+    try:
+        for key, (args, kwargs) in runs.items():
+            if not key.startswith("estimate_p"):
+                continue
+            r = sim.run_trace(*args, device, **kwargs)
+            misses = sim.check_features(r, key, kind)
+            if misses:
+                bad.append(f"{key}: " + ", ".join(misses))
+            estimate[key] = {k: r[k] for k in ("makespan", "avg_jct",
+                                               "worst_ftf", "rounds")}
+            print(f"  {key}: {pin_line(r)}; matches digest "
+                  f"{sim.digest(r['matches'])} (pin "
+                  f"{sim.SIM_FEATURE_DIGESTS[key]['matches']}); "
+                  f"{r['wall_s']:.2f} s {tag}", flush=True)
+        args, kwargs = runs["estimate_220"]
+        r = cli_run(["-t", str(sim.TRACE_220), "-p", args[1], "-c",
+                     "v100=64", "--num_gpus_per_server", "v100=4",
+                     "--time_per_iteration", "120",
+                     "--profiling_percentage",
+                     str(kwargs["profiling_percentage"]),
+                     "--num_reference_models",
+                     str(kwargs["num_reference_models"]),
+                     "--no_profile_cache"], "estimate_220")
+        estimate["estimate_220"] = {k: r[k] for k in (
+            "makespan", "avg_jct", "worst_ftf", "rounds", "wall_s")}
+        print(f"  estimate_220 (simulate --profiling_percentage 0.5 "
+              f"--num_reference_models 8): {pin_line(r)}; "
+              f"{len(r['matches'])} matches, digest "
+              f"{sim.digest(r['matches'])}; {r['wall_s']:.2f} s {tag}",
+              flush=True)
+    finally:
+        mc.masked_als = real_als
+        te.complete = real_complete
+    if any(gap >= sim.NEAR_TIE for gap in flips):
+        bad.append(f"card and host completions pick other reference types "
+                   f"at distance gaps {flips}, beyond {sim.NEAR_TIE}")
+    als = als[::2]  # the card's calls; every other one is the host's
+    als_ms = sorted(1e3 * t for t in als)
+    readings["estimation"] = dict(runs=estimate, als_calls=len(als),
+                                  als_ms_median=als_ms[len(als_ms) // 2],
+                                  als_ms_max=als_ms[-1])
+    readings["estimation"]["near_tie_flips"] = flips
+    print(f"  masked ALS on the card: {len(als)} calls, "
+          f"{als_ms[len(als_ms) // 2]:.3f} ms a call (median; max "
+          f"{als_ms[-1]:.3f} ms); {len(flips)} matches differ from the "
+          f"host's completion, every one a near-tie (distance gaps "
+          f"{[f'{g:.2e}' for g in flips]}) {tag}", flush=True)
+
+    seconds["estimation"] = time.time() - part_started
+    part_started = time.time()
+
+    # (c) Pricing, kernel A as a lane grid.
+    kernel.reset_launch_counts()
+    price_out = SIM_OUT / "price_log.json"
+    b = sim.PRICING_LOG_BURST
+    if wcli.main(["price", "--log", str(FLIGHT_LOG), "--round",
+                  str(sim.PRICING_LOG_ROUND), "--burst-jobs", str(b["jobs"]),
+                  "--burst-scale", str(b["scale"]), "--burst-duration",
+                  str(b["duration"]), "--out", str(price_out),
+                  "--device", str(device)]) != 0:
+        bad.append("whatif price on the committed log exited nonzero")
+    log_decision = json.loads(price_out.read_text())["priced_decision"]
+    misses = sim.decision_misses(log_decision, sim.PRICING["log"])
+    if misses:
+        bad.append("price on round 91: " + ", ".join(misses))
+    # The market the CLI builds from the tier's state, kept for the batch.
+    loaded = []
+    real_load = wcli._load_base
+
+    def keeping(args):
+        loaded.append(real_load(args))
+        return loaded[-1]
+
+    tier_out = SIM_OUT / "price_tier.json"
+    wcli._load_base = keeping
+    try:
+        rc = wcli.main(["price", "--state", str(CELLS_STATE), "--burst-jobs",
+                        str(sim.PRICING_TIER_BURST["jobs"]), "--out",
+                        str(tier_out), "--device", str(device)])
+    finally:
+        wcli._load_base = real_load
+    if rc != 0:
+        bad.append("whatif price on the tier's state exited nonzero")
+    problem, keys, s0, tier_round, _ = loaded[0]
+    if tier_round != sim.PRICING["tier"]["round"]:
+        bad.append(f"the cells tier's snapshot is round {tier_round}, the "
+                   f"pins' {sim.PRICING['tier']['round']}")
+    tier_decision = json.loads(tier_out.read_text())["priced_decision"]
+    misses = sim.decision_misses(tier_decision, sim.PRICING["tier_single"])
+    if misses:
+        bad.append("price on the tier's state: " + ", ".join(misses))
+    cli_launches = kernel.LAUNCHES["eg_pdhg"]
+    holder = {"problem": problem, "keys": keys, "s0": s0}
+    pricer = AdmissionPricer(lambda: holder, budget_s=600.0, device=device)
+    bursts = sim.pricing_bursts(Job)
+    kernel.reset_launch_counts()
+    batch = pricer.price_batch(bursts, audit=True)
+    batch_launches = kernel.LAUNCHES["eg_pdhg"] - pricer.last_batch_audit[
+        "audited"]
+    if not pricer.last_batch_audit["bit_identical"]:
+        bad.append(f"price_batch lanes differ from their one-lane launches: "
+                   f"{pricer.last_batch_audit}")
+    for i, (got, ref) in enumerate(zip(batch, sim.PRICING["tier_batch"])):
+        misses = sim.decision_misses(got.as_record(), ref)
+        if misses:
+            bad.append(f"price_batch lane {i}: " + ", ".join(misses))
+    lanes_equal, verdicts_equal = 0, 0
+    for jobs, got in zip(bursts, batch):
+        alone = pricer.price(jobs)
+        lane = pricer.price_batch([jobs])[0]
+        lanes_equal += (lane.welfare_delta == alone.welfare_delta
+                        and lane.burst_welfare == alone.burst_welfare
+                        and lane.action == alone.action)
+        verdicts_equal += got.action == alone.action
+    if lanes_equal != len(bursts) or verdicts_equal != len(bursts):
+        bad.append(f"single-burst batches equal to price in {lanes_equal} "
+                   f"of {len(bursts)}; batch verdicts equal to price in "
+                   f"{verdicts_equal}")
+    readings["pricing"] = dict(
+        log=log_decision, tier_single=tier_decision,
+        tier=dict(round=tier_round, jobs=problem.num_jobs),
+        batch_solve_s=batch[0].solve_s,
+        batch_actions=[d.action for d in batch],
+        cli_launches=cli_launches, batch_launches=batch_launches,
+        audit=pricer.last_batch_audit)
+    launches["pricing"] = cli_launches + batch_launches
+    print(f"  whatif price, round 91 of the committed log: "
+          f"{log_decision} (JAX package: {sim.PRICING['log']['action']} "
+          f"{sim.PRICING['log']['welfare_delta']}) {tag}", flush=True)
+    print(f"  whatif price, the cells tier's state at round "
+          f"{tier_round} ({problem.num_jobs} jobs), a burst of "
+          f"{sim.PRICING_TIER_BURST['jobs']}: {tier_decision} (JAX package: "
+          f"{sim.PRICING['tier_single']['action']} "
+          f"{sim.PRICING['tier_single']['welfare_delta']}) {tag}",
+          flush=True)
+    print(f"  price_batch of {len(bursts)} bursts on that state: one launch "
+          f"of {len(bursts) + 1} lanes, solve_s {batch[0].solve_s:.4f}; "
+          f"audit {pricer.last_batch_audit}; {lanes_equal} single-burst "
+          f"batches equal to price() in every bit; the CLI launched kernel "
+          f"A {cli_launches} times {tag}", flush=True)
+    seconds["pricing"] = time.time() - part_started
+    readings["launches"] = launches
+    readings["seconds"] = seconds
+    print(f"  seconds by part: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()) + f" {tag}", flush=True)
+    if bad:
+        fail("simulator features phase: " + "; ".join(bad))
+    return readings
+
+
 def card_state() -> str:
     """The card's SM clock, power draw and temperature (nvidia-smi)."""
     return subprocess.run(
@@ -1859,6 +2186,11 @@ def main() -> None:
     planner["phase_s"] = time.time() - planner_started
     print(f"planner phase: {planner['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
+    features_started = time.time()
+    features = run_sim_features(device, card)
+    features["phase_s"] = time.time() - features_started
+    print(f"simulator features phase: {features['phase_s']:.1f} s, the "
+          f"smoke's growth [{card}]", flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -1960,6 +2292,8 @@ def main() -> None:
             # Phase 14's launches of kernel A: checkpointed pdhg runs,
             # repair solves, the speculative cells run, pdhg pools, duals.
             kernels[-1]["planner_launches"] = planner["launches"]
+            # Phase 15's: the churned pdhg run and the pricing lanes.
+            kernels[-1]["sim_features_launches"] = features["launches"]
             # The lane grid (phase 12): launches on the cells tier and the
             # what-if CLI's, and the grid's time against its lanes one by
             # one at 8, 65 and 1024 lanes.
@@ -1990,6 +2324,7 @@ def main() -> None:
     print(json.dumps({"cells": cells, "card": card}, default=str))
     print(json.dumps({"library": library, "card": card}))
     print(json.dumps({"planner": planner, "card": card}, default=str))
+    print(json.dumps({"sim_features": features, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(json.dumps({"kernels": kernels, "card": card,

@@ -51,6 +51,26 @@ class Job:
     def job_type_key(self):
         return (self.job_type, self.scale_factor)
 
+    def to_trace_line(self) -> str:
+        """The trace format's first 11 tab-separated fields (the trace
+        writer appends the arrival time)."""
+        slo = -1.0 if self.SLO is None else self.SLO
+        return "\t".join(
+            [
+                self.job_type,
+                self.command,
+                self.working_directory,
+                self.num_steps_arg,
+                "%d" % int(self.needs_data_dir),
+                "%d" % self.total_steps,
+                "%d" % self.scale_factor,
+                self.mode,
+                "%g" % self.priority_weight,
+                "%f" % slo,
+                "%g" % float(self.duration if self.duration else 0),
+            ]
+        )
+
     def update_batch_size(self, new_bs: int) -> None:
         """Rewrite job_type and command for a new batch size.
 

@@ -38,19 +38,35 @@ checkpoint_file=)`` saves the scheduler's and the planner's state once
 that many jobs were admitted and resumes from an existing file
 (:meth:`Scheduler.save_checkpoint`).
 
+An armed fault plan (``runtime/faults.py``) lands at round boundaries
+before the completion drain (``_apply_cluster_fault_events``): a crashed
+or reclaimed worker takes its running micro-tasks down with zero
+progress (not charged as a failed attempt), the workers leave the
+cluster and the planner replans for the capacity left
+(``_sync_planner_capacity``); ``worker_add`` restores capacity up to the
+plan's ``max_capacity``; ``scheduler_crash`` / ``scheduler_restart`` push
+the whole control plane and the loop's running and queued jobs through
+the HA codec's JSON (``ha/codec.py``) and restore them in place, which
+must leave the run bit-identical (:meth:`Scheduler.ha_state_dict`).
+Under a packed policy with ``profiling_percentage < 1`` or
+``num_reference_models`` set, the allocator sees estimated pair
+throughputs (``core/throughput_estimator.py``: the new job's profiled
+colocations completed by masked ALS on the scheduler's device, then
+matched to the nearest reference type), while execution runs at the
+oracle's. ``per_worker_type_prices`` charges each micro-task's time at
+the worker type's price (``get_total_cost``), and every admission,
+round and completion goes to the round log (``save_round_log``).
+
 Not ported yet, each raising ``NotImplementedError`` naming
-``ROADMAP.md``: physical mode (``simulate=False``), HA state, streaming
-admission (a ``submitter``), fault plans and online throughput
-estimation (``profiling_percentage < 1``); cost accounting
-(per-worker-type prices), lease-extension counting and the round log are
-not carried. The run has no fault injector, the reference's default
-(``faults.active()`` is ``None``).
+``ROADMAP.md``: physical mode (``simulate=False``) and streaming
+admission (a ``submitter``).
 """
 
 from __future__ import annotations
 
 import copy
 import heapq
+import json
 import math
 import os
 import pickle
@@ -150,13 +166,12 @@ class Scheduler:
         num_reference_models: Optional[int] = None,
         preemption_overheads=None,
         round_overhead_fraction: Optional[float] = None,
+        per_worker_type_prices: Optional[dict] = None,
+        device=None,
     ):
         self._is_shockwave = policy.name.startswith("Shockwave")
         if not simulate:
             raise NotImplementedError(f"physical mode {_NOT_PORTED}")
-        if profiling_percentage < 1.0 or num_reference_models is not None:
-            raise NotImplementedError(
-                f"online throughput estimation {_NOT_PORTED}")
         if self._is_shockwave and shockwave_config is None:
             raise ValueError("Shockwave policies require shockwave_config")
         self._policy = policy
@@ -180,6 +195,14 @@ class Scheduler:
                     shockwave_config = dict(shockwave_config)
                     shockwave_config["time_per_iteration"] = sized
         self._profiles = profiles or {}
+        # The profiles the scheduler was built with are configuration, as
+        # its policy is; the HA state carries only those synthesized at
+        # admission.
+        self._configured_profiles = frozenset(self._profiles)
+        # $/accelerator-hour per worker type: a constant or a
+        # [[time_s, price], ...] schedule (data/spot_prices.py); None
+        # disables cost accounting.
+        self._per_worker_type_prices = per_worker_type_prices
 
         self._current_timestamp: float = 0.0
         self._num_completed_rounds = 0
@@ -195,6 +218,7 @@ class Scheduler:
         self._steps_run_so_far: Dict[JobId, Dict[str, int]] = {}
         self._total_steps_run: Dict[JobId, int] = {}
         self._job_time_so_far: Dict[JobId, Dict[str, float]] = {}
+        self._job_cost_so_far: Dict[JobId, float] = {}
         self._throughputs: Dict[JobId, dict] = {}
         self._original_bs: Dict[JobId, int] = {}
         self._bs_scale: Dict[JobId, Optional[int]] = {}
@@ -208,6 +232,15 @@ class Scheduler:
         self._job_completion_times: "OrderedDict[JobId, Optional[float]]" = OrderedDict()
         self._num_jobs_in_trace = 0
         self._in_progress_updates: Dict[JobId, list] = {}
+        # Micro-tasks with a completion synthesized for a dead worker in
+        # their in-flight merge (_done_callback's fault flag).
+        self._fault_tainted: set = set()
+        # Per-job, per-rank iterator log lines (physical mode fills them;
+        # a simulation keeps them empty).
+        self._job_timelines: Dict[JobId, list] = {}
+        # The structured event log (job admissions, rounds, completions)
+        # that scripts/analysis/postprocess_log.py reads.
+        self._round_log: list = []
         # Absolute deadlines, kept only under SLO policies and kept after
         # completion for get_num_SLO_violations.
         self._slos: Optional[Dict[JobId, float]] = (
@@ -243,6 +276,8 @@ class Scheduler:
         # and this round is either unscheduled or moved to a different
         # worker set.
         self._num_preemptions = 0
+        self._num_lease_extensions = 0
+        self._num_lease_extension_opportunities = 0
 
         self._logger = make_logger(
             "scheduler", lambda: self._current_timestamp, level=log_level
@@ -254,6 +289,45 @@ class Scheduler:
         self._shockwave = (
             policy.make_planner(shockwave_config) if self._is_shockwave
             else None)
+
+        # Online throughput estimation (the JAX package's
+        # scheduler.py:329-357): under a packed policy with partial
+        # colocation profiling or a subset of reference models, the
+        # allocator sees estimated pair throughputs while execution runs
+        # at the oracle's. The completion runs on ``device`` (default:
+        # the policy's, else cuda).
+        self._estimate_throughputs = self._job_packing and (
+            profiling_percentage < 1.0 or num_reference_models is not None
+        )
+        if self._estimate_throughputs:
+            from shockwave_tpu_torch.core.throughput_estimator import (
+                ThroughputEstimator,
+            )
+            from shockwave_tpu_torch.data.job_table import build_job_table
+
+            if throughputs is None:
+                raise ValueError(
+                    "throughput estimation requires an oracle to profile "
+                    "against"
+                )
+            job_types = [(t.model, 1) for t in build_job_table()]
+            if num_reference_models is None:
+                num_reference_models = len(job_types)
+            if device is None:
+                device = getattr(policy, "device", "cuda")
+            self._throughput_estimator = ThroughputEstimator(
+                throughputs,
+                sorted(throughputs.keys()),
+                job_types,
+                num_reference_models,
+                profiling_percentage,
+                seed=seed + 4,
+                device=device,
+            )
+            self._reference_throughputs = (
+                self._throughput_estimator.get_reference_throughputs()
+            )
+            self._reference_job_map: Dict[JobId, Tuple[str, int]] = {}
 
     # ------------------------------------------------------------------
     # Workers and jobs.
@@ -296,6 +370,153 @@ class Scheduler:
         self._need_to_update_allocation = True
         return server_ids
 
+    def remove_worker(self, worker_id: int) -> None:
+        """Unregister a dead or reclaimed worker (the JAX package's
+        scheduler.py:415). Jobs holding it lose their assignment and are
+        placed again at the next round; the per-worker accounting keeps
+        its entries, so utilization and cost over the worker's life stay
+        whole."""
+        worker_type = self._worker_id_to_worker_type.pop(worker_id, None)
+        if worker_type is None:
+            return
+        self._worker_ids.remove(worker_id)
+        self._cluster_spec[worker_type] -= 1
+        servers = self._worker_type_to_worker_ids[worker_type]
+        for server in servers:
+            if worker_id in server:
+                server.remove(worker_id)
+        self._worker_type_to_worker_ids[worker_type] = [
+            s for s in servers if s
+        ]
+        for key in [
+            k
+            for k, ids in self._current_worker_assignments.items()
+            if worker_id in ids
+        ]:
+            del self._current_worker_assignments[key]
+        self._need_to_update_allocation = True
+        self._sync_planner_capacity()
+
+    def _sync_planner_capacity(self) -> None:
+        """Carry a capacity change (death, reclaim, re-add) into the
+        Shockwave planner, so the next replan solves for the fleet that
+        exists (the JAX package's scheduler.py:444). Not called at the
+        initial registration, which keeps the configured ``num_gpus``."""
+        if self._shockwave is None:
+            return
+        if self._shockwave_is_pool_set():
+            for wt in list(self._shockwave.children):
+                count = self._cluster_spec.get(wt, 0)
+                if count > 0 and count != self._shockwave.pools.get(wt):
+                    self._shockwave.set_pool_capacity(wt, count)
+            return
+        try:
+            pool_type = self._shockwave_pool_type()
+        except ValueError:
+            return
+        count = self._cluster_spec.get(pool_type, 0)
+        if count > 0:
+            self._shockwave.set_capacity(count)
+
+    # ------------------------------------------------------------------
+    # Fault application (the JAX package's scheduler.py:471-593).
+    # ------------------------------------------------------------------
+    def _apply_cluster_fault_events(
+        self, injector, running_jobs, queued_jobs=None
+    ) -> None:
+        """Apply every cluster event of the armed plan due by now. A crash
+        or reclaim force-completes the victims' running micro-tasks with
+        zero steps (``fault=True``: no failed attempt is charged), removes
+        the workers and flags a replan; ``worker_add`` registers one-GPU
+        servers, clamped to the plan's ``max_capacity``; a scheduler kill
+        round-trips the control plane through the HA codec's JSON. Each
+        applied event is marked recovered with how it was answered."""
+        from shockwave_tpu_torch.runtime import faults as faults_mod
+
+        recorder = obs.get_recorder()
+        for event in injector.due_cluster_events(self._current_timestamp):
+            now = self._current_timestamp
+            obs.counter(
+                "fault_injected_total",
+                "fault events delivered by the injector",
+            ).inc(kind=event.kind)
+            if event.kind in faults_mod.SCHEDULER_KINDS:
+                detail = self._sim_scheduler_restart_roundtrip(
+                    running_jobs, queued_jobs
+                )
+                how = (
+                    "journal_state_restored"
+                    if detail.get("roundtrip_exact")
+                    else "journal_state_restored_INEXACT"
+                )
+            elif event.kind == "worker_add":
+                capacity = sum(self._cluster_spec.values())
+                count = event.count
+                if injector.plan.max_capacity is not None:
+                    count = min(
+                        count, max(injector.plan.max_capacity - capacity, 0)
+                    )
+                worker_type = event.worker_type or self._worker_types[0]
+                added = []
+                for _ in range(count):
+                    added.extend(
+                        self.register_worker(worker_type, num_gpus=1)
+                    )
+                self._sync_planner_capacity()
+                detail = {"added_workers": added}
+                how = "capacity_restored"
+            else:  # worker_crash / capacity_reclaim
+                victims = faults_mod.select_victims(
+                    injector.plan, event, self._worker_id_to_worker_type
+                )
+                requeued = self._crash_workers(victims, running_jobs, now)
+                detail = {
+                    "workers": victims,
+                    "requeued": [str(k) for k in requeued],
+                }
+                how = "requeued_and_replanned"
+            record = {
+                "fault_id": event.event_id,
+                "kind": event.kind,
+                "round": self._num_completed_rounds,
+                "time": now,
+                **detail,
+            }
+            if recorder.enabled:
+                recorder.record_fault(record)
+                recorder.record_recovery({**record, "how": how})
+            injector.mark_applied(event, **detail)
+            injector.mark_recovered(event.event_id, how=how, **detail)
+
+    def _crash_workers(self, victims, running_jobs, now) -> list:
+        """Kill ``victims``: every running micro-task holding one of them
+        completes with zero progress (the round's work is lost), then the
+        workers are unregistered. Returns the requeued job keys."""
+        victim_set = set(victims)
+        requeued = []
+        if not victim_set:
+            return requeued
+        survivors = []
+        while running_jobs:
+            entry = heapq.heappop(running_jobs)
+            _, job_id, worker_ids, _, round_start = entry
+            if victim_set & set(worker_ids):
+                elapsed = max(now - round_start, 0.0)
+                n = len(job_id.singletons())
+                for wid in worker_ids:
+                    self._done_callback(
+                        job_id, wid, [0] * n, [elapsed] * n, fault=True
+                    )
+                requeued.append(job_id)
+                self._num_preemptions += 1
+            else:
+                survivors.append(entry)
+        for entry in survivors:
+            heapq.heappush(running_jobs, entry)
+        for worker_id in victims:
+            self.remove_worker(worker_id)
+        return requeued
+
     def add_job(self, job: Job, timestamp: Optional[float] = None) -> JobId:
         """(reference: scheduler.py:537-619)"""
         job_id = JobId(self._job_id_counter)
@@ -304,9 +525,19 @@ class Scheduler:
         self._jobs[job_id] = job
         self._steps_run_so_far[job_id] = {}
         self._job_time_so_far[job_id] = {}
+        self._job_cost_so_far[job_id] = 0.0
+        self._job_timelines[job_id] = [[] for _ in range(job.scale_factor)]
         self._throughputs[job_id] = {}
         self._original_bs[job_id] = job.batch_size
         self._num_jobs_in_trace += 1
+        if self._estimate_throughputs and job.scale_factor == 1:
+            # Profile the unseen job against the reference types and match
+            # it (the JAX package's scheduler.py:615-622).
+            self._reference_job_map[job_id] = (
+                self._throughput_estimator.match_job_to_reference_job(
+                    job.job_type_key()
+                )
+            )
         self._num_failures_per_job[job_id] = 0
         self._total_steps_run[job_id] = 0
         if self._slos is not None and job.SLO is not None and job.duration:
@@ -365,6 +596,24 @@ class Scheduler:
         if timestamp is None:
             timestamp = self.get_current_timestamp()
         self._per_job_start_timestamps[job_id] = timestamp
+        self._round_log.append(
+            {
+                "event": "job",
+                "job_id": job_id.integer,
+                "arrival": timestamp,
+                "job_type": job.job_type,
+                "command": job.command,
+                "working_directory": job.working_directory,
+                "num_steps_arg": job.num_steps_arg,
+                "needs_data_dir": job.needs_data_dir,
+                "total_steps": job.total_steps,
+                "scale_factor": job.scale_factor,
+                "mode": job.mode,
+                "priority_weight": job.priority_weight,
+                "SLO": job.SLO,
+                "duration": job.duration,
+            }
+        )
         obs.counter(
             "scheduler_jobs_admitted_total", "jobs admitted from the trace"
         ).inc()
@@ -383,6 +632,14 @@ class Scheduler:
             self._job_completion_times[job_id] = None
         else:
             self._job_completion_times[job_id] = duration
+        self._round_log.append(
+            {
+                "event": "complete",
+                "job_id": job_id.integer,
+                "time": self.get_current_timestamp(),
+                "duration": self._job_completion_times[job_id],
+            }
+        )
         del self._steps_run_so_far[job_id]
         del self._job_time_so_far[job_id]
         del self._throughputs[job_id]
@@ -418,8 +675,9 @@ class Scheduler:
     ) -> None:
         """Register the co-located throughputs of every same-scale pair of
         ``job_id`` with a job already admitted (the JAX package's
-        scheduler.py:859, its oracle branch: online estimation is not
-        ported)."""
+        scheduler.py:859): the oracle's, or under online estimation the
+        matched reference types' co-located fractions scaled by the two
+        jobs' own isolated throughputs."""
         job = self._jobs[job_id]
         job_type_key = job.job_type_key()
         for other_job_id in self._jobs:
@@ -438,6 +696,29 @@ class Scheduler:
                 continue
             oracle = self._oracle_throughputs[worker_type]
             other_key = other.job_type_key()
+            if (
+                self._estimate_throughputs
+                and job_id in self._reference_job_map
+                and other_job_id in self._reference_job_map
+            ):
+                refs = [
+                    self._reference_job_map[job_id],
+                    self._reference_job_map[other_job_id],
+                ]
+                isolated = [
+                    oracle[job_type_key]["null"],
+                    oracle[other_key]["null"],
+                ]
+                ref_oracle = self._reference_throughputs[worker_type]
+                if job_id < other_job_id:
+                    fractions = ref_oracle[refs[0]][refs[1]]
+                else:
+                    fractions = ref_oracle[refs[1]][refs[0]]
+                    isolated = isolated[::-1]
+                self._throughputs[merged][worker_type] = [
+                    f * t for f, t in zip(fractions, isolated)
+                ]
+                continue
             keys = (
                 (job_type_key, other_key)
                 if job_id < other_job_id
@@ -448,19 +729,36 @@ class Scheduler:
                 list(pair_entry) if pair_entry is not None else [0.0, 0.0]
             )
 
-    def _update_throughput(self, job_id, all_num_steps, all_execution_times):
-        """The planner's measured-throughput record of the round
-        (reference: scheduler.py:921-938)."""
-        current_round = self._num_completed_rounds
-        for i, single in enumerate(job_id.singletons()):
-            tput = (
-                0.0
-                if all_execution_times[i] <= 0
-                else all_num_steps[i] / all_execution_times[i]
-            )
-            if single in self._jobs:
-                self._shockwave.record_round_throughput(
-                    single, current_round, tput, self._jobs[single].batch_size
+    def _update_throughput(
+        self, job_id, worker_type, all_num_steps, all_execution_times
+    ) -> None:
+        """The planner's measured-throughput record of the round and,
+        under online estimation, a pair that ran takes the oracle's
+        throughputs in place of its estimate (the JAX package's
+        scheduler.py:921-951, simulation branch)."""
+        if job_id not in self._throughputs:
+            return
+        if self._shockwave is not None:
+            current_round = self._num_completed_rounds
+            for i, single in enumerate(job_id.singletons()):
+                tput = (
+                    0.0
+                    if all_execution_times[i] <= 0
+                    else all_num_steps[i] / all_execution_times[i]
+                )
+                if single in self._jobs:
+                    self._shockwave.record_round_throughput(
+                        single, current_round, tput,
+                        self._jobs[single].batch_size
+                    )
+        if self._estimate_throughputs and job_id.is_pair:
+            if all(s in self._jobs for s in job_id.singletons()):
+                oracle = self._oracle_throughputs[worker_type]
+                keys = [
+                    self._jobs[s].job_type_key() for s in job_id.singletons()
+                ]
+                self._throughputs[job_id][worker_type] = list(
+                    oracle[keys[0]][keys[1]]
                 )
 
     def _get_remaining_steps(self, job_id: JobId) -> int:
@@ -993,12 +1291,22 @@ class Scheduler:
         """(reference: scheduler.py:1166-1212)"""
         max_finish_time = self.get_current_timestamp()
         all_num_steps = []
+        true_pair_tputs = None
+        if self._estimate_throughputs and job_id.is_pair:
+            # Execution runs at the oracle's rate even where the allocator
+            # saw estimates (the JAX package's scheduler.py:1512).
+            oracle = self._oracle_throughputs[worker_type]
+            keys = [self._jobs[s].job_type_key() for s in job_id.singletons()]
+            true_pair_tputs = oracle[keys[0]][keys[1]]
         for i, single in enumerate(job_id.singletons()):
             num_steps = self._get_num_steps(job_id, worker_type, single)
             all_num_steps.append(num_steps)
-            tput = self._throughputs[job_id][worker_type]
-            if job_id.is_pair:
-                tput = tput[i]
+            if true_pair_tputs is not None:
+                tput = true_pair_tputs[i]
+            else:
+                tput = self._throughputs[job_id][worker_type]
+                if job_id.is_pair:
+                    tput = tput[i]
             if tput <= 0:
                 raise RuntimeError(
                     f"Throughput for job {single} on {worker_type} is <= 0"
@@ -1009,11 +1317,15 @@ class Scheduler:
         return all_num_steps, max_finish_time
 
     def _done_callback(
-        self, job_id, worker_id, all_num_steps, all_execution_times
+        self, job_id, worker_id, all_num_steps, all_execution_times,
+        fault: bool = False,
     ) -> None:
         """Merge per-worker completions for a micro-task; update steps, time
         and batch-size adaptation; remove finished jobs
-        (reference: scheduler.py:3223-3482, simulation paths)."""
+        (reference: scheduler.py:3223-3482, simulation paths).
+        ``fault=True`` marks a completion synthesized for a worker that
+        died under the job: its zero progress is not charged as a failed
+        attempt, for the whole gang's merge."""
         to_remove: List[JobId] = []
         worker_type = self._worker_id_to_worker_type[worker_id]
         is_active = {s: s in self._jobs for s in job_id.singletons()}
@@ -1023,8 +1335,12 @@ class Scheduler:
         scale_factor = len(self._current_worker_assignments[job_id])
         updates = self._in_progress_updates.setdefault(job_id, [])
         updates.append((worker_id, all_num_steps, all_execution_times))
+        if fault:
+            self._fault_tainted.add(job_id)
         if len(updates) < scale_factor:
             return
+        fault = fault or job_id in self._fault_tainted
+        self._fault_tainted.discard(job_id)
         updates.sort(key=lambda x: x[0])
         micro_task_succeeded = True
         merged_steps = [0] * len(job_id.singletons())
@@ -1045,15 +1361,32 @@ class Scheduler:
 
         if not micro_task_succeeded:
             self._logger.info("[Micro-task failed]\tJob ID: %s", job_id)
-            if not job_id.is_pair and is_active[job_id]:
+            if not fault and not job_id.is_pair and is_active[job_id]:
                 self._num_failures_per_job[job_id] += 1
                 if self._num_failures_per_job[job_id] >= MAX_FAILED_ATTEMPTS:
                     to_remove.append(job_id)
             self._need_to_update_allocation = True
         else:
-            for single, num_steps in zip(job_id.singletons(), merged_steps):
+            for single, num_steps, execution_time in zip(
+                job_id.singletons(), merged_steps, merged_times
+            ):
                 if not is_active[single]:
                     continue
+                if self._per_worker_type_prices is not None:
+                    from shockwave_tpu_torch.data.spot_prices import (
+                        latest_price,
+                    )
+
+                    self._job_cost_so_far[single] += (
+                        latest_price(
+                            self._per_worker_type_prices,
+                            worker_type,
+                            self.get_current_timestamp(),
+                        )
+                        * execution_time
+                        / 3600.0
+                        * scale_factor
+                    )
                 if single in self._running_jobs:
                     self._running_jobs.remove(single)
                     self._steps_run_so_far[single][worker_type] += num_steps
@@ -1067,8 +1400,8 @@ class Scheduler:
             for wid, _, _ in updates:
                 self._cumulative_worker_time_so_far[wid] += max_execution_time
 
-        if self._is_shockwave:
-            self._update_throughput(job_id, merged_steps, merged_times)
+        self._update_throughput(job_id, worker_type, merged_steps,
+                                merged_times)
 
         for single in job_id.singletons():
             self._scale_bs_and_iters(single)
@@ -1313,8 +1646,13 @@ class Scheduler:
         admitted; a fresh scheduler given an existing ``checkpoint_file``
         resumes from there and ends where the unbroken run ends (the JAX
         package's scheduler.py:2054-2190)."""
+        from shockwave_tpu_torch.runtime import faults
+
         if submitter is not None:
             raise NotImplementedError(f"streaming admission {_NOT_PORTED}")
+        # The armed fault plan, if any: its cluster events land at round
+        # boundaries below.
+        fault_injector = faults.active()
         if arrival_times is None or jobs is None:
             raise ValueError("simulate needs the trace's jobs and arrivals")
         remaining_jobs = len(jobs)
@@ -1390,6 +1728,13 @@ class Scheduler:
             elif next_job_arrival_time is not None:
                 self._current_timestamp = max(
                     self._current_timestamp, next_job_arrival_time
+                )
+
+            # Injected churn lands before the completion drain: a worker
+            # crashed mid-round takes its micro-task's progress with it.
+            if fault_injector is not None:
+                self._apply_cluster_fault_events(
+                    fault_injector, running_jobs, queued_jobs=queued_jobs
                 )
 
             # Complete every running micro-task (they all end by round end).
@@ -1470,6 +1815,7 @@ class Scheduler:
                 consecutive_idle_rounds = 0
             for job_id in self._current_worker_assignments:
                 if any(s in self._jobs for s in job_id.singletons()):
+                    self._num_lease_extension_opportunities += 1
                     kept = job_id in scheduled_jobs and set(
                         self._current_worker_assignments[job_id]
                     ) == set(scheduled_jobs[job_id])
@@ -1480,7 +1826,23 @@ class Scheduler:
                             "still-active jobs that lost their workers "
                             "at a round boundary",
                         ).inc()
+            for job_id in scheduled_jobs:
+                if job_id in self._current_worker_assignments and set(
+                    self._current_worker_assignments[job_id]
+                ) == set(scheduled_jobs[job_id]):
+                    self._num_lease_extensions += 1
             self._current_worker_assignments = scheduled_jobs
+            self._round_log.append(
+                {
+                    "event": "round",
+                    "round": self._num_completed_rounds,
+                    "time": self._current_timestamp,
+                    "jobs": {
+                        str(job_id): len(worker_ids)
+                        for job_id, worker_ids in scheduled_jobs.items()
+                    },
+                }
+            )
             obs.counter(
                 "scheduler_rounds_total", "scheduling rounds started"
             ).inc()
@@ -1531,8 +1893,9 @@ class Scheduler:
     # ------------------------------------------------------------------
     # Simulator checkpoints (the JAX package's scheduler.py:2483-2595).
     # ------------------------------------------------------------------
-    # The JAX package's checkpoint fields that the port's scheduler has,
-    # plus its allocation counters. Like the JAX package, the checkpoint
+    # The JAX package's checkpoint fields that the port's scheduler has
+    # (the round log, costs and timelines among them), plus its
+    # allocation counters. Like the JAX package, the checkpoint
     # leaves out the worker-type shuffle's RNG: a resumed run draws that
     # stream from the seed again, as the JAX package's resumed run does.
     _CHECKPOINT_FIELDS = [
@@ -1544,6 +1907,7 @@ class Scheduler:
         "_steps_run_so_far",
         "_total_steps_run",
         "_job_time_so_far",
+        "_job_cost_so_far",
         "_throughputs",
         "_original_bs",
         "_bs_scale",
@@ -1559,9 +1923,14 @@ class Scheduler:
         "_last_reset_time",
         "_worker_time_so_far",
         "_cumulative_worker_time_so_far",
+        "_num_lease_extensions",
+        "_num_lease_extension_opportunities",
         "_num_preemptions",
         "_slos",
         "_in_progress_updates",
+        "_fault_tainted",
+        "_job_timelines",
+        "_round_log",
         "_current_worker_assignments",
         # Loop-coupled state the checkpointed running_jobs heap depends
         # on: _done_callback credits steps only to singles in
@@ -1616,6 +1985,180 @@ class Scheduler:
                 "planner state"
             )
         return state["extra"]
+
+    # ------------------------------------------------------------------
+    # HA control-plane state (the JAX package's scheduler.py:2595-2757):
+    # the JSON-codec counterpart of save_checkpoint, in structures the
+    # flight-recorder codec round-trips exactly.
+    # ------------------------------------------------------------------
+    # The port's fields that the JAX package's _HA_STATE_FIELDS name (its
+    # scheduler has a few more), plus the allocation counters. Sets travel
+    # apart, sorted, so that restore can coerce them back from lists and a
+    # capture of the restored state hashes as the original's did.
+    _HA_STATE_FIELDS = [
+        # clock and cursors
+        "_current_timestamp", "_num_completed_rounds", "_job_id_counter",
+        "_num_jobs_in_trace", "_need_to_update_allocation",
+        "_last_reset_time", "_num_lease_extensions",
+        "_num_lease_extension_opportunities", "_num_preemptions",
+        "num_allocations", "allocation_s",
+        # per-job accounting
+        "_steps_run_so_far", "_total_steps_run", "_job_time_so_far",
+        "_job_cost_so_far", "_throughputs", "_original_bs", "_bs_scale",
+        "_num_failures_per_job", "_per_job_start_timestamps",
+        "_per_job_latest_timestamps", "_pool_ftf_scale",
+        "_job_completion_times", "_slos", "_in_progress_updates",
+        "_job_timelines", "_round_log", "_current_worker_assignments",
+        "_current_round_scheduled_jobs",
+        # allocation state
+        "_allocation", "_priorities", "_deficits",
+        # worker registry
+        "_worker_id_counter", "_worker_ids", "_worker_types",
+        "_cluster_spec", "_worker_id_to_worker_type",
+        "_worker_type_to_worker_ids", "_worker_start_times",
+        "_cumulative_worker_time_so_far", "_worker_time_so_far",
+    ]
+    _HA_SET_FIELDS = (
+        "_completed_jobs", "_fault_tainted", "_running_jobs",
+    )
+    # The seeded streams scheduling decisions draw from (the port's
+    # scheduler has only the worker-type shuffle of the JAX package's
+    # four); random.Random.getstate round-trips as a tuple of ints.
+    _HA_RNG_FIELDS = ("_worker_type_shuffler",)
+
+    def ha_state_dict(self) -> dict:
+        """The whole control plane as codec-encodable structures: the
+        fields, the sets, every job, the profiles synthesized at admission
+        (not those the scheduler was built with, which a restarted
+        scheduler is built with too, unlike the JAX package's capture),
+        the RNG positions and the planner's state dict."""
+        from shockwave_tpu_torch.ha import codec as ha_codec
+
+        state = {
+            "schema": "shockwave-ha-state-v1",
+            "fields": {
+                f: getattr(self, f) for f in self._HA_STATE_FIELDS
+            },
+            # Sorted: a set's iteration order depends on its history of
+            # adds and removals, not on its members, so the codec's list
+            # of a restored set could differ from the original's.
+            "sets": {f: sorted(getattr(self, f))
+                     for f in self._HA_SET_FIELDS},
+            "jobs": OrderedDict(
+                (job_id, ha_codec.job_state(job))
+                for job_id, job in self._jobs.items()
+            ),
+            "profiles": {j: p for j, p in self._profiles.items()
+                         if j not in self._configured_profiles},
+            "rng": {
+                name: getattr(self, name).getstate()
+                for name in self._HA_RNG_FIELDS
+            },
+        }
+        planner_state = ha_codec.planner_state_or_none(self)
+        if planner_state is not None:
+            state["planner"] = planner_state
+        return state
+
+    def restore_ha_state(self, state: dict) -> None:
+        """Install a decoded :meth:`ha_state_dict` on a scheduler built
+        with the same policy and configuration; the planner is restored
+        on this scheduler's planner's device."""
+        from shockwave_tpu_torch.ha import codec as ha_codec
+
+        fields = state["fields"]
+        for f in self._HA_STATE_FIELDS:
+            if f in fields:
+                setattr(self, f, fields[f])
+        for f in self._HA_SET_FIELDS:
+            if f in state["sets"]:
+                setattr(self, f, set(state["sets"][f]))
+        self._jobs = OrderedDict(
+            (job_id, ha_codec.job_from_state(job_fields))
+            for job_id, job_fields in state["jobs"].items()
+        )
+        self._profiles = {
+            **{j: p for j, p in self._profiles.items()
+               if j in self._configured_profiles},
+            **(state.get("profiles") or {})}
+        for name, rng_state in (state.get("rng") or {}).items():
+            if name in self._HA_RNG_FIELDS:
+                getattr(self, name).setstate(rng_state)
+        planner_state = state.get("planner")
+        if planner_state is not None:
+            from shockwave_tpu_torch.policies.shockwave import (
+                planner_from_state,
+            )
+
+            self._shockwave = planner_from_state(
+                planner_state, device=self._shockwave.device)
+
+    def _sim_scheduler_restart_roundtrip(
+        self, running_jobs, queued_jobs=None
+    ) -> dict:
+        """A simulated ``scheduler_crash`` / ``scheduler_restart``: the
+        scheduler, the planner and the loop's running and queued jobs go
+        through the codec's JSON and are restored in place. Returns the
+        state's hash prefix and whether a second capture hashes the
+        same."""
+        from shockwave_tpu_torch.ha import codec as ha_codec
+
+        # One encoding of the state serves its hash and its round trip.
+        text = ha_codec.to_json(self.ha_state_dict())
+        fp_before = ha_codec.fingerprint(text)
+        loop_state = ha_codec.json_roundtrip({
+            "running_jobs": [tuple(entry) for entry in running_jobs],
+            "queued_jobs": (
+                [
+                    (arrival, ha_codec.job_state(job))
+                    for arrival, job in queued_jobs
+                ]
+                if queued_jobs is not None
+                else None
+            ),
+        })
+        self.restore_ha_state(ha_codec.from_json(text))
+        running_jobs[:] = [
+            tuple(entry) for entry in loop_state["running_jobs"]
+        ]
+        heapq.heapify(running_jobs)
+        if queued_jobs is not None:
+            queued_jobs[:] = [
+                (arrival, ha_codec.job_from_state(job_fields))
+                for arrival, job_fields in loop_state["queued_jobs"]
+            ]
+        fp_after = ha_codec.state_fingerprint(self.ha_state_dict())
+        return {
+            "state_sha": fp_before[:16],
+            "roundtrip_exact": fp_before == fp_after,
+        }
+
+    def save_round_log(self, path: str) -> None:
+        """The structured event log (job / round / complete records) as
+        JSON lines, for scripts/analysis/postprocess_log.py, written
+        atomically."""
+        from shockwave_tpu_torch.utils.fileio import atomic_write_text
+
+        atomic_write_text(
+            path,
+            "".join(json.dumps(record) + "\n" for record in self._round_log),
+        )
+
+    def save_job_timelines(self, directory: str) -> None:
+        """One file a job of its per-rank iterator log lines, each written
+        atomically (the JAX package's scheduler.py:2773)."""
+        from shockwave_tpu_torch.utils.fileio import atomic_write_text
+
+        os.makedirs(directory, exist_ok=True)
+        for job_id, timelines in self._job_timelines.items():
+            atomic_write_text(
+                os.path.join(directory, f"job_{job_id.integer}.log"),
+                "".join(
+                    f"[rank {rank}] {line}\n"
+                    for rank, lines in enumerate(timelines)
+                    for line in lines
+                ),
+            )
 
     # ------------------------------------------------------------------
     # Metrics.
@@ -1714,3 +2257,24 @@ class Scheduler:
         """Round transitions where a still-active job lost its workers
         (unscheduled or moved)."""
         return self._num_preemptions
+
+    def get_completed_steps(self, job_ids=None):
+        if job_ids is None:
+            job_ids = sorted(self._total_steps_run.keys())
+        return {j: self._total_steps_run[j] for j in job_ids
+                if j in self._total_steps_run}
+
+    def get_num_lease_extensions(self):
+        """The percentage of round transitions where a still-active job
+        kept its exact worker set (reference: scheduler.py:2248-2265)."""
+        if self._num_lease_extension_opportunities > 0:
+            return (
+                100.0
+                * self._num_lease_extensions
+                / self._num_lease_extension_opportunities
+            )
+        return 0.0
+
+    def get_total_cost(self):
+        """Dollars charged at ``per_worker_type_prices`` (0 without)."""
+        return float(sum(self._job_cost_so_far.values()))

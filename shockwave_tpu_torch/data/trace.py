@@ -12,7 +12,7 @@ Arrival times must be nondecreasing.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Iterable, List, Tuple
 
 from shockwave_tpu_torch.core.job import Job
 
@@ -62,3 +62,17 @@ def parse_trace(trace_file: str) -> Tuple[List[Job], List[float]]:
             raise ValueError("arrival times in trace are not sorted")
     return jobs, arrival_times
 
+
+
+def write_trace(
+    trace_file: str, jobs: Iterable[Job], arrival_times: Iterable[float]
+) -> None:
+    from shockwave_tpu_torch.utils.fileio import atomic_write_text
+
+    atomic_write_text(
+        trace_file,
+        "".join(
+            "%s\t%g\n" % (job.to_trace_line(), float(arrival))
+            for job, arrival in zip(jobs, arrival_times)
+        ),
+    )

@@ -6,7 +6,8 @@ and then every call hands out a shared null instrument after one flag
 check. The port keeps exactly that default: the calls its scheduler,
 planner, its degradation ladder, the cells market and the solves make
 (``counter``, ``gauge``, ``histogram``, ``instant``, ``span``,
-``backend_phases``) are here and do nothing. The reference's other
+``backend_phases``) are here and do nothing, and ``get_recorder`` hands
+out a disabled flight recorder. The reference's other
 calls on this path sit in blocks that run only with a plane on, which
 the port does not carry. Turning any plane on is not ported yet and
 raises ``NotImplementedError`` naming ``ROADMAP.md``.
@@ -82,3 +83,17 @@ def backend_phases(backend: str, num_jobs: int, total: bool = True) -> _Null:
 
 def instant(name: str, **kwargs) -> None:
     pass
+
+
+class _DisabledRecorder:
+    """The flight recorder with no log configured: ``enabled`` is False,
+    so the callers' fault and recovery records are skipped."""
+
+    enabled = False
+
+
+_RECORDER = _DisabledRecorder()
+
+
+def get_recorder() -> _DisabledRecorder:
+    return _RECORDER

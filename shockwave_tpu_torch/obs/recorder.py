@@ -33,6 +33,12 @@ SCHEMA = "shockwave-decisions-v1"
 # dicts and tuples, none of which survive plain JSON. Every container is
 # tagged so decode() restores the exact object graph state_dict() made.
 # ----------------------------------------------------------------------
+# Exact types that encode and decode return as they are: a container's
+# such members are copied without a call apiece (a scheduler's HA state
+# holds about a million of them, in profiles and histories).
+_SCALARS = frozenset((bool, int, float, str, type(None)))
+
+
 def encode(obj):
     from shockwave_tpu_torch.core.ids import JobId
 
@@ -57,12 +63,16 @@ def encode(obj):
     if isinstance(obj, JobId):
         return {"__jobid__": list(obj)}
     if isinstance(obj, tuple):
-        return {"__tuple__": [encode(x) for x in obj]}
+        return {"__tuple__": [x if type(x) in _SCALARS else encode(x)
+                              for x in obj]}
     if isinstance(obj, dict):
-        return {"__pairs__": [[encode(k), encode(v)] for k, v in obj.items()],
+        return {"__pairs__": [
+            [k if type(k) in _SCALARS else encode(k),
+             v if type(v) in _SCALARS else encode(v)]
+            for k, v in obj.items()],
                 "__od__": isinstance(obj, OrderedDict)}
     if isinstance(obj, (list, set)):
-        return [encode(x) for x in obj]
+        return [x if type(x) in _SCALARS else encode(x) for x in obj]
     raise TypeError(f"flight recorder cannot encode {type(obj).__name__!r}")
 
 
@@ -70,7 +80,7 @@ def decode(obj):
     from shockwave_tpu_torch.core.ids import JobId
 
     if isinstance(obj, list):
-        return [decode(x) for x in obj]
+        return [x if type(x) in _SCALARS else decode(x) for x in obj]
     if not isinstance(obj, dict):
         return obj
     if "__nd__" in obj:
@@ -83,10 +93,13 @@ def decode(obj):
     if "__jobid__" in obj:
         return JobId(*obj["__jobid__"])
     if "__tuple__" in obj:
-        return tuple(decode(x) for x in obj["__tuple__"])
+        return tuple(x if type(x) in _SCALARS else decode(x)
+                     for x in obj["__tuple__"])
     if "__pairs__" in obj:
         cls = OrderedDict if obj.get("__od__") else dict
-        return cls((decode(k), decode(v)) for k, v in obj["__pairs__"])
+        return cls((k if type(k) in _SCALARS else decode(k),
+                    v if type(v) in _SCALARS else decode(v))
+                   for k, v in obj["__pairs__"])
     # Plain JSON object (a record envelope, not planner state).
     return {k: decode(v) for k, v in obj.items()}
 

@@ -1140,6 +1140,15 @@ class PoolSetPlanner:
         for child in self.children.values():
             child.increment_round()
 
+    def set_pool_capacity(self, worker_type: str, num_gpus: int) -> None:
+        """Capacity change inside one pool (worker death or churn; the JAX
+        package's shockwave.py:1346)."""
+        child = self.children.get(worker_type)
+        if child is None:
+            return
+        self.pools[worker_type] = max(1, int(num_gpus))
+        child.set_capacity(num_gpus)
+
     def set_recompute_flag(self, jobs=None) -> None:
         """With ``jobs`` given, only the pools owning them go stale; a bare
         call, or a job no pool owns, stales every pool."""

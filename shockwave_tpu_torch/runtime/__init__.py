@@ -1,2 +1,2 @@
-"""Runtime helpers of the port: the solver-fault injection the planner's
-degradation ladder consumes."""
+"""Runtime helpers of the port: seeded fault injection for the simulator,
+the planner's degradation ladder and the RPC call sites."""

@@ -16,6 +16,12 @@
         -p shockwave_tpu_pdhg -c v100=64 --num_gpus_per_server v100=4 \\
         --time_per_iteration 120 --checkpoint_threshold 110 \\
         --checkpoint_file run.ckpt
+    python -m shockwave_tpu_torch.simulate -t traces/generated_220_dynamic.trace \\
+        -p shockwave_tpu_pdhg -c v100=64 --num_gpus_per_server v100=4 \\
+        --time_per_iteration 120 --fault-plan plan.json --round_log log.jsonl
+    python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
+        -p max_min_fairness_packed -c v100=8 --time_per_iteration 120 \\
+        --profiling_percentage 0.5 --num_reference_models 8 --device cpu
 
 The counterpart of the JAX package's ``scripts/simulate.py``: parses a
 trace, builds the throughput oracle and epoch profiles, runs the
@@ -38,9 +44,17 @@ cluster as one pool a worker type. ``--speculate`` solves each next
 round ahead and reconciles it at the boundary (a churned boundary
 re-solves through kernel A), and ``--checkpoint_threshold N
 --checkpoint_file F`` saves the run to ``F`` once N jobs were admitted,
-or resumes from ``F`` where it exists. The telemetry, flight-recorder
-and watchdog flags raise ``NotImplementedError``: they are not ported
-yet (ROADMAP.md).
+or resumes from ``F`` where it exists. ``--fault-plan P`` arms the fault
+plan ``P`` (``runtime/faults.py``; worker crashes, reclaims, re-adds,
+scheduler kills and solver faults) before the scheduler exists and
+prints the injector's applied / recovered counts; ``--round_log L``
+writes the run's job / round / complete records to ``L`` as JSON lines;
+under a packed policy ``--profiling_percentage`` below 1 or
+``--num_reference_models`` turns on online throughput estimation, its
+masked ALS on ``--device``. ``--solver`` takes the one LP solver both
+packages have (``scipy``). The telemetry, flight-recorder and watchdog
+flags raise ``NotImplementedError``: they are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -151,6 +165,14 @@ def main(argv=None) -> dict:
         preemption_overheads = _json_arg(
             args.preemption_overheads, "--preemption_overheads")
 
+    # Fault injection: the plan is armed before the scheduler exists, so
+    # the first round already sees the injector.
+    fault_injector = None
+    if args.fault_plan:
+        from shockwave_tpu_torch.runtime import faults
+
+        fault_injector = faults.configure(args.fault_plan)
+
     policy = get_policy(args.policy, device=device, seed=args.seed)
     sched = Scheduler(
         policy,
@@ -162,6 +184,9 @@ def main(argv=None) -> dict:
         shockwave_config=shockwave_config,
         preemption_overheads=preemption_overheads,
         round_overhead_fraction=args.round_overhead_fraction,
+        profiling_percentage=args.profiling_percentage,
+        num_reference_models=args.num_reference_models,
+        device=device,
     )
 
     jobs_to_complete = None
@@ -203,6 +228,14 @@ def main(argv=None) -> dict:
         print(f"Worst FTF: {max(ftf_list):.3f}")
         print(f"Unfair job fraction: {unfair_fraction:.1f}%")
     print(f"Preemptions: {sched.get_num_preemptions()}")
+    faults_summary = None
+    if fault_injector is not None:
+        faults_summary = fault_injector.summary()
+        print(
+            f"Faults: {faults_summary['applied']} applied, "
+            f"{faults_summary['recovered']} recovered, "
+            f"{len(faults_summary['unrecovered'])} unrecovered"
+        )
     if sched._time_per_iteration != args.time_per_iteration:
         print(
             f"Round auto-sized: {args.time_per_iteration} s -> "
@@ -227,6 +260,11 @@ def main(argv=None) -> dict:
               f"{sched.num_allocations} taking {sched.allocation_s:.2f} s; "
               f"sim wall-clock: {wall:.1f} s")
 
+    if args.round_log:
+        os.makedirs(os.path.dirname(args.round_log) or ".", exist_ok=True)
+        sched.save_round_log(args.round_log)
+        print(f"Wrote {args.round_log}")
+
     result = {
         "trace_file": args.trace_file,
         "policy": args.policy,
@@ -247,6 +285,7 @@ def main(argv=None) -> dict:
         "allocation_s": sched.allocation_s,
         "wall_s": wall,
         "effective_round_s": sched._time_per_iteration,
+        "faults": faults_summary,
     }
     if args.output_pickle:
         os.makedirs(os.path.dirname(args.output_pickle) or ".", exist_ok=True)
@@ -272,6 +311,11 @@ def parse_args(argv=None):
     parser.add_argument("-c", "--cluster_spec", type=str, default="25:0:0")
     parser.add_argument("--num_gpus_per_server", type=str, default="1:1:1")
     parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument(
+        "--solver", type=str, choices=["scipy"], default="scipy",
+        help="the Gavel policies' LP solver (scipy's HiGHS, the one both "
+        "packages have)",
+    )
     parser.add_argument("--time_per_iteration", type=int, default=360)
     parser.add_argument("-s", "--window-start", type=int, default=None)
     parser.add_argument("-e", "--window-end", type=int, default=None)
@@ -296,6 +340,26 @@ def parse_args(argv=None):
         help="checkpoint path; the run resumes from it if it exists",
     )
     parser.add_argument("--output_pickle", type=str, default=None)
+    parser.add_argument(
+        "--round_log", type=str, default=None,
+        help="write the structured per-round event log (JSONL) here; "
+        "scripts/analysis/postprocess_log.py reads it",
+    )
+    parser.add_argument(
+        "--fault-plan", "--fault_plan", dest="fault_plan", type=str,
+        default=None,
+        help="arm fault injection from this JSON fault plan "
+        "(shockwave_tpu_torch/runtime/faults.py)",
+    )
+    parser.add_argument(
+        "--profiling_percentage", type=float, default=1.0,
+        help="fraction of colocations profiled for new jobs; below 1 turns "
+        "on online throughput estimation (packed policies only)",
+    )
+    parser.add_argument(
+        "--num_reference_models", type=int, default=None,
+        help="size of the reference-model set for throughput estimation",
+    )
     parser.add_argument("--no_profile_cache", action="store_true")
     parser.add_argument(
         "--preemption_overheads",
@@ -325,6 +389,10 @@ def parse_args(argv=None):
     parser.add_argument("--watchdog", action="store_true")
     parser.add_argument("--watchdog-config", "--watchdog_config",
                         dest="watchdog_config")
+    # The live scrape endpoint serves physical mode only: the JAX
+    # package's simulation parses it and leaves it unused, as here.
+    parser.add_argument("--metrics-port", "--metrics_port",
+                        dest="metrics_port", type=int, default=None)
     return parser.parse_args(argv)
 
 

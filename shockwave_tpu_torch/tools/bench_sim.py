@@ -290,6 +290,196 @@ SPECULATE_SMOKE = {
     ("shockwave_tpu", 60.0): dict(
         makespan=879.048, spec_stats={"hit": 4, "repair": 1, "miss": 3}),
 }
+# The simulator's remaining features (tests/sim_features_reference.py
+# captures the JAX package's runs on the CPU; sim_feature_runs lists them).
+# Churn: the 220-job trace on 64 v100s, 4 a server, under
+# shockwave_tpu_pdhg (kernel A) and max_min_fairness, with the seeded
+# churn plan of CHURN_PLAN (horizon: the unbroken pdhg run's makespan,
+# PLANNER["checkpoint_unbroken"]; two solver faults, since each
+# solver_slowdown sleeps 0.05 x the round, and two scheduler kills).
+CHURN_PLAN = dict(seed=0, horizon_s=24000.0, num_workers=64,
+                  target_events=200, solver_faults=2, scheduler_faults=2)
+CHURN_POLICIES = ("shockwave_tpu_pdhg", "max_min_fairness")
+# Online estimation: the JAX package's estimator sweep
+# (results/estimator_sweep.json: the golden trace on 8 v100s under
+# max_min_fairness_packed, profiling percentage x reference models) and
+# the 220-job trace on 64 v100s at p = 0.5, r = 8.
+ESTIMATOR_SWEEP = tuple((p, r) for p in (0.2, 0.5, 0.8) for r in (4, 8))
+# Pricing: the committed decision log's round 91 with tests/test_whatif.py's
+# CLI burst, and the --cells 4 tier's state at its most incomplete jobs
+# (chip_smoke.py phase 12's snapshot) with a burst of 8 CLI-default jobs
+# and a batch of PRICING_BATCH bursts (pricing_bursts).
+PRICING_LOG_ROUND = 91
+PRICING_LOG_BURST = dict(jobs=4, scale=2, duration=4000.0)
+PRICING_TIER_BURST = dict(jobs=8)
+PRICING_BATCH = 16
+# The pins (tests/sim_features_reference.py; results/sim_features/
+# jax_reference.json.gz is the JAX package's capture). The churn cells
+# are the JAX package's runs, which the port's CPU run equals in every
+# printed digit. The estimation cells are the port's own CPU runs: its
+# ALS starts from a torch.Generator seeded 0, not from PRNGKey(0)
+# normals, and some cosine matches are near-ties that float32 noise
+# flips (ROADMAP.md, queue 3); results/estimator_sweep.json holds the JAX
+# package's. Each is held within TOLERANCE in its rounds, with its
+# counts equal and its worker ids, matches and (on the host's policies)
+# round log equal to the digest.
+SIM_FEATURES = {
+    "churn_shockwave_tpu_pdhg": dict(
+        makespan=29710.566, avg_jct=9557.801, worst_ftf=4.270,
+        rounds=248),
+    "churn_max_min_fairness": dict(
+        makespan=29830.484, avg_jct=10969.328, worst_ftf=4.185,
+        rounds=249),
+    "estimate_p0.2_r4": dict(
+        makespan=12930.392, avg_jct=5353.732, worst_ftf=2.051,
+        rounds=108),
+    "estimate_p0.2_r8": dict(
+        makespan=12674.896, avg_jct=5289.625, worst_ftf=2.022,
+        rounds=106),
+    "estimate_p0.5_r4": dict(
+        makespan=12777.227, avg_jct=4842.360, worst_ftf=1.903,
+        rounds=107),
+    "estimate_p0.5_r8": dict(
+        makespan=12780.604, avg_jct=5315.948, worst_ftf=2.087,
+        rounds=107),
+    "estimate_p0.8_r4": dict(
+        makespan=12812.611, avg_jct=4817.519, worst_ftf=1.959,
+        rounds=107),
+    "estimate_p0.8_r8": dict(
+        makespan=12638.946, avg_jct=4819.454, worst_ftf=2.109,
+        rounds=106),
+    "estimate_220": dict(
+        makespan=30458.104, avg_jct=10206.728, worst_ftf=2.985,
+        rounds=254),
+}
+SIM_FEATURE_COUNTS = {
+    "churn_shockwave_tpu_pdhg": dict(
+        admitted=220, lost_jobs=[190], dropped_jobs=[],
+        faults=dict(planned_events=200, applied=200, recovered=200,
+                    unrecovered=[], pending_cluster=0,
+                    pending_solver=0, pending_rpc=0)),
+    "churn_max_min_fairness": dict(
+        admitted=220, lost_jobs=[], dropped_jobs=[190],
+        faults=dict(planned_events=200, applied=198, recovered=198,
+                    unrecovered=[], pending_cluster=0,
+                    pending_solver=2, pending_rpc=0)),
+    "estimate_p0.2_r4": dict(
+        admitted=12, lost_jobs=[], dropped_jobs=[2],
+        faults=None),
+    "estimate_p0.2_r8": dict(
+        admitted=12, lost_jobs=[], dropped_jobs=[2],
+        faults=None),
+    "estimate_p0.5_r4": dict(
+        admitted=12, lost_jobs=[], dropped_jobs=[],
+        faults=None),
+    "estimate_p0.5_r8": dict(
+        admitted=12, lost_jobs=[], dropped_jobs=[2],
+        faults=None),
+    "estimate_p0.8_r4": dict(
+        admitted=12, lost_jobs=[], dropped_jobs=[],
+        faults=None),
+    "estimate_p0.8_r8": dict(
+        admitted=12, lost_jobs=[], dropped_jobs=[],
+        faults=None),
+    "estimate_220": dict(
+        admitted=220, lost_jobs=[], dropped_jobs=[],
+        faults=None),
+}
+SIM_FEATURE_DIGESTS = {
+    "churn_shockwave_tpu_pdhg": dict(
+        worker_ids="95f916ca36688d17", matches=None,
+        round_log=None),
+    "churn_max_min_fairness": dict(
+        worker_ids="95f916ca36688d17", matches=None,
+        round_log="8b2c550b7ca2e405"),
+    "estimate_p0.2_r4": dict(
+        worker_ids="809d533fc370950a", matches="f3bc323d22b1f8df",
+        round_log="cc0417def753e028"),
+    "estimate_p0.2_r8": dict(
+        worker_ids="809d533fc370950a", matches="2e6ab3ad95bbff9d",
+        round_log="9488e3cd6ad2894d"),
+    "estimate_p0.5_r4": dict(
+        worker_ids="809d533fc370950a", matches="1255b4dbe4e294a6",
+        round_log="8558b990543f6e7a"),
+    "estimate_p0.5_r8": dict(
+        worker_ids="809d533fc370950a", matches="e933470dd16ba2b2",
+        round_log="84caa852b4ebf4c4"),
+    "estimate_p0.8_r4": dict(
+        worker_ids="809d533fc370950a", matches="557915fe3061172e",
+        round_log="ba7617863091b377"),
+    "estimate_p0.8_r8": dict(
+        worker_ids="809d533fc370950a", matches="41c5ae76c4e36d5d",
+        round_log="400cd5e849d7f2c2"),
+    "estimate_220": dict(
+        worker_ids="ccf91e2b960f5146", matches="e0dbbeb6e9f33a5a",
+        round_log="4fe990734d612624"),
+}
+# The card's own runs of the estimation cells where its ALS (cuBLAS and
+# cuSOLVER's summation orders) flips a near-tie match against the CPU's
+# (chip_smoke.py phase 15 on an NVIDIA H100 80GB HBM3 at 700 W, which
+# checks that every flip is a near-tie). Counts and worker ids are the
+# CPU pins'.
+SIM_FEATURES_H100 = {
+    "estimate_p0.8_r8": (
+        dict(makespan=12638.946, avg_jct=4819.454, worst_ftf=2.109,
+             rounds=106),
+        dict(matches="38ee20fcc1bb93bb")),
+    "estimate_220": (
+        dict(makespan=29606.397, avg_jct=10259.244, worst_ftf=2.985,
+             rounds=247),
+        dict(matches="87465485a2559c4b", round_log="96fee5c4c4e6f01b")),
+}
+# An ALS completion on the card against the CPU's from the same start
+# may pick another reference type only where the two types' cosine
+# distances lie within this of each other.
+NEAR_TIE = 2e-5
+# The JAX package's pricing decisions (PricingDecision.as_record): round
+# PRICING_LOG_ROUND of the committed log with PRICING_LOG_BURST; the tier
+# state at its most incomplete jobs (round 253, before the round 293 where
+# the tier's summation orders part, so every package holds the same
+# state) with PRICING_TIER_BURST and, as one batch, pricing_bursts.
+PRICING = {
+    "log": dict(action="accept", reason="priced",
+                welfare_delta=1.4771e-05, burst_welfare=-0.172693882),
+    "tier": dict(round=253, jobs=1053, num_jobs=1053),
+    "tier_single": dict(action="accept", reason="priced",
+                        welfare_delta=-0.00036844,
+                        burst_welfare=-0.003660552),
+    "tier_batch": [
+        dict(action="accept", reason="priced",
+             welfare_delta=-6.5392e-05, burst_welfare=-0.000446961),
+        dict(action="accept", reason="priced",
+             welfare_delta=-9.8424e-05, burst_welfare=-0.000958775),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000133281, burst_welfare=-0.001592853),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000196053, burst_welfare=-0.001837202),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000233796, burst_welfare=-0.002606656),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000275406, burst_welfare=-0.002865461),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000320146, burst_welfare=-0.003339884),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.00036844, burst_welfare=-0.003660552),
+        dict(action="accept", reason="priced",
+             welfare_delta=-4.8906e-05, burst_welfare=-0.000545606),
+        dict(action="accept", reason="priced",
+             welfare_delta=-9.8424e-05, burst_welfare=-0.001045627),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000166711, burst_welfare=-0.001338342),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000187755, burst_welfare=-0.001968355),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000233796, burst_welfare=-0.00248595),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000266617, burst_welfare=-0.00306182),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.000294809, burst_welfare=-0.003871302),
+        dict(action="accept", reason="priced",
+             welfare_delta=-0.00036844, burst_welfare=-0.003660552),
+    ],
+}
 POOLS_120_CLUSTER = {"v100": 8, "p100": 4, "k80": 4}
 CHECKPOINT_THRESHOLD = 110
 GREEDY_FALLBACK_GPUS = 5
@@ -327,7 +517,9 @@ def run_trace(trace, policy: str, num_gpus: int, device,
               gpus_per_server: int = None, round_s: float = ROUND_S,
               seed: int = 0, scale_factor: int = None,
               slo: float = None, checkpoint_threshold: int = None,
-              checkpoint_file: str = None, no_native: bool = False) -> dict:
+              checkpoint_file: str = None, no_native: bool = False,
+              fault_plan=None, profiling_percentage: float = 1.0,
+              num_reference_models: int = None) -> dict:
     """Simulate ``trace`` on ``num_gpus`` v100s with 120 s rounds under
     ``policy`` with the planner's device solves on ``device``, as
     tests/test_golden.py drives the JAX package (``config`` adds planner
@@ -341,6 +533,11 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     ``checkpoint_threshold`` and ``checkpoint_file`` go to
     ``Scheduler.simulate``, and ``no_native`` reports the native greedy
     unavailable for the run, so the PyTorch greedy is the fallback.
+    ``fault_plan`` (a ``runtime/faults.py`` plan, or ``"churn"`` for
+    ``churn_plan``) is armed for the run and disarmed after it;
+    ``profiling_percentage`` and ``num_reference_models`` turn on online
+    throughput estimation under a packed policy, its completion on
+    ``device``.
     Returns the metrics (makespan, average JCT, worst FTF, unfair
     fraction, utilization), the rounds, the policy's allocation calls and
     their seconds (Gavel policies), the solves by backend (with their
@@ -350,7 +547,11 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     optimal within the gap, 1 stopped at the time limit) and the run's
     wall time, the speculation's hit / repair / miss counts and exposed
     planning seconds, the PyTorch greedy's solves by device and the
-    solves by pool and backend under a pool set. ``capture``, where given,
+    solves by pool and backend under a pool set, and the simulator's
+    features: the injector's summary and each fault's recovery record
+    (``faults``, ``recoveries``), the live worker ids, the jobs that did
+    not complete, the estimator's reference-job matches, the total cost,
+    the lease-extension percentage and the round log. ``capture``, where given,
     receives every planning problem the planner solves, and ``plans``
     (round, schedule) of every solve. The kernels' launches come by
     instantiation too (``variants``)."""
@@ -362,9 +563,13 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     from shockwave_tpu_torch.data.default_oracle import generate_oracle
     from shockwave_tpu_torch.ops import eg_pdhg, eg_relaxed
     from shockwave_tpu_torch.policies import get_policy
+    from shockwave_tpu_torch.runtime import faults
     from shockwave_tpu_torch.solver import eg_greedy, eg_level
 
     start = time.perf_counter()
+    if fault_plan == "churn":
+        fault_plan = churn_plan(faults)
+    injector = faults.configure(fault_plan) if fault_plan else None
     cluster = cluster or {"v100": num_gpus}
     jobs, arrivals = trace_jobs(trace, scale_factor)
     oracle = generate_oracle()
@@ -379,10 +584,18 @@ def run_trace(trace, policy: str, num_gpus: int, device,
         config = {"num_gpus": num_gpus, "time_per_iteration": round_s,
                   "future_rounds": 20, "lambda": 5.0, "k": 10.0,
                   **(config or {})}
-    sched = Scheduler(get_policy(policy, device=device, seed=seed),
-                      throughputs=oracle, seed=seed,
-                      time_per_iteration=round_s, profiles=profiles,
-                      shockwave_config=config)
+    try:
+        sched = Scheduler(get_policy(policy, device=device, seed=seed),
+                          throughputs=oracle, seed=seed,
+                          time_per_iteration=round_s, profiles=profiles,
+                          shockwave_config=config,
+                          profiling_percentage=profiling_percentage,
+                          num_reference_models=num_reference_models,
+                          device=device)
+    except BaseException:
+        if injector is not None:
+            faults.reset()
+        raise
     if capture is not None or plans is not None:
         planner = sched._shockwave
         solve = planner._solve
@@ -403,12 +616,17 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     per_server = None
     if gpus_per_server is not None:
         per_server = {wt: gpus_per_server for wt in cluster}
-    with (mock.patch.object(native, "available", lambda: False)
-          if no_native else contextlib.nullcontext()):
-        makespan = sched.simulate(
-            dict(cluster), arrivals, jobs, num_gpus_per_server=per_server,
-            checkpoint_threshold=checkpoint_threshold,
-            checkpoint_file=checkpoint_file)
+    try:
+        with (mock.patch.object(native, "available", lambda: False)
+              if no_native else contextlib.nullcontext()):
+            makespan = sched.simulate(
+                dict(cluster), arrivals, jobs,
+                num_gpus_per_server=per_server,
+                checkpoint_threshold=checkpoint_threshold,
+                checkpoint_file=checkpoint_file)
+    finally:
+        if injector is not None:
+            faults.reset()
     device_solves = dict(eg_level.SOLVES)
     launches = {**eg_pdhg.LAUNCHES, **eg_relaxed.LAUNCHES}
     variants = {"eg_pdhg": dict(eg_pdhg.LAUNCHES_BY_VARIANT),
@@ -443,7 +661,34 @@ def run_trace(trace, policy: str, num_gpus: int, device,
                 spec_stats=getattr(sched._shockwave, "spec_stats", None),
                 exposed_plan_s=sum(getattr(sched._shockwave,
                                            "exposed_plan_times", ())),
+                **sim_features(sched, injector),
                 wall_s=time.perf_counter() - start)
+
+
+def sim_features(sched, injector) -> dict:
+    """What the simulator's features left on a finished run (a scheduler
+    of either package, its injector or None): the injector's summary and
+    its recovery records by event id, the live worker ids, the jobs
+    admitted, the admitted jobs that neither completed nor were dropped
+    (``lost_jobs``), the jobs dropped after repeated failed micro-tasks,
+    the estimator's reference-job matches, the total cost, the
+    lease-extension percentage and the round log."""
+    matches = getattr(sched, "_reference_job_map", None)
+    ended = {j.integer: t for j, t in sched._job_completion_times.items()}
+    return dict(
+        faults=injector.summary() if injector is not None else None,
+        recoveries=({int(k): dict(v) for k, v in injector.recovered.items()}
+                    if injector is not None else None),
+        worker_ids=list(sched._worker_ids),
+        admitted=sched._job_id_counter,
+        lost_jobs=[j for j in range(sched._job_id_counter)
+                   if j not in ended],
+        dropped_jobs=sorted(j for j, t in ended.items() if t is None),
+        matches=({int(j.integer): list(ref) for j, ref in matches.items()}
+                 if matches is not None else None),
+        total_cost=sched.get_total_cost(),
+        lease_extensions=sched.get_num_lease_extensions(),
+        round_log=list(sched._round_log))
 
 
 def trace_jobs(trace, scale_factor: int = None) -> tuple:
@@ -675,6 +920,114 @@ def planner_runs() -> list:
          (GOLDEN_TRACE, "shockwave_tpu_level", GREEDY_FALLBACK_GPUS),
          {"no_native": True}),
     ]
+
+
+def sim_feature_runs() -> list:
+    """(key, run arguments, keyword arguments) of every cell of the
+    simulator's features; ``fault_plan="churn"`` stands for
+    ``churn_plan`` of the runner's own package. ``run_trace`` and
+    tests/sim_features_reference.py's ``ref_run`` take both."""
+    runs = [(f"churn_{policy}", (TRACE_220, policy, 64),
+             {"gpus_per_server": 4, "fault_plan": "churn"})
+            for policy in CHURN_POLICIES]
+    runs += [(f"estimate_p{p}_r{r}",
+              (GOLDEN_TRACE, "max_min_fairness_packed", 8),
+              {"profiling_percentage": p, "num_reference_models": r})
+             for p, r in ESTIMATOR_SWEEP]
+    runs.append(("estimate_220", (TRACE_220, "max_min_fairness_packed", 64),
+                 {"gpus_per_server": 4, "profiling_percentage": 0.5,
+                  "num_reference_models": 8}))
+    return runs
+
+
+def churn_plan(faults_module):
+    """``CHURN_PLAN`` drawn by ``faults_module`` (either package's
+    ``runtime/faults.py``)."""
+    return faults_module.generate_churn_plan(**CHURN_PLAN)
+
+
+def pricing_bursts(job_cls) -> list:
+    """The ``PRICING_BATCH`` bursts of the lane-amortized pricing check:
+    1 to 8 jobs, a scale factor of 2 every third, demands of 0.5 to 2.5
+    hours or, every fourth, the whole window."""
+    from shockwave_tpu_torch.tools.whatif import burst_jobs
+
+    return [burst_jobs(job_cls, 1 + k % 8, scale=2 if k % 3 == 2 else 1,
+                       duration=None if k % 4 == 3 else 1800.0 * (1 + k % 5))
+            for k in range(PRICING_BATCH)]
+
+
+def digest(obj) -> str:
+    """The first 16 hex digits of the SHA-256 of ``obj``'s sorted-key JSON
+    (after a JSON round trip, so that int and str keys hash alike)."""
+    import hashlib
+
+    text = json.dumps(json.loads(json.dumps(obj)), sort_keys=True)
+    return hashlib.sha256(text.encode("utf-8")).hexdigest()[:16]
+
+
+def check_features(result: dict, key: str, card: str = None) -> list:
+    """A run of ``sim_feature_runs`` cell ``key`` against its pins: the
+    metrics (``check_run``), the counts and the digests; on an H100
+    (``card``, its name) the card's own pins where it has them."""
+    metrics, digests = SIM_FEATURES[key], SIM_FEATURE_DIGESTS[key]
+    if card and card.startswith("NVIDIA H100") and key in SIM_FEATURES_H100:
+        metrics, card_digests = SIM_FEATURES_H100[key]
+        digests = {**digests, **card_digests}
+    bad = check_run(result, metrics)
+    bad += [f"{k} {result[k]} vs {v}"
+            for k, v in SIM_FEATURE_COUNTS[key].items() if result[k] != v]
+    for k, v in digests.items():
+        if v is not None and digest(result[k]) != v:
+            bad.append(f"{k} digest {digest(result[k])} vs {v}")
+    return bad
+
+
+def recoveries_without_hashes(recoveries) -> dict:
+    """Recovery records without the HA round trip's verdict: each package
+    hashes its own field set, and the JAX package's hash also covers the
+    iteration order of four sets, which a restore can change
+    (tests/test_torch_faults.py::
+    test_the_reference_inexact_round_trips_differ_only_in_set_order)."""
+    if recoveries is None:
+        return None
+    return {int(k): {f: ("journal_state_restored"
+                         if f == "how" and v.startswith("journal") else v)
+                     for f, v in r.items()
+                     if f not in ("state_sha", "roundtrip_exact")}
+            for k, r in recoveries.items()}
+
+
+def decision_misses(got: dict, ref: dict) -> list:
+    """A pricing decision (``PricingDecision.as_record``) against the JAX
+    package's: the action and reason equal, the welfare delta and the
+    burst's welfare within kernel A's limit, 1e-3 (1 + |reference|)."""
+    bad = [f"{k} {got[k]!r} vs {ref[k]!r}" for k in ("action", "reason")
+           if got[k] != ref[k]]
+    for k in ("welfare_delta", "burst_welfare"):
+        if (got[k] is None) != (ref[k] is None) or (
+                ref[k] is not None
+                and abs(got[k] - ref[k]) > 1e-3 * (1.0 + abs(ref[k]))):
+            bad.append(f"{k} {got[k]!r} vs {ref[k]!r}")
+    return bad
+
+
+def round_log_misses(log: list, ref: list, tol: float = 0.0) -> list:
+    """Where a round log differs from ``ref`` record for record: equal
+    keys and strings, numbers within ``tol`` (0: equal)."""
+    def same(a, b):
+        if isinstance(a, dict) and isinstance(b, dict):
+            return a.keys() == b.keys() and all(same(a[k], b[k]) for k in a)
+        if isinstance(a, (int, float)) and isinstance(b, (int, float)) \
+                and not isinstance(a, bool) and not isinstance(b, bool):
+            return abs(a - b) <= tol
+        return a == b
+
+    bad = [f"record {i}: {a} vs {b}" for i, (a, b) in enumerate(zip(log, ref))
+           if not same(a, b)]
+    if len(log) != len(ref):
+        bad.append(f"{len(log)} records vs {len(ref)}")
+    return bad
 
 
 def check_run(result: dict, expected: dict) -> list:

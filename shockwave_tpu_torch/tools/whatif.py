@@ -17,9 +17,17 @@ makespan and worst-FTF-proxy deltas, the batch's time against one
 standalone solve and against the audited lanes launched one by one. Exits
 1 if a lane differs from its one-lane launch in any bit.
 
-``price`` (the marginal-price admission decision of a hypothetical
-burst) waits for ``whatif/pricing.py`` and streaming admission
-(ROADMAP.md, queue 1 item 10) and raises.
+    python -m shockwave_tpu_torch.tools.whatif price \\
+        --log results/flight_recorder/decisions.jsonl --round 91 \\
+        --burst-jobs 4 --burst-duration 3600
+
+``price`` is the counterpart of the JAX package's ``cmd_price``: the
+marginal-price admission decision of a hypothetical burst of
+``--burst-jobs`` jobs against the recorded market (``whatif/pricing.py``:
+the market with and without the burst as two lanes of one launch of
+kernel A), beside what quota-only admission would decide. A first
+``price()`` warms the launch (it builds the extension on the card) and
+the second is reported. Exits 0.
 """
 
 from __future__ import annotations
@@ -168,6 +176,77 @@ def cmd_sweep(args) -> int:
     return 0 if audit["bit_identical"] else 1
 
 
+def burst_jobs(job_cls, count: int, scale: int = 1, duration=None,
+               priority: float = 1.0,
+               job_type: str = "ResNet-18 (batch size 32)") -> list:
+    """``count`` hypothetical jobs of ``job_cls`` (either package's
+    ``Job``) as ``price`` submits them: ``duration`` seconds of demand
+    each, or the whole planning window where it is None."""
+    return [job_cls(job_type=job_type, command="whatif-burst",
+                    total_steps=1000, scale_factor=int(scale),
+                    mode="static", priority_weight=float(priority),
+                    duration=float(duration) if duration else None)
+            for _ in range(count)]
+
+
+def cmd_price(args) -> int:
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.utils.device import resolve_device
+    from shockwave_tpu_torch.utils.fileio import atomic_write_json
+    from shockwave_tpu_torch.whatif import AdmissionPricer
+
+    device = resolve_device(args.device)
+    problem, keys, s0, rnd, source = _load_base(args)
+    burst = burst_jobs(Job, args.burst_jobs, args.burst_scale,
+                       args.burst_duration, args.burst_priority,
+                       args.burst_job_type)
+    # Offline pricing against a recorded state: the provider hands the
+    # pricer the market already built.
+    state_holder = {"problem": problem, "keys": keys, "s0": s0}
+    pricer = AdmissionPricer(
+        state_provider=lambda: state_holder,
+        threshold=args.threshold,
+        budget_s=args.budget_s,
+        device=device,
+    )
+    # The first call builds and loads the kernel; the second is the
+    # operator's decision.
+    pricer.price(burst)
+    decision = pricer.price(burst)
+    # Quota-only admission accepts any batch of a tenant under its quota.
+    quota_only = (
+        "reject"
+        if args.tenant_quota is not None and len(burst) > args.tenant_quota
+        else "accept"
+    )
+    report = {
+        "source": source,
+        "round": rnd,
+        "device": str(device),
+        "base": {"jobs": problem.num_jobs,
+                 "num_gpus": float(problem.num_gpus)},
+        "burst": {
+            "jobs": args.burst_jobs,
+            "scale_factor": args.burst_scale,
+            "duration_s": args.burst_duration,
+            "priority_weight": args.burst_priority,
+            "tenant": args.tenant,
+        },
+        "threshold": args.threshold,
+        "quota_only_decision": quota_only,
+        "priced_decision": decision.as_record(),
+        "improved": (decision.action in ("accept", "reject")
+                     and decision.action != quota_only),
+    }
+    if args.out:
+        atomic_write_json(args.out, report)
+        print(f"wrote {args.out}")
+    print(json.dumps(report["priced_decision"]))
+    print(f"quota-only would {quota_only}; marginal price says "
+          f"{decision.action} ({decision.reason})")
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="what-if fleet: batched counterfactual EG solves")
@@ -199,18 +278,34 @@ def main(argv=None) -> int:
                          help="lanes to audit against their one-lane "
                          "launches (-1 = every scenario)")
     p_price = sub.add_parser(
-        "price", help="marginal-price one admission burst (not ported)")
+        "price", help="marginal-price one hypothetical admission burst")
     add_source(p_price)
+    p_price.add_argument("--burst-jobs", type=int, default=4)
+    p_price.add_argument("--burst-scale", type=int, default=1)
+    p_price.add_argument(
+        "--burst-duration", type=float, default=None,
+        help="per-job demand seconds (default: the full planning window)")
+    p_price.add_argument("--burst-priority", type=float, default=1.0)
+    p_price.add_argument("--burst-job-type",
+                         default="ResNet-18 (batch size 32)")
+    p_price.add_argument("--tenant", default="whatif")
+    p_price.add_argument(
+        "--tenant-quota", type=int, default=None,
+        help="pending-job quota the quota-only comparison applies "
+        "(default: none, so quota-only accepts)")
+    p_price.add_argument(
+        "--threshold", type=float, default=1e-3,
+        help="the incumbents' largest welfare loss before a rejection "
+        "(default: the solver-noise floor)")
+    p_price.add_argument("--budget-s", dest="budget_s", type=float,
+                         default=60.0)
 
-    args, _ = parser.parse_known_args(argv)
-    if args.cmd == "price":
-        raise NotImplementedError(
-            "whatif price (the admission pricer, whatif/pricing.py) is not "
-            "ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1 item 10)")
     args = parser.parse_args(argv)
     if not args.log and not args.state:
         parser.error("one of --log / --state is required")
-    return cmd_sweep(args)
+    if args.cmd == "sweep":
+        return cmd_sweep(args)
+    return cmd_price(args)
 
 
 if __name__ == "__main__":

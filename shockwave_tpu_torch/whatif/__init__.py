@@ -8,10 +8,18 @@ JAX package's ``shockwave_tpu/whatif/``.
   each batched lane equals in every bit, and the audit that checks it.
 * :func:`base_problem_from_state` / :func:`base_problem_from_log` —
   seeding from a planner's ``state_dict()`` or a decision log.
-
-The admission pricer (``whatif/pricing.py``) is not ported yet
-(ROADMAP.md, queue 1).
+* :class:`AdmissionPricer` / :class:`PricingCollector` — the marginal
+  price of an admission burst, as lanes of one launch
+  (``python -m shockwave_tpu_torch.tools.whatif price``). Streaming
+  admission's online pricing is not ported yet (ROADMAP.md, queue 1).
 """
+
+from shockwave_tpu_torch.whatif.pricing import (  # noqa: F401
+    AdmissionPricer,
+    PricingCollector,
+    PricingDecision,
+    burst_problem,
+)
 
 from shockwave_tpu_torch.whatif.scenario import (  # noqa: F401
     Scenario,

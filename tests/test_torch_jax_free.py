@@ -300,6 +300,67 @@ def test_greedy_fallback_cli_runs_with_jax_blocked():
     _assert_metrics(out, bench_sim.PLANNER["greedy_fallback_golden"])
 
 
+def test_fault_plan_and_round_log_cli_run_with_jax_blocked(tmp_path):
+    """``simulate --fault-plan P --round_log L`` on the golden trace under
+    the level backend, with a seeded churn plan (crashes, reclaims,
+    re-adds, a solver timeout, two scheduler kills through the HA codec),
+    with JAX and the JAX package unimportable: every event applied and
+    recovered, the round log written, no module of either loaded."""
+    from shockwave_tpu_torch.runtime import faults
+
+    churn = faults.generate_churn_plan(
+        3, horizon_s=13000.0, num_workers=8, target_events=14,
+        solver_faults=1, scheduler_faults=2)
+    plan = tmp_path / "plan.json"
+    plan.write_text(churn.to_json())
+    n = len(churn.events)
+    log = tmp_path / "log.jsonl"
+    out = _run_blocked("shockwave_tpu_torch.simulate",
+                       *_golden_args("shockwave_tpu_level"),
+                       "--fault-plan", str(plan), "--round_log", str(log))
+    assert f"Faults: {n} applied, {n} recovered, 0 unrecovered" in out
+    assert f"Wrote {log}" in out
+    assert log.read_text().count('"event": "round"') > 50
+
+
+def test_estimation_cli_runs_with_jax_blocked():
+    """``simulate -p max_min_fairness_packed --profiling_percentage 0.5
+    --num_reference_models 4`` on the golden trace (online throughput
+    estimation, its ALS on the CPU) with JAX and the JAX package
+    unimportable: the pinned run (``bench_sim.SIM_FEATURES``)."""
+    out = _run_blocked("shockwave_tpu_torch.simulate", "-t",
+                       "traces/small_12_dynamic.trace", "-p",
+                       "max_min_fairness_packed", "-c", "v100=8",
+                       "--time_per_iteration", "120",
+                       "--profiling_percentage", "0.5",
+                       "--num_reference_models", "4", "--device", "cpu",
+                       "--no_profile_cache")
+    expected = bench_sim.SIM_FEATURES["estimate_p0.5_r4"]
+    assert f"Makespan: {expected['makespan']:.3f} s" in out
+    assert f"Average JCT: {expected['avg_jct']:.3f} s" in out
+    assert f"Worst FTF: {expected['worst_ftf']:.3f}" in out
+
+
+def test_whatif_price_runs_with_jax_blocked(tmp_path):
+    """``tools.whatif price`` on round 91 of the committed decision log with
+    JAX and the JAX package unimportable: the JAX package's decision
+    (``bench_sim.PRICING["log"]``), no module of either loaded."""
+    import json
+
+    report = tmp_path / "price.json"
+    b = bench_sim.PRICING_LOG_BURST
+    out = _run_blocked("shockwave_tpu_torch.tools.whatif", "price", "--log",
+                       "results/flight_recorder/decisions.jsonl", "--round",
+                       str(bench_sim.PRICING_LOG_ROUND), "--burst-jobs",
+                       str(b["jobs"]), "--burst-scale", str(b["scale"]),
+                       "--burst-duration", str(b["duration"]), "--device",
+                       "cpu", "--out", str(report))
+    expected = bench_sim.PRICING["log"]
+    assert f"marginal price says {expected['action']}" in out
+    decision = json.loads(report.read_text())["priced_decision"]
+    assert bench_sim.decision_misses(decision, expected) == []
+
+
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
     return top in FORBIDDEN
@@ -371,7 +432,12 @@ def test_port_sources_import_no_jax():
                    "policies/strategy_proof.py",
                    "policies/max_min_fairness_packed.py",
                    "policies/speculation.py", "solver/eg_greedy.py",
-                   "solver/duals.py", "data/generate.py"):
+                   "solver/duals.py", "data/generate.py",
+                   "runtime/faults.py", "ha/codec.py",
+                   "core/throughput_estimator.py",
+                   "ops/matrix_completion.py", "whatif/pricing.py",
+                   "data/job_table.py", "data/spot_prices.py",
+                   "utils/fileio.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

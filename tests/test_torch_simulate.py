@@ -178,12 +178,14 @@ def test_policies_not_ported_raise(name):
 
 
 # Speculation and hetero_pools are ported (tests/test_torch_speculation.py,
-# tests/test_torch_hetero.py).
+# tests/test_torch_hetero.py), and so is online throughput estimation
+# (tests/test_torch_estimator.py), which a Shockwave policy never turns
+# on, in either package.
 @pytest.mark.parametrize("config, kwargs", [
     ({"cells": 4, "cell_mesh": True}, {}),
     ({}, {"simulate": False}),
-    ({}, {"profiling_percentage": 0.5}),
-    ({}, {"num_reference_models": 4}),
+    ({"cells": 2, "cell_mesh": True}, {}),
+    ({}, {"simulate": False, "profiling_percentage": 0.5}),
 ])
 def test_options_not_ported_raise(config, kwargs):
     shockwave_config = {"num_gpus": 8, "time_per_iteration": 120, **config}
@@ -552,9 +554,14 @@ def test_golden_run_under_the_ladder(no_faults):
 
 
 def test_fault_plans_of_the_scheduler_are_not_ported(no_faults):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        faults.configure(faults.FaultPlan(seed=0, events=[
-            faults.FaultEvent(0, "worker_crash", at_s=10.0)]))
+    """The scheduler's fault kinds are ported now (tests/
+    test_torch_faults.py): a plan holding one arms, and its event goes to
+    the cluster queue the simulator pops, never to the ladder's solver
+    queue."""
+    injector = faults.configure(faults.FaultPlan(seed=0, events=[
+        faults.FaultEvent(0, "worker_crash", at_s=10.0)]))
+    assert injector.next_solver_fault(10**6) is None
+    assert [e.event_id for e in injector.due_cluster_events(10.0)] == [0]
 
 
 def test_fault_plan_round_trips_and_loads_from_the_environment(

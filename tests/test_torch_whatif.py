@@ -350,8 +350,14 @@ def test_sweep_from_a_state_artifact_and_price_raises(tmp_path):
     recorder.export_state(LOG, state, round_index=91)
     assert cli.main(["sweep", "--state", state, "--switch-scale", "0,1",
                      "--audit-lanes", "1", "--device", "cpu"]) == 0
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["price", "--log", LOG, "--burst-jobs", "4"])
+    # ``price`` is ported (tests/test_torch_pricing.py): on the state
+    # artifact it prices a burst and exits 0.
+    out = str(tmp_path / "price.json")
+    assert cli.main(["price", "--state", state, "--burst-jobs", "4",
+                     "--device", "cpu", "--out", out]) == 0
+    with open(out) as f:
+        assert json.load(f)["priced_decision"]["action"] in ("accept",
+                                                             "reject")
     with pytest.raises(SystemExit):
         cli.main(["sweep", "--device", "cpu"])
 
