@@ -71,9 +71,11 @@
    parity problems (slot bands 64 to 1024, with and without a switch
    bonus), on a seeded problem of every timing band and on every planning
    problem the 2048-job run built; (d) per slot band (64 to 1024 jobs on
-   256 GPUs, 20 rounds, seeded) and on a sample of the 2048-job run's own
+   256 GPUs, 20 rounds, seeded) and on 4 of the 2048-job run's own
    problems across their job counts, the level solve's time, device head
-   and host tail, the median of 20 after a warm-up, its kernel launches
+   and host tail, the median of 3 after a warm-up (the native greedy's
+   one run; ``bench_sim.SMOKE_ITERS``; the tool's deeper readings are
+   PERF.md's), its kernel launches
    and the device's busy time under torch.profiler, and the native
    greedy's time on the same problem, with the crossover of each set. It
    prints one JSON line ``{"simulation": {...}}`` of these readings.
@@ -99,7 +101,9 @@
    global memory); (c) the degradation ladder: the 12-job trace under
    ``shockwave_tpu`` with a planning deadline and one injected
    ``solver_timeout``, whose record must show the pdhg rung ``ok``; (d)
-   at 256 to 65536 jobs the wrapper's instantiation and the sequential
+   at 1024 jobs (``bench_sim.SMOKE_EG_TIME_BANDS``; the readings at 256
+   and 4096 to 65536 are PERF.md's) the wrapper's instantiation and the
+   sequential
    one timed in turns, each with its block barriers and its floor (the
    barriers at a probe kernel's us per empty reduction), the two equal
    in every bit, with the plain version's time (up to 4096 jobs) and the
@@ -256,12 +260,51 @@
    10's line carries the phase's launches of kernel A
    (``sim_features_launches``).
 
+16. After item 15, Ulysses attention and the telemetry planes
+   (``run_ulysses``, ``run_telemetry``): (a) ``ulysses_attention`` (the
+   flash body, one causal launch a shard over the gathered sequence) on a
+   4-shard seq mesh of the card against ``flash_attention`` in float32
+   and bf16 (B=2, S=1024, H=4, D=64), output and q/k/v gradients within
+   rtol 1e-3, atol 1e-4; the 110M tier with ``attention="ulysses"`` on a
+   (1, 1, 4, 1) mesh against the flash model on the same seed-0 weights
+   (first loss within 2e-5, every gradient within 0.08 relative, and
+   whether they are bitwise equal), 5 steps each within 5e-5 of the flash
+   run's loss with 32 causal launches of each kernel a step and none
+   non-causal, ``train.main --attention ulysses`` for 2 steps, and the
+   steps/s and peak memory beside the flash step's; (b) the flight
+   recorder's fixture run (``python -m shockwave_tpu_torch.simulate -t
+   traces/small_12_dynamic.trace -p shockwave_tpu_level -c 2:0:0 --seed 0
+   --time_per_iteration 60`` with ``--metrics-out``, ``--trace-out``,
+   ``--decision-log`` and ``--watchdog``, its level solves on the card)
+   held to ``results/flight_recorder/``: metrics within 1e-3 in its 419
+   rounds, 32 plan records whose windows are the committed log's, its 419
+   round contexts, the committed counters and gauges that are current
+   (``bench_sim.TELEMETRY_HELD``), and to the JAX package's CPU run of
+   today (``bench_sim.TELEMETRY_FIXTURE``; the committed fixture predates
+   its calibration scoring and market plane): the calibration summary
+   within 1e-6, the market gauges and the alerts of the deterministic
+   watchdog rules round for round (``solver_time`` reads wall seconds and
+   is reported); then the same run with every plane off, whose plans and
+   round log must equal the planes-on run's, both wall times printed; (c)
+   phase 14's golden ``--cells 2 --speculate`` run and phase 15's churned
+   pdhg run write their decision logs and metrics dumps, their pins
+   holding as before; (d) ``python -m shockwave_tpu_torch.obs.recorder
+   replay`` (its ``main``) of the logs of (b) and (c) and of the JAX
+   package's two committed logs with the solves on the card, every plan
+   diff empty, with the records replayed and the seconds taken; (e)
+   ``explain.narrative_from_records`` over ``results/explain/
+   decisions.jsonl`` equal to ``narratives.json``, and a coherent
+   narrative for every job of (c)'s cells log. It prints one JSON line
+   ``{"telemetry": ...}``; the causal flash rows of item 10's line carry
+   the Ulysses run's launches (``ulysses_launches``).
+
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -860,7 +903,14 @@ def run_simulation(device) -> dict:
         fail(f"2048-job tier: level solves {tier['solves']} but "
              f"{tier['device_solves']} by device")
 
-    bad, report = sim.solve_report(device, problems)
+    bad, report = sim.solve_report(device, problems, sim.SMOKE_ITERS,
+                                   sim.SMOKE_NATIVE_ITERS,
+                                   sim.SMOKE_TRACE_SAMPLE)
+    if not bad:
+        print(f"  (c) {report['check_s']:.1f} s, (d) "
+              f"{report['timing_s']:.1f} s (medians of {sim.SMOKE_ITERS}, "
+              f"on {sim.SMOKE_TRACE_SAMPLE} of the run's problems)",
+              flush=True)
     if bad:
         fail("level solve on the card against the CPU's: " + "; ".join(bad))
     return {"golden": golden, "tier_2048": tier, **report}
@@ -1007,7 +1057,11 @@ def run_first_order(device) -> dict:
     print("first-order kernels timed, the wrapper's instantiation and the "
           f"sequential one in turns (CUDA events, median of {sim.EG_ITERS}; "
           f"plain: one run, up to {sim.EG_PLAIN_MAX_JOBS} jobs):", flush=True)
-    timings = sim.time_eg_kernels(device)
+    started = time.time()
+    timings = sim.time_eg_kernels(device, sim.SMOKE_EG_TIME_BANDS)
+    timing_s = time.time() - started
+    print(f"  (d): {timing_s:.1f} s (bands {sim.SMOKE_EG_TIME_BANDS})",
+          flush=True)
     differ = [f"{r['kernel']} {r['jobs']} jobs" for r in timings
               if not r["identical"]]
     if differ:
@@ -1018,7 +1072,7 @@ def run_first_order(device) -> dict:
                 "solve_s", "device_head_s", "launches", "wall_s")},
             "windows_vs_level": vs_level, "golden": golden,
             "max_abs_err": max_err, "ladder": degraded,
-            "timings": timings, "launches": launches,
+            "timings": timings, "timing_s": timing_s, "launches": launches,
             # The tier's 8 windows, for phase 14 (dropped from the line).
             "windows": windows}
 
@@ -1650,7 +1704,11 @@ def run_planner(device, card: str, windows) -> dict:
 
     batched.solve_cells_pdhg = recording
     try:
-        cells = planner_cell(sim, "speculate_golden_cells", device, tag)
+        # With the flight recorder and the metrics plane on: the pin must
+        # hold all the same (phase 16 replays the log).
+        with planes_on(TELEMETRY_LOGS["cells_speculate"],
+                       TELEMETRY_OUT / "cells_speculate_metrics.json"):
+            cells = planner_cell(sim, "speculate_golden_cells", device, tag)
     finally:
         batched.solve_cells_pdhg = real_solve
     launches["cells_speculate"] = cells["launches"]["eg_pdhg"]
@@ -1816,11 +1874,18 @@ def run_sim_features(device, card: str) -> dict:
         key = f"churn_{policy}"
         log_path = SIM_OUT / f"{key}.jsonl"
         kernel.reset_launch_counts()
+        # The pdhg run with the flight recorder and the metrics plane on:
+        # its pins must hold all the same (phase 16 replays the log).
+        planes = [] if policy != "shockwave_tpu_pdhg" else [
+            "--decision-log", str(TELEMETRY_LOGS["churn_pdhg"]),
+            "--metrics-out", str(TELEMETRY_OUT / "churn_pdhg_metrics.json")]
+        for path in planes[1::2]:
+            Path(path).unlink(missing_ok=True)
         r = cli_run(["-t", str(sim.TRACE_220), "-p", policy, "-c", "v100=64",
                      "--num_gpus_per_server", "v100=4",
                      "--time_per_iteration", "120", "--fault-plan",
                      str(plan_path), "--round_log", str(log_path),
-                     "--no_profile_cache"], key)
+                     "--no_profile_cache", *planes], key)
         launches[key] = kernel.LAUNCHES["eg_pdhg"]
         written = [json.loads(line) for line in
                    log_path.read_text().splitlines()]
@@ -2076,6 +2141,368 @@ def retime_noncausal(fa, bench, ring: dict, card: str) -> dict:
     return {"kernels": readings, "card_before": before, "card_after": after}
 
 
+# Phase 16: Ulysses attention and the telemetry planes. A 4-shard seq
+# mesh of the one card: at the 110M tier a shard's flash launch is B=8,
+# S=2048, H/P=2, D=128. The limits are the ring phase's.
+ULYSSES_SHARDS = 4
+TELEMETRY_OUT = ROOT / "_smoke_out" / "telemetry"
+FIXTURE_DIR = ROOT / "results" / "flight_recorder"
+EXPLAIN_DIR = ROOT / "results" / "explain"
+FIXTURE_ARGS = ["-t", str(ROOT / "traces" / "small_12_dynamic.trace"), "-p",
+                "shockwave_tpu_level", "-c", "2:0:0", "--seed", "0",
+                "--time_per_iteration", "60", "--no_profile_cache"]
+# The card's calibration summary against the JAX package's CPU run.
+CALIBRATION_TOL = 1e-6
+# Phases 14 and 15 write these decision logs with the planes on; phase 16
+# replays them.
+TELEMETRY_LOGS = {"cells_speculate": TELEMETRY_OUT / "cells_speculate.jsonl",
+                  "churn_pdhg": TELEMETRY_OUT / "churn_pdhg.jsonl"}
+
+
+@contextlib.contextmanager
+def planes_on(log: Path, metrics_out: Path):
+    """The ``--decision-log`` and ``--metrics-out`` planes on around a run
+    that builds its scheduler in-process (``bench_sim.run_trace``), as the
+    simulate CLI turns them on; the dumps are written and every plane
+    reset after it."""
+    import argparse
+
+    from shockwave_tpu_torch import obs
+
+    for path in (log, metrics_out):
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.unlink(missing_ok=True)
+    obs.reset()
+    obs.apply_telemetry_args(argparse.Namespace(
+        metrics_out=str(metrics_out), trace_out=None, decision_log=str(log),
+        watchdog=False, watchdog_config=None))
+    try:
+        yield
+        obs.export_run_summary(metrics_out=str(metrics_out))
+    finally:
+        obs.reset()
+
+
+def check_ulysses_against_flash(device) -> dict:
+    """``ulysses_attention`` (the flash body on ULYSSES_SHARDS shards of the
+    card) against ``flash_attention`` on the same inputs, float32 and bf16
+    (B=2, S=1024, H=4, D=64): output and q/k/v gradients within rtol 1e-3,
+    atol 1e-4 (the ring phase's limits). Returns each dtype's largest
+    |err| and whether every tensor was bitwise equal."""
+    from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.parallel.mesh import make_mesh
+    from shockwave_tpu_torch.parallel.ulysses import ulysses_attention
+
+    mesh = make_mesh((1, 1, ULYSSES_SHARDS, 1), [device] * ULYSSES_SHARDS)
+    B, S, H, D = 2, 1024, 4, 64
+    readings = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        gen = torch.Generator(device=device).manual_seed(0)
+        inputs = [torch.randn(B, S, H, D, generator=gen, device=device)
+                  .to(dtype) for _ in range(3)]
+        w = torch.randn(B, S, H, D, generator=gen, device=device)
+        results = []
+        for attend in (lambda *a: ulysses_attention(
+                *a, mesh, local_attention="flash"), fa.flash_attention):
+            leaves = [x.clone().requires_grad_() for x in inputs]
+            out = attend(*leaves)
+            (out.float() * w).sum().backward()
+            results.append([out.detach()] + [x.grad for x in leaves])
+        sync()
+        worst, equal = 0.0, True
+        for what, got, ref in zip(("out", "dq", "dk", "dv"), *results):
+            equal = equal and bool(torch.equal(got, ref))
+            got, ref = got.float(), ref.float()
+            err = (got - ref).abs()
+            worst = max(worst, float(err.max()))
+            over = int((err > 1e-4 + 1e-3 * ref.abs()).sum())
+            if over or not bool(torch.isfinite(got).all()):
+                fail(f"ulysses against flash, {dtype}: {what} has {over} "
+                     "elements past rtol 1e-3, atol 1e-4")
+        readings[str(dtype).replace("torch.", "")] = {
+            "max_abs_err": worst, "bitwise_equal": equal}
+    return readings
+
+
+def run_ulysses(fa, train, device, card, flash_losses, flash_steps_per_s,
+                flash_peak_gib) -> dict:
+    """Phase 16 (a) (docstring, item 16): Ulysses against flash, the 110M
+    tier under ``attention="ulysses"`` against the flash model (first loss
+    and gradients, 5 steps, launches), ``train.main --attention ulysses``
+    for 2 steps, steps/s and peak memory beside the flash step's. Returns
+    the readings; fails on any miss."""
+    from shockwave_tpu_torch.parallel.mesh import make_mesh
+
+    small = check_ulysses_against_flash(device)
+    print(f"ulysses ({ULYSSES_SHARDS} shards of one card, flash body) "
+          f"against flash_attention, B=2 S=1024 H=4 D=64: out and q/k/v "
+          f"gradients within rtol 1e-3 atol 1e-4: {small} [{card}]",
+          flush=True)
+
+    args = train.parse_args(train_args(5, "flash"))
+    model, _, _, batch_fn = train.build_family("Transformer", args, device)
+    first_batch = batch_fn(np.random.default_rng(args.seed))
+    flash_loss, flash_grads = loss_and_grads(model, first_batch)
+    del model
+    args = train.parse_args(train_args(5, "ulysses"))
+    mesh = make_mesh((1, 1, ULYSSES_SHARDS, 1), [device] * ULYSSES_SHARDS)
+    model, step_fn, _, batch_fn = train.build_family("Transformer", args,
+                                                     device, mesh)
+    loss, grads = loss_and_grads(model, first_batch)
+    grad_err = worst_grad_error(grads, flash_grads)
+    bitwise = loss == flash_loss and all(
+        torch.equal(grads[n], flash_grads[n]) for n in grads)
+    del grads, flash_grads
+    loss_err = abs(loss - flash_loss) / abs(flash_loss)
+    print(f"110M tier, first batch: ulysses loss {loss!r} against flash's "
+          f"{flash_loss!r} ({loss_err:.3e} relative, limit "
+          f"{RING_LOSS_RTOL:g}); worst gradient {grad_err[0]} at "
+          f"{grad_err[1]:.4f} relative (limit {RING_GRAD_RTOL:g}); loss and "
+          f"every gradient bitwise equal to flash's: {bitwise} [{card}]",
+          flush=True)
+    if loss_err > RING_LOSS_RTOL or grad_err[1] > RING_GRAD_RTOL:
+        fail("ulysses 110M tier: first loss or gradients past their limits")
+
+    np_rng = np.random.default_rng(args.seed)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    losses = [step_fn(batch_fn(np_rng))]
+    sync()
+    start = time.perf_counter()
+    for _ in range(args.num_steps - 1):
+        losses.append(step_fn(batch_fn(np_rng)))
+    sync()
+    steady_s = (time.perf_counter() - start) / (args.num_steps - 1)
+    launches = dict(fa.LAUNCHES)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    del model, step_fn
+    losses = [float(x) for x in losses]
+    steps_err = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                         flash_losses))
+    print(f"110M tier, ulysses on a (1, 1, {ULYSSES_SHARDS}, 1) mesh of one "
+          f"card: losses {losses} against the flash run's {flash_losses} (at "
+          f"most {steps_err:.3e} relative, limit {RING_STEPS_RTOL:g}); "
+          f"{1 / steady_s:.3f} steps/s after the first against flash's "
+          f"{flash_steps_per_s:.3f}; peak memory {peak_gib:.2f} GiB against "
+          f"flash's {flash_peak_gib:.2f}; launches {launches} [{card}]",
+          flush=True)
+    if len(losses) != len(flash_losses) or not all(
+            math.isfinite(x) for x in losses) or steps_err > RING_STEPS_RTOL:
+        fail(f"ulysses 110M tier: losses {losses} against the flash run's "
+             f"{flash_losses}, past {RING_STEPS_RTOL:g} of them")
+    # A layer launches each causal kernel once a shard, forward and
+    # backward, and no non-causal one.
+    layers, steps = args.num_layers, args.num_steps
+    for name, count in launches.items():
+        expected = 0 if name.endswith("_nc") else (
+            layers * steps * ULYSSES_SHARDS)
+        if count != expected:
+            fail(f"ulysses 110M tier: {name} launched {count} times in "
+                 f"{steps} steps, expected {expected}")
+
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    try:
+        fa.reset_launch_counts()
+        one = train.main(train_args(2, "ulysses"))
+        one_launches = dict(fa.LAUNCHES)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    print(f"train.main --attention ulysses: losses {one['losses']}, "
+          f"launches {one_launches} [{card}]", flush=True)
+    if len(one["losses"]) != 2 or not all(math.isfinite(x)
+                                          for x in one["losses"]):
+        fail(f"train.main --attention ulysses: losses {one['losses']}")
+    if one_launches != {name: 0 if name.endswith("_nc") else 2 * layers
+                        for name in one_launches}:
+        fail(f"train.main --attention ulysses: launches {one_launches}")
+    return {"small": small, "flash_first_loss": flash_loss,
+            "ulysses_first_loss": loss, "first_loss_rel": loss_err,
+            "worst_grad": grad_err[0], "worst_grad_rel": grad_err[1],
+            "bitwise_equal_to_flash": bitwise, "losses": losses,
+            "flash_losses": flash_losses, "losses_max_rel": steps_err,
+            "steps_per_s": 1 / steady_s,
+            "flash_steps_per_s": flash_steps_per_s,
+            "tokens_per_s": args.batch_size * args.seq_len / steady_s,
+            "peak_gib": peak_gib, "flash_peak_gib": flash_peak_gib,
+            "launches": launches,
+            "train_main": {"losses": one["losses"],
+                           "launches": one_launches}}
+
+
+def replay_on_card(log: Path, device) -> dict:
+    """``python -m shockwave_tpu_torch.obs.recorder replay LOG`` (its
+    ``main``, in this process) with the solves on the card: the records
+    replayed, the seconds taken; fails unless every plan diff is empty."""
+    import io
+
+    from shockwave_tpu_torch.obs import recorder
+
+    out = io.StringIO()
+    start = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = recorder.main(["replay", str(log), "--device", str(device)])
+    seconds = time.time() - start
+    last = out.getvalue().strip().splitlines()[-1]
+    found = re.match(r"replayed (\d+) plan record\(s\): (\d+) exact, "
+                     r"(\d+) diverged", last)
+    if rc != 0 or not found or found.group(3) != "0" or (
+            found.group(1) == "0"):
+        fail(f"replay of {log} on the card: {out.getvalue()[-2000:]}")
+    return {"records": int(found.group(1)), "seconds": seconds}
+
+
+def run_telemetry(device, card: str, logs: dict) -> dict:
+    """Phase 16 (b), (d) and (e) (docstring, item 16): the flight-recorder
+    fixture run on the card with every plane on, held to the committed
+    fixture and the JAX package's run, and again with every plane off;
+    every log replayed on the card; the narratives. ``logs`` are phase
+    14's and 15's decision logs. Returns the readings; fails at its end
+    on any miss."""
+    from shockwave_tpu_torch import simulate
+    from shockwave_tpu_torch.obs import explain, recorder
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    tag = f"[{card}]"
+    bad, readings = [], {}
+    TELEMETRY_OUT.mkdir(parents=True, exist_ok=True)
+    paths = {k: TELEMETRY_OUT / f"fixture_{k}" for k in (
+        "metrics.json", "trace.json", "decisions.jsonl", "on.jsonl",
+        "off.jsonl")}
+    for path in paths.values():
+        path.unlink(missing_ok=True)
+    pins = sim.TELEMETRY_FIXTURE
+    print(f"telemetry phase {tag}:", flush=True)
+
+    # (b) The fixture run, every plane on, then every plane off.
+    argv = FIXTURE_ARGS + ["--device", str(device)]
+    start = time.time()
+    on = simulate.main(argv + [
+        "--metrics-out", str(paths["metrics.json"]), "--trace-out",
+        str(paths["trace.json"]), "--decision-log",
+        str(paths["decisions.jsonl"]), "--watchdog", "--round_log",
+        str(paths["on.jsonl"])])
+    on_s = time.time() - start
+    start = time.time()
+    off = simulate.main(argv + ["--round_log", str(paths["off.jsonl"])])
+    off_s = time.time() - start
+    bad += [f"fixture run: {m}" for m in sim.check_run(on, pins["run"])]
+    if any(on[k] != off[k] for k in ("makespan", "avg_jct", "worst_ftf",
+                                     "rounds", "num_preemptions", "solves")):
+        bad.append("the fixture run with every plane on differs from the "
+                   "run with every plane off")
+    if paths["on.jsonl"].read_text() != paths["off.jsonl"].read_text():
+        bad.append("the planes-on run's round log differs from the "
+                   "planes-off run's")
+    ours = list(recorder.iter_records(str(paths["decisions.jsonl"])))
+    committed = list(recorder.iter_records(str(FIXTURE_DIR /
+                                               "decisions.jsonl")))
+
+    def events(records, name):
+        return [r for r in records if r["event"] == name]
+
+    plans = [r["plan"] for r in events(ours, "plan")]
+    if plans != [r["plan"] for r in events(committed, "plan")] or len(
+            plans) != 32:
+        bad.append(f"fixture run: {len(plans)} plan records, not the "
+                   "committed log's 32 plan windows")
+    contexts = events(ours, "round_context")
+    if contexts != events(committed, "round_context") or len(
+            contexts) != 419:
+        bad.append(f"fixture run: {len(contexts)} round contexts, not the "
+                   "committed log's 419")
+    with open(paths["metrics.json"]) as f:
+        metrics = json.load(f)
+    with open(FIXTURE_DIR / "metrics.json") as f:
+        fixture = json.load(f)
+    bad += [f"fixture counters: {m}" for m in sim.metric_differences(
+        metrics, fixture, sim.TELEMETRY_HELD)]
+    got = sim.fixture_pins(paths["metrics.json"], paths["trace.json"])
+    for k, v in pins["calibration"].items():
+        if abs(got["calibration"][k] - v) > CALIBRATION_TOL * max(1.0,
+                                                                  abs(v)):
+            bad.append(f"calibration {k}: {got['calibration'][k]} against "
+                       f"the JAX package's {v}")
+    if got["market"] != pins["market"]:
+        bad.append(f"market gauges {got['market']} against {pins['market']}")
+    if got["alerts"] != pins["alerts"]:
+        bad.append(f"deterministic alerts {got['alerts']} against the JAX "
+                   f"package's {pins['alerts']}")
+    every_rule = sim.health_alerts(paths["trace.json"], deterministic=False)
+    stale = {k: fixture["metrics"][f"predictor_calibration_{k}"]["series"]
+             [0]["value"] for k in ("scored", "mape")}
+    readings["fixture_run"] = {
+        "planes_on_s": on_s, "planes_off_s": off_s,
+        "makespan": on["makespan"], "rounds": on["rounds"],
+        "plans": len(plans), "round_contexts": len(contexts),
+        "calibration": got["calibration"],
+        "committed_fixture_calibration": stale,
+        "alerts": len(got["alerts"]),
+        "solver_time_alerts": every_rule.count("solver_time")}
+    print(f"  fixture run (level solves on the card), every plane on: "
+          f"{pin_line(on)}, {len(plans)} plan records, {len(contexts)} round "
+          f"contexts, calibration {got['calibration']} (the committed "
+          f"fixture's, stale: {stale}), {len(got['alerts'])} deterministic "
+          f"alerts, solver_time {every_rule.count('solver_time')} "
+          f"(reported, not held); {on_s:.2f} s, every plane off "
+          f"{off_s:.2f} s {tag}", flush=True)
+
+    # (d) Every log replayed on the card.
+    replay = {}
+    for name, log in (("fixture_run", paths["decisions.jsonl"]),
+                      ("cells_speculate", logs["cells_speculate"]),
+                      ("churn_pdhg", logs["churn_pdhg"]),
+                      ("committed_flight_recorder",
+                       FIXTURE_DIR / "decisions.jsonl"),
+                      ("committed_explain", EXPLAIN_DIR / "decisions.jsonl")):
+        replay[name] = replay_on_card(log, device)
+        print(f"  replay {name}: {replay[name]['records']} plan records, "
+              f"every diff empty, {replay[name]['seconds']:.2f} s {tag}",
+              flush=True)
+    summaries = {name: recorder.summarize_log(str(logs[name]))
+                 for name in ("cells_speculate", "churn_pdhg")}
+    cells_states = [recorder.decode(r["planner_state"]) for r in
+                    recorder.iter_records(str(logs["cells_speculate"]))
+                    if r.get("event") == "plan"]
+    if not summaries["cells_speculate"]["speculations"] or not all(
+            "cells_replay" in s for s in cells_states) or not summaries[
+            "cells_speculate"]["speculative_plans"]:
+        bad.append(f"the cells log lacks stamped, speculative or "
+                   f"speculation records: {summaries['cells_speculate']}")
+    churn = summaries["churn_pdhg"]
+    if not churn["faults"] or churn["faults"] != churn["recoveries"]:
+        bad.append(f"the churn log's fault and recovery records: {churn}")
+    readings["replay"] = replay
+    readings["log_summaries"] = summaries
+
+    # (e) Narratives.
+    with open(EXPLAIN_DIR / "narratives.json") as f:
+        committed_narratives = json.load(f)
+    narratives = json.loads(json.dumps(explain.narrative_from_log(
+        str(EXPLAIN_DIR / "decisions.jsonl"))))
+    if narratives != committed_narratives:
+        bad.append("narratives over the committed explain log differ from "
+                   "narratives.json")
+    cells_narratives = explain.narrative_from_log(
+        str(logs["cells_speculate"]))["jobs"]
+    incoherent = [k for k, n in cells_narratives.items()
+                  if not n["trail"] or n["rounds_run"] <= 0
+                  or n["first_scheduled_round"] > n["last_scheduled_round"]]
+    if len(cells_narratives) != 12 or incoherent:
+        bad.append(f"narratives over the cells log: {len(cells_narratives)} "
+                   f"jobs, incoherent {incoherent}")
+    readings["narratives"] = {
+        "committed_equal": narratives == committed_narratives,
+        "cells_jobs": len(cells_narratives)}
+    print(f"  narratives: the committed explain log's equal narratives.json "
+          f"field for field: {narratives == committed_narratives}; "
+          f"{len(cells_narratives)} jobs of the cells log with a trail "
+          f"{tag}", flush=True)
+    if bad:
+        fail("telemetry phase: " + "; ".join(bad))
+    return readings
+
+
 def main() -> None:
     started = time.time()
     if not torch.cuda.is_available():
@@ -2164,8 +2591,12 @@ def main() -> None:
           f"GiB; flash {1 / steady_s:.3f} steps/s, peak {peak_gib:.2f} GiB",
           flush=True)
 
+    simulation_started = time.time()
     simulation = run_simulation(device)
+    simulation["phase_s"] = time.time() - simulation_started
+    first_order_started = time.time()
     first_order = run_first_order(device)
+    first_order["phase_s"] = time.time() - first_order_started
     gavel_started = time.time()
     gavel = run_gavel(device, card, simulation["tier_2048"])
     gavel["phase_s"] = time.time() - gavel_started
@@ -2191,6 +2622,22 @@ def main() -> None:
     features["phase_s"] = time.time() - features_started
     print(f"simulator features phase: {features['phase_s']:.1f} s, the "
           f"smoke's growth [{card}]", flush=True)
+    telemetry_started = time.time()
+    ulysses = run_ulysses(fa, train, device, card, first["losses"],
+                          1 / steady_s, peak_gib)
+    ulysses_s = time.time() - telemetry_started
+    telemetry = run_telemetry(device, card, TELEMETRY_LOGS)
+    telemetry["ulysses"] = ulysses
+    telemetry["seconds"] = {"ulysses": ulysses_s,
+                            "telemetry": time.time() - telemetry_started
+                            - ulysses_s}
+    telemetry["phase_s"] = time.time() - telemetry_started
+    print(f"ulysses and telemetry phase: {telemetry['phase_s']:.1f} s "
+          f"(ulysses {ulysses_s:.1f} s; fixture runs "
+          f"{telemetry['fixture_run']['planes_on_s']:.1f} + "
+          f"{telemetry['fixture_run']['planes_off_s']:.1f} s; replays "
+          f"{sum(r['seconds'] for r in telemetry['replay'].values()):.1f} "
+          f"s), the smoke's growth [{card}]", flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -2208,6 +2655,9 @@ def main() -> None:
             "plain_ms": ms[name][1], "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": sdpa_fwd if name == "flash_fwd" else None,
+            # The 5-step 110M run under Ulysses attention (phase 16):
+            # each layer launches the kernel once a shard.
+            "ulysses_launches": ulysses["launches"][name],
             "share_of_bound": bound_ms / ms[name][0],
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
@@ -2316,6 +2766,22 @@ def main() -> None:
               f"plain {row['plain_ms']:.1f} ms; no PyTorch call computes "
               f"it) [{card}]")
     print(f"chip_smoke: all phases in {time.time() - started:.1f} s")
+    # Each phase's seconds and the parts the smoke's budget turns on
+    # (phase 16's growth against the cut depth of phases 8(d) and 9(d)),
+    # on one line near the end of the output.
+    seconds_line = json.dumps({"seconds": {
+        "total": time.time() - started, "ring": ring["phase_s"],
+        "simulation": simulation["phase_s"],
+        "simulation_8c": simulation.get("check_s"),
+        "simulation_8d": simulation.get("timing_s"),
+        "first_order": first_order["phase_s"],
+        "first_order_9d": first_order["timing_s"],
+        "gavel": gavel["phase_s"], "cells": cells["phase_s"],
+        "library": library["phase_s"], "planner": planner["phase_s"],
+        "sim_features": features["phase_s"],
+        "telemetry": telemetry["phase_s"], **{
+            f"telemetry_{k}": v for k, v in telemetry["seconds"].items()}},
+        "card": card})
     for run in (simulation["tier_2048"], *simulation["golden"].values()):
         run.pop("records", None)
     print(json.dumps({"simulation": simulation, "card": card}))
@@ -2325,8 +2791,10 @@ def main() -> None:
     print(json.dumps({"library": library, "card": card}))
     print(json.dumps({"planner": planner, "card": card}, default=str))
     print(json.dumps({"sim_features": features, "card": card}, default=str))
+    print(json.dumps({"telemetry": telemetry, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
+    print(seconds_line)
     print(json.dumps({"kernels": kernels, "card": card,
                       "train_steps_per_s": 1 / steady_s,
                       "train_tokens_per_s": B * S / steady_s}))

@@ -36,12 +36,16 @@ market with its own child planner:
   and migrations; on churn only the stale cells re-solve, warm-started
   from their speculative windows, as lanes of one launch of kernel A.
 
-Not ported yet (ROADMAP.md, queue 1): the
-``shard_map`` of the cell axis (``cell_mesh`` raises), the flight
-recorder's plan records and market attribution, which run only with the
-recorder or metrics on (turning either on raises in
-:mod:`shockwave_tpu_torch.obs`), and the replay of a recorded replan
-(a state with a ``cells_replay`` stamp raises).
+* **Flight-recorder exactness.** Each coordinated replan records one
+  plan record whose planner state is the full pre-replan federation
+  snapshot (kind ``cell_set``), stamped (``cells_replay``) with the stale
+  set, per-cell backends and warm starts and the reconciliation trail;
+  replay restores the federation and re-runs the identical coordinated
+  replan. With the recorder or metrics on, the market attribution (per
+  cell dual reports, solver/duals.py) is published beside it.
+
+Not ported yet (ROADMAP.md, queue 1 item 8): the ``shard_map`` of the
+cell axis (``cell_mesh`` raises).
 """
 
 from __future__ import annotations
@@ -110,6 +114,8 @@ class CellPlanner(SpeculativePlannerMixin):
                                     device=device))
             for name, cap in self.cells.items()
         )
+        for name, child in self.children.items():
+            child.pool_label = name
         self.job_cell: Dict[object, str] = {}
         self.assignments: Dict[str, int] = {n: 0 for n in self.cells}
         # O(1) live-load accounting: per-cell gang sizes of INCOMPLETE
@@ -145,6 +151,17 @@ class CellPlanner(SpeculativePlannerMixin):
         # child's own solve_records).
         self.coord_solve_records: List[dict] = []
         self._failed_cells: set = set()
+        # Merged window of the cells solved by the most recent coordinated
+        # replan (what the flight-recorder replay diffs), and the replay
+        # stamp of a restored plan record.
+        self.schedules: "OrderedDict[int, list]" = OrderedDict()
+        self._replay_stamp: Optional[dict] = None
+        # The last committed replan's per-job spend across the re-solved
+        # cells (the scheduler's tenant-spend gauges; not replayed).
+        self.last_market: Optional[dict] = None
+        obs.gauge(
+            "cells_count", "number of cells the fleet partitions into"
+        ).set(float(len(self.cells)))
 
     # -- scheduler-facing interface -------------------------------------
     @property
@@ -202,6 +219,9 @@ class CellPlanner(SpeculativePlannerMixin):
         self.children[name].add_job(job_id, profile, round_len,
                                     scale_factor, submit_time,
                                     overhead_s=overhead_s)
+        obs.counter(
+            "cells_jobs_assigned_total", "jobs admitted into a cell"
+        ).inc(cell=name)
 
     def _child_of(self, job_id) -> Optional[ShockwavePlanner]:
         name = self.job_cell.get(job_id)
@@ -233,6 +253,10 @@ class CellPlanner(SpeculativePlannerMixin):
             md = child.job_metadata.get(job_id)
             if md is not None and md.completed_epochs >= md.total_epochs:
                 self._drop_load(job_id)
+
+    def get_metadata(self, job_id):
+        child = self._child_of(job_id)
+        return child.get_metadata(job_id) if child is not None else None
 
     def increment_round(self) -> None:
         for child in self.children.values():
@@ -370,6 +394,8 @@ class CellPlanner(SpeculativePlannerMixin):
             child.recompute_flag = bool(cchild.recompute_flag)
         self.coord_solve_records.extend(
             dict(r) for r in clone.coord_solve_records[base["coord"]:])
+        self.schedules = OrderedDict(
+            (r, list(s)) for r, s in clone.schedules.items())
         self.prices = dict(clone.prices)
         self.spares = dict(clone.spares)
         self.imbalance_rounds = int(clone.imbalance_rounds)
@@ -399,6 +425,9 @@ class CellPlanner(SpeculativePlannerMixin):
         self._shift_load(job_id, src, dst)
         self.job_cell[job_id] = dst
         self.migrations_total += 1
+        obs.counter(
+            "cells_migrations_total", "jobs migrated between cells"
+        ).inc(src=src, dst=dst)
 
     def _prepare_repair(self, spec, mismatch: dict) -> bool:
         """Churned boundary. Only when the federation was going to replan
@@ -432,33 +461,51 @@ class CellPlanner(SpeculativePlannerMixin):
 
     def _replan(self) -> None:
         """One coordinated planning round over the stale cells (module
-        docstring)."""
+        docstring). Records one coordinator-level plan record; replay
+        restores the federation and re-enters here."""
         from shockwave_tpu_torch.runtime import faults
 
+        recorder = obs.get_recorder()
+        pre_state = self.state_dict() if recorder.enabled else None
         self._replan_epoch += 1
-        stale = [n for n, c in self.children.items()
-                 if self._cell_stale(c)] or list(self.children)
-        # A speculative clone takes the path the live boundary would take,
-        # and its children consume no injected fault (their _solve).
-        individual = (faults.active() is not None
-                      or self.plan_deadline_s is not None)
+        replay = self._replay_stamp
+        self._replay_stamp = None
+        if replay is not None:
+            stale = [n for n in replay["stale"] if n in self.children]
+            individual = bool(replay.get("individual"))
+        else:
+            stale = [n for n, c in self.children.items()
+                     if self._cell_stale(c)] or list(self.children)
+            # A speculative clone takes the path the live boundary would
+            # take, and its children consume no injected fault.
+            individual = (faults.active() is not None
+                          or self.plan_deadline_s is not None)
         self._failed_cells = set()
 
-        built: "OrderedDict[str, tuple]" = OrderedDict(
-            (name, self._build_cell(name)) for name in stale)
-        t0 = time.time()
-        solved: Dict[str, dict] = {}
-        if individual:
-            self._solve_cells_individual(stale, built, solved)
-            reconcile = {"iterations": 0, "moves": [],
-                         "skipped": "faults_armed"}
-            migrations: list = []
-        else:
-            reconcile, migrations = self._solve_cells_batched(built, solved)
-        solve_seconds = time.time() - t0
-        self._write_schedules(built, solved)
-        self._finish_replan(stale, built, solved, reconcile, migrations,
-                            solve_seconds)
+        with obs.span(
+            "cells_replan", cat="plan", pid="solver", tid="cells",
+            args={"round": self.round_index, "stale": len(stale)},
+        ):
+            built: "OrderedDict[str, tuple]" = OrderedDict(
+                (name, self._build_cell(name)) for name in stale)
+            t0 = time.time()
+            solved: Dict[str, dict] = {}
+            warm_used: Dict[str, Optional[np.ndarray]] = {}
+            if individual:
+                self._solve_cells_individual(stale, built, solved,
+                                             warm_used, replay)
+                reconcile = {"iterations": 0, "moves": [],
+                             "skipped": ("replay" if replay is not None
+                                         else "faults_armed")}
+                migrations: list = []
+            else:
+                reconcile, migrations = self._solve_cells_batched(
+                    built, solved, warm_used)
+            solve_seconds = time.time() - t0
+            self._write_schedules(built, solved)
+            self._finish_replan(pre_state, recorder, stale, individual,
+                                built, solved, warm_used, reconcile,
+                                migrations, solve_seconds)
 
     def _build_cell(self, name: str):
         child = self.children[name]
@@ -466,11 +513,14 @@ class CellPlanner(SpeculativePlannerMixin):
             del child.schedules[r]
         return child._build_problem()
 
-    def _solve_cells_individual(self, stale, built, solved) -> None:
+    def _solve_cells_individual(self, stale, built, solved, warm_used,
+                                replay=None) -> None:
         """Per-cell solves through each child's own solve path (its ladder
         when armed): an injected solver fault charges the cell whose solve
         consumed it, and a cell whose ladder is exhausted keeps its cached
-        plan. A device fault is raised."""
+        plan. A device fault is raised. Replaying a recorded replan
+        re-enters each cell's recorded backend and fallback flag (no
+        injector runs at replay, so the ladder must not re-roll)."""
         for name in stale:
             child = self.children[name]
             problem, _job_ids = built[name]
@@ -478,7 +528,21 @@ class CellPlanner(SpeculativePlannerMixin):
                 continue
             t0 = time.time()
             try:
-                Y, used = child._solve(problem)
+                if replay is not None:
+                    child._solve_warm_start = child._solution_warm_start()
+                    child._last_ladder = None
+                    backend = replay["backends"].get(name,
+                                                     self.child_backend)
+                    fallback = bool(replay["fallback"].get(name, False))
+                    if name in replay.get("failed", ()):
+                        self._failed_cells.add(name)
+                        continue
+                    Y, used = child._solve_backend(backend, problem,
+                                                   as_fallback=fallback)
+                else:
+                    Y, used = child._solve(problem)
+                    ladder = child._last_ladder
+                    fallback = bool(ladder and ladder.get("degraded"))
             except Exception as e:
                 if _is_device_fault(e):
                     raise
@@ -491,15 +555,26 @@ class CellPlanner(SpeculativePlannerMixin):
                     "cells_cell_failures_total",
                     "cell solves that exhausted every recovery rung",
                 ).inc(cell=name)
+                obs.gauge(
+                    "cells_health",
+                    "1 healthy / 0.5 degraded rung / 0 failed, per cell",
+                ).set(0.0, cell=name)
                 continue
             seconds = time.time() - t0
             child._record_solve(seconds, used, problem.num_jobs, ok=True)
-            ladder = child._last_ladder
-            solved[name] = {"Y": Y, "backend": used,
-                            "fallback": bool(ladder and ladder["degraded"])}
+            warm_used[name] = getattr(child, "_solve_warm_start", None)
+            solved[name] = {"Y": Y, "backend": used, "fallback": fallback}
             self.prices[name] = 0.0  # refreshed on the next batched round
+            obs.histogram(
+                "cells_cell_solve_seconds",
+                "per-cell plan solve wall time (individual path)",
+            ).observe(seconds, cell=name)
+            obs.gauge(
+                "cells_health",
+                "1 healthy / 0.5 degraded rung / 0 failed, per cell",
+            ).set(0.5 if fallback else 1.0, cell=name)
 
-    def _batched_subset(self, names, built, s_by_cell):
+    def _batched_subset(self, names, built, warm_used, s_by_cell):
         """One launch over ``names``; updates ``s_by_cell`` and the kept
         prices and spares."""
         solve_names = [n for n in names if built[n][0] is not None]
@@ -517,9 +592,12 @@ class CellPlanner(SpeculativePlannerMixin):
                 s0 = np.array([prev_map.get(j, 0.0) for j in built[n][1]],
                               dtype=np.float64)
             else:
-                s0 = self.children[n]._solution_warm_start()
+                child = self.children[n]
+                s0 = child._solution_warm_start()
+                warm_used[n] = s0
+                child._solve_warm_start = s0
             s0s.append(s0)
-        s_list, _, diags = batched.solve_cells_pdhg(
+        s_list, objs, diags = batched.solve_cells_pdhg(
             problems, s0s, tol=self.pdhg_tol,
             max_cycles=self.cell_max_cycles,
             inner_iters=self.cell_inner_iters, slots=self._slot_band(),
@@ -530,13 +608,23 @@ class CellPlanner(SpeculativePlannerMixin):
             self.prices[n] = coordinator.congestion_price(problems[i],
                                                           s_list[i])
             self.spares[n] = coordinator.spare_chips(problems[i], s_list[i])
-            out[n] = diags[i]
+            out[n] = {"objective": objs[i], "diag": diags[i]}
+            obs.gauge(
+                "cells_price",
+                "congestion price (marginal welfare density per "
+                "chip-round), per cell",
+            ).set(self.prices[n], cell=n)
+            obs.gauge(
+                "cells_health",
+                "1 healthy / 0.5 degraded rung / 0 failed, per cell",
+            ).set(1.0, cell=n)
         return out
 
-    def _solve_cells_batched(self, built, solved):
+    def _solve_cells_batched(self, built, solved, warm_used):
         """Batched path, the reconciliation loop and migrations."""
         s_by_cell: Dict[str, dict] = {}
-        diags = self._batched_subset(list(built), built, s_by_cell)
+        diags = self._batched_subset(list(built), built, warm_used,
+                                     s_by_cell)
         names = list(self.cells)
         moves: List[dict] = []
         for _ in range(max(0, self.reconcile_iters)):
@@ -557,8 +645,16 @@ class CellPlanner(SpeculativePlannerMixin):
                 elif n not in built:
                     built[n] = self._build_cell(n)
                 touched.append(n)
-            diags.update(self._batched_subset(touched, built, s_by_cell))
+                obs.gauge(
+                    "cells_capacity", "chips owned, per cell"
+                ).set(float(self.cells[n]), cell=n)
+            diags.update(self._batched_subset(touched, built, warm_used,
+                                              s_by_cell))
             moves.append(move.as_dict())
+            obs.counter(
+                "cells_capacity_moves_total",
+                "chips reconciled between cells",
+            ).inc(move.chips)
         # Migration: only when the price spread persists across replans
         # (patience), decided among cells with fresh solves.
         spread_now = self._imbalanced()
@@ -586,7 +682,8 @@ class CellPlanner(SpeculativePlannerMixin):
                         # Every job migrated out: nothing to solve, and
                         # the pre-migration lane is stale.
                         s_by_cell.pop(n, None)
-                diags.update(self._batched_subset(touched, built, s_by_cell))
+                diags.update(self._batched_subset(touched, built, warm_used,
+                                                  s_by_cell))
                 self.imbalance_rounds = 0
         for n, entry in s_by_cell.items():
             problem = built[n][0]
@@ -595,11 +692,24 @@ class CellPlanner(SpeculativePlannerMixin):
             solved[n] = {"Y": batched.schedule_cell(problem, entry["s"],
                                                     self.device),
                          "backend": "cells", "fallback": False,
-                         "diag": diags[n]}
+                         "objective": diags[n]["objective"],
+                         "diag": diags[n]["diag"]}
+        obs.gauge(
+            "cells_reconcile_iterations",
+            "capacity moves applied by the last coordinated replan",
+        ).set(float(len(moves)))
+        obs.gauge(
+            "cells_price_spread",
+            "max-min congestion price across cells (imbalance signal)",
+        ).set(self._price_spread())
         reconcile = {"iterations": len(moves), "moves": moves,
                      "prices": {n: self.prices[n] for n in names},
                      "imbalance_rounds": self.imbalance_rounds}
         return reconcile, migrations
+
+    def _price_spread(self) -> float:
+        prices = [self.prices.get(n, 0.0) for n in self.cells]
+        return float(max(prices) - min(prices)) if prices else 0.0
 
     def _imbalanced(self) -> bool:
         prices = {n: self.prices.get(n, 0.0) for n in self.cells}
@@ -630,10 +740,21 @@ class CellPlanner(SpeculativePlannerMixin):
         self.migrations_total += 1
         src.recompute_flag = True
         dst.recompute_flag = True
+        obs.counter(
+            "cells_migrations_total", "jobs migrated between cells"
+        ).inc(src=m.src, dst=m.dst)
+        obs.instant(
+            "cell_migration", cat="plan", pid="solver", tid="cells",
+            args={"job": str(m.job), "src": m.src, "dst": m.dst,
+                  "gain": m.gain, "cost": m.cost,
+                  "incumbent": m.incumbent},
+        )
 
     def _write_schedules(self, built, solved) -> None:
         """Post-process every solved cell as the flat planner does
-        (stickiness, backfill) and write the child plan caches."""
+        (stickiness, backfill), write the child plan caches and rebuild
+        the merged window of this replan's decisions."""
+        self.schedules = OrderedDict()
         for name, (problem, job_ids) in built.items():
             child = self.children[name]
             if problem is None:
@@ -646,15 +767,25 @@ class CellPlanner(SpeculativePlannerMixin):
             Y = child._apply_stickiness(info["Y"], problem)
             Y = child._backfill(Y, problem)
             info["Y"] = Y
+            if info.get("objective") is None:
+                info["objective"] = float(problem.objective_value(Y))
             for r in range(child.future_rounds):
                 child.schedules[child.round_index + r] = [
                     job_ids[j] for j in range(len(job_ids)) if Y[j, r]]
+        for name in built:
+            child = self.children[name]
+            if name in solved or built[name][0] is None:
+                for r in range(child.future_rounds):
+                    abs_r = child.round_index + r
+                    merged = self.schedules.setdefault(abs_r, [])
+                    merged.extend(child.schedules.get(abs_r, []))
 
-    def _finish_replan(self, stale, built, solved, reconcile, migrations,
+    def _finish_replan(self, pre_state, recorder, stale, individual, built,
+                       solved, warm_used, reconcile, migrations,
                        solve_seconds) -> None:
-        """The coordinator's solve record of this replan (reference
-        planner.py:933-960; its plan record for the flight recorder is not
-        ported)."""
+        """The coordinator's solve record of this replan, its telemetry,
+        its market attribution and, with the recorder on, its plan record
+        (the JAX package's planner.py:942-1034)."""
         record = {
             "backend": "cells",
             "seconds": solve_seconds,
@@ -681,6 +812,153 @@ class CellPlanner(SpeculativePlannerMixin):
             record["repair"] = True
             self._last_repair = False
         self.coord_solve_records.append(record)
+        obs.histogram(
+            "shockwave_solve_seconds",
+            "plan-solve wall time per backend (ok=False: failed solves)",
+        ).observe(solve_seconds, backend="cells", ok="True")
+        obs.histogram(
+            "cells_coordinated_replan_seconds",
+            "wall time of one coordinated (batched) cell replan",
+        ).observe(solve_seconds)
+        self._market_attribution(built, solved, migrations)
+        if pre_state is None:
+            return
+        pre_state["cells_replay"] = {
+            "stale": list(stale),
+            "individual": bool(individual),
+            "backends": {n: info["backend"] for n, info in solved.items()},
+            "fallback": {n: info["fallback"] for n, info in solved.items()},
+            "failed": sorted(self._failed_cells),
+            "warm_starts": {
+                n: (None if w is None else [float(x) for x in w])
+                for n, w in warm_used.items()
+            },
+        }
+        start = self.round_index
+        plan = {r: list(self.schedules.get(start + r, []))
+                for r in range(self.future_rounds)}
+        objective = float(sum(info["objective"] for info in solved.values()
+                              if info.get("objective") is not None))
+        recorder.record_plan(
+            planner_state=pre_state,
+            plan=plan,
+            backend="cells",
+            objective=objective,
+            solve_record=record,
+            problem_summary={
+                "cells": {
+                    n: {"job_ids": list(built[n][1]),
+                        "num_gpus": int(self.cells[n])}
+                    for n in solved
+                },
+                "num_gpus": int(self.num_gpus),
+                "future_rounds": int(self.future_rounds),
+            },
+            tags=self._plan_record_tags,
+        )
+
+    def _market_attribution(self, built, solved, migrations) -> None:
+        """Market explainability tap of the cells market (the JAX
+        package's planner.py:1036-1159): per-cell dual reports at the
+        final schedules, the fleet price gauges, and one attribution
+        record over every re-solved cell (each job row with its cell,
+        the coordinator's prices and this replan's migrations). Pure
+        reads; one flags check with the recorder and metrics off."""
+        speculative = bool(
+            self._plan_record_tags
+            and self._plan_record_tags.get("speculative")
+        )
+        recorder = obs.get_recorder()
+        if not (recorder.enabled or obs.metrics_enabled()):
+            return
+        from shockwave_tpu_torch.solver.duals import dual_report
+
+        reports = {}
+        for name, info in solved.items():
+            problem = built[name][0]
+            if problem is None:
+                continue
+            reports[name] = dual_report(problem, Y=info["Y"])
+        fleet_price = max((r.budget_dual for r in reports.values()),
+                          default=0.0)
+        chips = {n: float(self.cells[n]) for n in reports}
+        total_chips = sum(chips.values()) or 1.0
+        fleet_drift = sum(reports[n].fairness_drift * chips[n]
+                          for n in reports) / total_chips
+        if not speculative:
+            obs.gauge(
+                "market_price",
+                "fleet congestion price (budget dual) of the last plan",
+            ).set(fleet_price)
+            obs.gauge(
+                "market_fairness_drift",
+                "budget-weighted fair-share deficit of the last plan "
+                "[0,1]",
+            ).set(fleet_drift)
+            self.last_market = {
+                "round": int(self.round_index),
+                "keys": [str(j) for name in reports
+                         for j in built[name][1]],
+                "spend": [float(x) for name in reports
+                          for x in reports[name].spend],
+                "price": float(fleet_price),
+            }
+        if not recorder.enabled or not reports:
+            return
+        from shockwave_tpu_torch.obs.recorder import _job_key
+
+        jobs = {
+            "keys": [], "cell": [], "share": [], "fair_share": [],
+            "welfare": [], "marginal": [], "price": [], "spend": [],
+            "bonus": [], "bonus_state": [], "switch_cost": [],
+            "makespan_binding": [], "predicted_finish_s": [],
+        }
+        for name, report in reports.items():
+            problem, job_ids = built[name]
+            child = self.children[name]
+            bonus = problem.switch_bonus()
+            granted = report.s >= 0.5
+            jobs["keys"].extend(_job_key(j) for j in job_ids)
+            jobs["cell"].extend([name] * len(job_ids))
+            jobs["share"].extend(float(x) for x in report.s)
+            jobs["fair_share"].extend(float(x) for x in report.fair_share)
+            jobs["welfare"].extend(
+                float(x) for x in report.welfare_contribution)
+            jobs["marginal"].extend(
+                float(x) for x in report.marginal_welfare)
+            jobs["price"].extend(float(x) for x in report.price)
+            jobs["spend"].extend(float(x) for x in report.spend)
+            jobs["bonus"].extend(float(x) for x in bonus)
+            jobs["bonus_state"].extend(
+                ("applied" if g else "forfeited") if b > 0.0 else "none"
+                for b, g in zip(bonus, granted))
+            jobs["switch_cost"].extend(
+                float(x) for x in problem.switch_cost)
+            jobs["makespan_binding"].extend(
+                int(x) for x in report.makespan_binding)
+            jobs["predicted_finish_s"].extend(
+                float(child.finish_time_estimates[j][-1][1])
+                if child.finish_time_estimates.get(j) else None
+                for j in job_ids)
+        detail = {
+            "round": int(self.round_index),
+            "backend": "cells",
+            "market": {
+                "budget_dual": float(fleet_price),
+                "fairness_drift": float(fleet_drift),
+                "cell_prices": {
+                    n: float(r.budget_dual) for n, r in reports.items()},
+                "coordinator_prices": {
+                    n: float(p) for n, p in self.prices.items()},
+            },
+            "degraded": any(info["fallback"] for info in solved.values()),
+            "fallback_from": None,
+            "migrations": [dict(m) for m in migrations],
+            "jobs": jobs,
+        }
+        if speculative:
+            detail["speculative"] = True
+        recorder.record_attribution(detail)
 
     # -- serialization --------------------------------------------------
     def state_dict(self) -> dict:
@@ -705,14 +983,8 @@ class CellPlanner(SpeculativePlannerMixin):
     @classmethod
     def from_state(cls, state: dict, device="cuda") -> "CellPlanner":
         """Restore a ``cell_set`` state either package wrote. A recorded
-        plan record's state (with its ``cells_replay`` stamp) replays a
-        recorded replan, which is not ported: it raises."""
-        if state.get("cells_replay") is not None:
-            raise NotImplementedError(
-                "replaying a recorded coordinated replan (cells_replay) is "
-                "not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1 "
-                "item 9); build the cells' problems from the children's "
-                "states instead (whatif/seed.py)")
+        plan record's state carries its ``cells_replay`` stamp: the next
+        ``_replan`` re-enters the recorded coordinated replan."""
         planner = cls(state["config"], backend=state["backend"],
                       device=device)
         planner.cells = OrderedDict(
@@ -720,6 +992,8 @@ class CellPlanner(SpeculativePlannerMixin):
         planner.children = OrderedDict(
             (n, ShockwavePlanner.from_state(cs, device=device))
             for n, cs in state["children"].items())
+        for n, child in planner.children.items():
+            child.pool_label = n
         planner.num_gpus = sum(planner.cells.values())
         planner.job_cell = dict(state["job_cell"])
         planner.assignments = dict(state.get("assignments", {}))
@@ -737,4 +1011,17 @@ class CellPlanner(SpeculativePlannerMixin):
         planner.imbalance_rounds = int(state.get("imbalance_rounds", 0))
         planner.migrations_total = int(state.get("migrations_total", 0))
         planner.sticky_cell = state.get("sticky_cell")
+        stamp = state.get("cells_replay")
+        if stamp is not None:
+            planner._replay_stamp = {
+                "stale": list(stamp.get("stale", [])),
+                "individual": bool(stamp.get("individual")),
+                "backends": dict(stamp.get("backends", {})),
+                "fallback": dict(stamp.get("fallback", {})),
+                "failed": list(stamp.get("failed", [])),
+            }
+            for n, warm in (stamp.get("warm_starts") or {}).items():
+                child = planner.children.get(n)
+                if child is not None and warm is not None:
+                    child._replay_warm_start = list(warm)
         return planner

@@ -219,6 +219,10 @@ class Scheduler:
         self._total_steps_run: Dict[JobId, int] = {}
         self._job_time_so_far: Dict[JobId, Dict[str, float]] = {}
         self._job_cost_so_far: Dict[JobId, float] = {}
+        # Processing seconds each job has received: what the calibration
+        # tracker scores the predictor's remaining-runtime forecasts
+        # against. Scheduling decisions never read it.
+        self._job_total_run_time: Dict[JobId, float] = {}
         self._throughputs: Dict[JobId, dict] = {}
         self._original_bs: Dict[JobId, int] = {}
         self._bs_scale: Dict[JobId, Optional[int]] = {}
@@ -238,6 +242,13 @@ class Scheduler:
         # Per-job, per-rank iterator log lines (physical mode fills them;
         # a simulation keeps them empty).
         self._job_timelines: Dict[JobId, list] = {}
+        # Per-job causal root contexts (obs/propagate.py), kept only while
+        # tracing is on and the chain is sampled.
+        self._job_trace_ctx: Dict[JobId, object] = {}
+        # Tenant-spend gauges: the planner replan last published and the
+        # tenant labels last set (a tenant whose jobs all left is zeroed).
+        self._tenant_spend_round: Optional[int] = None
+        self._tenant_spend_seen: set = set()
         # The structured event log (job admissions, rounds, completions)
         # that scripts/analysis/postprocess_log.py reads.
         self._round_log: list = []
@@ -282,6 +293,21 @@ class Scheduler:
         self._logger = make_logger(
             "scheduler", lambda: self._current_timestamp, level=log_level
         )
+        # Telemetry: with tracing on, trace timestamps follow this
+        # scheduler's virtual clock (the JAX package's
+        # scheduler.py:288-301). A weak reference: the tracer is
+        # process-global and must not keep a finished scheduler alive.
+        if obs.trace_enabled():
+            import weakref
+
+            self_ref = weakref.ref(self)
+
+            def _trace_clock():
+                sched = self_ref()
+                return (sched.get_current_timestamp() if sched is not None
+                        else 0.0)
+
+            obs.set_trace_clock(_trace_clock)
         # Plan-ahead pipelining: the scheduler owns the execution model,
         # so it supplies the predicted round outcome; the planner
         # snapshots, solves and reconciles (policies/speculation.py).
@@ -463,6 +489,11 @@ class Scheduler:
                         self.register_worker(worker_type, num_gpus=1)
                     )
                 self._sync_planner_capacity()
+                if added:
+                    obs.counter(
+                        "scheduler_capacity_adds_total",
+                        "workers restored by churn/spot re-add events",
+                    ).inc(len(added))
                 detail = {"added_workers": added}
                 how = "capacity_restored"
             else:  # worker_crash / capacity_reclaim
@@ -470,11 +501,21 @@ class Scheduler:
                     injector.plan, event, self._worker_id_to_worker_type
                 )
                 requeued = self._crash_workers(victims, running_jobs, now)
+                if victims:
+                    obs.counter(
+                        "scheduler_worker_deaths_total",
+                        "workers lost to crash or capacity reclamation",
+                    ).inc(len(victims), kind=event.kind)
                 detail = {
                     "workers": victims,
                     "requeued": [str(k) for k in requeued],
                 }
                 how = "requeued_and_replanned"
+            obs.instant(
+                "fault", cat="fault", tid="faults",
+                args={"fault_id": event.event_id, "kind": event.kind,
+                      **{k: str(v) for k, v in detail.items()}},
+            )
             record = {
                 "fault_id": event.event_id,
                 "kind": event.kind,
@@ -509,6 +550,11 @@ class Scheduler:
                     )
                 requeued.append(job_id)
                 self._num_preemptions += 1
+                obs.counter(
+                    "scheduler_preemptions_total",
+                    "still-active jobs that lost their workers "
+                    "at a round boundary",
+                ).inc()
             else:
                 survivors.append(entry)
         for entry in survivors:
@@ -526,6 +572,7 @@ class Scheduler:
         self._steps_run_so_far[job_id] = {}
         self._job_time_so_far[job_id] = {}
         self._job_cost_so_far[job_id] = 0.0
+        self._job_total_run_time[job_id] = 0.0
         self._job_timelines[job_id] = [[] for _ in range(job.scale_factor)]
         self._throughputs[job_id] = {}
         self._original_bs[job_id] = job.batch_size
@@ -617,6 +664,42 @@ class Scheduler:
         obs.counter(
             "scheduler_jobs_admitted_total", "jobs admitted from the trace"
         ).inc()
+        obs.gauge(
+            "scheduler_queue_depth", "active (incomplete) jobs"
+        ).set(len(self._jobs))
+        trace_args = {}
+        if obs.trace_enabled():
+            from shockwave_tpu_torch.obs import propagate
+
+            # Adopt the submitter's root (front-door jobs carry it) or
+            # mint a fresh one; an unsampled chain traces locally only.
+            root = propagate.from_wire(getattr(job, "trace_context", ""))
+            if root is None:
+                root = propagate.new_root()
+            if root is not None and root.sampled:
+                self._job_trace_ctx[job_id] = root
+                trace_args = {
+                    "trace_id": root.trace_id,
+                    "parent_span_id": root.span_id,
+                }
+                now = self.get_current_timestamp()
+                if now > timestamp:
+                    # The admission-queue wait, as its own span under the
+                    # job's root (arrival stamp -> admission).
+                    wait_ctx = root.child()
+                    obs.complete(
+                        "queue_wait", ts_s=timestamp, dur_s=now - timestamp,
+                        cat="job", tid="jobs",
+                        args={"job_id": job_id.integer, **wait_ctx.args()},
+                    )
+        # ts is the monotone scheduler clock, not the arrival stamp.
+        obs.instant(
+            "job_admitted", cat="job", tid="jobs",
+            ts_s=self.get_current_timestamp(),
+            args={"job_id": job_id.integer, "job_type": job.job_type,
+                  "scale_factor": job.scale_factor, "arrival_s": timestamp,
+                  **trace_args},
+        )
         self._logger.info("[Job dispatched]\tJob ID: %s", job_id)
         return job_id
 
@@ -640,6 +723,21 @@ class Scheduler:
                 "duration": self._job_completion_times[job_id],
             }
         )
+        if obs.enabled():
+            self._record_completion_telemetry(
+                job_id, self._job_completion_times[job_id]
+            )
+        calibration = obs.get_calibration()
+        if calibration.enabled:
+            if self._job_completion_times[job_id] is not None:
+                calibration.record_outcome(
+                    job_id.integer,
+                    self._job_total_run_time.get(job_id, 0.0),
+                )
+            else:
+                # A job dropped after repeated failures never realized
+                # its remaining runtime; its forecasts are unjudgeable.
+                calibration.discard(job_id.integer)
         del self._steps_run_so_far[job_id]
         del self._job_time_so_far[job_id]
         del self._throughputs[job_id]
@@ -658,7 +756,46 @@ class Scheduler:
                 self._in_progress_updates.pop(other, None)
         self._remove_from_priorities(job_id)
         self._need_to_update_allocation = True
+        self._job_trace_ctx.pop(job_id, None)
         self._logger.info("Remaining active jobs: %d", len(self._jobs))
+
+    def _record_completion_telemetry(self, job_id: JobId, duration) -> None:
+        """Per-job completion series (the JAX package's
+        scheduler.py:809-845): JCT and finish-time fairness at completion
+        (rho = JCT / (isolated duration x contention), over the
+        population seen so far)."""
+        now = self.get_current_timestamp()
+        obs.counter(
+            "scheduler_jobs_completed_total", "jobs run to completion"
+        ).inc()
+        obs.gauge(
+            "scheduler_queue_depth", "active (incomplete) jobs"
+        ).set(len(self._jobs))
+        args = {"job_id": job_id.integer}
+        root = self._job_trace_ctx.get(job_id)
+        if root is not None:
+            args["trace_id"] = root.trace_id
+            args["parent_span_id"] = root.span_id
+        if duration is not None:
+            obs.histogram(
+                "scheduler_job_jct_seconds", "per-job completion time"
+            ).observe(duration)
+            args["jct_s"] = round(duration, 3)
+            ftf = self._finish_time_rho(job_id, duration)
+            if ftf is not None:
+                obs.histogram(
+                    "scheduler_job_ftf",
+                    "finish-time fairness rho at completion",
+                ).observe(ftf)
+                args["ftf"] = round(ftf, 3)
+        else:
+            obs.counter(
+                "scheduler_jobs_failed_total",
+                "jobs dropped after MAX_FAILED_ATTEMPTS",
+            ).inc()
+        obs.instant(
+            "job_complete", cat="job", tid="jobs", ts_s=now, args=args
+        )
 
     def _set_initial_throughput(self, job_id: JobId, worker_type: str) -> None:
         assert not job_id.is_pair
@@ -1391,6 +1528,10 @@ class Scheduler:
                     self._running_jobs.remove(single)
                     self._steps_run_so_far[single][worker_type] += num_steps
                     self._total_steps_run[single] += num_steps
+                    self._job_total_run_time[single] = (
+                        self._job_total_run_time.get(single, 0.0)
+                        + execution_time
+                    )
                     if self._get_remaining_steps(single) <= 0:
                         to_remove.append(single)
             max_execution_time = max(merged_times)
@@ -1553,6 +1694,130 @@ class Scheduler:
                 current_epoch = steps_run // steps_per_epoch(model, bs)
                 self._shockwave.set_progress(job_id, current_epoch)
         self._shockwave.increment_round()
+
+    # ------------------------------------------------------------------
+    # Observability planes (the JAX package's scheduler.py:1778-1915).
+    # ------------------------------------------------------------------
+    def _round_observability(self, assignments, preempted=None) -> None:
+        """Per-round taps of the planes beyond plain metrics: the flight
+        recorder's round context, the predictor-calibration forecasts
+        and the health watchdog. One flags check when every plane is
+        off, the default."""
+        recorder = obs.get_recorder()
+        calibration = obs.get_calibration()
+        watchdog = obs.get_watchdog()
+        metrics_on = obs.metrics_enabled()
+        if not (recorder.enabled or calibration.enabled or watchdog.enabled
+                or metrics_on):
+            return
+        if metrics_on:
+            self._publish_tenant_spend()
+            # Ring-buffer history sampling and the cardinality
+            # governor's decay: one pass over the series a round.
+            obs.scale_tick(self.get_current_timestamp())
+        if not (recorder.enabled or calibration.enabled or watchdog.enabled):
+            return
+        now = self.get_current_timestamp()
+        if recorder.enabled:
+            recorder.record_round_context(
+                self._num_completed_rounds,
+                now,
+                assignments=assignments,
+                job_steps={
+                    j.integer: self._total_steps_run.get(j, 0)
+                    for j in self._jobs
+                },
+                preempted=preempted,
+            )
+        if calibration.enabled and self._shockwave is not None:
+            for j in self._jobs:
+                md = self._shockwave.get_metadata(j)
+                if md is None or md.completed_epochs >= md.total_epochs:
+                    continue
+                run_so_far = self._job_total_run_time.get(j, 0.0)
+                # Score the now-to-finish forecast, its credible interval
+                # shifted by the same offset; the posterior is evaluated
+                # once and threaded through.
+                base = md.remaining_runtime()
+                predicted = md.remaining_runtime_to_completion(
+                    run_so_far, base=base
+                )
+                lo, hi = md.remaining_runtime_interval(mean=base)
+                offset = predicted - base
+                calibration.record_forecast(
+                    j.integer,
+                    run_so_far,
+                    predicted,
+                    lo + offset,
+                    hi + offset,
+                    ts_s=now,
+                    ape_floor_s=md.mean_epoch_duration(),
+                )
+        if watchdog.enabled:
+            watchdog.check_round(
+                self._num_completed_rounds,
+                now,
+                job_steps={
+                    j.integer: self._total_steps_run.get(j, 0)
+                    for j in self._jobs
+                },
+                scheduled=[
+                    s.integer for key in assignments
+                    for s in key.singletons()
+                ],
+            )
+
+    def _publish_tenant_spend(self) -> None:
+        """Per-tenant spend gauges from the planner's last committed
+        replan: ``market_tenant_spend{tenant}`` sums each tenant's
+        chip-rounds in the plan (the market's per-job ``spend``). Jobs
+        without a tenant land under ``default``; a tenant whose jobs all
+        finished is zeroed. The labeled gauge keeps the top
+        ``SHOCKWAVE_OBS_EXEMPLARS`` (10) spenders; two unlabeled rollups
+        stay exact."""
+        market = getattr(self._shockwave, "last_market", None)
+        if market is None or market["round"] == self._tenant_spend_round:
+            return
+        self._tenant_spend_round = market["round"]
+        tenant_by_key = {
+            str(j): (getattr(job, "tenant", "") or "default")
+            for j, job in self._jobs.items()
+        }
+        by_tenant: dict = {}
+        for key, spend in zip(market["keys"], market["spend"]):
+            tenant = tenant_by_key.get(key)
+            if tenant is None:
+                continue  # departed since the replan
+            by_tenant[tenant] = by_tenant.get(tenant, 0.0) + spend
+        k = max(1, int(os.environ.get("SHOCKWAVE_OBS_EXEMPLARS", 10)))
+        top = dict(sorted(by_tenant.items(), key=lambda kv: -kv[1])[:k])
+        gauge = obs.gauge(
+            "market_tenant_spend",
+            "chip-rounds of the last committed plan per tenant "
+            "(top spenders only; see market_tenant_spend_total)",
+        )
+        for tenant in self._tenant_spend_seen - set(top):
+            gauge.remove(tenant=tenant)
+        for tenant, spend in top.items():
+            gauge.set(float(spend), tenant=tenant)
+            obs.offer_exemplar(
+                "tenant_top_spend",
+                tenant,
+                float(spend),
+                help="tenants with the largest chip-round spend in the "
+                "last committed plan",
+                spend=round(float(spend), 6),
+            )
+        obs.gauge(
+            "market_tenant_spend_total",
+            "chip-rounds of the last committed plan summed over ALL "
+            "tenants (exact, unlabeled rollup)",
+        ).set(float(sum(by_tenant.values())))
+        obs.gauge(
+            "market_tenants",
+            "tenants with spend in the last committed plan",
+        ).set(len(by_tenant))
+        self._tenant_spend_seen = set(top)
 
     # ------------------------------------------------------------------
     # Plan-ahead pipelining (policies/speculation.py).
@@ -1813,6 +2078,7 @@ class Scheduler:
                     )
             else:
                 consecutive_idle_rounds = 0
+            preempted_this_round = []
             for job_id in self._current_worker_assignments:
                 if any(s in self._jobs for s in job_id.singletons()):
                     self._num_lease_extension_opportunities += 1
@@ -1821,16 +2087,26 @@ class Scheduler:
                     ) == set(scheduled_jobs[job_id])
                     if not kept:
                         self._num_preemptions += 1
+                        preempted_this_round.append(job_id)
                         obs.counter(
                             "scheduler_preemptions_total",
                             "still-active jobs that lost their workers "
                             "at a round boundary",
                         ).inc()
+                        obs.instant(
+                            "preemption", cat="sched", tid="rounds",
+                            args={"job_id": str(job_id)},
+                        )
             for job_id in scheduled_jobs:
                 if job_id in self._current_worker_assignments and set(
                     self._current_worker_assignments[job_id]
                 ) == set(scheduled_jobs[job_id]):
                     self._num_lease_extensions += 1
+                    obs.counter(
+                        "scheduler_lease_extensions_total",
+                        "round transitions where a job kept its exact "
+                        "worker set",
+                    ).inc()
             self._current_worker_assignments = scheduled_jobs
             self._round_log.append(
                 {
@@ -1846,6 +2122,31 @@ class Scheduler:
             obs.counter(
                 "scheduler_rounds_total", "scheduling rounds started"
             ).inc()
+            obs.histogram(
+                "scheduler_round_duration_seconds",
+                "round length (simulated time in sim mode)",
+            ).observe(self._time_per_iteration)
+            obs.gauge(
+                "scheduler_queue_depth", "active (incomplete) jobs"
+            ).set(len(self._jobs))
+            obs.gauge(
+                "scheduler_scheduled_jobs", "jobs granted workers this round"
+            ).set(len(scheduled_jobs))
+            obs.complete(
+                f"round {self._num_completed_rounds}",
+                ts_s=self._current_timestamp,
+                dur_s=self._time_per_iteration,
+                cat="sched",
+                tid="rounds",
+                args={
+                    "round": self._num_completed_rounds,
+                    "scheduled_jobs": len(scheduled_jobs),
+                    "active_jobs": len(self._jobs),
+                },
+            )
+            self._round_observability(
+                scheduled_jobs, preempted=preempted_this_round
+            )
 
             dispatch_preview: dict = {}
             for job_id, worker_ids in scheduled_jobs.items():
@@ -1860,6 +2161,26 @@ class Scheduler:
                     dispatch_preview[single] = (
                         all_num_steps[i],
                         max_finish_time - self._current_timestamp,
+                    )
+                if obs.trace_enabled():
+                    run_args = {
+                        "round": self._num_completed_rounds,
+                        "workers": len(worker_ids),
+                        "worker_type": worker_type,
+                    }
+                    run_root = self._job_trace_ctx.get(
+                        job_id.singletons()[0]
+                    )
+                    if run_root is not None:
+                        run_args.update(run_root.child().args())
+                    obs.complete(
+                        f"run job {job_id}",
+                        ts_s=self._current_timestamp,
+                        dur_s=max_finish_time - self._current_timestamp,
+                        cat="job",
+                        pid="cluster",
+                        tid=f"job {job_id}",
+                        args=run_args,
                     )
                 heapq.heappush(
                     running_jobs,
@@ -1908,6 +2229,7 @@ class Scheduler:
         "_total_steps_run",
         "_job_time_so_far",
         "_job_cost_so_far",
+        "_job_total_run_time",
         "_throughputs",
         "_original_bs",
         "_bs_scale",
@@ -2004,7 +2326,8 @@ class Scheduler:
         "num_allocations", "allocation_s",
         # per-job accounting
         "_steps_run_so_far", "_total_steps_run", "_job_time_so_far",
-        "_job_cost_so_far", "_throughputs", "_original_bs", "_bs_scale",
+        "_job_cost_so_far", "_job_total_run_time", "_throughputs",
+        "_original_bs", "_bs_scale",
         "_num_failures_per_job", "_per_job_start_timestamps",
         "_per_job_latest_timestamps", "_pool_ftf_scale",
         "_job_completion_times", "_slos", "_in_progress_updates",

@@ -18,9 +18,10 @@ optimizer state), written beside the final path and renamed into place so
 a kill mid-save keeps the previous good checkpoint. A run that finds one
 restores it before its first step.
 
-``--attention ring --seq_parallel P`` runs ring attention over a mesh
-built as the JAX program builds it: ``factorize_gang`` over the devices the
-run holds (one card, or the CPU), so P must divide their count.
+``--attention ring --seq_parallel P`` and ``--attention ulysses
+--seq_parallel P`` run ring or Ulysses attention over a mesh built as the
+JAX program builds it: ``factorize_gang`` over the devices the run holds
+(one card, or the CPU), so P must divide their count.
 
 Not in this slice of the port (each raises NotImplementedError, see
 ROADMAP.md): the other families, gang rendezvous over several workers,
@@ -60,7 +61,8 @@ def build_family(name, args, device, mesh=None):
     """Returns (model, step_fn(batch) -> loss, optimizer,
     batch_fn(np_rng) -> batch). ``step_fn`` takes one AdamW step and
     returns the loss before it, detached and not synchronised. ``mesh``
-    is the grid ring attention shards over (``parallel/mesh.py``)."""
+    is the grid ring and Ulysses attention shard over
+    (``parallel/mesh.py``)."""
     if name in _LATER_FAMILIES:
         raise _not_ported(f"the {name} family")
     if name != "Transformer":

@@ -14,12 +14,14 @@ one card. Same configuration, parameters and numerics:
   bf16 values and the same function on the CPU and on the card.
 
 Attention is ``dense``, ``flash`` (the CUDA kernels of
-``ops/flash_attention.py``) or ``ring`` (``parallel/ring_attention.py``
+``ops/flash_attention.py``), ``ring`` (``parallel/ring_attention.py``
 over the ``mesh`` the model is built with, its hops on the flash kernels
-when the local block tiles); flash falls back to dense for sequences that
-do not tile, as the JAX model does. Ulysses attention, the MoE MLP,
-rematerialisation and the chunked head are later slices of the port and
-raise NotImplementedError.
+when the local block tiles) or ``ulysses`` (``parallel/ulysses.py``: two
+all-to-alls over the mesh's seq axis around the causal flash kernels on
+each shard's heads; it refuses grouped-query K/V, as the JAX model does);
+flash falls back to dense for sequences that do not tile, as the JAX
+model does. The MoE MLP, rematerialisation and the chunked head are
+later slices of the port and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from shockwave_tpu_torch.parallel.ring_attention import (
     dense_causal_attention,
     ring_attention,
 )
+from shockwave_tpu_torch.parallel.ulysses import ulysses_attention
 
 _LN_EPS = 1e-6  # flax.linen.LayerNorm's default
 _LECUN_TRUNC = 0.87962566103423978  # stddev of a unit normal cut at +-2
@@ -55,7 +58,7 @@ class TransformerConfig:
     d_ff: int = 512
     max_len: int = 512
     dtype: str = "float32"  # "bfloat16" for training on the card
-    attention: str = "dense"  # "dense" | "flash" | "ring" ("ulysses" later)
+    attention: str = "dense"  # "dense" | "flash" | "ring" | "ulysses"
     attention_window: Optional[int] = None
     num_kv_heads: Optional[int] = None
     num_experts: int = 0  # > 0 (the MoE MLP) is not ported yet
@@ -74,9 +77,7 @@ def _not_ported(what: str):
 
 def check_config(cfg: TransformerConfig) -> None:
     """Raise on every option this slice of the port does not cover."""
-    if cfg.attention == "ulysses":
-        raise _not_ported(f"attention={cfg.attention!r}")
-    if cfg.attention not in ("dense", "flash", "ring"):
+    if cfg.attention not in ("dense", "flash", "ring", "ulysses"):
         raise ValueError(f"unknown attention {cfg.attention!r}")
     if cfg.num_experts > 0:
         raise _not_ported("the mixture-of-experts MLP (num_experts > 0)")
@@ -158,10 +159,22 @@ class Attention(nn.Module):
         if cfg.positional == "rope":
             q = apply_rope(q, cfg.rope_base)
             k = apply_rope(k, cfg.rope_base)
+        if self.kv_heads != cfg.num_heads and cfg.attention == "ulysses":
+            # Ulysses reshards the head dim in its all-to-alls; the JAX
+            # model refuses grouped-query K/V there.
+            raise ValueError(
+                "num_kv_heads != num_heads is not supported by the "
+                "'ulysses' path; use 'flash', 'dense' or 'ring'"
+            )
         if cfg.attention == "ring":
             if self.mesh is None:
                 raise ValueError("ring attention requires a mesh")
             out = ring_attention(q, k, v, self.mesh)
+        elif cfg.attention == "ulysses":
+            if self.mesh is None:
+                raise ValueError("ulysses attention requires a mesh")
+            out = ulysses_attention(q, k, v, self.mesh,
+                                    local_attention="flash")
         elif cfg.attention == "flash" and flash_tiles(S):
             out = flash_attention(q, k, v, window=cfg.attention_window)
         else:
@@ -210,7 +223,7 @@ class Block(nn.Module):
 
 class TransformerLM(nn.Module):
     """Logits [B, S, V] (float32) for tokens [B, S]. ``mesh``
-    (``parallel/mesh.py``) is the grid ring attention shards over."""
+    (``parallel/mesh.py``) is the grid ring and Ulysses attention shard over."""
 
     def __init__(self, cfg: TransformerConfig,
                  generator: Optional[torch.Generator] = None, mesh=None):

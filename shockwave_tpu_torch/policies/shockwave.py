@@ -184,6 +184,13 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         # HiGHS's status of every MILP call of the ``reference`` backend
         # (solver/eg_milp.py: 0 optimal within the gap, 1 the time limit).
         self.milp_statuses: List[int] = []
+        # Worker-type tag when owned by a PoolSetPlanner (flight-recorder
+        # records carry it so per-pool decisions stay attributable).
+        self.pool_label: Optional[str] = None
+        # The last committed replan's per-job spend (job key ->
+        # chip-rounds) for the scheduler's per-tenant spend gauges.
+        # Telemetry only: not part of state_dict or replay.
+        self.last_market: Optional[dict] = None
 
     # -- scheduler-facing interface -------------------------------------
     def add_job(
@@ -215,6 +222,11 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         md = self.job_metadata.get(job_id)
         if md is not None:
             md.complete(min(int(num_epochs), md.total_epochs))
+
+    def get_metadata(self, job_id) -> Optional[JobMetadata]:
+        """The job's predictor state (calibration scoring reads the live
+        remaining-runtime forecast through this)."""
+        return self.job_metadata.get(job_id)
 
     def set_capacity(self, num_gpus: int) -> None:
         """Capacity changed under the planner: solve the next plan against
@@ -286,6 +298,9 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         }
         planner.job_overheads = dict(state.get("job_overheads", {}))
         planner.last_round_jobs = list(state.get("last_round_jobs", []))
+        # Set in a plan record made by a ladder rung below the primary
+        # (recorded by this package only; see _replan).
+        planner._replay_as_fallback = bool(state.get("replay_as_fallback"))
         if state.get("pdhg_warm_start") is not None:
             # Replayed snapshot: the plan cache this vector was derived
             # from is not in the record — carry the vector itself.
@@ -525,6 +540,12 @@ class ShockwavePlanner(SpeculativePlannerMixin):
         self._solve_warm_start = (
             self._solution_warm_start() if pdhg_possible else None
         )
+        if getattr(self, "_replay_as_fallback", False):
+            # A replayed plan that a ladder rung below the primary made:
+            # its backend re-enters as that rung did.
+            self._replay_as_fallback = False
+            return self._solve_backend(self.backend, problem,
+                                       as_fallback=True)
         if self.plan_deadline_s is None and injector is None:
             if repair and self.backend != "pdhg":
                 try:
@@ -700,11 +721,23 @@ class ShockwavePlanner(SpeculativePlannerMixin):
                         "attempts": len(attempts),
                     },
                 )
+            recorder = obs.get_recorder()
             for fault in faults_hit:
                 how = "ladder_fallback" if degraded else "ladder_absorbed"
                 injector.mark_recovered(
                     fault.event_id, how=how, backend=used
                 )
+                if recorder.enabled:
+                    record = {
+                        "fault_id": fault.event_id,
+                        "kind": fault.kind,
+                        "round": self.round_index,
+                        "pool": self.pool_label,
+                    }
+                    recorder.record_fault(record)
+                    recorder.record_recovery(
+                        {**record, "how": how, "backend": used}
+                    )
             return Y, used
         if last_error is not None:
             raise last_error
@@ -924,35 +957,190 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             "shockwave_solve_seconds",
             "plan-solve wall time per backend (ok=False: failed solves)",
         ).observe(seconds, backend=backend, ok=str(ok))
+        if not ok:
+            obs.counter(
+                "shockwave_solve_failures_total",
+                "plan solves that raised or timed out",
+            ).inc(backend=backend)
 
     def _replan(self) -> None:
+        # Flight recorder: snapshot the pre-replan planner state
+        # (_build_problem appends to the finish-time history it reads),
+        # so replay re-enters from exactly this point.
+        recorder = obs.get_recorder()
+        pre_state = self.state_dict() if recorder.enabled else None
         self._replan_epoch += 1
         # Past rounds are never read again; keep the cache bounded.
         for r in [r for r in self.schedules if r < self.round_index]:
             del self.schedules[r]
-        problem, job_ids = self._build_problem()
-        if problem is None:
-            for i in range(self.future_rounds):
-                self.schedules[self.round_index + i] = []
-            return
-        start = time.time()
-        try:
-            Y, backend_used = self._solve(problem)
-        except Exception as e:
-            self._record_solve(
-                time.time() - start, self._attempted_backend,
-                problem.num_jobs, ok=False, error=type(e).__name__,
-            )
-            raise
-        self._record_solve(
-            time.time() - start, backend_used, problem.num_jobs, ok=True
+        phase_h = obs.histogram(
+            "shockwave_plan_phase_seconds",
+            "wall time of each planning phase (build/solve/stickiness/"
+            "backfill)",
         )
-        Y = self._apply_stickiness(Y, problem)
-        Y = self._backfill(Y, problem)
-        for r in range(self.future_rounds):
-            self.schedules[self.round_index + r] = [
-                job_ids[j] for j in range(len(job_ids)) if Y[j, r]
-            ]
+        with obs.span(
+            "replan", cat="plan", pid="solver", tid="planner",
+            args={"round": self.round_index, "backend": self.backend},
+        ):
+            start = time.time()
+            problem, job_ids = self._build_problem()
+            phase_h.observe(time.time() - start, phase="build")
+            if problem is None:
+                for i in range(self.future_rounds):
+                    self.schedules[self.round_index + i] = []
+                return
+            start = time.time()
+            try:
+                with obs.span(
+                    "solve", cat="plan", pid="solver", tid="planner",
+                    args={"num_jobs": problem.num_jobs},
+                ):
+                    Y, backend_used = self._solve(problem)
+            except Exception as e:
+                elapsed = time.time() - start
+                phase_h.observe(elapsed, phase="solve")
+                self._record_solve(
+                    elapsed, self._attempted_backend, problem.num_jobs,
+                    ok=False, error=type(e).__name__,
+                )
+                raise
+            elapsed = time.time() - start
+            phase_h.observe(elapsed, phase="solve")
+            self._record_solve(elapsed, backend_used, problem.num_jobs,
+                               ok=True)
+            start = time.time()
+            Y = self._apply_stickiness(Y, problem)
+            phase_h.observe(time.time() - start, phase="stickiness")
+            start = time.time()
+            Y = self._backfill(Y, problem)
+            phase_h.observe(time.time() - start, phase="backfill")
+            for r in range(self.future_rounds):
+                self.schedules[self.round_index + r] = [
+                    job_ids[j] for j in range(len(job_ids)) if Y[j, r]
+                ]
+            if pre_state is not None:
+                # The backend that actually produced the plan (a ladder
+                # fallback replays through it), and the pdhg warm start
+                # derived from the plan cache the recorder slims out.
+                pre_state["backend"] = backend_used
+                if self._last_ladder is not None and (
+                        self._last_ladder["degraded"]):
+                    # A rung below the primary made the plan, and a rung
+                    # solves as a fallback (the relaxed rung skips its
+                    # polish): replay re-enters it so. The JAX package
+                    # records no such flag and replays the rung as a
+                    # primary (ROADMAP.md, queue 3).
+                    pre_state["replay_as_fallback"] = True
+                warm = getattr(self, "_solve_warm_start", None)
+                pre_state["pdhg_warm_start"] = (
+                    None if warm is None else [float(x) for x in warm]
+                )
+                recorder.record_plan(
+                    planner_state=pre_state,
+                    plan={
+                        r: list(self.schedules[self.round_index + r])
+                        for r in range(self.future_rounds)
+                    },
+                    backend=backend_used,
+                    objective=float(problem.objective_value(Y)),
+                    solve_record=self.solve_records[-1],
+                    problem_summary={
+                        "job_ids": list(job_ids),
+                        "remaining_runtime_s": problem.remaining_runtime,
+                        "priorities": problem.priorities,
+                        "switch_cost": problem.switch_cost,
+                        "incumbent": problem.incumbent,
+                        "nworkers": problem.nworkers,
+                        "num_gpus": problem.num_gpus,
+                        "future_rounds": problem.future_rounds,
+                    },
+                    pool=self.pool_label,
+                    tags=self._plan_record_tags,
+                )
+            self._market_attribution(problem, job_ids, Y, backend_used)
+
+    def _market_attribution(self, problem: EGProblem, job_ids: list,
+                            Y: np.ndarray, backend_used: str) -> None:
+        """Market explainability tap (the JAX package's
+        shockwave.py:1062-1152): the dual/price report at the final plan
+        (host float64, solver/duals.py), the fleet price gauges, and with
+        the recorder on the per-(job, round) attribution record that
+        pairs with this replan's plan record. Pure reads of ``(problem,
+        Y)``; with the recorder and metrics off, one flags check."""
+        speculative = bool(
+            self._plan_record_tags
+            and self._plan_record_tags.get("speculative")
+        )
+        recorder = obs.get_recorder()
+        if not (recorder.enabled or obs.metrics_enabled()):
+            return
+        from shockwave_tpu_torch.solver.duals import dual_report
+
+        report = dual_report(problem, Y=Y)
+        if not speculative:
+            # A clone's prices commit only if the reconcile accepts its
+            # plan; the gauges track committed plans.
+            obs.gauge(
+                "market_price",
+                "fleet congestion price (budget dual) of the last plan",
+            ).set(report.budget_dual)
+            obs.gauge(
+                "market_fairness_drift",
+                "budget-weighted fair-share deficit of the last plan "
+                "[0,1]",
+            ).set(report.fairness_drift)
+            self.last_market = {
+                "round": int(self.round_index),
+                "keys": [str(j) for j in job_ids],
+                "spend": [float(x) for x in report.spend],
+                "price": float(report.budget_dual),
+            }
+        if not recorder.enabled:
+            return
+        from shockwave_tpu_torch.obs.recorder import _job_key
+
+        bonus = problem.switch_bonus()
+        granted = report.s >= 0.5
+        bonus_state = [
+            ("applied" if g else "forfeited") if b > 0.0 else "none"
+            for b, g in zip(bonus, granted)
+        ]
+        solve_record = self.solve_records[-1] if self.solve_records else {}
+        detail = {
+            "round": int(self.round_index),
+            "backend": backend_used,
+            "market": report.to_dict(),
+            "degraded": bool(solve_record.get("degraded", False)),
+            "fallback_from": solve_record.get("fallback_from"),
+            "jobs": {
+                "keys": [_job_key(j) for j in job_ids],
+                "share": [float(x) for x in report.s],
+                "fair_share": [float(x) for x in report.fair_share],
+                "welfare": [float(x) for x in report.welfare_contribution],
+                "marginal": [float(x) for x in report.marginal_welfare],
+                "price": [float(x) for x in report.price],
+                "spend": [float(x) for x in report.spend],
+                "bonus": [float(x) for x in bonus],
+                "bonus_state": bonus_state,
+                "switch_cost": [float(x) for x in problem.switch_cost],
+                "makespan_binding": [
+                    int(x) for x in report.makespan_binding
+                ],
+                "predicted_finish_s": [
+                    float(self.finish_time_estimates[j][-1][1])
+                    if self.finish_time_estimates.get(j)
+                    else None
+                    for j in job_ids
+                ],
+            },
+        }
+        if self.pool_label is not None:
+            detail["pool"] = self.pool_label
+        if speculative:
+            # The narrative builder admits this record only when the
+            # boundary reconcile commits the speculative plan.
+            detail["speculative"] = True
+        recorder.record_attribution(detail)
 
     def _apply_stickiness(self, Y: np.ndarray, problem: EGProblem) -> np.ndarray:
         """Lease stickiness: pull granted incumbents into the plan's first
@@ -1072,6 +1260,8 @@ class PoolSetPlanner:
                                   device=self.device))
             for wt, n in sorted(pools.items())
         )
+        for wt, child in self.children.items():
+            child.pool_label = wt
         self.job_pool: Dict[object, str] = {}
         # Cumulative admissions per pool (the live load used for
         # balancing is pool_incomplete_jobs).
@@ -1135,6 +1325,10 @@ class PoolSetPlanner:
         child = self._child_of(job_id)
         if child is not None:
             child.set_progress(job_id, num_epochs)
+
+    def get_metadata(self, job_id):
+        child = self._child_of(job_id)
+        return child.get_metadata(job_id) if child is not None else None
 
     def increment_round(self) -> None:
         for child in self.children.values():
@@ -1218,6 +1412,8 @@ class PoolSetPlanner:
             (wt, ShockwavePlanner.from_state(cs, device=device))
             for wt, cs in state["children"].items()
         )
+        for wt, child in planner.children.items():
+            child.pool_label = wt
         planner.job_pool = dict(state["job_pool"])
         planner.assignments = dict(state.get("assignments", {}))
         return planner

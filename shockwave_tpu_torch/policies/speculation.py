@@ -26,10 +26,18 @@ One divergence from the JAX package: a device fault (a kernel that does
 not build, load or launch, or a fault the card reported) in a
 speculative solve is raised at the reconcile instead of counted as a
 miss, as the degradation ladder raises it (policies/shockwave.py).
-Other errors keep the JAX package's miss. The flight recorder's
-speculation and plan records are not ported (ROADMAP.md, queue 1 item
-9); the telemetry calls go to the telemetry-off stub of
-:mod:`shockwave_tpu_torch.obs`.
+Other errors keep the JAX package's miss.
+
+Flight-recorder exactness: the speculative solve *is* a ``_replan`` on
+the clone, so it records a normal plan record (tagged ``speculative:
+true``) whose snapshot is the clone's pre-replan state, and replay
+re-enters the identical solve. Reconcile outcomes are stamped as
+``speculation`` records. Speculative records are slimmed as overlays:
+their predicted throughput tails are not folded into the recorder's
+delta-encoded accumulation (:class:`shockwave_tpu_torch.obs.recorder.
+FlightRecorder`). The speculation thread's spans land on their own track
+(``tid="speculation"``), and the registry and tracer it publishes into
+lock through ``analysis.sanitize.make_lock``.
 """
 
 from __future__ import annotations
@@ -98,6 +106,9 @@ class SpeculativePlannerMixin:
         self._speculate_join_s = float(
             config.get("speculate_join_s", DEFAULT_JOIN_TIMEOUT_S)
         )
+        # Tags merged into the next flight-recorder plan record
+        # (speculative clones stamp {"speculative": True}).
+        self._plan_record_tags: Optional[dict] = None
         self._last_repair = False
         # Monotone replan counter (speculation detects whether its
         # clone actually solved) and the exposed side of the
@@ -320,6 +331,12 @@ def observe_reconcile(outcome: str, round_index: int, detail=None) -> None:
         "speculation_rounds_total",
         "boundary reconciles of speculative plans, by outcome",
     ).inc(outcome=outcome)
+    recorder = obs.get_recorder()
+    if recorder.enabled:
+        record = {"kind": outcome, "round": int(round_index)}
+        if detail:
+            record["detail"] = detail
+        recorder.record_speculation(record)
     obs.instant(
         "speculation_" + outcome, cat="plan", pid="solver",
         tid="speculation",
@@ -474,6 +491,7 @@ def run_speculation(spec: Speculation, clone, tags: dict) -> None:
                 clone.set_capacity(outcome.capacity)
             clone.increment_round()
             spec.fingerprint = planner_fingerprint(clone)
+            clone._plan_record_tags = {"speculative": True, **tags}
             before = getattr(clone, "_replan_epoch", 0)
             t0 = time.perf_counter()
             # current_round_schedule is the boundary's own entry point:

@@ -267,6 +267,72 @@ class JobMetadata:
         # in the reference, whose traces have no 1-epoch jobs.
         return max(1.0, expected)
 
+    def remaining_runtime_to_completion(
+        self, run_time_so_far_s: float, base: Optional[float] = None
+    ) -> float:
+        """Remaining processing seconds from NOW to job completion.
+
+        :meth:`remaining_runtime` prices only the epochs AFTER the
+        in-progress one (the reference counts the in-progress epoch as
+        observed and subtracts it from the posterior, job_metadata.py:
+        167-202) — correct for the planner's horizon math but short by
+        up to one epoch as a now-to-finish forecast. For calibration
+        scoring against realized processing time, add back the
+        unfinished remainder of the in-progress epoch, estimated from
+        the processing seconds the job has already received.
+
+        ``base`` lets a caller that already evaluated
+        :meth:`remaining_runtime` (the posterior math is not memoized)
+        avoid recomputing it.
+        """
+        if self.completed_epochs >= self.total_epochs:
+            return 0.0
+        done = float(np.sum(self.epoch_durations[: self.completed_epochs]))
+        idx = min(self.completed_epochs, len(self.epoch_durations) - 1)
+        current = float(self.epoch_durations[idx])
+        into_epoch = min(max(float(run_time_so_far_s) - done, 0.0), current)
+        if base is None:
+            base = self.remaining_runtime()
+        return base + (current - into_epoch)
+
+    def remaining_runtime_interval(
+        self, z: float = 1.645, mean: Optional[float] = None
+    ):
+        """(lo, hi) credible interval around :meth:`remaining_runtime`
+        from the Dirichlet regime posterior — the uncertainty the
+        calibration tracker scores coverage against.
+
+        The regime mixture p ~ Dirichlet(alpha) prices one future epoch
+        at sum_b p_b * d_b, whose closed-form variance is
+        (sum_b a_b d_b^2 / a0 - mu^2) / (a0 + 1); over n remaining
+        epochs (shared p) the runtime std is n * sqrt(var). The half
+        width is floored at one mean epoch duration and 5% of the mean:
+        a single-regime posterior has zero Dirichlet variance but its
+        durations still carry >=1s rounding and rescale error, and a
+        degenerate interval would score 0% coverage on forecasts that
+        are in fact near-exact. ``mean`` takes a pre-computed
+        :meth:`remaining_runtime` value (same contract as
+        :meth:`remaining_runtime_to_completion`'s ``base``).
+        """
+        if mean is None:
+            mean = self.remaining_runtime()
+        if len(self.dirichlet) == 0 or self.completed_epochs >= self.total_epochs:
+            return mean, mean
+        _, posterior = self._regime_posterior()
+        alpha0 = sum(posterior.values())
+        durations = self.bs_epoch_durations()
+        mu = sum(posterior[bs] * durations[bs] for bs in posterior) / alpha0
+        second_moment = (
+            sum(posterior[bs] * durations[bs] ** 2 for bs in posterior)
+            / alpha0
+        )
+        var_per_epoch = max(second_moment - mu * mu, 0.0) / (alpha0 + 1.0)
+        n_remaining = max(self.total_epochs - (self.completed_epochs + 1), 0)
+        std = n_remaining * float(np.sqrt(var_per_epoch))
+        half = max(z * std, self.mean_epoch_duration(), 0.05 * mean)
+        return max(mean - half, 0.0), mean + half
+
+
 def batch_remaining_runtimes(metadatas: Sequence[JobMetadata]) -> np.ndarray:
     """Remaining runtimes for a set of jobs as one array (round-prep path)."""
     return np.array([m.remaining_runtime() for m in metadatas], dtype=np.float64)

@@ -52,9 +52,22 @@ writes the run's job / round / complete records to ``L`` as JSON lines;
 under a packed policy ``--profiling_percentage`` below 1 or
 ``--num_reference_models`` turns on online throughput estimation, its
 masked ALS on ``--device``. ``--solver`` takes the one LP solver both
-packages have (``scipy``). The telemetry, flight-recorder and watchdog
-flags raise ``NotImplementedError``: they are not ported yet
-(ROADMAP.md).
+packages have (``scipy``). The JAX package's telemetry flags
+(``obs.add_telemetry_args``) turn its planes on for the run:
+``--metrics-out M`` dumps the metrics registry (with predictor
+calibration) as ``shockwave-metrics-v1`` JSON, ``--trace-out T`` a
+Chrome trace-event timeline in simulated time, ``--decision-log D`` the
+flight recorder's JSONL log (replay it with ``python -m
+shockwave_tpu_torch.obs.recorder replay D``), and ``--watchdog`` /
+``--watchdog-config`` the health rules, whose summary is printed; each
+run starts and ends with every plane reset. ``--metrics-port`` serves
+physical mode only and is parsed and left unused here, as in the JAX
+package.
+
+    python -m shockwave_tpu_torch.simulate -t traces/small_12_dynamic.trace \\
+        -p shockwave_tpu_level -c 2:0:0 --seed 0 --time_per_iteration 60 \\
+        --metrics-out M.json --trace-out T.json --decision-log D.jsonl \\
+        --watchdog
 """
 
 from __future__ import annotations
@@ -76,28 +89,24 @@ from shockwave_tpu_torch.data.default_oracle import generate_oracle
 from shockwave_tpu_torch.policies import get_available_policies, get_policy
 from shockwave_tpu_torch.utils.cluster_spec import parse_cluster_spec
 from shockwave_tpu_torch.utils.device import resolve_device
-
-
-def _json_arg(value: str, flag: str):
-    """A JSON literal, or a path to a JSON file holding one."""
-    if os.path.exists(value):
-        with open(value) as f:
-            return json.load(f)
-    try:
-        return json.loads(value)
-    except json.JSONDecodeError as e:
-        raise SystemExit(f"{flag}: neither a file nor JSON: {e}") from None
+from shockwave_tpu_torch.utils.fileio import read_json_arg
 
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    obs.configure(metrics=bool(args.metrics_out), trace=bool(args.trace_out))
-    if args.decision_log:
-        obs.configure_recorder(args.decision_log)
-    if args.watchdog or args.watchdog_config:
-        obs.configure_watchdog(args.watchdog_config)
     device = resolve_device(args.device)
+    # Every plane starts off, then the flags turn theirs on before the
+    # scheduler exists: the tracer adopts its virtual clock and the
+    # flight recorder sees the first planning round.
+    obs.reset()
+    obs.apply_telemetry_args(args)
+    try:
+        return _run(args, device)
+    finally:
+        obs.reset()
 
+
+def _run(args, device) -> dict:
     jobs, arrival_times = parse_trace(args.trace_file)
     if args.throughputs_file:
         throughputs = read_throughputs(args.throughputs_file)
@@ -146,6 +155,11 @@ def main(argv=None) -> dict:
         shockwave_config.setdefault(
             "log_approximation_bases", [0.0, 0.2, 0.4, 0.6, 0.8, 1.0]
         )
+        # The MILP's settings (the planner's own defaults), set as the JAX
+        # package's CLI sets them, so recorded planner states are equal.
+        shockwave_config.setdefault("solver_rel_gap", 1e-3)
+        shockwave_config.setdefault("solver_num_threads", 24)
+        shockwave_config.setdefault("solver_timeout", 15)
         shockwave_config["time_per_iteration"] = args.time_per_iteration
         # Homogeneous planning capacity: the v100 pool in the reference
         # vocabulary, else the whole (named-type) cluster.
@@ -162,7 +176,7 @@ def main(argv=None) -> dict:
 
     preemption_overheads = None
     if args.preemption_overheads:
-        preemption_overheads = _json_arg(
+        preemption_overheads = read_json_arg(
             args.preemption_overheads, "--preemption_overheads")
 
     # Fault injection: the plan is armed before the scheduler exists, so
@@ -264,6 +278,16 @@ def main(argv=None) -> dict:
         os.makedirs(os.path.dirname(args.round_log) or ".", exist_ok=True)
         sched.save_round_log(args.round_log)
         print(f"Wrote {args.round_log}")
+
+    obs.export_run_summary(
+        metrics_out=args.metrics_out,
+        trace_out=args.trace_out,
+        makespan=makespan,
+        avg_jct=avg_jct,
+        utilization=utilization,
+        ftf_list=ftf_list,
+        unfair_fraction=unfair_fraction,
+    )
 
     result = {
         "trace_file": args.trace_file,
@@ -381,18 +405,9 @@ def parse_args(argv=None):
         help="where the planner's device solves run: cuda (default; "
         "raises without a card) or cpu",
     )
-    # The JAX package's observability flags; not ported yet (they raise).
-    parser.add_argument("--trace-out", "--trace_out", dest="trace_out")
-    parser.add_argument("--metrics-out", "--metrics_out", dest="metrics_out")
-    parser.add_argument("--decision-log", "--decision_log",
-                        dest="decision_log")
-    parser.add_argument("--watchdog", action="store_true")
-    parser.add_argument("--watchdog-config", "--watchdog_config",
-                        dest="watchdog_config")
-    # The live scrape endpoint serves physical mode only: the JAX
-    # package's simulation parses it and leaves it unused, as here.
-    parser.add_argument("--metrics-port", "--metrics_port",
-                        dest="metrics_port", type=int, default=None)
+    # The JAX package's observability flags; --metrics-port serves
+    # physical mode only and is left unused here, as there.
+    obs.add_telemetry_args(parser)
     return parser.parse_args(argv)
 
 

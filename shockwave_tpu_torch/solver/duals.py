@@ -16,8 +16,10 @@ welfare) are closed-form functions of that iterate:
   lateness max binds on.
 
 ``_EPS`` is the solvers' own 1e-6, copied here (the JAX package imports
-it from ``eg_jax``). The explain plane that reads these reports is not
-ported yet (ROADMAP.md, queue 1 item 9).
+it from ``eg_jax``). The planners' market attribution
+(``_market_attribution``) reads these reports after every replan with
+the flight recorder or metrics on, and ``obs/explain.py`` builds the
+per-job narratives from the records.
 """
 
 from __future__ import annotations

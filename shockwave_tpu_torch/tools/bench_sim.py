@@ -433,6 +433,128 @@ SIM_FEATURES_H100 = {
 # may pick another reference type only where the two types' cosine
 # distances lie within this of each other.
 NEAR_TIE = 2e-5
+# The flight-recorder fixture run (results/flight_recorder/README.md:
+# the 12-job trace on 2 chips, 60 s rounds, seed 0, shockwave_tpu_level,
+# every plane on) of the JAX package on the CPU today, from
+# ``python tests/telemetry_reference.py capture``: its metrics, its
+# calibration summary and market gauges, and the alerts of the watchdog
+# rules whose inputs are deterministic ([rule, round, value, threshold]
+# in firing order). The committed fixture predates the current
+# calibration scoring (4044 forecasts scored there, MAPE 0.993) and the
+# market plane (ROADMAP.md, queue 3).
+TELEMETRY_FIXTURE = {
+    "run": dict(makespan=24950.018, avg_jct=20161.220, worst_ftf=2.336,
+                rounds=419),
+    "calibration": {"scored": 2971.0, "mape": 1.157551913570325,
+                    "coverage": 0.41635812857623694,
+                    "bias_seconds": 181.62532841027942},
+    "market": {"market_price": 0.0,
+               "market_fairness_drift": 0.3283514043178429,
+               "market_tenant_spend_total": 37.0},
+    "alerts": [["price_spike", 20, 56852.443475, 0.0],
+               ["fairness_drift", 22, 0.610976, 0.25],
+               ["price_spike", 24, 61137.339877, 0.0],
+               ["fairness_drift", 24, 0.723838, 0.25],
+               ["price_spike", 35, 3228824.337565, 183412.01963],
+               ["fairness_drift", 40, 0.886459, 0.25],
+               ["price_spike", 60, 739481.671279, 0.0],
+               ["fairness_drift", 99, 0.971666, 0.25],
+               ["price_spike", 143, 131.386372, 0.0],
+               ["worst_ftf", 224, 2.336237, 2.0],
+               ["calibration_mape", 224, 0.756811, 0.5],
+               ["calibration_mape", 379, 2.423919, 0.5],
+               ["price_spike", 385, 2.427677, 0.0],
+               ["price_spike", 387, 3.107596, 0.0]],
+}
+# The committed fixture's counters and gauges that are current (held
+# equal on the card) and the families of planning wall time (compared by
+# sample count).
+TELEMETRY_HELD = (
+    "scheduler_rounds_total", "scheduler_jobs_admitted_total",
+    "scheduler_jobs_completed_total", "scheduler_preemptions_total",
+    "scheduler_lease_extensions_total", "scheduler_queue_depth",
+    "scheduler_round_duration_seconds", "scheduler_scheduled_jobs",
+    "run_makespan_seconds", "run_avg_jct_seconds", "run_utilization",
+    "run_worst_ftf", "run_unfair_fraction_pct")
+
+# Metric families timed on the wall clock, or read from the watchdog's
+# wall-clock rule (solver_time): compared by label set and sample count
+# only. The rule's own alert series is left out of every comparison.
+WALL_FAMILIES = frozenset((
+    "shockwave_plan_exposed_seconds", "shockwave_plan_phase_seconds",
+    "shockwave_solve_seconds", "solver_backend_phase_seconds",
+    "solver_backend_seconds", "effective_planning_overhead",
+    "shockwave_plan_hidden_seconds", "scheduler_health",
+))
+WALL_RULE = {"rule": "solver_time"}
+# Watchdog rules whose inputs are deterministic; solver_time reads wall
+# seconds and is reported, not held.
+DETERMINISTIC_RULES = frozenset((
+    "worst_ftf", "calibration_mape", "straggler", "lease_churn",
+    "solver_degraded", "worker_death", "price_spike", "fairness_drift",
+    "admission_backlog", "cell_failure",
+))
+
+
+def metric_differences(a: dict, b: dict, families=None) -> list:
+    """Where two metrics snapshots differ: every deterministic series by
+    value, count, sum, min, max and buckets (exact), the wall-clock
+    families by label set and count. ``families`` restricts the check."""
+    ma, mb = a["metrics"], b["metrics"]
+    names = sorted(set(ma) | set(mb)) if families is None else families
+    bad = []
+    for name in names:
+        if name not in ma or name not in mb:
+            bad.append(f"{name}: only in one")
+            continue
+        sa = {json.dumps(s["labels"], sort_keys=True): s
+              for s in ma[name]["series"] if s["labels"] != WALL_RULE}
+        sb = {json.dumps(s["labels"], sort_keys=True): s
+              for s in mb[name]["series"] if s["labels"] != WALL_RULE}
+        if set(sa) != set(sb):
+            bad.append(f"{name}: label sets {sorted(set(sa) ^ set(sb))}")
+            continue
+        for key, x in sa.items():
+            y = sb[key]
+            fields = (("count",) if name in WALL_FAMILIES else
+                      ("value", "count", "sum", "min", "max", "buckets"))
+            for f in fields:
+                if x.get(f) != y.get(f):
+                    bad.append(f"{name}{key} {f}: {x.get(f)} != {y.get(f)}")
+    return bad
+
+
+def health_alerts(trace_path, deterministic=True) -> list:
+    """The watchdog's alerts in firing order, from a trace's ``health``
+    instants (the deterministic rules', or every rule's names)."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    alerts = [e["args"] for e in events if e.get("name") == "health"]
+    if deterministic:
+        return [a for a in alerts if a["rule"] in DETERMINISTIC_RULES]
+    return [a["rule"] for a in alerts]
+
+
+def fixture_pins(metrics_path, trace_path) -> dict:
+    """A fixture run's readings in the form of ``TELEMETRY_FIXTURE``: its
+    calibration summary, market gauges and deterministic alerts."""
+    with open(metrics_path) as f:
+        metrics = json.load(f)["metrics"]
+
+    def value(name):
+        return metrics[name]["series"][0]["value"]
+
+    return {
+        "calibration": {k: value(f"predictor_calibration_{k}") for k in (
+            "scored", "mape", "coverage", "bias_seconds")},
+        "market": {k: value(k) for k in (
+            "market_price", "market_fairness_drift",
+            "market_tenant_spend_total")},
+        "alerts": [[a["rule"], a["round"], a["value"], a["threshold"]]
+                   for a in health_alerts(trace_path)],
+    }
+
+
 # The JAX package's pricing decisions (PricingDecision.as_record): round
 # PRICING_LOG_ROUND of the committed log with PRICING_LOG_BURST; the tier
 # state at its most incomplete jobs (round 253, before the round 293 where
@@ -502,6 +624,12 @@ LOG_BASES = np.array([0.0, 0.2, 0.4, 0.6, 0.8, 1.0])
 TRACE_SAMPLE = 12
 ITERS = 20
 NATIVE_ITERS = 5
+# The depth chip_smoke.py's phase 8(d) times at (its readings at the
+# tool's depth above are PERF.md's): the medians of SMOKE_ITERS (the
+# native greedy's of SMOKE_NATIVE_ITERS) on SMOKE_TRACE_SAMPLE problems.
+SMOKE_ITERS = 3
+SMOKE_NATIVE_ITERS = 1
+SMOKE_TRACE_SAMPLE = 4
 
 
 def card_line() -> str:
@@ -1260,9 +1388,10 @@ def device_profile(problem, device) -> dict:
     return dict(launches=kernels, copies=copies, busy_ms=busy_us / 1e3)
 
 
-def time_solves(problem, device) -> dict:
-    """ms per solve on ``problem``, each the median of ``ITERS`` (the
-    native greedy's of ``NATIVE_ITERS``) after a warm-up: the level solve's device head (pad, copy, solve, fetch:
+def time_solves(problem, device, iters: int = ITERS,
+                native_iters: int = NATIVE_ITERS) -> dict:
+    """ms per solve on ``problem``, each the median of ``iters`` (the
+    native greedy's of ``native_iters``) after a warm-up: the level solve's device head (pad, copy, solve, fetch:
     host clock around work that ends in the fetch) and host tail
     (polish, placement, reorder), and the native greedy (with its
     reorder). On a card, also the profiler's launches and busy time."""
@@ -1291,36 +1420,42 @@ def time_solves(problem, device) -> dict:
     row = dict(jobs=problem.num_jobs, num_gpus=problem.num_gpus,
                future_rounds=problem.future_rounds,
                device_ms=1e3 * _median_s(
-                   lambda: solve_level_counts(problem, device), ITERS),
-               host_tail_ms=1e3 * _median_s(tail, ITERS),
-               native_ms=1e3 * _median_s(greedy, NATIVE_ITERS))
+                   lambda: solve_level_counts(problem, device), iters),
+               host_tail_ms=1e3 * _median_s(tail, iters),
+               native_ms=1e3 * _median_s(greedy, native_iters))
     row["level_ms"] = row["device_ms"] + row["host_tail_ms"]
     if device.type == "cuda":
         row.update(device_profile(problem, device))
     return row
 
 
-def solve_report(device, problems) -> tuple:
+def solve_report(device, problems, iters: int = ITERS,
+                 native_iters: int = NATIVE_ITERS,
+                 sample: int = TRACE_SAMPLE) -> tuple:
     """The level solve on ``device`` checked against the CPU's on the
     parity problems, a seeded problem of every band of ``BANDS`` and
     ``problems`` (a trace run's); then, if none missed, both backends
-    timed on the seeded problems and on a sample of ``problems``, with
-    each set's crossover. Returns (the misses, the readings)."""
+    timed (medians of ``iters``, the native greedy's of
+    ``native_iters``) on the seeded problems and on ``sample`` of
+    ``problems``, with each set's crossover. Returns (the misses, the
+    readings)."""
     seeded = [seeded_problem(jobs) for jobs in BANDS]
     checked = parity_problems() + seeded + list(problems)
+    started = time.time()
     bad = check_device_counts(checked, device)
     if bad:
         return bad, {}
     print(f"level solve on {device} equals the CPU's on {len(checked)} "
           f"problems ({len(problems)} of them the trace run's)", flush=True)
-    report = {"checked": len(checked)}
-    for name, sample in (("seeded", seeded),
-                         ("trace", sample_by_jobs(problems))):
+    report = {"checked": len(checked), "check_s": time.time() - started}
+    started = time.time()
+    for name, picked in (("seeded", seeded),
+                         ("trace", sample_by_jobs(problems, sample))):
         print(f"level solve and native greedy, {name} problems (median of "
-              f"{ITERS}, native of {NATIVE_ITERS}):", flush=True)
+              f"{iters}, native of {native_iters}):", flush=True)
         rows = []
-        for problem in sample:
-            rows.append(time_solves(problem, device))
+        for problem in picked:
+            rows.append(time_solves(problem, device, iters, native_iters))
             print("  " + describe(rows[-1]), flush=True)
         report[name] = dict(rows=rows,
                             level_faster_from_jobs=crossover(rows))
@@ -1328,6 +1463,7 @@ def solve_report(device, problems) -> tuple:
         print(f"  level solve faster on every problem from {start} jobs"
               if start else "  level solve slower on the largest problem",
               flush=True)
+    report["timing_s"] = time.time() - started
     return [], report
 
 
@@ -1338,6 +1474,10 @@ def solve_report(device, problems) -> tuple:
 # EG_PLAIN_MAX_JOBS (one run each: seconds of eager launches).
 EG_CHECK_BANDS = (64, 256, 1024, 4096)
 EG_TIME_BANDS = (256, 1024, 4096, 16384, 65536)
+# The band chip_smoke.py's phase 9(d) times (the other bands' readings
+# are PERF.md's): the largest that the main path's resident
+# instantiations take and the plain version is timed at.
+SMOKE_EG_TIME_BANDS = (1024,)
 # Bands the level sweep times every instantiation at: each slot count a
 # problem can take up to 2048 (the warps that own slots change with it),
 # then the timing bands.

@@ -506,11 +506,22 @@ def test_checkpoint_roundtrip_preserves_federation():
 
 def test_a_recorded_replan_stamp_raises():
     """A plan record's state carries the replan it recorded
-    (``cells_replay``); replaying it waits with the recorder's replay."""
+    (``cells_replay``): it restores, and the restored federation's next
+    replan re-enters the recorded one, over the recorded stale set and
+    path, not the live staleness (tests/test_torch_flight_recorder.py
+    replays whole logs)."""
     state = tiny_cell_planner(num_jobs=4).state_dict()
-    state["cells_replay"] = {"stale": ["c00"], "individual": False}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        planner_from_state(state, device="cpu")
+    state["cells_replay"] = {"stale": ["c00"], "individual": False,
+                             "backends": {}, "fallback": {}, "failed": [],
+                             "warm_starts": {"c00": None}}
+    restored = planner_from_state(state, device="cpu")
+    assert restored._replay_stamp["stale"] == ["c00"]
+    restored.set_recompute_flag()
+    restored._replan()
+    assert restored._replay_stamp is None
+    assert restored.coord_solve_records[-1]["stale_cells"] == 1
+    assert set(restored.coord_solve_records[-1]["cells"]) <= {"c00"}
+    assert restored.schedules
 
 
 def test_policy_dispatch_builds_cell_planner():

@@ -409,6 +409,51 @@ def test_ring_train_cli_runs_with_jax_blocked():
     assert "LEAKED []" in proc.stdout
 
 
+def test_ulysses_train_cli_runs_with_jax_blocked():
+    """``train --attention ulysses --device cpu`` (Ulysses attention over a
+    one-device mesh) with JAX and the JAX package unimportable, leaving no
+    module of either loaded."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    script = _RING_SCRIPT.replace('"ring", "--seq_parallel"',
+                                  '"ulysses", "--seq_parallel"')
+    assert '"ulysses"' in script
+    proc = subprocess.run(
+        [sys.executable, "-c", script], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert "[Transformer] steps=2 loss=" in proc.stdout
+    assert "LEAKED []" in proc.stdout
+
+
+def test_telemetry_cli_and_recorder_cli_run_with_jax_blocked(tmp_path):
+    """``simulate`` with every plane on (``--metrics-out``, ``--trace-out``,
+    ``--decision-log``, ``--watchdog``) on the golden trace under the
+    level backend, then ``obs.recorder summary`` and ``replay --device
+    cpu`` of the log it wrote, with JAX and the JAX package unimportable:
+    the golden metrics, the three dumps written, every plan replayed
+    exactly, no module of either loaded."""
+    import json
+
+    m, t, d = (tmp_path / n for n in ("m.json", "t.json", "d.jsonl"))
+    out = _run_blocked("shockwave_tpu_torch.simulate",
+                       *_golden_args("shockwave_tpu_level"),
+                       "--metrics-out", str(m), "--trace-out", str(t),
+                       "--decision-log", str(d), "--watchdog")
+    _assert_metrics(out, dict(bench_sim.GOLDEN["shockwave_tpu_level"],
+                              rounds=113))
+    assert "Scheduler health:" in out
+    assert json.loads(m.read_text())["schema"] == "shockwave-metrics-v1"
+    assert json.loads(t.read_text())["traceEvents"]
+    summary = json.loads(_run_blocked(
+        "shockwave_tpu_torch.obs.recorder", "summary", str(d)
+    ).split("LEAKED")[0])
+    assert summary["plans"] == 16 and summary["backends"] == {"level": 16}
+    replayed = _run_blocked("shockwave_tpu_torch.obs.recorder", "replay",
+                            str(d), "--device", "cpu")
+    assert "replayed 16 plan record(s): 16 exact, 0 diverged" in replayed
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -437,7 +482,12 @@ def test_port_sources_import_no_jax():
                    "core/throughput_estimator.py",
                    "ops/matrix_completion.py", "whatif/pricing.py",
                    "data/job_table.py", "data/spot_prices.py",
-                   "utils/fileio.py"):
+                   "utils/fileio.py", "parallel/ulysses.py",
+                   "analysis/sanitize.py", "obs/sketch.py",
+                   "obs/history.py", "obs/metrics.py", "obs/trace.py",
+                   "obs/propagate.py", "obs/spantree.py",
+                   "obs/calibration.py", "obs/watchdog.py",
+                   "obs/explain.py", "obs/fleet.py", "obs/__init__.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

@@ -157,10 +157,58 @@ def test_cli_prints_the_golden(capsys):
 @pytest.mark.parametrize("flag", [
     ["--metrics-out", "m.json"], ["--trace-out", "t.json"],
     ["--decision-log", "d.jsonl"], ["--watchdog"]])
-def test_cli_telemetry_flags_are_not_ported(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        simulate.main(["-t", str(bench_sim.GOLDEN_TRACE), "--device", "cpu",
-                       *flag])
+def test_cli_telemetry_flags_are_not_ported(flag, tmp_path):
+    """Each of the JAX package's telemetry flags runs in the port's CLI
+    and gives what the JAX package's CLI gives on the same run (the
+    golden trace under ``shockwave_tpu``): the metrics dump in every
+    deterministic series, the trace's events, the decision log record for
+    record (wall-clock fields for presence), the watchdog's summary but
+    for the wall-clock rule (tests/telemetry_reference.py)."""
+    import re
+
+    import telemetry_reference as ref
+
+    paths = {}
+    for side in ("port", "jax"):
+        paths[side] = [str(tmp_path / f"{side}-{x}")
+                       if x.endswith((".json", ".jsonl")) else x
+                       for x in flag]
+    args = ["-t", str(bench_sim.GOLDEN_TRACE), "-p", "shockwave_tpu",
+            "-c", "v100=8", "--time_per_iteration", "120"]
+    simulate.main(args + ["--device", "cpu", "--no_profile_cache",
+                          *paths["port"]])
+    env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(ref.ROOT))
+    proc = subprocess.run(
+        [sys.executable, "scripts/simulate.py", *args, *paths["jax"]],
+        cwd=ref.ROOT, env=env, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    if flag[0] == "--metrics-out":
+        with open(paths["port"][1]) as f, open(paths["jax"][1]) as g:
+            assert ref.metric_differences(json.load(f), json.load(g)) == []
+    elif flag[0] == "--trace-out":
+        assert (ref.trace_events(paths["port"][1])
+                == ref.trace_events(paths["jax"][1]))
+    elif flag[0] == "--decision-log":
+        ours, theirs = (ref.records(p[1]) for p in paths.values())
+        assert len(ours) == len(theirs) > 0
+        assert ref.without_wall(ours) == ref.without_wall(theirs)
+    else:
+        rerun = subprocess.run(
+            [sys.executable, "-m", "shockwave_tpu_torch.simulate", *args,
+             "--device", "cpu", "--no_profile_cache", "--watchdog"],
+            cwd=ref.ROOT, env=env, capture_output=True, text=True,
+            timeout=600)
+        assert rerun.returncode == 0, rerun.stderr[-4000:]
+
+        def rules(text):
+            line = re.search(r"Scheduler health: .*", text).group(0)
+            return sorted(r for r in re.findall(r"(\w+) x\d+", line)
+                          if r != "solver_time"), [
+                m for m in re.findall(r"(\w+ x\d+)", line)
+                if not m.startswith("solver_time")]
+
+        assert rules(rerun.stdout) == rules(proc.stdout)
+        assert rules(proc.stdout)[0]
 
 
 def test_cli_cuda_without_a_card_raises():
