@@ -297,6 +297,31 @@
    narrative for every job of (c)'s cells log. It prints one JSON line
    ``{"telemetry": ...}``; the causal flash rows of item 10's line carry
    the Ulysses run's launches (``ulysses_launches``).
+17. Drives the physical control plane (``run_physical_plane``): a
+   ``PhysicalScheduler`` in this process (policy ``shockwave_tpu_pdhg``,
+   planner on the card, ``speculate`` on, rounds sized from phase 6's
+   relaunch phases) and one worker agent started by its CLI
+   (``python -m shockwave_tpu_torch.runtime.worker -t v100 -n 2``), whose
+   two slots share card 0 ("v100" is the oracle's label: the port has no
+   measured H100 oracle). Three jobs at the 110M tier's widths, cut to 4
+   layers, are submitted through ``SubmitterClient`` (the SubmitJobs RPC)
+   and the stream is closed; each job's steps are sized from phase 6's
+   steps/s for 1.6 rounds of training at its share of the card, and the
+   planner plans them under a label it believes three times faster, so
+   that it rotates them (``PHYSICAL_JOB_TYPE``). The phase has the time
+   the smoke has left of its 1200 s, less a margin. Fails unless every
+   job completes with at least its steps and held workers in two rounds
+   or more, the scheduler preempted a job (it lost its slot at a round
+   boundary), every job ran in two attempts or more (its process stopped
+   before the job's end, at a preemption or at its lease's end) and
+   every later attempt printed ``RESUMED`` from its checkpoint, every
+   attempt's summary line names ``device=cuda``, kernel A launched in
+   this process, at least one background speculative solve launched on
+   the planner's own stream (not the card's default stream), and no
+   scheduler or worker thread raised. Prints the phase's seconds, the
+   planner's solve seconds beside phase 14's, the payloads' relaunch
+   phases (mean over attempts) and the launches of kernel A and of the
+   flash kernels, with the card's name and power limit.
 
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
@@ -2503,6 +2528,311 @@ def run_telemetry(device, card: str, logs: dict) -> dict:
     return readings
 
 
+# Phase 17: the physical control plane. The payload is phase 6's 110M tier
+# at its widths, cut to 4 layers (the phase's rounds are sized by the
+# relaunch start-up, PERF.md section 6); its own batch is 8. The port has
+# no H100 oracle: the scheduler plans with the v100 oracle's label
+# "Transformer (batch size 16)", 46.4 steps/s, three times the payload's
+# rate at its share of the card. Under that belief each plan expects
+# the jobs to end sooner than they do, the planner re-plans on their
+# measured progress and rotates them, so that every job is stopped
+# before its end and resumed; under "Transformer (batch size 128)",
+# 15.5 steps/s, near the payload's rate, it runs two jobs to their end
+# and then the third, and only one job is relaunched
+# (tests/physical_rotation.py; tests/test_torch_physical.py holds the
+# rotation under a scripted clock).
+PHYSICAL_OUT = ROOT / "_smoke_out" / "physical"
+PHYSICAL_SLOTS = 2
+PHYSICAL_JOBS = 3
+PHYSICAL_JOB_TYPE = "Transformer (batch size 16)"
+PHYSICAL_LAYERS = 4
+PHYSICAL_PAYLOAD = ("--batch_size 8 --vocab_size 8192 --d_model 1024 "
+                    f"--num_heads 8 --num_layers {PHYSICAL_LAYERS} "
+                    "--seq_len 2048 --dtype bfloat16 --attention flash")
+# A payload process's start before its build (interpreter, torch import),
+# seconds (dispatch to first lease less build and restore, measured on
+# the card); the rest of its start-up is phase 6's build (the card's
+# context included) and restore.
+PHYSICAL_PROCESS_START_S = 9.0
+PHYSICAL_MIN_ROUND_S = 12.0
+# A job's steps: this many rounds of training at its share of the card.
+PHYSICAL_WORK_ROUNDS = 1.6
+PHYSICAL_BUFFER_S = 30.0
+PHYSICAL_TIMEOUT_S = 420.0
+# The driver's limit on the whole smoke, and what phase 17 leaves of it
+# for the worker's exit, the lines after the phase and the process's end.
+SMOKE_LIMIT_S = 1200.0
+PHYSICAL_MARGIN_S = 60.0
+_PHASES_LINE = re.compile(r"^PHASES (.*)$", re.M)
+_LAUNCHES_LINE = re.compile(r"^LAUNCHES (\{.*\})$", re.M)
+_ATTEMPT_FILE = re.compile(r"job=(\d+)_worker=\d+_round=(\d+)\.log\.stdout$")
+
+
+def physical_attempts(run_dir: Path) -> dict:
+    """{job: [(round, stdout text), ...]} from the dispatcher's files."""
+    attempts: dict = {}
+    for path in sorted(run_dir.glob("*.stdout")):
+        m = _ATTEMPT_FILE.match(path.name)
+        if m:
+            attempts.setdefault(int(m.group(1)), []).append(
+                (int(m.group(2)), path.read_text()))
+    return {job: sorted(runs) for job, runs in attempts.items()}
+
+
+def physical_steps(round_s: float, shared_rate: float) -> int:
+    """A phase-17 job's steps: ``PHYSICAL_WORK_ROUNDS`` rounds at its
+    share of the card (``shared_rate`` steps/s)."""
+    return int(math.ceil(PHYSICAL_WORK_ROUNDS * round_s * shared_rate))
+
+
+def physical_shockwave_config(round_s: float) -> dict:
+    """The planner's configuration in phase 17."""
+    return {"num_gpus": PHYSICAL_SLOTS, "time_per_iteration": round_s,
+            "future_rounds": 2, "lambda": 5.0, "k": 10.0, "speculate": True}
+
+
+def run_physical_plane(device, card: str, steps_per_s: float,
+                       probe_phases: dict, planner: dict,
+                       deadline: float) -> dict:
+    """Phase 17 (docstring, item 17). ``deadline`` (``time.time()``)
+    bounds every wait of the phase."""
+    import logging
+    import shlex
+    import threading
+
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.core.physical import PhysicalScheduler
+    from shockwave_tpu_torch.data.default_oracle import generate_oracle
+    from shockwave_tpu_torch.data.profiles import synthesize_profiles
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.policies import get_policy
+    from shockwave_tpu_torch.runtime.rpc.submitter_client import (
+        SubmitterClient,
+    )
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    tag = f"[{card}]"
+    print(f"physical plane phase {tag}:", flush=True)
+    shutil.rmtree(PHYSICAL_OUT, ignore_errors=True)
+    PHYSICAL_OUT.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    # The probe: phase 6's payload alone on the card (8 layers; the
+    # phase's 4 step about twice as fast).
+    startup_s = PHYSICAL_PROCESS_START_S + sum(
+        probe_phases.get(k, 0.0) for k in ("build", "restore"))
+    round_s = max(PHYSICAL_MIN_ROUND_S, math.ceil(startup_s + 6.0))
+    shared_rate = steps_per_s * 8 / PHYSICAL_LAYERS / PHYSICAL_SLOTS
+    steps = physical_steps(round_s, shared_rate)
+    print(f"  rounds of {round_s:.0f} s, {PHYSICAL_JOBS} jobs of {steps} "
+          f"steps at {PHYSICAL_LAYERS} layers (probe {steps_per_s:.3f} "
+          f"steps/s alone at 8, start-up {startup_s:.1f} s), "
+          f"{deadline - time.time():.0f} s left of the smoke's "
+          f"{SMOKE_LIMIT_S:.0f} s after the phase's margin {tag}",
+          flush=True)
+
+    oracle = generate_oracle()
+    command = (f"{shlex.quote(sys.executable)} -m "
+               f"shockwave_tpu_torch.models.train --model Transformer "
+               f"{PHYSICAL_PAYLOAD}")
+    jobs = [Job(job_type=PHYSICAL_JOB_TYPE, command=command,
+                num_steps_arg="-n", total_steps=steps)
+            for _ in range(PHYSICAL_JOBS)]
+    errors: list = []
+
+    class Errors(logging.Handler):
+        def emit(self, record):
+            errors.append(f"{record.name}: {record.getMessage()}")
+
+    handler = Errors(level=logging.ERROR)
+    logging.getLogger().addHandler(handler)
+    previous_hook = threading.excepthook
+
+    def hook(args):
+        errors.append(f"thread {args.thread.name}: {args.exc_value!r}")
+        previous_hook(args)
+
+    threading.excepthook = hook
+    kernel.reset_launch_counts()
+    sched_port, worker_port = free_port(), free_port()
+    from shockwave_tpu_torch.core.ids import JobId
+
+    # Each attempt's start-up: dispatch to its first lease request; each
+    # job's preemptions (it lost its slot at a round boundary).
+    startups = []
+    preempted_jobs: dict = {}
+
+    class TimedScheduler(PhysicalScheduler):
+        def _init_job_rpc(self, job_id):
+            now = self.get_current_timestamp()
+            startups.append(now - self._dispatch_times.get(
+                JobId(int(job_id)), now))
+            return super()._init_job_rpc(job_id)
+
+        def _round_observability(self, assignments, preempted=None):
+            for key in preempted or ():
+                preempted_jobs[str(key)] = preempted_jobs.get(str(key), 0) + 1
+            return super()._round_observability(assignments,
+                                                preempted=preempted)
+
+    sched = TimedScheduler(
+        get_policy("shockwave_tpu_pdhg", device=device),
+        port=sched_port, throughputs=oracle, time_per_iteration=round_s,
+        completion_buffer_seconds=PHYSICAL_BUFFER_S,
+        minimum_time_between_allocation_resets=0.0,
+        profiles=synthesize_profiles(jobs, oracle),
+        shockwave_config=physical_shockwave_config(round_s),
+    )
+    worker_log = open(PHYSICAL_OUT / "worker.log", "w")
+    worker = subprocess.Popen(
+        [sys.executable, "-m", "shockwave_tpu_torch.runtime.worker",
+         "-t", "v100", "-n", str(PHYSICAL_SLOTS), "-a", "127.0.0.1",
+         "-s", str(sched_port), "-p", str(worker_port),
+         "--run_dir", str(PHYSICAL_OUT / "run"),
+         "--checkpoint_dir", str(PHYSICAL_OUT / "ckpt")],
+        cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT)
+    started = time.time()
+
+    def left(most: float) -> float:
+        return max(1.0, min(most, deadline - time.time()))
+
+    try:
+        sched.wait_for_workers(PHYSICAL_SLOTS, timeout=left(90))
+        sched.expect_stream()
+        runner = threading.Thread(target=sched.run, name="round-loop")
+        runner.start()
+        client = SubmitterClient("127.0.0.1", sched_port, client_id="smoke")
+        client.submit_stream(jobs, batch_size=len(jobs))
+        client.close()
+        # The worker's exit after Shutdown has 30 s of what is left.
+        runner.join(timeout=left(PHYSICAL_TIMEOUT_S) - 30)
+        if runner.is_alive():
+            errors.append(
+                f"the round loop ran on past {time.time() - started:.0f} s "
+                f"(the phase's limit {PHYSICAL_TIMEOUT_S} s, or the smoke's "
+                f"{SMOKE_LIMIT_S:.0f} s less {PHYSICAL_MARGIN_S:.0f})")
+    finally:
+        sched.shutdown()
+        try:
+            worker_rc = worker.wait(timeout=left(60))
+        except subprocess.TimeoutExpired:
+            worker.kill()
+            worker_rc = worker.wait()
+            errors.append("the worker agent did not exit after Shutdown")
+        worker_log.close()
+        threading.excepthook = previous_hook
+        logging.getLogger().removeHandler(handler)
+    loop_s = time.time() - started
+
+    bad = list(errors)
+    worker_text = (PHYSICAL_OUT / "worker.log").read_text()
+    if worker_rc != 0 or "Traceback" in worker_text:
+        bad.append(f"worker agent exit {worker_rc}: {worker_text[-2000:]}")
+    job_ids = sorted(sched._job_completion_times)
+    if len(sched._completed_jobs) != PHYSICAL_JOBS:
+        bad.append(f"{len(sched._completed_jobs)} of {PHYSICAL_JOBS} jobs "
+                   "completed")
+    for job_id in job_ids:
+        if sched._total_steps_run[job_id] < steps:
+            bad.append(f"job {job_id} ran {sched._total_steps_run[job_id]} "
+                       f"of {steps} steps")
+    attempts = physical_attempts(PHYSICAL_OUT / "run")
+    spans = {}
+    for entry in sched._round_log:
+        if entry.get("event") == "round":
+            for key in entry["jobs"]:
+                spans[key] = spans.get(key, 0) + 1
+    for job_id in job_ids:
+        if spans.get(str(job_id), 0) < 2:
+            bad.append(f"job {job_id} held workers in "
+                       f"{spans.get(str(job_id), 0)} round(s), not two")
+    if sched.get_num_preemptions() < 1:
+        bad.append("the scheduler preempted no job")
+    for job, runs in sorted(attempts.items()):
+        if len(runs) < 2:
+            bad.append(f"job {job} ran in one attempt: it was never "
+                       "stopped before its end and resumed")
+    phases, flash = [], {}
+    for job, runs in sorted(attempts.items()):
+        for i, (round_id, text) in enumerate(runs):
+            if not re.search(r"^\[Transformer\] steps=\d+ .* device=cuda$",
+                             text, re.M):
+                bad.append(f"job {job} round {round_id}: no summary line "
+                           f"on cuda: {text[-500:]!r}")
+            if i > 0 and "RESUMED from" not in text:
+                bad.append(f"job {job} round {round_id} did not resume "
+                           "from its checkpoint")
+            m = _PHASES_LINE.search(text)
+            if m:
+                phases.append({k: float(v.rstrip("s")) for k, v in (
+                    item.split("=") for item in m.group(1).split())})
+            m = _LAUNCHES_LINE.search(text)
+            if m:
+                for name, n in json.loads(m.group(1)).items():
+                    flash[name] = flash.get(name, 0) + n
+    if len(attempts) != PHYSICAL_JOBS:
+        bad.append(f"attempts of {len(attempts)} jobs in the run directory")
+    a_launches = kernel.LAUNCHES["eg_pdhg"]
+    if a_launches < 1:
+        bad.append("kernel A launched no time in the scheduler's process")
+    spec_stream = getattr(sched._shockwave, "_spec_stream", None)
+    default = torch.cuda.default_stream(device).cuda_stream
+    side = 0
+    if spec_stream is not None and spec_stream.cuda_stream != default:
+        side = kernel.LAUNCHES_BY_STREAM.get(spec_stream.cuda_stream, 0)
+    if side < 1:
+        bad.append("no speculative solve launched on the planner's own "
+                   f"stream (streams {kernel.LAUNCHES_BY_STREAM}, default "
+                   f"{default})")
+    solves = [r["seconds"] for r in sched._shockwave.solve_records]
+    mean_phases = {k: sum(p.get(k, 0.0) for p in phases) / len(phases)
+                   for k in ("build", "restore", "first_step_compile",
+                             "train", "save")} if phases else {}
+    relaunch_s = sum(v for k, v in mean_phases.items() if k != "train")
+    reading = {
+        "round_s": round_s, "steps": steps, "loop_s": loop_s,
+        "rounds": sched._num_completed_rounds,
+        "attempts": {j: [r for r, _ in runs] for j, runs in attempts.items()},
+        "rounds_held": spans, "startup_s": startups,
+        "preemptions": sched.get_num_preemptions(),
+        "preempted_by_job": preempted_jobs,
+        "lease_extensions": sched._num_lease_extensions,
+        "makespan_s": sched.get_current_timestamp(),
+        "avg_jct_s": sched.get_average_jct(),
+        "solves": len(solves), "solve_s_mean":
+        sum(solves) / len(solves) if solves else None,
+        "solve_s_max": max(solves, default=None),
+        "spec_stats": dict(sched._shockwave.spec_stats),
+        "eg_pdhg_launches": a_launches, "side_stream_launches": side,
+        "flash_launches": flash, "relaunch_phases_mean": mean_phases,
+        "relaunch_s_mean": relaunch_s,
+        "phase14_checkpoint": planner.get("checkpoint"),
+    }
+    print(f"  {len(sched._completed_jobs)} jobs complete in "
+          f"{sched._num_completed_rounds} rounds ({loop_s:.1f} s of round "
+          f"loop; makespan {reading['makespan_s']:.1f} s, average JCT "
+          f"{reading['avg_jct_s'] or 0:.1f} s); attempts "
+          f"{reading['attempts']}, "
+          f"{reading['preemptions']} preemptions (by job {preempted_jobs}; an "
+          f"attempt that was not preempted ended with its lease), "
+          f"{reading['lease_extensions']} lease extensions {tag}", flush=True)
+    print(f"  planner: {len(solves)} solves, mean "
+          f"{reading['solve_s_mean'] or 0:.4f} s, max "
+          f"{reading['solve_s_max'] or 0:.4f} s; speculation "
+          f"{reading['spec_stats']} (a finding, no claim; phase 14's "
+          f"checkpointed 220-job pdhg runs: {planner.get('checkpoint')}) "
+          f"{tag}", flush=True)
+    print(f"  payload relaunch, mean over {len(phases)} attempts: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in mean_phases.items())
+          + f"; relaunch overhead {relaunch_s:.2f} s; dispatch to first "
+          f"lease {', '.join(f'{x:.1f}' for x in startups)} s {tag}",
+          flush=True)
+    print(f"  launches: kernel A {a_launches} ({side} on the speculation "
+          f"stream), flash {flash} {tag}", flush=True)
+    if bad:
+        fail("physical plane phase: " + "; ".join(bad))
+    return reading
+
+
 def main() -> None:
     started = time.time()
     if not torch.cuda.is_available():
@@ -2637,7 +2967,16 @@ def main() -> None:
           f"{telemetry['fixture_run']['planes_on_s']:.1f} + "
           f"{telemetry['fixture_run']['planes_off_s']:.1f} s; replays "
           f"{sum(r['seconds'] for r in telemetry['replay'].values()):.1f} "
-          f"s), the smoke's growth [{card}]", flush=True)
+          f"s) [{card}]", flush=True)
+    physical_started = time.time()
+    # The probe: phase 6's run, and its resumed run's restore.
+    physical = run_physical_plane(
+        device, card, 1 / steady_s,
+        {**first["phases"], "restore": resumed["phases"].get("restore", 0.0)},
+        planner, started + SMOKE_LIMIT_S - PHYSICAL_MARGIN_S)
+    physical["phase_s"] = time.time() - physical_started
+    print(f"physical plane phase: {physical['phase_s']:.1f} s, the smoke's "
+          f"growth [{card}]", flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -2658,6 +2997,8 @@ def main() -> None:
             # The 5-step 110M run under Ulysses attention (phase 16):
             # each layer launches the kernel once a shard.
             "ulysses_launches": ulysses["launches"][name],
+            # Phase 17's payloads, summed over their attempts.
+            "physical_launches": physical["flash_launches"].get(name, 0),
             "share_of_bound": bound_ms / ms[name][0],
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
@@ -2744,6 +3085,11 @@ def main() -> None:
             kernels[-1]["planner_launches"] = planner["launches"]
             # Phase 15's: the churned pdhg run and the pricing lanes.
             kernels[-1]["sim_features_launches"] = features["launches"]
+            # Phase 17's, in the scheduler's process, and those of them
+            # on the speculation stream.
+            kernels[-1]["physical_launches"] = physical["eg_pdhg_launches"]
+            kernels[-1]["physical_side_stream_launches"] = physical[
+                "side_stream_launches"]
             # The lane grid (phase 12): launches on the cells tier and the
             # what-if CLI's, and the grid's time against its lanes one by
             # one at 8, 65 and 1024 lanes.
@@ -2779,7 +3125,8 @@ def main() -> None:
         "gavel": gavel["phase_s"], "cells": cells["phase_s"],
         "library": library["phase_s"], "planner": planner["phase_s"],
         "sim_features": features["phase_s"],
-        "telemetry": telemetry["phase_s"], **{
+        "telemetry": telemetry["phase_s"],
+        "physical": physical["phase_s"], **{
             f"telemetry_{k}": v for k, v in telemetry["seconds"].items()}},
         "card": card})
     for run in (simulation["tier_2048"], *simulation["golden"].values()):
@@ -2792,6 +3139,7 @@ def main() -> None:
     print(json.dumps({"planner": planner, "card": card}, default=str))
     print(json.dumps({"sim_features": features, "card": card}, default=str))
     print(json.dumps({"telemetry": telemetry, "card": card}, default=str))
+    print(json.dumps({"physical": physical, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(seconds_line)

@@ -29,6 +29,14 @@ class Job:
     SLO: Optional[float] = None
     needs_data_dir: bool = False
     job_id: Optional[int] = None
+    # The submitting tenant, carried on the SubmitJobs wire and judged
+    # against per-tenant admission quotas (empty: no quota). Not part of
+    # the trace format.
+    tenant: str = ""
+    # The job's causal root context, carried on the SubmitJobs wire
+    # (obs/propagate.py encoding); empty: untraced. Not part of the trace
+    # format.
+    trace_context: str = ""
 
     def __post_init__(self):
         if self.SLO is not None and self.SLO < 0:

@@ -11,7 +11,7 @@ policy picks which jobs occupy which workers, by one of two paths:
   ``_shockwave_scheduler_update`` :2011) under a Shockwave policy;
 * Gavel's round path under every other policy: the policy's allocation
   (``_compute_allocation`` :1028, recomputed when jobs or workers come
-  and go, at most once per ``MIN_RESET_INTERVAL_S``),
+  and go, at most once per ``minimum_time_between_allocation_resets``),
   per-type priorities from the allocation over the time each job
   received (``_update_priorities`` :1113) and a greedy pass in priority
   order (``_schedule_jobs_on_workers_helper`` :1157).
@@ -57,9 +57,11 @@ oracle's. ``per_worker_type_prices`` charges each micro-task's time at
 the worker type's price (``get_total_cost``), and every admission,
 round and completion goes to the round log (``save_round_log``).
 
-Not ported yet, each raising ``NotImplementedError`` naming
-``ROADMAP.md``: physical mode (``simulate=False``) and streaming
-admission (a ``submitter``).
+With ``simulate=False`` the scheduler is the base of physical mode
+(``core/physical.py``): measured throughputs fold in as an EMA, dispatch
+marks jobs running, and a micro-task fails when any worker reports no
+progress. ``simulate(submitter=...)`` admits the trace through the
+streaming admission queue (``runtime/admission.py``) in virtual time.
 """
 
 from __future__ import annotations
@@ -95,12 +97,14 @@ MAX_FAILED_ATTEMPTS = 5
 # allocation: the reference's default ``minimum_time_between_allocation_resets``
 # (scheduler.py:161), which only its physical mode changes.
 MIN_RESET_INTERVAL_S = 1920.0
+# Physical mode: the throughput of a job not yet measured, and the weight
+# of a new measurement in the EMA (the JAX package's scheduler.py:45-47).
+INFINITY = int(1e9)
+EMA_ALPHA = 0.5
 
 # Batch-size scaling directions.
 BS_BIG = 0
 BS_SMALL = 1
-
-_NOT_PORTED = "is not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1)"
 
 
 def resolve_preemption_overhead(overheads, job_type: str) -> float:
@@ -168,10 +172,13 @@ class Scheduler:
         round_overhead_fraction: Optional[float] = None,
         per_worker_type_prices: Optional[dict] = None,
         device=None,
+        minimum_time_between_allocation_resets: float = MIN_RESET_INTERVAL_S,
     ):
         self._is_shockwave = policy.name.startswith("Shockwave")
-        if not simulate:
-            raise NotImplementedError(f"physical mode {_NOT_PORTED}")
+        self._simulate = simulate
+        self._min_reset_interval = float(
+            minimum_time_between_allocation_resets
+        )
         if self._is_shockwave and shockwave_config is None:
             raise ValueError("Shockwave policies require shockwave_config")
         self._policy = policy
@@ -870,9 +877,10 @@ class Scheduler:
         self, job_id, worker_type, all_num_steps, all_execution_times
     ) -> None:
         """The planner's measured-throughput record of the round and,
-        under online estimation, a pair that ran takes the oracle's
-        throughputs in place of its estimate (the JAX package's
-        scheduler.py:921-951, simulation branch)."""
+        under online estimation in simulation, a pair that ran takes the
+        oracle's throughputs in place of its estimate; in physical mode the
+        measured rate folds into the throughput as an EMA (the JAX
+        package's scheduler.py:921-971)."""
         if job_id not in self._throughputs:
             return
         if self._shockwave is not None:
@@ -888,7 +896,7 @@ class Scheduler:
                         single, current_round, tput,
                         self._jobs[single].batch_size
                     )
-        if self._estimate_throughputs and job_id.is_pair:
+        if self._simulate and self._estimate_throughputs and job_id.is_pair:
             if all(s in self._jobs for s in job_id.singletons()):
                 oracle = self._oracle_throughputs[worker_type]
                 keys = [
@@ -897,6 +905,27 @@ class Scheduler:
                 self._throughputs[job_id][worker_type] = list(
                     oracle[keys[0]][keys[1]]
                 )
+            return
+        if not self._simulate:
+            singles = job_id.singletons()
+            old = self._throughputs[job_id][worker_type]
+            old_list = list(old) if job_id.is_pair else [old]
+            new_list = []
+            for i in range(len(singles)):
+                measured = (
+                    0.0
+                    if all_execution_times[i] <= 0
+                    else all_num_steps[i] / all_execution_times[i]
+                )
+                if old_list[i] != INFINITY:
+                    measured = (EMA_ALPHA * measured
+                                + (1 - EMA_ALPHA) * old_list[i])
+                new_list.append(measured)
+            if np.min(all_execution_times) <= 0 and job_id.is_pair:
+                new_list = [0.0, 0.0]
+            self._throughputs[job_id][worker_type] = (
+                new_list if job_id.is_pair else new_list[0]
+            )
 
     def _get_remaining_steps(self, job_id: JobId) -> int:
         return self._jobs[job_id].total_steps - self._total_steps_run[job_id]
@@ -1060,7 +1089,7 @@ class Scheduler:
         its simulation branch)."""
         current_time = self.get_current_timestamp()
         interval_ok = (
-            current_time - self._last_reset_time >= MIN_RESET_INTERVAL_S
+            current_time - self._last_reset_time >= self._min_reset_interval
             or self._last_reset_time == 0
         )
         if self._need_to_update_allocation and interval_ok:
@@ -1323,9 +1352,12 @@ class Scheduler:
             raise RuntimeError(f"Could not assign workers to job {job_id}")
         worker_assignments[job_id] = tuple(ids_for_job)
         worker_state["server_id_ptr"] = ptr
-        for single in job_id.singletons():
-            self._per_job_latest_timestamps[single] = self.get_current_timestamp()
-            self._running_jobs.add(single)
+        # Physical mode marks jobs running at dispatch instead.
+        if self._simulate:
+            for single in job_id.singletons():
+                self._per_job_latest_timestamps[single] = (
+                    self.get_current_timestamp())
+                self._running_jobs.add(single)
 
     def _schedule_jobs_on_workers(self) -> "OrderedDict[JobId, tuple]":
         """(reference: scheduler.py:1017-1129)"""
@@ -1411,9 +1443,10 @@ class Scheduler:
     # ------------------------------------------------------------------
     def _get_num_steps(self, job_id, worker_type, single_job_id) -> int:
         """The steps ``single_job_id`` of ``job_id`` makes in a round: at
-        its isolated rate, or, in a pair, at the oracle's co-located rate
-        of the pair's current job types (reference: scheduler.py:1131-1165)."""
-        if job_id.is_pair:
+        its isolated rate, or, in a simulated pair, at the oracle's
+        co-located rate of the pair's current job types (reference:
+        scheduler.py:1131-1165)."""
+        if self._simulate and job_id.is_pair:
             oracle = self._oracle_throughputs[worker_type]
             index = job_id.as_tuple().index(single_job_id[0])
             sf = self._jobs[single_job_id].scale_factor
@@ -1421,6 +1454,8 @@ class Scheduler:
             tput = oracle[keys[0]][keys[1]][index]
         else:
             tput = self._throughputs[job_id][worker_type]
+            if job_id.is_pair:
+                tput = tput[job_id.as_tuple().index(single_job_id[0])]
         num_steps = int(tput * self._time_per_iteration)
         return min(num_steps, self._get_remaining_steps(single_job_id))
 
@@ -1429,7 +1464,7 @@ class Scheduler:
         max_finish_time = self.get_current_timestamp()
         all_num_steps = []
         true_pair_tputs = None
-        if self._estimate_throughputs and job_id.is_pair:
+        if self._simulate and self._estimate_throughputs and job_id.is_pair:
             # Execution runs at the oracle's rate even where the allocator
             # saw estimates (the JAX package's scheduler.py:1512).
             oracle = self._oracle_throughputs[worker_type]
@@ -1453,6 +1488,12 @@ class Scheduler:
             self._running_jobs.add(single)
         return all_num_steps, max_finish_time
 
+    def _micro_task_scale_factor(self, job_id) -> int:
+        """Gang size of the micro-task being merged. Physical mode
+        overrides this with the dispatch-time record, since assignments
+        may have rotated by the time a Done report arrives."""
+        return len(self._current_worker_assignments[job_id])
+
     def _done_callback(
         self, job_id, worker_id, all_num_steps, all_execution_times,
         fault: bool = False,
@@ -1469,7 +1510,7 @@ class Scheduler:
         if not any(is_active.values()):
             return
 
-        scale_factor = len(self._current_worker_assignments[job_id])
+        scale_factor = self._micro_task_scale_factor(job_id)
         updates = self._in_progress_updates.setdefault(job_id, [])
         updates.append((worker_id, all_num_steps, all_execution_times))
         if fault:
@@ -1483,17 +1524,27 @@ class Scheduler:
         merged_steps = [0] * len(job_id.singletons())
         merged_times = [0.0] * len(job_id.singletons())
         for _, steps_i, times_i in updates:
-            for j in range(len(job_id.singletons())):
+            for j, single in enumerate(job_id.singletons()):
+                if (
+                    not self._simulate
+                    and is_active[single]
+                    and (steps_i[j] <= 0 or times_i[j] <= 0)
+                ):
+                    # Physical mode: any worker reporting no progress
+                    # means the micro-task failed (reference:
+                    # scheduler.py:3326-3328).
+                    micro_task_succeeded = False
                 merged_steps[j] += steps_i[j]
                 merged_times[j] = max(merged_times[j], times_i[j])
-        # A gang's steps are split across workers and the final sliver of
-        # a job can be smaller than its gang, leaving some workers with 0
-        # steps: success is judged on the merged totals.
-        for j, single in enumerate(job_id.singletons()):
-            if is_active[single] and (
-                merged_steps[j] <= 0 or merged_times[j] <= 0
-            ):
-                micro_task_succeeded = False
+        if self._simulate:
+            # A gang's steps are split across workers and the final sliver
+            # of a job can be smaller than its gang, leaving some workers
+            # with 0 steps: success is judged on the merged totals.
+            for j, single in enumerate(job_id.singletons()):
+                if is_active[single] and (
+                    merged_steps[j] <= 0 or merged_times[j] <= 0
+                ):
+                    micro_task_succeeded = False
         self._in_progress_updates[job_id] = []
 
         if not micro_task_succeeded:
@@ -1834,14 +1885,35 @@ class Scheduler:
     def _predict_round_outcome(self, dispatch_preview):
         """The planner delta between now (round r's micro-tasks just
         dispatched) and the next boundary (the JAX package's
-        scheduler.py:1929-2010): the throughput records the completion
-        merge will append, each scheduled job's epoch progress after the
-        boundary's ``set_progress`` pass, and the jobs that will finish.
-        In simulation the prediction is exact: ``dispatch_preview`` maps
-        each dispatched single job to the (steps, execution seconds) the
-        completion merge will take. Returns None when the boundary is
-        known to churn: a dispatched job with a pending batch-size switch
-        has its steps rescaled and the planner flagged at the merge."""
+        scheduler.py:1929-1960). In simulation the prediction is exact:
+        ``dispatch_preview`` maps each dispatched single job to the
+        (steps, execution seconds) the completion merge will take.
+        Returns None when the boundary is known to churn: a dispatched
+        job with a pending batch-size switch has its steps rescaled and
+        the planner flagged at the merge."""
+        steps_map: dict = {}
+        for job_id in self._current_round_scheduled_jobs:
+            if self._jobs.get(job_id) is None:
+                continue
+            if (
+                self._bs_scale.get(job_id) is not None
+                and job_id in dispatch_preview
+            ):
+                return None
+            steps_add, exec_s = dispatch_preview.get(job_id, (0, 0.0))
+            steps_map[job_id] = (
+                steps_add,
+                steps_add / exec_s if exec_s > 0 else 0.0,
+            )
+        return self._spec_outcome_from_steps(steps_map)
+
+    def _spec_outcome_from_steps(self, steps_map):
+        """The round outcome both modes predict, from each scheduled
+        single job's (steps, throughput) this round (the JAX package's
+        scheduler.py:1962-2009): the throughput records the completion
+        merge will append, each job's epoch progress after the
+        boundary's ``set_progress`` pass, and the jobs that will
+        finish."""
         from shockwave_tpu_torch.policies.speculation import SpecOutcome
 
         pool = self._shockwave_pool_type()
@@ -1853,13 +1925,7 @@ class Scheduler:
             job = self._jobs.get(job_id)
             if job is None:
                 continue
-            if (
-                self._bs_scale.get(job_id) is not None
-                and job_id in dispatch_preview
-            ):
-                return None
-            steps_add, exec_s = dispatch_preview.get(job_id, (0, 0.0))
-            tput = steps_add / exec_s if exec_s > 0 else 0.0
+            steps_add, tput = steps_map.get(job_id, (0, 0.0))
             if steps_add > 0:
                 throughputs.append((job_id, next_round, tput, job.batch_size))
             if (
@@ -1901,6 +1967,9 @@ class Scheduler:
         checkpoint_threshold: Optional[int] = None,
         checkpoint_file: Optional[str] = None,
         submitter=None,
+        admission_capacity: Optional[int] = None,
+        admission_retry_s: Optional[float] = None,
+        admission_pricer=None,
     ) -> float:
         """Trace-driven simulation; returns the makespan
         (reference: scheduler.py:1365-1796, from_trace path).
@@ -1910,18 +1979,52 @@ class Scheduler:
         the file at the top of the loop once that many jobs have been
         admitted; a fresh scheduler given an existing ``checkpoint_file``
         resumes from there and ends where the unbroken run ends (the JAX
-        package's scheduler.py:2054-2190)."""
+        package's scheduler.py:2054-2190).
+
+        With ``submitter`` (a :class:`~shockwave_tpu_torch.runtime.
+        admission.StreamingSubmitter`), jobs arrive through the bounded,
+        token-deduplicated, backpressured admission queue the physical
+        SubmitJobs RPC feeds, in virtual time: the loop idles through
+        arrival gaps and ends when the submitter closed the stream, the
+        queue drained and every admitted job completed; ``arrival_times``
+        and ``jobs`` are then ignored (the JAX package's
+        scheduler.py:2095-2130, 2277-2330)."""
+        from shockwave_tpu_torch.runtime import admission as admission_mod
         from shockwave_tpu_torch.runtime import faults
 
-        if submitter is not None:
-            raise NotImplementedError(f"streaming admission {_NOT_PORTED}")
         # The armed fault plan, if any: its cluster events land at round
         # boundaries below.
         fault_injector = faults.active()
-        if arrival_times is None or jobs is None:
-            raise ValueError("simulate needs the trace's jobs and arrivals")
-        remaining_jobs = len(jobs)
-        queued_jobs = list(zip(arrival_times, jobs))
+        if submitter is not None:
+            if checkpoint_threshold is not None or checkpoint_file is not None:
+                # The admission queue is not part of the checkpoint.
+                raise ValueError(
+                    "checkpointing is not supported with a streaming "
+                    "submitter (the admission queue is not part of the "
+                    "checkpoint contract)"
+                )
+            remaining_jobs = submitter.total_jobs
+            queued_jobs: list = []
+            # Virtual-time admission queue, sharded one slice a cell
+            # under a cell-decomposed planner.
+            self._admission = admission_mod.build_queue(
+                capacity=admission_capacity
+                or admission_mod.DEFAULT_CAPACITY,
+                retry_delay_s=(
+                    admission_retry_s
+                    if admission_retry_s is not None
+                    else max(1.0, self._time_per_iteration / 4.0)
+                ),
+                clock=lambda: self._current_timestamp,
+                shards=getattr(self._shockwave, "num_cells", 1) or 1,
+                pricer=admission_pricer,
+            )
+        else:
+            if arrival_times is None or jobs is None:
+                raise ValueError(
+                    "simulate needs the trace's jobs and arrivals")
+            remaining_jobs = len(jobs)
+            queued_jobs = list(zip(arrival_times, jobs))
         running_jobs: list = []
         consecutive_idle_rounds = 0
         checkpoint_saved = False
@@ -1946,6 +2049,9 @@ class Scheduler:
                 "Resumed from checkpoint %s at t=%.1f (%d jobs queued)",
                 checkpoint_file, self._current_timestamp, len(queued_jobs),
             )
+        elif submitter is not None:
+            first = submitter.next_due_time()
+            self._current_timestamp = first if first is not None else 0.0
         else:
             self._current_timestamp = arrival_times[0]
 
@@ -1979,7 +2085,11 @@ class Scheduler:
                 break
             if max_rounds is not None and self._num_completed_rounds >= max_rounds:
                 break
-            next_job_arrival_time = queued_jobs[0][0] if queued_jobs else None
+            next_job_arrival_time = (
+                submitter.next_due_time()
+                if submitter is not None
+                else (queued_jobs[0][0] if queued_jobs else None)
+            )
             if next_job_arrival_time is None and not running_jobs:
                 self._last_reset_time = 0
 
@@ -2051,12 +2161,42 @@ class Scheduler:
             if self._is_shockwave and self._num_completed_rounds >= 1:
                 self._shockwave_scheduler_update()
 
-            # Admit arrivals due by now.
-            while queued_jobs and queued_jobs[0][0] <= self._current_timestamp:
-                arrival_time, job = queued_jobs.pop(0)
-                self.add_job(job, timestamp=arrival_time)
+            # Admit arrivals due by now: the streaming path pumps the
+            # submitter and drains the admission queue; the static path
+            # pops the trace.
+            if submitter is not None:
+                for token, job, enqueued in submitter.pump(
+                    self._admission, self._current_timestamp
+                ):
+                    job_id = self.add_job(
+                        job,
+                        timestamp=getattr(job, "arrival_time", enqueued),
+                    )
+                    recorder = obs.get_recorder()
+                    if recorder.enabled:
+                        recorder.record_admission(
+                            {
+                                "kind": "admitted",
+                                "token": token,
+                                "job_id": job_id.integer,
+                                "round": self._num_completed_rounds,
+                                "time": self._current_timestamp,
+                            }
+                        )
+            else:
+                while (queued_jobs
+                       and queued_jobs[0][0] <= self._current_timestamp):
+                    arrival_time, job = queued_jobs.pop(0)
+                    self.add_job(job, timestamp=arrival_time)
 
             if len(self._jobs) == 0:
+                if submitter is not None:
+                    if (
+                        submitter.exhausted()
+                        and self._admission.depth() == 0
+                    ):
+                        break
+                    continue
                 if not queued_jobs:
                     break
                 continue
@@ -2065,7 +2205,15 @@ class Scheduler:
             # The planner's empty round means end of trace.
             if self._is_shockwave and len(scheduled_jobs) == 0:
                 break
-            if not scheduled_jobs and not running_jobs and not queued_jobs:
+            stream_pending = submitter is not None and not (
+                submitter.exhausted() and self._admission.depth() == 0
+            )
+            if (
+                not scheduled_jobs
+                and not running_jobs
+                and not queued_jobs
+                and not stream_pending
+            ):
                 # One idle iteration is recoverable: the reset of
                 # _last_reset_time at the top of the loop forces an
                 # allocation recompute next time around. Two in a row is

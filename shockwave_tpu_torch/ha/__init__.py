@@ -2,7 +2,7 @@
 ``shockwave_tpu/ha/codec.py``): the scheduler-state capture and restore
 the simulator's ``scheduler_crash`` / ``scheduler_restart`` faults round
 trip through. Leader election, the journal, the standby and the front
-door are not ported yet (ROADMAP.md, queue 1)."""
+door are not ported yet (ROADMAP.md, queue 1, item 10b)."""
 
 from shockwave_tpu_torch.ha.codec import (  # noqa: F401
     fingerprint,

@@ -9,28 +9,38 @@ the scheduler's dispatcher launches on a worker:
 Same flags, the same synthetic token batches (``np.random.default_rng``
 drawn exactly as the JAX program draws them, so both see the same
 batches), the same ``[Transformer] steps=N loss=... throughput=...
-steps/s`` line and the same ``SHOCKWAVE_PHASE_TIMINGS`` PHASES line. It
+steps/s`` line (which then names the device the run resolved, as
+``device=cuda``) and the same ``SHOCKWAVE_PHASE_TIMINGS`` PHASES line. It
 runs on CUDA unless ``--device cpu`` is given, and raises when CUDA is
-asked for and absent.
+asked for and absent. On a card it also prints the flash kernels' launch
+counts (``LAUNCHES {...}``).
 
 Checkpoint: ``train_state.pt`` in ``--checkpoint_dir`` (model and
-optimizer state), written beside the final path and renamed into place so
-a kill mid-save keeps the previous good checkpoint. A run that finds one
-restores it before its first step.
+optimizer state and the steps taken so far), written beside the final
+path and renamed into place so a kill mid-save keeps the previous good
+checkpoint. A run that finds one restores it before its first step and
+prints ``RESUMED from <path> at step N``.
+
+Under the scheduler (``--enable_shockwave_iterator`` with
+``SHOCKWAVE_JOB_ID`` set by the dispatcher) the batches come through the
+leased iterator (``runtime/iterator.py``): the run ends when its lease
+expires or its ``-n`` steps are done, saves its checkpoint either way, and
+the iterator's progress line tells the dispatcher how far it got.
 
 ``--attention ring --seq_parallel P`` and ``--attention ulysses
 --seq_parallel P`` run ring or Ulysses attention over a mesh built as the
 JAX program builds it: ``factorize_gang`` over the devices the run holds
 (one card, or the CPU), so P must divide their count.
 
-Not in this slice of the port (each raises NotImplementedError, see
-ROADMAP.md): the other families, gang rendezvous over several workers,
-model parallelism, the orbax backend and the leased Shockwave iterator.
+Not ported (each raises NotImplementedError, see ROADMAP.md): the other
+families, gang rendezvous over several workers (queue 1, item 8), model
+parallelism and the orbax backend.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -154,13 +164,13 @@ def parse_args(argv=None):
 
 def _check_args(args) -> None:
     if args.distributed_addr and args.num_workers > 1:
-        raise _not_ported("gang training over several workers")
+        raise _not_ported(
+            "gang training over several workers (ROADMAP.md, queue 1, "
+            "item 8)")
     if args.model_parallel > 1:
         raise _not_ported("model parallelism")
     if args.ckpt_backend == "orbax":
         raise _not_ported("the orbax checkpoint backend")
-    if args.enable_shockwave_iterator and "SHOCKWAVE_JOB_ID" in os.environ:
-        raise _not_ported("the leased Shockwave iterator")
 
 
 def main(argv=None):
@@ -211,7 +221,11 @@ def main(argv=None):
             ) from None
         model.load_state_dict(state["model"])
         opt.load_state_dict(state["opt"])
+        start_step = int(state.get("step", 0))
         sync()
+        print(f"RESUMED from {ckpt_path} at step {start_step}", flush=True)
+    else:
+        start_step = 0
     mark_phase("restore")
 
     def save_checkpoint():
@@ -219,20 +233,43 @@ def main(argv=None):
             return
         os.makedirs(args.checkpoint_dir, exist_ok=True)
         tmp_path = ckpt_path + ".tmp"
-        torch.save({"model": model.state_dict(), "opt": opt.state_dict()},
-                   tmp_path)
+        torch.save({"model": model.state_dict(), "opt": opt.state_dict(),
+                    "step": start_step + len(losses)}, tmp_path)
         os.replace(tmp_path, ckpt_path)
 
     np_rng = np.random.default_rng(args.seed)
+
+    class Batches:
+        def __iter__(self):
+            while True:
+                yield batch_fn(np_rng)
+
+    use_iterator = (args.enable_shockwave_iterator
+                    and "SHOCKWAVE_JOB_ID" in os.environ)
+    if use_iterator:
+        from shockwave_tpu_torch.runtime.iterator import ShockwaveIterator
+
+        # The lease ends the loop early; the checkpoint below is saved on
+        # expiry and on completion alike.
+        loader = ShockwaveIterator(
+            Batches(), args.checkpoint_dir or ".",
+            save_checkpoint_func=save_checkpoint,
+        )
+    else:
+        loader = Batches()
     losses = []
     start = time.time()
-    for _ in range(args.num_steps):
-        losses.append(step_fn(batch_fn(np_rng)))
+    for batch in loader:
+        losses.append(step_fn(batch))
         if len(losses) == 1 and timed:
             # Fences the first step (the kernels' build lands there) so
             # the scrape does not charge it to steady-state training.
             sync()
             mark_phase("first_step_compile")
+        if len(losses) >= args.num_steps:
+            if use_iterator:
+                loader.complete()
+            break
     sync()
     elapsed = time.time() - start
     mark_phase("train")
@@ -246,10 +283,17 @@ def main(argv=None):
     steps = len(loss_values)
     print(
         f"[{args.model}] steps={steps} loss={loss_str} "
-        f"throughput={steps / max(elapsed, 1e-9):.2f} steps/s"
+        f"throughput={steps / max(elapsed, 1e-9):.2f} steps/s "
+        f"device={device.type}"
     )
+    if device.type == "cuda":
+        from shockwave_tpu_torch.ops import flash_attention
+
+        print("LAUNCHES " + json.dumps(flash_attention.LAUNCHES,
+                                       sort_keys=True), flush=True)
     return {"steps": steps, "losses": loss_values, "elapsed_s": elapsed,
-            "phases": phase_timings, "resumed": resuming}
+            "phases": phase_timings, "resumed": resuming,
+            "start_step": start_step, "device": device.type}
 
 
 if __name__ == "__main__":

@@ -40,8 +40,7 @@ Three sibling planes share the disabled-by-default null-object contract:
     ``scheduler_health`` gauge (``--watchdog``).
 
 The live scrape endpoint (``--metrics-port``, :mod:`.fleet`) serves the
-physical control plane, which is not ported yet (ROADMAP.md, queue 1
-item 10).
+physical control plane (``core/physical.py``).
 """
 
 from __future__ import annotations

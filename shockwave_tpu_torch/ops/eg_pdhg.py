@@ -40,6 +40,8 @@ LAUNCHES = {"eg_pdhg": 0}
 # The same launches by instantiation, "<levels>-resident" or
 # "<levels>-global".
 LAUNCHES_BY_VARIANT: dict = {}
+# The same launches by the CUDA stream handle they were queued on.
+LAUNCHES_BY_STREAM: dict = {}
 # Per-job rows of the solve's state (csrc/eg_pdhg.cu, Row::ROWS).
 STATE_ROWS = 24
 # The one-level instantiation with its state in global memory: (levels,
@@ -90,6 +92,7 @@ def lane_chunk(packed: torch.Tensor) -> int:
 def reset_launch_counts() -> None:
     LAUNCHES["eg_pdhg"] = 0
     LAUNCHES_BY_VARIANT.clear()
+    LAUNCHES_BY_STREAM.clear()
 
 
 def _check(packed: torch.Tensor) -> None:
@@ -139,16 +142,17 @@ def pdhg(packed: torch.Tensor, max_cycles: int, inner_iters: int,
                             dtype=torch.int64)
     name = f"{levels}-{'resident' if resident else 'global'}"
     with torch.cuda.device(packed.device):
+        stream = torch.cuda.current_stream(packed.device).cuda_stream
         for lo in range(0, P, chunk):
             n = min(chunk, P - lo)
             code = lib.eg_pdhg(
                 packed[lo].data_ptr(), None if scratch is None else
                 scratch.data_ptr(), out[lo].data_ptr(),
                 stats[lo].data_ptr(), n, slots, int(max_cycles),
-                int(inner_iters), int(levels), int(resident),
-                torch.cuda.current_stream(packed.device).cuda_stream,
+                int(inner_iters), int(levels), int(resident), stream,
             )
             _build.check(code, "eg_pdhg")
             LAUNCHES["eg_pdhg"] += 1
             LAUNCHES_BY_VARIANT[name] = LAUNCHES_BY_VARIANT.get(name, 0) + 1
+            LAUNCHES_BY_STREAM[stream] = LAUNCHES_BY_STREAM.get(stream, 0) + 1
     return out

@@ -42,6 +42,7 @@ lock through ``analysis.sanitize.make_lock``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import threading
 import time
@@ -184,6 +185,9 @@ class Speculation:
         # snapshot and boundary (physical mode's mid-round pass).
         self.base_solve_records = 0
         self.done = threading.Event()
+        # A background solve on a card: the event recorded on the
+        # planner's speculation stream after the solve's last launch.
+        self.event = None
 
     @property
     def ok(self) -> bool:
@@ -387,11 +391,31 @@ def begin_speculation(planner, outcome: SpecOutcome, background: bool = False):
     planner._speculation = spec
     if background:
         threading.Thread(
-            target=run_speculation, args=(spec, clone, {}), daemon=True
+            target=run_speculation,
+            args=(spec, clone, {}, speculation_stream(planner)),
+            daemon=True,
         ).start()
     else:
         run_speculation(spec, clone, {})
     return spec
+
+
+def speculation_stream(planner):
+    """The CUDA stream a planner's background speculation runs on: one
+    of the planner's own, made at first use (the pattern of
+    ``ShockwavePlanner._rung_stream``), so the solve's launches do not
+    serialise with the round loop's on its thread's current stream;
+    None off the card."""
+    device = getattr(planner, "device", None)
+    if getattr(device, "type", None) != "cuda":
+        return None
+    stream = getattr(planner, "_spec_stream", None)
+    if stream is None:
+        import torch
+
+        stream = torch.cuda.Stream(device)
+        planner._spec_stream = stream
+    return stream
 
 
 def _mark_speculative(clone) -> None:
@@ -422,6 +446,10 @@ def reconcile_speculation(planner) -> Optional[str]:
         planner.spec_stats["miss"] += 1
         observe_reconcile("miss", planner.round_index, "join_timeout")
         return "miss"
+    if spec.event is not None:
+        # The solve's last launch on the speculation stream has finished
+        # before the plan is read.
+        spec.event.synchronize()
     from shockwave_tpu_torch.policies.shockwave import _is_device_fault
 
     if _is_device_fault(spec.error):
@@ -469,14 +497,23 @@ def reconcile_speculation(planner) -> Optional[str]:
     return "miss"
 
 
-def run_speculation(spec: Speculation, clone, tags: dict) -> None:
+def run_speculation(spec: Speculation, clone, tags: dict,
+                    stream=None) -> None:
     """Apply the predicted outcome to the clone, advance it to the
     target round, and replan if (and only if) the boundary would. Runs
     inline in simulation, on a daemon thread in physical mode; touches
-    nothing but the clone and the (locked) obs planes."""
+    nothing but the clone and the (locked) obs planes. With ``stream``
+    (a background solve on a card) the solve launches on it and records
+    ``spec.event`` after its last launch."""
     outcome = spec.outcome
+    if stream is None:
+        on_stream = contextlib.nullcontext()
+    else:
+        import torch
+
+        on_stream = torch.cuda.stream(stream)
     try:
-        with obs.span(
+        with on_stream, obs.span(
             "speculate", cat="plan", pid="solver", tid="speculation",
             args={"round": outcome.target_round},
         ):
@@ -503,6 +540,9 @@ def run_speculation(spec: Speculation, clone, tags: dict) -> None:
             spec.solved = getattr(clone, "_replan_epoch", 0) > before
             if spec.solved:
                 observe_hidden_solve(spec.solve_seconds)
+            if stream is not None:
+                spec.event = torch.cuda.Event()
+                spec.event.record(stream)
         spec.clone = clone
     except Exception as e:  # noqa: BLE001 - surfaced at the reconcile
         spec.error = e

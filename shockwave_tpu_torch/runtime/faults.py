@@ -17,8 +17,8 @@ time. A :class:`FaultInjector` consumes the plan:
     the planner's degradation ladder once a solve attempt;
   * RPC events (``rpc_error`` / ``rpc_delay`` / ``rpc_drop``) are matched
     call by call per method name (:func:`check_rpc`,
-    :func:`note_rpc_success`); the port's physical control plane, their
-    caller, is not ported yet (ROADMAP.md, queue 1).
+    :func:`note_rpc_success`) by every RPC client of the physical
+    control plane (``runtime/rpc/``).
 
 Every applied event is tracked, and the recovery that answers it is paired
 back by ``event_id`` (:meth:`FaultInjector.summary`). The injector is off

@@ -10,8 +10,9 @@ JAX package's ``shockwave_tpu/whatif/``.
   seeding from a planner's ``state_dict()`` or a decision log.
 * :class:`AdmissionPricer` / :class:`PricingCollector` — the marginal
   price of an admission burst, as lanes of one launch
-  (``python -m shockwave_tpu_torch.tools.whatif price``). Streaming
-  admission's online pricing is not ported yet (ROADMAP.md, queue 1).
+  (``python -m shockwave_tpu_torch.tools.whatif price``), and online
+  through the streaming admission queue
+  (``Scheduler.simulate(submitter=..., admission_pricer=...)``).
 """
 
 from shockwave_tpu_torch.whatif.pricing import (  # noqa: F401

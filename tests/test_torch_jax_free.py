@@ -1,5 +1,6 @@
 """The port runs with JAX and the JAX package unimportable, and its
-sources import neither.
+sources import neither; its control plane runs with ``grpc`` and
+``google.protobuf`` unimportable too, and no source imports them.
 
 The module names are matched exactly: ``shockwave_tpu_torch`` starts with
 the string ``shockwave_tpu`` but is not the JAX package.
@@ -7,6 +8,7 @@ the string ``shockwave_tpu`` but is not the JAX package.
 
 import ast
 import os
+import select
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +18,8 @@ import pytest
 from shockwave_tpu_torch.tools import bench_sim
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu",
+             "grpc")
 
 _SCRIPT = """
 import sys
@@ -363,7 +366,8 @@ def test_whatif_price_runs_with_jax_blocked(tmp_path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in FORBIDDEN
+    return top in FORBIDDEN or module.split(".")[:2] == ["google",
+                                                          "protobuf"]
 
 
 def test_train_cli_runs_with_jax_blocked(tmp_path):
@@ -454,6 +458,83 @@ def test_telemetry_cli_and_recorder_cli_run_with_jax_blocked(tmp_path):
     assert "replayed 16 plan record(s): 16 exact, 0 diverged" in replayed
 
 
+# The control plane's CLIs with gRPC and protobuf unimportable as well.
+_PLANE_SCRIPT = """
+import runpy, sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu",
+           "grpc", "google.protobuf")
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of them now raises ImportError
+module, sys.argv = sys.argv[1], [sys.argv[1], *sys.argv[2:]]
+try:
+    runpy.run_module(module, run_name="__main__")
+except SystemExit as e:  # a CLI that exits with its status
+    if e.code:
+        raise
+leaked = sorted(m for m in sys.modules if sys.modules[m] is not None and any(
+    m == b or m.startswith(b + ".") for b in BLOCKED))
+print("LEAKED", leaked)
+"""
+
+
+def test_physical_plane_clis_run_with_jax_and_grpc_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.run_physical`` and ``python -m
+    shockwave_tpu_torch.runtime.worker --device cpu`` on localhost with
+    ``jax``, the JAX package, ``grpc`` and ``google.protobuf`` all
+    unimportable: two jobs of the synthetic payload submitted through the
+    SubmitJobs stream run over two rounds to completion, and neither
+    process loaded any of them."""
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.data.trace import write_trace
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    assert "grpc" in _PLANE_SCRIPT and "google.protobuf" in _PLANE_SCRIPT
+    trace = tmp_path / "two.trace"
+    jobs = [Job(job_type="ResNet-18 (batch size 32)", command="python3 x.py",
+                num_steps_arg="-n", total_steps=steps) for steps in (90, 60)]
+    write_trace(str(trace), jobs, [0.0, 0.3])
+    sched_port, worker_port = free_port(), free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="2")
+    sched = subprocess.Popen(
+        [sys.executable, "-c", _PLANE_SCRIPT,
+         "shockwave_tpu_torch.run_physical", "-t", str(trace), "-p", "fifo",
+         "--port", str(sched_port), "--expected_workers", "2",
+         "--time_per_iteration", "2", "--device", "cpu", "--payload",
+         "synthetic", "--payload_args", "--steps_per_sec 50",
+         "--max_rounds", "20", "--completion_buffer_seconds", "10",
+         "--worker_timeout", "120"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    # The agent registers once the scheduler listens (a loaded host can
+    # take longer to import the scheduler than the agent's retries last).
+    ready, _, _ = select.select([sched.stdout], [], [], 240)
+    listening = sched.stdout.readline() if ready else ""
+    if "Scheduler listening" not in listening:
+        sched.kill()
+        raise AssertionError(f"the scheduler did not start: {listening!r} "
+                             f"{sched.stderr.read()[-4000:]}")
+    worker = subprocess.Popen(
+        [sys.executable, "-c", _PLANE_SCRIPT,
+         "shockwave_tpu_torch.runtime.worker", "-t", "v100", "-n", "2",
+         "-a", "127.0.0.1", "-s", str(sched_port), "-p", str(worker_port),
+         "--device", "cpu", "--run_dir", str(tmp_path / "run"),
+         "--checkpoint_dir", str(tmp_path / "ckpt")],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        sched_out, sched_err = sched.communicate(timeout=240)
+        worker_out, worker_err = worker.communicate(timeout=60)
+    finally:
+        for proc in (sched, worker):
+            if proc.poll() is None:
+                proc.kill()
+    assert sched.returncode == 0, sched_err[-4000:]
+    assert worker.returncode == 0, worker_err[-4000:]
+    assert "Completed jobs: 2 of 2" in sched_out
+    assert "LEAKED []" in sched_out and "LEAKED []" in worker_out
+    assert len(list((tmp_path / "run").glob("*.stdout"))) >= 2
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -487,7 +568,28 @@ def test_port_sources_import_no_jax():
                    "obs/history.py", "obs/metrics.py", "obs/trace.py",
                    "obs/propagate.py", "obs/spantree.py",
                    "obs/calibration.py", "obs/watchdog.py",
-                   "obs/explain.py", "obs/fleet.py", "obs/__init__.py"):
+                   "obs/explain.py", "obs/fleet.py", "obs/__init__.py",
+                   "run_physical.py", "core/physical.py",
+                   "runtime/admission.py", "runtime/dispatcher.py",
+                   "runtime/iterator.py", "runtime/lease.py",
+                   "runtime/retry.py", "runtime/synthetic.py",
+                   "runtime/testing.py", "runtime/worker.py",
+                   "runtime/rpc/wiring.py", "runtime/rpc/scheduler_server.py",
+                   "runtime/rpc/scheduler_client.py",
+                   "runtime/rpc/worker_server.py",
+                   "runtime/rpc/worker_client.py",
+                   "runtime/rpc/iterator_client.py",
+                   "runtime/rpc/submitter_client.py",
+                   "runtime/protobuf/wire.py",
+                   "runtime/protobuf/fastwire.py",
+                   "runtime/protobuf/common_pb2.py",
+                   "runtime/protobuf/enums_pb2.py",
+                   "runtime/protobuf/iterator_to_scheduler_pb2.py",
+                   "runtime/protobuf/scheduler_to_worker_pb2.py",
+                   "runtime/protobuf/worker_to_scheduler_pb2.py",
+                   "runtime/protobuf/telemetry_pb2.py",
+                   "runtime/protobuf/explain_pb2.py",
+                   "runtime/protobuf/admission_pb2.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]
@@ -497,8 +599,9 @@ def test_port_sources_import_no_jax():
 def test_guard_matches_module_names_exactly():
     assert _forbidden("shockwave_tpu") and _forbidden("shockwave_tpu.ops")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
+    assert _forbidden("grpc") and _forbidden("google.protobuf.descriptor")
     assert not _forbidden("shockwave_tpu_torch.ops")
-    assert not _forbidden("jaxtyping")
+    assert not _forbidden("jaxtyping") and not _forbidden("grpcio_extra")
 
 
 def test_chip_smoke_fails_without_a_card_or_the_package(tmp_path):

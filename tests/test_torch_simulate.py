@@ -228,19 +228,24 @@ def test_policies_not_ported_raise(name):
 # Speculation and hetero_pools are ported (tests/test_torch_speculation.py,
 # tests/test_torch_hetero.py), and so is online throughput estimation
 # (tests/test_torch_estimator.py), which a Shockwave policy never turns
-# on, in either package.
+# on, in either package. Physical mode is ported
+# (tests/test_torch_physical.py); its HA plane is not.
 @pytest.mark.parametrize("config, kwargs", [
     ({"cells": 4, "cell_mesh": True}, {}),
-    ({}, {"simulate": False}),
+    ({}, {"ha_journal": object()}),
     ({"cells": 2, "cell_mesh": True}, {}),
-    ({}, {"simulate": False, "profiling_percentage": 0.5}),
+    ({}, {"ha_restore_pending": True, "profiling_percentage": 0.5}),
 ])
 def test_options_not_ported_raise(config, kwargs):
+    from shockwave_tpu_torch.core.physical import PhysicalScheduler
+
     shockwave_config = {"num_gpus": 8, "time_per_iteration": 120, **config}
+    cls = PhysicalScheduler if any(k.startswith("ha_") for k in kwargs) \
+        else Scheduler
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Scheduler(get_policy("shockwave_tpu_level", device="cpu"),
-                  throughputs=generate_oracle(),
-                  shockwave_config=shockwave_config, **kwargs)
+        cls(get_policy("shockwave_tpu_level", device="cpu"),
+            throughputs=generate_oracle(),
+            shockwave_config=shockwave_config, **kwargs)
 
 
 def test_sharded_scale_with_several_cards_raises(monkeypatch):

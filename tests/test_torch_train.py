@@ -126,10 +126,44 @@ def test_unported_paths_raise(extra):
     np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-4)
 
 
-def test_leased_iterator_raises_only_under_a_job(monkeypatch):
-    monkeypatch.setenv("SHOCKWAVE_JOB_ID", "7")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(TINY_ARGS + ["-n", "1", "--enable_shockwave_iterator"])
+def test_leased_iterator_raises_only_under_a_job(monkeypatch, tmp_path):
+    """The leased iterator is ported and raises nowhere now: under a job
+    (``SHOCKWAVE_JOB_ID`` set) the batches come through it, its lease of
+    3 steps ends the run before ``-n``, the checkpoint is saved with the
+    steps taken and the progress line is written; without a job the flag
+    changes nothing."""
+    from shockwave_tpu_torch.runtime.rpc import iterator_client
+
+    class Lease:
+        def __init__(self, *args):
+            pass
+
+        def init(self):
+            return 3, 1e6, 0.0
+
+        def update_lease(self, steps, duration, max_steps, max_duration):
+            return max_steps, max_duration, 0.0
+
+    log = tmp_path / "iterator.log"
+    monkeypatch.setattr(iterator_client, "IteratorRpcClient", Lease)
+    for key, value in (("SHOCKWAVE_JOB_ID", "7"), ("SHOCKWAVE_WORKER_ID", "0"),
+                       ("SHOCKWAVE_SCHED_ADDR", "127.0.0.1"),
+                       ("SHOCKWAVE_SCHED_PORT", "1"),
+                       ("SHOCKWAVE_LOG_FILE", str(log))):
+        monkeypatch.setenv(key, value)
+    ckpt = tmp_path / "ckpt"
+    leased = train.main(TINY_ARGS + ["-n", "10", "--enable_shockwave_iterator",
+                                     "--checkpoint_dir", str(ckpt)])
+    assert leased["steps"] == 3
+    assert "steps=3 duration=" in log.read_text()
+    state = torch.load(ckpt / train.CHECKPOINT_NAME, weights_only=True)
+    assert state["step"] == 3
+    resumed = train.main(TINY_ARGS + ["-n", "10", "--enable_shockwave_iterator",
+                                      "--checkpoint_dir", str(ckpt)])
+    assert resumed["resumed"] and resumed["start_step"] == 3
+    monkeypatch.delenv("SHOCKWAVE_JOB_ID")
+    free = train.main(TINY_ARGS + ["-n", "2", "--enable_shockwave_iterator"])
+    assert free["steps"] == 2
 
 
 def test_unknown_family_and_missing_card(monkeypatch):
