@@ -82,10 +82,14 @@
 9. Drives the planner's first-order backends, kernels A (restarted PDHG,
    ``csrc/eg_pdhg.cu``) and B (relaxed PGD, ``csrc/eg_relaxed.cu``), each
    one launch a solve (``shockwave_tpu_torch/tools/bench_sim.py``): (a) the
-   2048-job trace on 256 GPUs under ``shockwave_tpu_pdhg``, every plan
-   audited (``EGProblem.audit_schedule``), with its makespan, average JCT
-   and solves, their device head apart from their host tail, within 1e-3
-   of the JAX package's run on the CPU; on 8 of its windows spread over
+   2048-job trace on 256 GPUs under ``shockwave_tpu_pdhg`` for its first
+   ``bench_sim.TIER_2048_PDHG_CUT["rounds"]`` rounds (the whole run's 489
+   rounds took 130-274 s on NVIDIA H100 80GB HBM3 hosts at 700.00 W, 98%
+   of it the host tail; PERF.md), every plan audited
+   (``EGProblem.audit_schedule``), with its makespan, average JCT and
+   solves, their device head apart from their host tail, within 1e-3 of
+   the JAX package's run of the same rounds on the CPU
+   (``tests/tier_cut_reference.py``); on 8 of its windows spread over
    their job counts the pdhg plan's objective at least the level
    backend's less 1e-3 of it (the JAX package's bar,
    tests/test_pdhg.py:47-58); the 12-job trace under
@@ -94,8 +98,13 @@
    runs taking an instantiation with its per-job state in shared memory;
    (b) each kernel against its plain version on the card on seeded
    problems of 64, 256, 1024 and 4096 jobs (256 GPUs, 20 rounds) and on
-   those 8 windows: ``s`` within rtol = atol = 5e-3, the objective within
-   1e-3 (1 + |obj|), the rounded counts' objective within 2e-3 (1 + |o|),
+   those 8 windows: ``s`` within rtol = atol = 5e-3 where float32
+   determines it (where the plain version's own run with its start one
+   float32 step away misses that limit too, ``s`` follows the rounding
+   along a face of optima and is listed, not held;
+   ``bench_sim.check_eg_kernels``), the objective within 1e-3 (1 +
+   |obj|), the rounded counts' objective within 2e-3 (1 + |o|), ``s``
+   feasible (in [0, rounds], its GPU-rounds within 1e-5 of the budget),
    two runs bitwise equal, and equal in every bit to the kernel's
    sequential instantiation (one bisection step a barrier, state in
    global memory); (c) the degradation ladder: the 12-job trace under
@@ -322,6 +331,22 @@
    planner's solve seconds beside phase 14's, the payloads' relaunch
    phases (mean over attempts) and the launches of kernel A and of the
    flash kernels, with the card's name and power limit.
+18. Drives the survivable control plane's failover drill
+   (``run_failover``; ``shockwave_tpu_torch/tools/ha_smoke.py``'s
+   hot-standby and cold-restart arms): two synthetic agents
+   (``runtime.worker --ha_dir --device cuda``), both scheduler nodes
+   ``python -m shockwave_tpu_torch.ha.standby --device cuda --policy
+   shockwave_tpu_pdhg`` subprocesses, six jobs through SubmitJobs, the
+   leader SIGKILLed by the seeded ``scheduler_crash``. Fails unless, in
+   each arm, the leader exits by SIGKILL after its first round, the
+   successor takes the lease at epoch 2 on its own port with the
+   ``sched_fault`` marker in its restored tail, loses no worker, completes all 6 jobs once with their steps,
+   dedups the first token resent across the failover (6 jobs admitted),
+   launches kernel A on the card after its restore, and no node or agent
+   log holds a traceback. Prints each arm's ``takeover_s``, the journal's
+   ``last_lsn`` and checkpoint seq and the makespan with the card's name
+   and power limit, and one JSON line ``{"failover": ...}``; its logs are
+   under ``_smoke_out/failover/``.
 
 Any failed phase exits nonzero without the last line. It needs one card
 and imports nothing of JAX or of the JAX package.
@@ -984,7 +1009,8 @@ def run_first_order(device) -> dict:
     pdhg_solver.solve_pdhg_relaxed = timed_head
     try:
         tier = sim.run_trace(sim.TRACE_2048, "shockwave_tpu_pdhg", 256,
-                             device, capture=problems, plans=plans)
+                             device, capture=problems, plans=plans,
+                             max_rounds=sim.TIER_2048_PDHG_CUT["rounds"])
     finally:
         pdhg_solver.solve_pdhg_relaxed = device_head
     tier["device_head_s"] = head["s"]
@@ -994,16 +1020,17 @@ def run_first_order(device) -> dict:
             problem.audit_schedule(Y)
         except AssertionError as e:
             fail(f"2048-job tier under pdhg, round {round_index}: {e}")
-    print(f"2048-job tier, shockwave_tpu_pdhg on 256 GPUs: makespan "
+    print(f"2048-job tier, shockwave_tpu_pdhg on 256 GPUs, its first "
+          f"{sim.TIER_2048_PDHG_CUT['rounds']} rounds: makespan "
           f"{tier['makespan']:.3f} avg JCT {tier['avg_jct']:.3f} worst FTF "
           f"{tier['worst_ftf']:.3f}, {tier['rounds']} rounds; solves "
           f"{tier['solves']} taking {tier['solve_s']} s (device head "
           f"{head['s']:.3f} s, the rest the host tail), kernel A launched "
           f"{launches['eg_pdhg']} times; {len(plans)} plans audited; wall "
           f"{tier['wall_s']:.2f} s", flush=True)
-    off = sim.check_run(tier, sim.TIER_2048_PDHG)
-    print(f"  against the JAX package's run on the CPU "
-          f"({sim.TIER_2048_PDHG}): "
+    off = sim.check_run(tier, sim.TIER_2048_PDHG_CUT)
+    print(f"  against the JAX package's run of the same rounds on the CPU "
+          f"({sim.TIER_2048_PDHG_CUT}): "
           + (", ".join(off) if off else "within 1e-3"), flush=True)
     if off:
         fail("2048-job tier under pdhg against the JAX package's run: "
@@ -1054,14 +1081,23 @@ def run_first_order(device) -> dict:
           f"sequential instantiations (seeded problems of "
           f"{sim.EG_CHECK_BANDS} jobs, 8 tier windows):", flush=True)
     checked = [sim.seeded_problem(jobs) for jobs in sim.EG_CHECK_BANDS]
-    bad, max_err = sim.check_eg_kernels(checked + windows, device)
+    undetermined = []
+    bad, max_err = sim.check_eg_kernels(checked + windows, device,
+                                        undetermined)
+    for u in undetermined:
+        print(f"  {u['kernel']} on the {u['jobs']}-job problem: s "
+              f"{u['s_err']!r} from the plain version, whose own run with "
+              f"its start one float32 step up / down spreads "
+              f"{u['plain_spread']}: s is not determined there, the "
+              f"objective, the rounded objective and feasibility are held",
+              flush=True)
     if bad:
         fail("first-order kernels against their plain versions or their "
              "sequential instantiations: " + "; ".join(bad))
     print(f"  both kernels within the limits on {len(checked + windows)} "
           f"problems, bitwise repeatable and equal to the sequential "
-          f"instantiation in every bit; largest |s| error {max_err}",
-          flush=True)
+          f"instantiation in every bit; largest |s| error where float32 "
+          f"determines s {max_err}", flush=True)
 
     faults.configure(faults.FaultPlan(
         seed=0, events=[faults.FaultEvent(0, "solver_timeout", round=0)]))
@@ -1096,7 +1132,8 @@ def run_first_order(device) -> dict:
                 "makespan", "avg_jct", "worst_ftf", "rounds", "solves",
                 "solve_s", "device_head_s", "launches", "wall_s")},
             "windows_vs_level": vs_level, "golden": golden,
-            "max_abs_err": max_err, "ladder": degraded,
+            "max_abs_err": max_err, "s_undetermined": undetermined,
+            "ladder": degraded,
             "timings": timings, "timing_s": timing_s, "launches": launches,
             # The tier's 8 windows, for phase 14 (dropped from the line).
             "windows": windows}
@@ -2833,6 +2870,90 @@ def run_physical_plane(device, card: str, steps_per_s: float,
     return reading
 
 
+# Phase 18: the survivable control plane's failover drill
+# (``shockwave_tpu_torch/tools/ha_smoke.py``'s hot-standby and cold-restart
+# arms): both scheduler nodes are ``python -m shockwave_tpu_torch.ha.standby
+# --device cuda --policy shockwave_tpu_pdhg`` subprocesses, the two agents
+# ``runtime.worker --ha_dir --device cuda``, the payload the synthetic one.
+FAILOVER_DIR = ROOT / "_smoke_out" / "failover"
+FAILOVER_POLICY = "shockwave_tpu_pdhg"
+
+
+def run_failover(device, card: str) -> dict:
+    """Phase 18: each arm's leader is SIGKILLed by the seeded
+    ``scheduler_crash`` after its first round; its successor must take
+    the lease at epoch 2 on its own port with the crash's ``sched_fault``
+    marker in its restored tail, lose no worker, complete all 6 jobs exactly once with their
+    steps, dedup the first token resent across the failover (6 jobs
+    admitted), and launch kernel A on the card after its restore; no
+    node or agent may raise. Returns the readings."""
+    from shockwave_tpu_torch.tools import ha_smoke
+
+    tag = f"[{card}]"
+    print(f"failover phase {tag}:", flush=True)
+    shutil.rmtree(FAILOVER_DIR, ignore_errors=True)
+    FAILOVER_DIR.mkdir(parents=True)
+    arms, bad = {}, []
+    for arm, hot in (("hot", True), ("cold", False)):
+        started = time.time()
+        try:
+            report = ha_smoke.failover_arm(
+                str(FAILOVER_DIR), arm, hot, device="cuda",
+                policy=FAILOVER_POLICY)
+        except (RuntimeError, TimeoutError, subprocess.TimeoutExpired) as e:
+            fail(f"failover phase, {arm} arm: {e} (logs under "
+                 f"{FAILOVER_DIR / arm})")
+        report["arm_s"] = time.time() - started
+        bad += ha_smoke.check_arm(report)
+        succ = report["successor"]
+        if succ.get("device") != "cuda:0":
+            bad.append(f"{arm}: the successor planned on {succ.get('device')}")
+        if succ.get("kernel_a_launches", 0) < 1:
+            bad.append(f"{arm}: the successor launched kernel A "
+                       f"{succ.get('kernel_a_launches')} times after its "
+                       "restore")
+        # A traceback in any node's or agent's log is a thread that raised.
+        for log in sorted((FAILOVER_DIR / arm).glob("*.log")):
+            text = log.read_text(errors="replace")
+            if "Traceback (most recent call last)" in text:
+                bad.append(f"{arm}: {log.name} holds a traceback")
+        journal = succ["journal"]
+        print(f"  {arm} arm: the leader SIGKILLed by the seeded crash, the "
+              f"successor took epoch {succ['epoch']} in "
+              f"{report['takeover_s']:.2f} s; restored at round "
+              f"{succ['restored_round']} from a checkpoint and the tail "
+              f"{succ['restored_tail']}, lost workers "
+              f"{succ['lost_workers']}; jobs {succ['completed_jobs']} with "
+              f"steps {succ['total_steps_run']}; the resent token "
+              f"{report['retransmit_status']} (deduped "
+              f"{succ['admission']['deduped_batches']}, admitted "
+              f"{succ['admission']['admitted_jobs']}); journal last_lsn "
+              f"{journal['last_lsn']} checkpoint seq {journal['seq']}; "
+              f"kernel A {succ['kernel_a_launches']} launches after the "
+              f"restore; makespan {succ['makespan_s']:.2f} s; arm "
+              f"{report['arm_s']:.1f} s {tag}", flush=True)
+        arms[arm] = {
+            "takeover_s": report["takeover_s"],
+            "arm_s": report["arm_s"],
+            "lease_epoch": report["lease_epoch"],
+            "leader_returncode": report["leader_returncode"],
+            "makespan_s": succ["makespan_s"],
+            "rounds": succ["round_id"],
+            "restored_tail": succ["restored_tail"],
+            "restored_round": succ["restored_round"],
+            "journal": journal,
+            "admission": {k: succ["admission"][k] for k in (
+                "deduped_batches", "admitted_jobs", "accepted_jobs")},
+            "kernel_a_launches": succ["kernel_a_launches"],
+            "kernel_a_launches_by_stream": succ[
+                "kernel_a_launches_by_stream"],
+        }
+    if bad:
+        fail("failover phase: " + "; ".join(bad))
+    return {"arms": arms, "policy": FAILOVER_POLICY,
+            "launches": sum(a["kernel_a_launches"] for a in arms.values())}
+
+
 def main() -> None:
     started = time.time()
     if not torch.cuda.is_available():
@@ -2977,6 +3098,14 @@ def main() -> None:
     physical["phase_s"] = time.time() - physical_started
     print(f"physical plane phase: {physical['phase_s']:.1f} s, the smoke's "
           f"growth [{card}]", flush=True)
+    failover_started = time.time()
+    failover = run_failover(device, card)
+    failover["phase_s"] = time.time() - failover_started
+    print(f"failover phase: {failover['phase_s']:.1f} s, the smoke's growth "
+          f"(phase 9's pdhg tier cut to "
+          f"{first_order['tier_2048_pdhg']['rounds']} rounds took "
+          f"{first_order['tier_2048_pdhg']['wall_s']:.1f} s) [{card}]",
+          flush=True)
 
     backward_ms = ms["flash_dkv"][0] + ms["flash_dq"][0]
     kernels = []
@@ -3090,6 +3219,9 @@ def main() -> None:
             kernels[-1]["physical_launches"] = physical["eg_pdhg_launches"]
             kernels[-1]["physical_side_stream_launches"] = physical[
                 "side_stream_launches"]
+            # Phase 18's, in the successor nodes' processes after their
+            # restores (the SIGKILLed leaders' are not counted).
+            kernels[-1]["failover_launches"] = failover["launches"]
             # The lane grid (phase 12): launches on the cells tier and the
             # what-if CLI's, and the grid's time against its lanes one by
             # one at 8, 65 and 1024 lanes.
@@ -3126,7 +3258,9 @@ def main() -> None:
         "library": library["phase_s"], "planner": planner["phase_s"],
         "sim_features": features["phase_s"],
         "telemetry": telemetry["phase_s"],
-        "physical": physical["phase_s"], **{
+        "physical": physical["phase_s"],
+        "failover": failover["phase_s"],
+        "first_order_tier": first_order["tier_2048_pdhg"]["wall_s"], **{
             f"telemetry_{k}": v for k, v in telemetry["seconds"].items()}},
         "card": card})
     for run in (simulation["tier_2048"], *simulation["golden"].values()):
@@ -3140,6 +3274,7 @@ def main() -> None:
     print(json.dumps({"sim_features": features, "card": card}, default=str))
     print(json.dumps({"telemetry": telemetry, "card": card}, default=str))
     print(json.dumps({"physical": physical, "card": card}, default=str))
+    print(json.dumps({"failover": failover, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(seconds_line)

@@ -24,10 +24,12 @@ that thread launches on a CUDA stream of the planner's own
 (``policies/speculation.py::speculation_stream``), and the boundary's
 reconcile waits on the event recorded there before it reads the plan.
 
-Not ported (ROADMAP.md, queue 1, item 10b): the HA plane — leader lease
-and fencing, the write-ahead journal, the standby and the restore paths.
-``ha_journal``, ``ha_election`` or ``ha_restore_pending`` raise
-NotImplementedError; the fencing epoch is 0.
+With ``ha_journal`` and ``ha_election`` (``shockwave_tpu_torch/ha/``,
+driven by ``python -m shockwave_tpu_torch.ha.standby``) every
+state-changing event appends to the write-ahead journal, the lease's
+fenced epoch rides every dispatch and kill, and a successor resumes from
+the journal (:meth:`PhysicalScheduler.restore_from_journal`), its planner
+restored onto the device the policy was built for.
 """
 
 from __future__ import annotations
@@ -83,17 +85,10 @@ class PhysicalScheduler(Scheduler):
         metrics_port: Optional[int] = None,
         ha_journal=None,
         ha_election=None,
+        ha_checkpoint_rounds: Optional[int] = None,
         ha_restore_pending: bool = False,
         **kwargs,
     ):
-        if ha_journal is not None or ha_election is not None or (
-            ha_restore_pending
-        ):
-            raise NotImplementedError(
-                "the HA control plane (leader lease, journal, standby and "
-                "the restore paths) is not ported to shockwave_tpu_torch "
-                "yet (ROADMAP.md, queue 1, item 10b)"
-            )
         # The reference's fixed 1920s reset throttle assumes 360s rounds
         # (scheduler.py:100); scale it with the round length so short-round
         # deployments do not starve late arrivals of allocation updates.
@@ -232,11 +227,44 @@ class PhysicalScheduler(Scheduler):
             )
             self._fleet.start(http_port=int(metrics_port))
 
-        # The fencing epoch every dispatch and kill carries: 0 with HA
-        # off (the workers' epoch gate passes it). A FAILED_PRECONDITION
-        # from a worker's gate fences this scheduler (_ha_fenced).
-        self._ha_epoch = 0
+        # HA plane (shockwave_tpu_torch/ha/): when armed, every
+        # state-changing event appends to the write-ahead journal and the
+        # lease's fenced epoch rides every dispatch and kill (0 with HA
+        # off: the workers' epoch gate passes it). Both None keeps the
+        # single-scheduler behaviour at one attribute check a hook.
+        self._ha_journal = ha_journal
+        self._ha_election = ha_election
+        self._ha_epoch = (
+            int(ha_election.epoch) if ha_election is not None else 0
+        )
         self._ha_deposed = False
+        self._ha_replaying = False
+        # Set on a successor before the journal restore runs: the server
+        # is live from construction, and a worker re-attaching into the
+        # empty pre-restore registry would be minted fresh ids that the
+        # restore then overwrites. Registrations bounce (a transient
+        # error; the agent retries next beat) until restore_from_journal
+        # clears it.
+        self._ha_restore_pending = bool(ha_restore_pending)
+        self._ha_replay_admit_debt: Dict[str, int] = {}
+        # Token of the queued submission being drained into add_job
+        # (round loop only, under _cv), so the admit entry can pop the
+        # matching pending entry at replay.
+        self._ha_drain_token: Optional[str] = None
+        # scheduler_crash event ids an earlier incarnation already took
+        # (journaled before its SIGKILL): a successor must not apply
+        # them to itself again.
+        self._ha_consumed_sched_faults: set = set()
+        if ha_checkpoint_rounds is None:
+            ha_checkpoint_rounds = int(
+                os.environ.get("SHOCKWAVE_HA_CHECKPOINT_ROUNDS", "1")
+            )
+        self._ha_checkpoint_rounds = max(1, int(ha_checkpoint_rounds))
+        if ha_election is not None:
+            obs.gauge(
+                "ha_leader_epoch", "this process's current fenced epoch"
+            ).set(float(self._ha_epoch))
+            ha_election.start_renewal(on_lost=self._ha_fenced)
 
         from shockwave_tpu_torch.runtime.rpc import scheduler_server
 
@@ -274,6 +302,17 @@ class PhysicalScheduler(Scheduler):
     def get_current_timestamp(self, in_seconds: bool = False) -> float:
         return time.time() - self._start_time
 
+    # -- HA hooks (shockwave_tpu_torch/ha/) ------------------------------
+    def _ha_log(self, kind: str, payload: dict) -> None:
+        """Append one control-plane delta to the write-ahead journal.
+        Nothing with HA off, nor during a replay: a replayed add_job or
+        Done entering the journal again would duplicate the tail for the
+        next failover (the replay ends with a compacting checkpoint
+        instead). The journal serializes appends under its own lock."""
+        if self._ha_journal is None or self._ha_replaying:
+            return
+        self._ha_journal.append(kind, payload, epoch=self._ha_epoch)
+
     def _ha_fenced(self) -> None:
         """Deposed: a newer epoch owns the lease. Stop dispatching
         immediately and shut down WITHOUT touching the workers — they
@@ -290,14 +329,47 @@ class PhysicalScheduler(Scheduler):
         self._ha_deposed = True
         self.shutdown()
 
+    def _ha_checkpoint(self) -> None:
+        """Write one compacted checkpoint of the whole control plane. The
+        capture, the LSN reservation and the encode run together under
+        the (reentrant) lock: the reservation puts every entry logged
+        under the lock strictly before or after the checkpoint, and the
+        encode is the deep snapshot, since ha_state_dict returns the live
+        structures. Only the JSON dump and the write run unlocked."""
+        if self._ha_journal is None:
+            return
+        from shockwave_tpu_torch.obs.recorder import encode
+
+        with self._cv:
+            seq, lsn = self._ha_journal.begin_checkpoint()
+            encoded = encode(self.ha_state_dict())
+        self._ha_journal.commit_checkpoint(
+            seq, lsn, encoded, epoch=self._ha_epoch
+        )
+
     def add_job(self, job, timestamp=None):
         """In-process admission entry. The gRPC server is live from
         construction, so a worker registration or a Done report can
         interleave with a driver thread's add_job even before the
         round loop starts — the base (simulator) implementation
         mutates allocation state and must run under the lock here."""
+        from shockwave_tpu_torch.ha import codec as ha_codec
+
         with self._cv:
             job_id = super().add_job(job, timestamp=timestamp)
+            # The payload is built only when armed.
+            if self._ha_journal is not None and not self._ha_replaying:
+                self._ha_log(
+                    "admit",
+                    {
+                        "job_id": job_id.integer,
+                        "job": ha_codec.job_state(job),
+                        "timestamp": self._per_job_start_timestamps[
+                            job_id
+                        ],
+                        "token": self._ha_drain_token,
+                    },
+                )
             self._cv.notify_all()
             return job_id
 
@@ -319,6 +391,14 @@ class PhysicalScheduler(Scheduler):
         agent no longer carries are reconciled as fault completions."""
         from shockwave_tpu_torch.runtime.rpc.scheduler_client import SchedulerRpcClient
 
+        if self._ha_restore_pending:
+            # A successor still replaying its journal: admitting this
+            # agent into the empty pre-restore registry would mint fresh
+            # ids the restore overwrites. The agent retries next beat.
+            raise RuntimeError(
+                "scheduler is restoring from the HA journal; "
+                "re-register after failover completes"
+            )
         with self._cv:
             # Idempotency gate: registration is retried with backoff, so
             # an agent whose RegisterWorker response was lost re-sends
@@ -363,6 +443,16 @@ class PhysicalScheduler(Scheduler):
             with self._hb_lock:
                 for worker_id in worker_ids:
                     self._last_heartbeat[worker_id] = now
+            self._ha_log(
+                "register",
+                {
+                    "worker_ids": list(worker_ids),
+                    "worker_type": str(worker_type),
+                    "num_accelerators": int(num_accelerators),
+                    "ip_addr": str(ip_addr),
+                    "port": int(port),
+                },
+            )
             self._cv.notify_all()
         return worker_ids, self._time_per_iteration, self._ha_epoch, False
 
@@ -412,6 +502,16 @@ class PhysicalScheduler(Scheduler):
                 "micro-tasks %s as fault completions",
                 worker_ids, reconciled,
             )
+        self._ha_log(
+            "reattach",
+            {
+                "worker_ids": list(worker_ids),
+                "ip_addr": str(ip_addr),
+                "port": int(port),
+                "reported_job_ids": sorted(reported),
+                "reconciled": reconciled,
+            },
+        )
         return list(worker_ids)
 
     def _reconcile_reattach_locked(self, worker_ids, reported) -> list:
@@ -519,9 +619,12 @@ class PhysicalScheduler(Scheduler):
             self._observe_rpc("SubmitJobs", rpc_start)
 
     def submit_batch(self, token, specs, close):
-        """The one admission entry behind the front door (the
-        scheduler's SubmitJobs handler): validate, offer to the bounded
-        queue, wake the round loop."""
+        """The one admission entry behind every front-door socket (the
+        scheduler's SubmitJobs handler and each HA admission shard's):
+        validate, offer to the bounded queue, journal the accepted batch,
+        wake the round loop."""
+        from shockwave_tpu_torch.ha import codec as ha_codec
+
         # A malformed spec raises ValueError here, BEFORE anything
         # is queued — the whole batch is rejected as INVALID so a
         # token never resolves to a partial admission. Validation
@@ -536,6 +639,19 @@ class PhysicalScheduler(Scheduler):
             token, jobs, close=close
         )
         if status == admission.STATUS_ACCEPTED:
+            # Every accepted batch journals, a ledger-deduped retransmit
+            # too: replay is idempotent on the token, so the duplicate
+            # entry is a no-op there. The payload is built only when
+            # armed.
+            if self._ha_journal is not None and not self._ha_replaying:
+                self._ha_log(
+                    "submit",
+                    {
+                        "token": str(token),
+                        "jobs": [ha_codec.job_state(j) for j in jobs],
+                        "close": bool(close),
+                    },
+                )
             with self._cv:
                 self._cv.notify_all()
         return status, retry_after_s, admitted, self._admission.depth()
@@ -576,7 +692,15 @@ class PhysicalScheduler(Scheduler):
                 # a half-registered job; the validation reproduces the
                 # oracle check cheaply and raises before any mutation.
                 self._validate_job_runnable(job)
-                job_id = self.add_job(job, timestamp=enqueued_s)
+                # The admit entry carries the token so that replay pops
+                # the matching restored pending entry. The empty string
+                # is a real front-door token (the queue stores it) and
+                # stays apart from None (an in-process add_job).
+                self._ha_drain_token = token
+                try:
+                    job_id = self.add_job(job, timestamp=enqueued_s)
+                finally:
+                    self._ha_drain_token = None
             except Exception:
                 LOG.error(
                     "admitted job %r (token %s) rejected at drain; "
@@ -624,6 +748,7 @@ class PhysicalScheduler(Scheduler):
         admitted job completes, the round loop exits instead of idling
         for more arrivals."""
         self._admission.close()
+        self._ha_log("close", {})
         with self._cv:
             self._cv.notify_all()
 
@@ -724,6 +849,9 @@ class PhysicalScheduler(Scheduler):
             )
         if self._shockwave is not None:
             self._shockwave.set_recompute_flag()
+        self._ha_log(
+            "retire", {"worker_id": int(worker_id), "kind": str(kind)}
+        )
         self._cv.notify_all()
         return requeued
 
@@ -791,17 +919,38 @@ class PhysicalScheduler(Scheduler):
     def _apply_scheduler_fault(self, injector, event) -> None:
         """Caller holds the lock (_cv). The kill-the-brain drill:
         ``scheduler_crash`` SIGKILLs THIS process at its scheduled time
-        — no cleanup, no flushes beyond the recorder's — and a cold
-        restart takes over (the HA standby and journal are ROADMAP.md's
-        item 10b). ``scheduler_restart`` has no in-process action in
-        physical mode: the successor IS the restart."""
+        (no cleanup, no flushes beyond what is durable already: the WAL
+        appends are), and the hot standby or a cold restart takes over
+        through the journal. ``scheduler_restart`` has no in-process
+        action in physical mode: the successor IS the restart. A
+        successor whose journal shows the crash already taken (the
+        ``sched_fault`` marker) records the recovery instead of killing
+        itself."""
         import signal as _signal
 
         recorder = obs.get_recorder()
-        if event.kind == "scheduler_restart":
-            how = "standby_is_the_restart"
+        if (
+            event.kind == "scheduler_restart"
+            or event.event_id in self._ha_consumed_sched_faults
+        ):
+            how = (
+                "successor_resumed"
+                if event.kind == "scheduler_crash"
+                else "standby_is_the_restart"
+            )
             injector.mark_applied(event, skipped=how)
             injector.mark_recovered(event.event_id, how=how)
+            if recorder.enabled and event.kind == "scheduler_crash":
+                recorder.record_recovery(
+                    {
+                        "fault_id": event.event_id,
+                        "kind": event.kind,
+                        "round": self._round_id,
+                        "time": self.get_current_timestamp(),
+                        "how": how,
+                        "epoch": self._ha_epoch,
+                    }
+                )
             return
         LOG.error(
             "fault event %d: scheduler_crash — SIGKILLing the leader "
@@ -819,6 +968,13 @@ class PhysicalScheduler(Scheduler):
                 }
             )
             recorder.flush()
+        if self._ha_journal is not None:
+            # The durable marker: a successor must not apply this event
+            # to itself again.
+            self._ha_journal.append(
+                "sched_fault", {"event_id": event.event_id},
+                epoch=self._ha_epoch,
+            )
         os.kill(os.getpid(), _signal.SIGKILL)
 
     def remove_worker(self, worker_id: int) -> None:
@@ -909,6 +1065,22 @@ class PhysicalScheduler(Scheduler):
                 ).inc()
                 self._observe_rpc("Done", rpc_start)
                 return
+            # The progress credit must survive a crash before the next
+            # checkpoint: a successor replays it through the same
+            # _done_callback. Logged after the idempotency gate and
+            # before the change (a crash between them means the worker's
+            # retransmit applies it). The payload is built only when
+            # armed.
+            if self._ha_journal is not None and not self._ha_replaying:
+                self._ha_log(
+                    "done",
+                    {
+                        "job_ids": list(key.as_tuple()),
+                        "worker_id": int(worker_id),
+                        "steps": [int(s) for s in steps_list],
+                        "times": [float(t) for t in times_list],
+                    },
+                )
             now = self.get_current_timestamp()
             for single, log_text in zip(key.singletons(), logs):
                 if single in self._job_timelines:
@@ -1034,6 +1206,20 @@ class PhysicalScheduler(Scheduler):
             # jobs (reference marks them at dispatch, scheduler.py:1935).
             self._running_jobs.add(single)
             self._per_job_latest_timestamps[single] = self.get_current_timestamp()
+        # A successor must know these micro-tasks are in flight: without
+        # the entry, a crash after the dispatch and before the next
+        # checkpoint would leave the restored outstanding set empty, and
+        # the workers' buffered Done reports would be dropped as
+        # duplicates. The payload is built only when armed.
+        if self._ha_journal is not None and not self._ha_replaying:
+            self._ha_log(
+                "dispatch",
+                {
+                    "job_ids": list(key.as_tuple()),
+                    "worker_ids": [int(w) for w in worker_ids],
+                    "round": self._round_id,
+                },
+            )
         # Causal chain: one dispatch span per (possibly packed) key as a
         # child of each member job's root; the RunJob descriptions carry
         # the dispatch context so the worker's run spans hang under it.
@@ -1502,6 +1688,23 @@ class PhysicalScheduler(Scheduler):
             with self._cv:
                 self._round_id += 1
                 self._num_completed_rounds += 1
+                self._ha_log(
+                    "round",
+                    {
+                        "round_id": self._round_id,
+                        "completed": self._num_completed_rounds,
+                    },
+                )
+                should_checkpoint = (
+                    self._ha_journal is not None
+                    and self._round_id % self._ha_checkpoint_rounds == 0
+                )
+            # A checkpoint every N rounds bounds a failover's replay to
+            # it and one short WAL tail. Outside the boundary's lock
+            # block: the capture takes _cv again briefly, but the encode
+            # and the write must not stall the RPC handlers.
+            if should_checkpoint:
+                self._ha_checkpoint()
 
         if ingest_stop is not None:
             ingest_stop.set()
@@ -1657,6 +1860,321 @@ class PhysicalScheduler(Scheduler):
             return len(ids)
         return len(self._current_worker_assignments[job_id])
 
+    # -- HA checkpoint and journal replay --------------------------------
+    def ha_state_dict(self) -> dict:
+        """The base snapshot plus the physical runtime's own state: the
+        round cursor, the worker registry's addresses, the in-flight
+        micro-tasks, the lease maps and the admission front door (token
+        ledger, pending backlog, tenant quotas). Sets are listed sorted,
+        as the base's are (ROADMAP.md, queue 3): a set's iteration order
+        depends on its history, not on its members."""
+        state = super().ha_state_dict()
+        # What the JAX package's capture holds and the port's base does
+        # not: its three job maps, its set of workers free to place (in
+        # the physical plane, every registered one) and every profile.
+        state["fields"].update(self._ha_job_maps())
+        state["sets"]["_available_worker_ids"] = sorted(self._worker_ids)
+        state["profiles"] = self._profiles
+        state["physical"] = {
+            "now": self.get_current_timestamp(),
+            "round_id": self._round_id,
+            # Scheduler-crash event ids any past incarnation took:
+            # compaction erases the WAL markers, and a later successor
+            # would otherwise apply a consumed crash to itself.
+            "consumed_sched_faults": sorted(self._ha_consumed_sched_faults),
+            "num_expected_jobs": self._num_expected_jobs,
+            "dispatch_times": self._dispatch_times,
+            "extended_leases": sorted(self._jobs_with_extended_lease),
+            "next_assignments": self._next_assignments,
+            "max_steps_agreement": self._max_steps_agreement,
+            "last_lease_contact": self._last_lease_contact,
+            "outstanding": sorted(self._outstanding),
+            "dispatched_worker_ids": self._dispatched_worker_ids,
+            "worker_addrs": self._worker_addrs,
+            "retired_workers": sorted(self._retired_workers),
+            "admission": self._admission.state_dict(),
+        }
+        return state
+
+    def _ha_job_maps(self) -> dict:
+        """The JAX package's three job maps that the port's scheduler
+        does not keep (``_job_id_to_job_type``, ``_job_type_to_job_ids``,
+        ``_job_priority_weights``), rebuilt from the round log's
+        admissions and completions in their order, as that scheduler
+        updates them, so that a successor of either package restores the
+        other's checkpoint whole."""
+        types: Dict[JobId, tuple] = {}
+        by_type: Dict[tuple, set] = {}
+        weights: Dict[JobId, float] = {}
+        admitted: Dict[JobId, tuple] = {}
+        for record in self._round_log:
+            event = record.get("event")
+            if event == "job":
+                job_id = JobId(record["job_id"])
+                key = (record["job_type"], record["scale_factor"])
+                admitted[job_id] = (key, record["priority_weight"])
+                types[job_id] = key
+                by_type.setdefault(key, set()).add(job_id)
+            elif event == "complete":
+                job_id = JobId(record["job_id"])
+                key, weights[job_id] = admitted[job_id]
+                del types[job_id]
+                by_type[key].discard(job_id)
+                if self._job_packing and not by_type[key]:
+                    del by_type[key]
+        return {
+            "_job_id_to_job_type": types,
+            "_job_type_to_job_ids": {
+                key: sorted(ids) for key, ids in by_type.items()
+            },
+            "_job_priority_weights": weights,
+        }
+
+    def restore_ha_state(self, state: dict) -> None:
+        """Install a decoded snapshot into this new scheduler. Connections
+        are not restored (workers re-attach with their previous identity),
+        but the registry, the addresses and the in-flight micro-tasks are,
+        so a re-attaching worker slots straight back in. The planner is
+        restored on this scheduler's planner's device and replans."""
+        super().restore_ha_state(state)
+        if self._shockwave is not None:
+            # A real failover: the fleet may have changed during the
+            # outage, so the restored planner replans onto whatever
+            # re-attaches, not with a plan made before it.
+            self._shockwave.set_recompute_flag()
+        p = state.get("physical") or {}
+        # The clock continues across the failover: makespans span the
+        # outage, and a reset clock would move every restored timestamp.
+        now = float(p.get("now", self._current_timestamp))
+        self._start_time = time.time() - now
+        self._round_id = int(p.get("round_id", 0))
+        self._num_expected_jobs = p.get("num_expected_jobs")
+        self._dispatch_times = dict(p.get("dispatch_times") or {})
+        self._next_assignments = OrderedDict(
+            (key, tuple(ids))
+            for key, ids in (p.get("next_assignments") or {}).items()
+        )
+        self._max_steps_agreement = dict(p.get("max_steps_agreement") or {})
+        self._last_lease_contact = dict(p.get("last_lease_contact") or {})
+        self._outstanding = {
+            (key, int(wid)) for key, wid in (p.get("outstanding") or [])
+        }
+        self._dispatched_worker_ids = {
+            key: tuple(int(w) for w in ids)
+            for key, ids in (p.get("dispatched_worker_ids") or {}).items()
+        }
+        self._worker_addrs = {
+            int(wid): (str(addr[0]), int(addr[1]))
+            for wid, addr in (p.get("worker_addrs") or {}).items()
+        }
+        if "admission" in p:
+            self._admission.restore_state(p["admission"])
+        self._ha_consumed_sched_faults = set(
+            int(e) for e in (p.get("consumed_sched_faults") or [])
+        )
+        with self._hb_lock:
+            self._retired_workers = set(p.get("retired_workers") or [])
+            # Every restored worker gets a fresh liveness lease: the
+            # heartbeat timeout is the re-attach window, and a worker
+            # that never comes back is reaped through the death path.
+            now_mono = time.monotonic()
+            for wid in self._worker_id_to_worker_type:
+                self._last_heartbeat[wid] = now_mono
+        # In-flight micro-tasks run on through the outage on the
+        # re-attaching workers: they are extended leases, so the first
+        # round after the failover does not dispatch them again, and
+        # their silence is measured from the takeover, not from stamps
+        # made under the dead leader's clock.
+        self._jobs_with_extended_lease = set(
+            p.get("extended_leases") or []
+        )
+        for key, _wid in self._outstanding:
+            self._jobs_with_extended_lease.add(key)
+            self._last_lease_contact[key] = now
+
+    def restore_from_journal(self, snapshot) -> dict:
+        """Resume from a :meth:`ControlPlaneJournal.replay` snapshot:
+        install the checkpoint, apply the WAL tail in LSN order through
+        the code paths the live events took, then write a compacting
+        checkpoint so that the next failover replays from here and
+        nothing journaled during the replay duplicates the tail. Returns
+        ``{kind: count}`` of the applied entries. A failure raises: a
+        successor never serves from a half-restored state."""
+        applied: Dict[str, int] = {}
+        self._ha_replaying = True
+        # submit_batch journals its 'submit' after the queue took the
+        # batch (outside the round loop's lock), so a drain racing the
+        # append can journal the matching 'admit' at a lower LSN. Replay
+        # counts admits whose submit it has not seen yet and drops that
+        # many jobs when the late 'submit' comes.
+        self._ha_replay_admit_debt = {}
+        try:
+            with self._cv:
+                if snapshot.checkpoint is not None:
+                    self.restore_ha_state(snapshot.checkpoint)
+                for entry in snapshot.entries:
+                    kind = entry["kind"]
+                    self._ha_apply_entry(kind, entry["payload"])
+                    applied[kind] = applied.get(kind, 0) + 1
+        finally:
+            self._ha_replaying = False
+            self._ha_replay_admit_debt = {}
+        recorder = obs.get_recorder()
+        if recorder.enabled:
+            recorder.record_recovery(
+                {
+                    "kind": "scheduler_failover",
+                    "how": "journal_replayed",
+                    "epoch": self._ha_epoch,
+                    "round": self._round_id,
+                    "checkpoint": snapshot.checkpoint is not None,
+                    "tail_entries": len(snapshot.entries),
+                }
+            )
+        obs.counter(
+            "ha_failover_restores_total",
+            "journal checkpoint+tail restores completed by a successor",
+        ).inc()
+        self._ha_checkpoint()
+        # Registrations may flow now: the registry is the restored one.
+        self._ha_restore_pending = False
+        LOG.warning(
+            "restored from journal: round %d, %d jobs live, %d workers "
+            "registered, %d in-flight micro-tasks, tail %s",
+            self._round_id, len(self._jobs),
+            len(self._worker_id_to_worker_type), len(self._outstanding),
+            applied or "empty",
+        )
+        return applied
+
+    def _ha_apply_entry(self, kind: str, payload: dict) -> None:
+        """Caller holds the lock (_cv) with the replay flag set. Apply
+        one WAL delta through the live code paths."""
+        from shockwave_tpu_torch.ha import codec as ha_codec
+
+        if kind == "register":
+            # Mint the ids the dead leader handed out (LSN order walks
+            # the counter the same way); connections stay empty until
+            # the agent re-attaches.
+            self._worker_id_counter = min(payload["worker_ids"])
+            ids = self.register_worker(
+                payload["worker_type"],
+                num_gpus=int(payload["num_accelerators"]),
+            )
+            for wid in ids:
+                self._worker_addrs[wid] = (
+                    str(payload["ip_addr"]), int(payload["port"])
+                )
+            now_mono = time.monotonic()
+            with self._hb_lock:
+                for wid in ids:
+                    self._last_heartbeat[wid] = now_mono
+        elif kind == "reattach":
+            # Only the reconciliation changed accounting; connections are
+            # rebuilt when the agent re-attaches to this process.
+            self._reconcile_reattach_locked(
+                list(payload["worker_ids"]),
+                {int(j) for j in payload.get("reported_job_ids", [])},
+            )
+        elif kind == "retire":
+            wid = int(payload["worker_id"])
+            if wid in self._worker_id_to_worker_type:
+                self._retire_worker(wid, kind=str(payload["kind"]))
+        elif kind == "submit":
+            jobs = [ha_codec.job_from_state(j) for j in payload["jobs"]]
+            token = str(payload["token"])
+            # Jobs this token already admitted through lower-LSN 'admit'
+            # entries (the append race) stay out of the backlog.
+            debt = self._ha_replay_admit_debt.pop(token, 0)
+            self._admission.restore_submission(
+                token, jobs[debt:], close=bool(payload.get("close")),
+            )
+        elif kind == "close":
+            self._admission.close()
+        elif kind == "admit":
+            token = payload.get("token")
+            # None: an in-process add_job, with no queue entry to pop.
+            # "": a tokenless front-door batch, whose pending entries are
+            # stored under "" and must be consumed too, or the
+            # successor's drain admits the job a second time.
+            if token is not None:
+                # The restored queue still holds this job as pending; the
+                # drain consumed it before the crash. Nothing to discard
+                # means the token's 'submit' has a higher LSN (the append
+                # race): note the debt so its replay skips this job.
+                if self._admission.discard_pending(str(token), 1) == 0:
+                    self._ha_replay_admit_debt[str(token)] = (
+                        self._ha_replay_admit_debt.get(str(token), 0) + 1
+                    )
+            self._job_id_counter = int(payload["job_id"])
+            self.add_job(
+                ha_codec.job_from_state(payload["job"]),
+                timestamp=payload.get("timestamp"),
+            )
+        elif kind == "dispatch":
+            key = JobId(*payload["job_ids"])
+            worker_ids = tuple(int(w) for w in payload["worker_ids"])
+            self._dispatched_worker_ids[key] = worker_ids
+            self._dispatch_times[key] = self.get_current_timestamp()
+            for wid in worker_ids:
+                self._outstanding.add((key, wid))
+            for single in key.singletons():
+                if single in self._jobs:
+                    self._running_jobs.add(single)
+            # In flight across the failover: see restore_ha_state.
+            self._jobs_with_extended_lease.add(key)
+            self._last_lease_contact[key] = self.get_current_timestamp()
+        elif kind == "done":
+            key = JobId(*payload["job_ids"])
+            wid = int(payload["worker_id"])
+            if (key, wid) not in self._outstanding:
+                return  # a retransmit journaled twice
+            self._outstanding.discard((key, wid))
+            if not any(
+                (key, w) in self._outstanding
+                for w in self._dispatched_worker_ids.get(key, ())
+            ):
+                self._jobs_with_extended_lease.discard(key)
+            self._done_callback(
+                key, wid,
+                [int(s) for s in payload["steps"]],
+                [float(t) for t in payload["times"]],
+            )
+        elif kind == "round":
+            self._round_id = int(payload["round_id"])
+            self._num_completed_rounds = int(
+                payload.get("completed", self._num_completed_rounds)
+            )
+        elif kind == "sched_fault":
+            self._ha_consumed_sched_faults.add(int(payload["event_id"]))
+        else:
+            LOG.warning("unknown WAL entry kind %r skipped", kind)
+
+    def wait_for_reattach(self, timeout: float = 30.0) -> list:
+        """After a journal restore, block until every restored worker
+        re-attached (a failed heartbeat sends agents to the front-door
+        map within a few beats). Workers that never come back are retired
+        through the death path, their in-flight micro-tasks requeued as
+        fault completions once. Returns the retired worker ids."""
+        deadline = time.time() + timeout
+        with self._cv:
+            while True:
+                missing = [
+                    wid
+                    for wid in self._worker_ids
+                    if wid not in self._worker_connections
+                ]
+                if not missing or time.time() >= deadline:
+                    break
+                self._cv.wait(timeout=0.5)
+            for wid in missing:
+                LOG.warning(
+                    "worker %d never re-attached after failover; "
+                    "retiring it", wid,
+                )
+                self._retire_worker(wid, kind="failover_lost")
+            return missing
+
     def shutdown(self) -> None:
         if self._shutdown_requested.is_set():
             return
@@ -1673,6 +2191,8 @@ class PhysicalScheduler(Scheduler):
                 "deposed scheduler (epoch %d) shutting down without "
                 "touching the fleet", self._ha_epoch,
             )
+            if self._ha_election is not None:
+                self._ha_election.stop(release=False)
             self._server.stop(grace=2)
             with self._cv:
                 self._cv.notify_all()
@@ -1698,4 +2218,8 @@ class PhysicalScheduler(Scheduler):
                     "worker shutdown RPC failed (worker likely already "
                     "gone)", exc_info=True,
                 )
+        if self._ha_election is not None:
+            # A clean exit hands the standby the lead at once instead of
+            # making it wait out the lease's TTL.
+            self._ha_election.stop(release=True)
         self._server.stop(grace=2)

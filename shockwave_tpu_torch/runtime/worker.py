@@ -11,10 +11,12 @@ card ``torch.cuda.device_count()`` reports), so more slots than cards
 share them. The agent passes its ``--device`` to every payload; started
 without ``--device cpu`` on a host with no card, it raises.
 
-The HA re-attach over a leader-lease directory (``ha_dir`` /
-``SHOCKWAVE_HA_DIR``) is not ported: either raises NotImplementedError
-(ROADMAP.md, queue 1, item 10b). Without it an agent whose scheduler
-went silent re-registers at the same address (a cold restart).
+With ``--ha_dir`` (or ``SHOCKWAVE_HA_DIR``), the shared directory of an
+HA control plane (``python -m shockwave_tpu_torch.ha.standby``), an agent
+whose scheduler went silent reads the current leader from the lease's
+front-door map, retargets to it and re-registers with its previous worker
+ids and the micro-tasks it still carries. Without it, the agent
+re-registers at the same address (a cold restart on the same port).
 
 Fleet observability: every register/heartbeat exchange doubles as an
 NTP-style clock sample (offset of the scheduler's wall clock against
@@ -92,13 +94,6 @@ class Worker:
         from shockwave_tpu_torch.runtime.rpc import worker_server
         from shockwave_tpu_torch.runtime.rpc.worker_client import WorkerRpcClient
 
-        ha_dir = ha_dir or os.environ.get("SHOCKWAVE_HA_DIR") or None
-        if ha_dir:
-            raise NotImplementedError(
-                "the worker's HA re-attach over a leader-lease directory "
-                "is not ported to shockwave_tpu_torch yet (ROADMAP.md, "
-                "queue 1, item 10b)"
-            )
         cards = resolve_cards(device, cards)
         self._worker_type = worker_type
         self._num_accelerators = int(num_accelerators)
@@ -110,11 +105,14 @@ class Worker:
         self._agent_ctx = propagate.new_root()
         # Scheduler-outage state: consecutive heartbeat failures flip the
         # agent into outage mode — Done reports buffer, and the agent
-        # re-registers at the scheduler's address. The highest scheduler
-        # epoch witnessed fences stale leaders' RPCs (0 with HA off; see
-        # worker_server.fence_epoch).
+        # hunts the front-door map (the lease record under ``ha_dir`` /
+        # SHOCKWAVE_HA_DIR) for a successor to re-attach to, or without
+        # one re-registers at the scheduler's address. The highest
+        # scheduler epoch witnessed fences stale leaders' RPCs (0 with HA
+        # off; see worker_server.fence_epoch).
         self._outage = SchedulerOutage()
         self._epoch = _EpochWitness()
+        self._ha_dir = ha_dir or os.environ.get("SHOCKWAVE_HA_DIR") or None
 
         # Clear stale checkpoints from a previous incarnation
         # (reference: worker.py:86-93).
@@ -300,10 +298,32 @@ class Worker:
         return obs.render_prometheus(), b""
 
     def _try_reattach(self) -> bool:
-        """Outage recovery: re-register at the scheduler's address with
-        our previous worker ids + outstanding micro-task state — the
+        """Outage recovery: resolve the current leader from the HA
+        front-door map (when armed) and re-register there with our
+        previous worker ids + outstanding micro-task state. Without an
+        HA dir the re-register goes to the original address — the
         cold-restart case, where the successor binds the same port."""
         from shockwave_tpu_torch import obs
+
+        if self._ha_dir:
+            try:
+                from shockwave_tpu_torch.ha.election import LeaseStore
+
+                lease = LeaseStore(self._ha_dir).leader()
+            except OSError:
+                lease = None
+            if lease is None:
+                return False  # no live leader yet; keep waiting
+            if lease.epoch and lease.epoch < self._epoch.max_epoch():
+                return False  # a stale map read mid-flip
+            if not (lease.sched_addr and lease.sched_port):
+                # Elected, but its map is not published yet (it is still
+                # replaying the journal, and registrations would bounce).
+                return False
+            self._rpc_client.retarget(lease.sched_addr, lease.sched_port)
+            self._dispatcher.retarget_scheduler(
+                lease.sched_addr, lease.sched_port
+            )
 
         try:
             worker_ids, round_duration, error, sample, epoch, reattached = (
@@ -442,6 +462,12 @@ def main(argv=None):
         help="comma-separated card indices the slots map onto (default: "
         "every card torch.cuda.device_count() reports)",
     )
+    parser.add_argument(
+        "--ha_dir", type=str, default=None,
+        help="the HA control plane's shared directory: on a scheduler "
+        "outage, re-attach to the leader its lease names (default: "
+        "SHOCKWAVE_HA_DIR)",
+    )
     args = parser.parse_args(argv)
     # Worker agents are subprocesses, so telemetry rides the env contract
     # (SHOCKWAVE_METRICS_OUT / SHOCKWAVE_TRACE_OUT name export paths) —
@@ -458,6 +484,7 @@ def main(argv=None):
         args.run_dir,
         args.checkpoint_dir,
         use_numactl=args.use_numactl,
+        ha_dir=args.ha_dir,
         device=args.device,
         cards=(
             [int(c) for c in args.cards.split(",")] if args.cards else None

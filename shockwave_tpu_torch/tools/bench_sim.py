@@ -92,6 +92,12 @@ TIER_2048 = dict(makespan=59578.486, avg_jct=12981.718, worst_ftf=1.410,
 # PDHG solves; the port's plain PDHG on the CPU gives the same digits).
 TIER_2048_PDHG = dict(makespan=58678.337, avg_jct=13412.053, worst_ftf=1.399,
                       rounds=489)
+# Its first 160 rounds (run_trace(..., max_rounds=160)), which chip_smoke.py
+# phase 9 runs: the JAX package on the CPU (tests/tier_cut_reference.py;
+# 140 PDHG solves, 653 jobs completed; the metrics cover those jobs). The
+# port's plain PDHG on the CPU gives the same digits.
+TIER_2048_PDHG_CUT = dict(makespan=19079.815, avg_jct=2589.265,
+                          worst_ftf=0.727, rounds=160)
 # The JAX package's run of the 12-job trace on 8 GPUs, 120 s rounds, under
 # shockwave_tpu_pdhg with --cells 2 (its scripts/simulate.py on the CPU):
 # 16 coordinated replans, each one batched solve of the stale cells.
@@ -647,7 +653,8 @@ def run_trace(trace, policy: str, num_gpus: int, device,
               slo: float = None, checkpoint_threshold: int = None,
               checkpoint_file: str = None, no_native: bool = False,
               fault_plan=None, profiling_percentage: float = 1.0,
-              num_reference_models: int = None) -> dict:
+              num_reference_models: int = None,
+              max_rounds: int = None) -> dict:
     """Simulate ``trace`` on ``num_gpus`` v100s with 120 s rounds under
     ``policy`` with the planner's device solves on ``device``, as
     tests/test_golden.py drives the JAX package (``config`` adds planner
@@ -665,7 +672,8 @@ def run_trace(trace, policy: str, num_gpus: int, device,
     ``churn_plan``) is armed for the run and disarmed after it;
     ``profiling_percentage`` and ``num_reference_models`` turn on online
     throughput estimation under a packed policy, its completion on
-    ``device``.
+    ``device``. ``max_rounds`` ends the run after that many rounds (its
+    metrics then cover the jobs completed by then).
     Returns the metrics (makespan, average JCT, worst FTF, unfair
     fraction, utilization), the rounds, the policy's allocation calls and
     their seconds (Gavel policies), the solves by backend (with their
@@ -751,7 +759,7 @@ def run_trace(trace, policy: str, num_gpus: int, device,
                 dict(cluster), arrivals, jobs,
                 num_gpus_per_server=per_server,
                 checkpoint_threshold=checkpoint_threshold,
-                checkpoint_file=checkpoint_file)
+                checkpoint_file=checkpoint_file, max_rounds=max_rounds)
     finally:
         if injector is not None:
             faults.reset()
@@ -1488,6 +1496,10 @@ EG_ITERS = 5
 # package's own, for its sharded against its single-device PDHG
 # (tests/test_pdhg.py:377-398).
 S_TOL, OBJ_TOL, ROUNDED_TOL = 5e-3, 1e-3, 2e-3
+# Float32 summation's slack on the GPU-rounds a solve's ``s`` may use
+# (the plain versions overshoot the budget by at most 2e-7 of it on the
+# tier's windows and the seeded problems, on the CPU).
+BUDGET_RTOL = 1e-5
 # NVIDIA H100 SXM data sheet: float32 outside the tensor cores, HBM3.
 F32_PEAK = 67e12
 HBM_BYTES = 3.35e12
@@ -1572,14 +1584,23 @@ def rounded_objective(problem, s) -> float:
         (np.arange(R)[None, :] < counts[:, None]).astype(float))
 
 
-def eg_misses(problem, s, obj, ref_s, ref_obj) -> list:
+def eg_misses(problem, s, obj, ref_s, ref_obj, check_s=True) -> list:
     """Where a solve misses its reference by the limits of two summation
-    orders: ``s`` within rtol = atol = S_TOL, the objective within
-    OBJ_TOL (1 + |obj|) and the rounded objective within ROUNDED_TOL
-    (1 + |o|)."""
+    orders: ``s`` within rtol = atol = S_TOL (unless ``check_s`` is
+    false), the objective within OBJ_TOL (1 + |obj|) and the rounded
+    objective within ROUNDED_TOL (1 + |o|); and where ``s`` is not
+    feasible: outside [0, future_rounds], or its GPU-rounds past the
+    budget by more than BUDGET_RTOL of it."""
     bad = []
-    if not np.allclose(s, ref_s, rtol=S_TOL, atol=S_TOL):
+    if check_s and not np.allclose(s, ref_s, rtol=S_TOL, atol=S_TOL):
         bad.append(f"s off by {np.max(np.abs(s - ref_s)):.3g}")
+    R = problem.future_rounds
+    if s.min() < 0.0 or s.max() > R:
+        bad.append(f"s outside [0, {R}]: [{s.min()!r}, {s.max()!r}]")
+    used = float(np.dot(np.asarray(problem.nworkers, np.float64), s))
+    budget = float(problem.num_gpus * R)
+    if used > budget * (1.0 + BUDGET_RTOL):
+        bad.append(f"s uses {used!r} GPU-rounds of {budget!r}")
     if abs(obj - ref_obj) > OBJ_TOL * (1.0 + abs(ref_obj)):
         bad.append(f"objective {obj!r} vs {ref_obj!r}")
     o, ref_o = rounded_objective(problem, s), rounded_objective(problem,
@@ -1589,12 +1610,43 @@ def eg_misses(problem, s, obj, ref_s, ref_obj) -> list:
     return bad
 
 
-def check_eg_kernels(problems, device) -> tuple:
+def start_moved(kind: str, packed) -> list:
+    """The plain version on ``packed`` with its start moved one float32
+    step up and then down (kernel A's warm start ``s0`` on every active
+    job, kernel B's ``s_init``): the two output rows."""
+    from shockwave_tpu_torch.solver import eg_pdhg, eg_relaxed
+
+    if kind == "pdhg":
+        row, cols = len(eg_pdhg.ROWS) - 1, slice(None)
+    else:
+        col = eg_relaxed.SCALARS.index("s_init")
+        row, cols = len(eg_relaxed.ROWS), slice(col, col + 1)
+    rows = []
+    for toward in (float("inf"), float("-inf")):
+        moved = packed.clone()
+        start = moved[0, row, cols]
+        nudged = torch.nextafter(start, torch.full_like(start, toward))
+        if kind == "pdhg":
+            nudged = torch.where(moved[0, 0] > 0, nudged, start)
+        moved[0, row, cols] = nudged
+        rows.append(eg_plain(kind, moved))
+    return rows
+
+
+def check_eg_kernels(problems, device, undetermined=None) -> tuple:
     """Kernels A and B on ``device`` against their plain versions on the
     same device and inputs (``eg_misses``), each kernel run twice and
     bitwise equal, and bitwise equal to the sequential instantiation
-    (one bisection step a barrier, state in global memory). Returns (the
-    misses, the largest |s| error of each kernel)."""
+    (one bisection step a barrier, state in global memory). ``s`` is held
+    where float32 determines it: where the kernel's misses the plain
+    version's and the plain version's own run with its start moved one
+    float32 step (``start_moved``) misses as well, the optimum is a face
+    along which rounding moves capacity between jobs, and the miss goes
+    to the list ``undetermined`` (the kernel, the problem, the kernel's
+    |s| error and the plain version's own spread each way) instead; the
+    objective, the rounded objective and feasibility are held on every
+    problem. Returns (the misses, the largest |s| error of each kernel
+    where ``s`` is determined)."""
     from shockwave_tpu_torch.ops.eg_pdhg import SEQUENTIAL
 
     bad, max_err = [], {"pdhg": 0.0, "relaxed": 0.0}
@@ -1615,9 +1667,23 @@ def check_eg_kernels(problems, device) -> tuple:
             J, slots = problem.num_jobs, packed.shape[2]
             got, ref = out.cpu().numpy(), plain.cpu().numpy()
             s, ref_s = got[:J].astype(np.float64), ref[:J].astype(np.float64)
-            max_err[kind] = max(max_err[kind], float(np.max(np.abs(s - ref_s))))
+            err = float(np.max(np.abs(s - ref_s)))
+            determined = np.allclose(s, ref_s, rtol=S_TOL, atol=S_TOL)
+            if not determined:
+                spread = [row.cpu().numpy()[:J].astype(np.float64)
+                          for row in start_moved(kind, packed)]
+                determined = all(np.allclose(m, ref_s, rtol=S_TOL,
+                                             atol=S_TOL) for m in spread)
+                if not determined and undetermined is not None:
+                    undetermined.append(dict(
+                        kernel=kind, problem=i, jobs=J, s_err=err,
+                        plain_spread=[float(np.max(np.abs(m - ref_s)))
+                                      for m in spread]))
+            if determined:
+                max_err[kind] = max(max_err[kind], err)
             bad += [f"{where}: {m}" for m in eg_misses(
-                problem, s, float(got[slots]), ref_s, float(ref[slots]))]
+                problem, s, float(got[slots]), ref_s, float(ref[slots]),
+                check_s=determined)]
     return bad, max_err
 
 

@@ -1,0 +1,520 @@
+"""The survivable control plane's drill: SIGKILL the leader, lose nothing.
+
+The port of the JAX package's ``scripts/ci/ha_smoke.py``, with its shape
+(six synthetic jobs of 600-800 steps at 200 steps/s, 3 s rounds, a 2 s
+lease TTL, the leader killed 4.5 s into the campaign). Four arms:
+
+1. **sim drill**: a simulated Shockwave campaign with seeded
+   ``scheduler_crash`` / ``scheduler_restart`` events must finish exactly
+   as the uninterrupted run (the events push the whole control plane
+   through the journal's codec mid-run).
+2. **baseline**: a live localhost campaign under one HA leader (journal
+   armed, no crash): the makespan yardstick.
+3. **hot standby**: the same campaign with a standby node running; the
+   leader SIGKILLs itself mid-round by the seeded ``scheduler_crash``.
+   The standby takes the lease at epoch 2, replays the checkpoint and
+   tail, restores its planner onto ``--device``, re-adopts the
+   re-attaching agents and finishes every job exactly once; the first
+   token, resent across the failover, is deduped by the restored ledger.
+4. **cold restart**: the leader dies with no standby running; a node
+   started afterwards resumes from the journal alone.
+
+Both scheduler nodes are ``python -m shockwave_tpu_torch.ha.standby``
+subprocesses and the agents the worker CLI
+(``shockwave_tpu_torch.runtime.worker.main``) with ``--ha_dir``, each
+started beside its leader and registering once the leader has published
+its address (``AGENT_LAUNCH``); the payload is ``runtime/synthetic.py``.
+
+    python -m shockwave_tpu_torch.tools.ha_smoke --device cpu
+    python -m shockwave_tpu_torch.tools.ha_smoke --device cuda \\
+        --policy shockwave_tpu_pdhg --arms hot,cold
+
+It writes its report to ``_smoke_out/ha/ha_smoke.json`` (``--out``; the
+directory is git-ignored) and each node's and agent's log beside its
+arm's lease directory under ``run/``, and exits 1 on any broken
+invariant.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import shutil
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+JOB_STEPS = [600, 700, 800, 600, 700, 800]
+STEPS_PER_SEC = 200
+ROUND_S = 3.0
+LEASE_TTL_S = 2.0
+CRASH_AT_S = 4.5  # in round 2, after real dispatches
+# The live arms' planner under a Shockwave policy: the physical plane's
+# two-slot cluster, the configuration of tests/test_torch_physical.py,
+# with plan-ahead speculation (on a card, on the planner's own stream).
+LIVE_CONFIG = {"num_gpus": 2, "future_rounds": 6, "lambda": 5.0, "k": 10.0,
+               "speculate": True}
+ARMS = ("sim", "baseline", "hot", "cold")
+# An agent is started beside its leader and starts up (the interpreter,
+# torch, the card's context) while the leader does; it runs the worker
+# CLI once the leader has published its address, so that the leader's
+# rounds, and its clock's seeded crash, begin as soon as it serves
+# rather than after the agents' start-up.
+AGENT_LAUNCH = """
+import sys, time
+from shockwave_tpu_torch.ha.election import LeaseStore
+from shockwave_tpu_torch.runtime import worker
+ha_dir, device = sys.argv[1], sys.argv[2]
+worker.resolve_cards(device)
+while True:
+    lease = LeaseStore(ha_dir).leader()
+    if lease is not None and lease.sched_addr:
+        break
+    time.sleep(0.05)
+worker.main(sys.argv[3:])
+"""
+
+
+def _env(extra_env=None, fault_plan=None):
+    env = {
+        **os.environ,
+        "SHOCKWAVE_HEARTBEAT_S": "0.5",
+        "SHOCKWAVE_OUTAGE_BEATS": "2",
+        "SHOCKWAVE_RPC_ATTEMPTS": "2",
+        "SHOCKWAVE_RPC_DEADLINE_S": "3",
+        "SHOCKWAVE_RPC_TIMEOUT_S": "2",
+        **(extra_env or {}),
+    }
+    if fault_plan:
+        env["SHOCKWAVE_FAULTS"] = fault_plan
+    else:
+        env.pop("SHOCKWAVE_FAULTS", None)
+    return env
+
+
+class Drill:
+    """One arm's processes: scheduler nodes and agents, each with its
+    log beside the arm's lease directory."""
+
+    def __init__(self, ha_dir, device, policy, extra_env=None):
+        self.ha_dir = ha_dir
+        self.device = device
+        self.policy = policy
+        self.extra_env = extra_env
+        self.procs = []
+
+    def node(self, name, port, summary, workers=0, plan=None, log=None):
+        cmd = [
+            sys.executable, "-m", "shockwave_tpu_torch.ha.standby",
+            "--ha_dir", self.ha_dir, "--node", name, "--port", str(port),
+            "--round_s", str(ROUND_S), "--lease_ttl_s", str(LEASE_TTL_S),
+            "--completion_buffer_s", "6", "--heartbeat_timeout_s", "6",
+            "--reattach_timeout_s", "20", "--max_rounds", "40",
+            "--summary_out", summary, "--policy", self.policy,
+            "--device", self.device,
+        ]
+        if self.policy.startswith("shockwave"):
+            cmd += ["--config", json.dumps(LIVE_CONFIG)]
+        if workers:
+            cmd += ["--expect_workers", str(workers)]
+        if log:
+            cmd += ["--decision_log", log]
+        return self._spawn(cmd, f"{name}.log", plan)
+
+    def agent(self, sched_port, port, tmp, tag):
+        return self._spawn(
+            [
+                sys.executable, "-c", AGENT_LAUNCH, self.ha_dir, self.device,
+                "-t", "v100", "-n", "1",
+                "-a", "127.0.0.1", "-s", str(sched_port), "-p", str(port),
+                "--run_dir", os.path.join(tmp, f"run_{tag}"),
+                "--checkpoint_dir", os.path.join(tmp, f"ckpt_{tag}"),
+                "--ha_dir", self.ha_dir, "--device", self.device,
+            ],
+            f"worker_{tag}.log", None,
+        )
+
+    def _spawn(self, cmd, log_name, plan):
+        sink = open(os.path.join(self.ha_dir, log_name), "w")
+        try:
+            proc = subprocess.Popen(
+                cmd, env=_env(self.extra_env, plan), cwd=ROOT,
+                stdout=sink, stderr=subprocess.STDOUT,
+            )
+        finally:
+            sink.close()  # the child holds its own descriptor
+        self.procs.append(proc)
+        return proc
+
+    def stop(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+        for proc in self.procs:
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+
+
+def _wait_file(path, timeout_s, what):
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        if os.path.exists(path):
+            with open(path) as f:
+                return json.load(f)
+        time.sleep(0.5)
+    raise TimeoutError(f"{what}: {path} not written in {timeout_s}s")
+
+
+def _wait_leader(ha_dir, timeout_s, what, port=None):
+    from shockwave_tpu_torch.ha.election import LeaseStore
+
+    deadline = time.time() + timeout_s
+    while True:
+        lease = LeaseStore(ha_dir).leader()
+        if lease is not None and lease.sched_addr and (
+            port is None or lease.sched_port == port
+        ):
+            return lease
+        if time.time() > deadline:
+            raise TimeoutError(what)
+        time.sleep(0.1)
+
+
+def _submit_jobs(port):
+    """The workload through the front door in two batches and a close;
+    returns (client, first batch's jobs, first token)."""
+    from shockwave_tpu_torch.runtime.rpc.submitter_client import (
+        SubmitterClient,
+    )
+    from shockwave_tpu_torch.runtime.testing import make_synthetic_job
+
+    jobs = [
+        make_synthetic_job(steps, steps_per_sec=STEPS_PER_SEC)
+        for steps in JOB_STEPS
+    ]
+    client = SubmitterClient("127.0.0.1", port, client_id="hasmoke")
+    first_token = client.next_token()
+    r = client.submit(jobs[:3], token=first_token)
+    if r.status != "ACCEPTED":
+        raise RuntimeError(f"first batch {r.status}")
+    r = client.submit(jobs[3:], close=True)
+    if r.status != "ACCEPTED":
+        raise RuntimeError(f"second batch {r.status}")
+    return client, jobs[:3], first_token
+
+
+def sim_drill(device="cpu", policy="shockwave_tpu_pdhg") -> dict:
+    """Arm 1: the simulator's crash and restart round trip with the
+    planner; the drilled campaign must equal the plain one."""
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.core.scheduler import Scheduler
+    from shockwave_tpu_torch.data.default_oracle import generate_oracle
+    from shockwave_tpu_torch.data.profiles import synthesize_profiles
+    from shockwave_tpu_torch.policies import get_policy
+    from shockwave_tpu_torch.runtime import faults
+
+    config = {
+        "num_gpus": 2, "time_per_iteration": 120, "future_rounds": 4,
+        "lambda": 2.0, "k": 1e-3,
+        "log_approximation_bases": [0.0, 0.2, 0.4, 0.6, 0.8, 1.0],
+        "solver_rel_gap": 1e-3, "solver_timeout": 15,
+    }
+
+    def run(plan):
+        faults.reset()
+        if plan is not None:
+            faults.configure(plan)
+        jobs = [
+            Job(job_type="ResNet-18 (batch size 32)", command="x 32",
+                total_steps=4000 + 1307 * i, scale_factor=1,
+                mode=("gns" if i % 3 == 0 else "static"))
+            for i in range(6)
+        ]
+        oracle = generate_oracle()
+        sched = Scheduler(
+            get_policy(policy, device=device), throughputs=oracle,
+            time_per_iteration=120, seed=0,
+            profiles=synthesize_profiles(jobs, oracle),
+            shockwave_config=dict(config),
+        )
+        makespan = sched.simulate(
+            {"v100": 2}, [0.0, 10.0, 20.0, 30.0, 40.0, 50.0], jobs
+        )
+        result = (
+            makespan,
+            sched.get_average_jct(),
+            {str(k): v for k, v in sched._total_steps_run.items()},
+        )
+        faults.reset()
+        return result
+
+    base = run(None)
+    plan = faults.FaultPlan(seed=0, events=[
+        faults.FaultEvent(0, "scheduler_crash", at_s=200.0),
+        faults.FaultEvent(1, "scheduler_restart", at_s=260.0),
+    ])
+    drilled = run(plan)
+    return {
+        "makespan": base[0],
+        "bit_identical": base == drilled,
+        "drilled_makespan": drilled[0],
+    }
+
+
+def _crash_plan_file(tmp):
+    from shockwave_tpu_torch.runtime import faults
+    from shockwave_tpu_torch.utils.fileio import atomic_write_text
+
+    plan = faults.FaultPlan(seed=0, events=[
+        faults.FaultEvent(0, "scheduler_crash", at_s=CRASH_AT_S),
+        faults.FaultEvent(1, "scheduler_restart", at_s=CRASH_AT_S + 1.0),
+    ])
+    path = os.path.join(tmp, "crash_plan.json")
+    atomic_write_text(path, plan.to_json())
+    return path
+
+
+def failover_arm(tmp, name, hot, device="cpu", policy="fifo",
+                 extra_env=None) -> dict:
+    """Arms 3 and 4: a live campaign whose leader the seeded fault
+    SIGKILLs; a hot standby (started before the crash) or a cold restart
+    (started after it) resumes. Returns the arm's report."""
+    from shockwave_tpu_torch.ha.frontdoor import resolve_submit_target
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    ha_dir = os.path.join(tmp, name)
+    os.makedirs(ha_dir, exist_ok=True)
+    plan = _crash_plan_file(tmp)
+    leader_port, standby_port = free_port(), free_port()
+    w_ports = [free_port(), free_port()]
+    succ_sum = os.path.join(ha_dir, "successor.json")
+    drill = Drill(ha_dir, device, policy, extra_env)
+    try:
+        leader = drill.node(
+            "leader-0", leader_port, os.path.join(ha_dir, "leader.json"),
+            workers=2, plan=plan,
+            log=os.path.join(ha_dir, "leader_decisions.jsonl"),
+        )
+        for i, port in enumerate(w_ports):
+            drill.agent(leader_port, port, tmp, f"{name}_w{i}")
+        _wait_leader(ha_dir, 120, "the leader never published its lease")
+        client, first_jobs, first_token = _submit_jobs(leader_port)
+        successor = None
+        if hot:
+            successor = drill.node(
+                "standby-1", standby_port, succ_sum, plan=plan,
+                log=os.path.join(ha_dir, "succ_decisions.jsonl"),
+            )
+        # The seeded fault SIGKILLs the leader at CRASH_AT_S.
+        leader.wait(timeout=120)
+        crash_wall = time.time()
+        leader_rc = leader.returncode
+        if leader_rc != -signal.SIGKILL:
+            raise RuntimeError(
+                f"the leader exited {leader_rc}, not SIGKILLed by the "
+                "seeded scheduler_crash"
+            )
+        if not hot:
+            successor = drill.node(
+                "restart-1", standby_port, succ_sum, plan=plan,
+                log=os.path.join(ha_dir, "succ_decisions.jsonl"),
+            )
+        lease = _wait_leader(
+            ha_dir, 120, "the successor never took the lease",
+            port=standby_port,
+        )
+        takeover_s = time.time() - crash_wall
+        # Resend the first (admitted) token as it was: the successor's
+        # restored ledger must dedup it, not admit it again.
+        target = resolve_submit_target(ha_dir, first_token)
+        if target is None:
+            raise RuntimeError("no submit target after the takeover")
+        client.retarget(target[0], target[1])
+        r = client.submit(first_jobs, token=first_token)
+        summary = _wait_file(succ_sum, 240, f"{name} successor summary")
+        successor.wait(timeout=60)
+        for proc in drill.procs[1:]:
+            if proc is not successor and proc.poll() is None:
+                proc.wait(timeout=30)
+        return {
+            "arm": name,
+            "leader_killed_by": "seeded scheduler_crash",
+            "leader_returncode": leader_rc,
+            "successor_returncode": successor.returncode,
+            "agent_returncodes": [
+                p.returncode for p in drill.procs
+                if p is not leader and p is not successor
+            ],
+            "lease_epoch": lease.epoch,
+            "takeover_s": takeover_s,
+            "retransmit_status": r.status,
+            "retransmit_admitted": r.admitted,
+            "successor": summary,
+        }
+    finally:
+        drill.stop()
+
+
+def baseline_arm(tmp, device="cpu", policy="fifo", extra_env=None) -> dict:
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    ha_dir = os.path.join(tmp, "baseline")
+    os.makedirs(ha_dir, exist_ok=True)
+    port = free_port()
+    summary_path = os.path.join(ha_dir, "leader.json")
+    drill = Drill(ha_dir, device, policy, extra_env)
+    try:
+        drill.node("leader-0", port, summary_path, workers=2)
+        for i, wp in enumerate([free_port(), free_port()]):
+            drill.agent(port, wp, tmp, f"base_w{i}")
+        _wait_leader(ha_dir, 120, "the baseline leader never published")
+        _submit_jobs(port)
+        return _wait_file(summary_path, 240, "baseline summary")
+    finally:
+        drill.stop()
+
+
+def check_arm(report, job_steps=JOB_STEPS) -> list:
+    """The failover invariants of one arm; returns what failed."""
+    failures = []
+    arm = report["arm"]
+    succ = report["successor"]
+    if report.get("leader_returncode") != -signal.SIGKILL:
+        failures.append(f"{arm}: leader exit {report.get('leader_returncode')}")
+    if succ.get("outcome") != "completed":
+        failures.append(f"{arm}: successor outcome {succ.get('outcome')!r}")
+    if report.get("successor_returncode") != 0:
+        failures.append(
+            f"{arm}: successor exit {report.get('successor_returncode')}")
+    if any(rc != 0 for rc in report.get("agent_returncodes") or []):
+        failures.append(f"{arm}: agent exits {report['agent_returncodes']}")
+    if succ.get("epoch") != 2 or report.get("lease_epoch") != 2:
+        failures.append(
+            f"{arm}: successor epoch {succ.get('epoch')} (lease "
+            f"{report.get('lease_epoch')}), not 2"
+        )
+    if not succ.get("took_over"):
+        failures.append(f"{arm}: the successor found no journal")
+    if not succ.get("restored_checkpoint") or succ.get(
+            "restored_round", 0) < 1:
+        # The seeded crash is meant to land after real dispatches.
+        failures.append(
+            f"{arm}: the leader died before its first round ended "
+            f"(restored at round {succ.get('restored_round')})")
+    if not (succ.get("restored_tail") or {}).get("sched_fault"):
+        failures.append(
+            f"{arm}: the restored tail {succ.get('restored_tail')} has no "
+            "sched_fault marker"
+        )
+    if succ.get("lost_workers"):
+        failures.append(f"{arm}: lost workers {succ['lost_workers']}")
+    completed = succ.get("completed_jobs") or []
+    if completed != list(range(len(job_steps))):
+        failures.append(
+            f"{arm}: completed {completed}, not every one of "
+            f"{len(job_steps)} jobs once"
+        )
+    steps = succ.get("total_steps_run") or {}
+    expected = {str(i): s for i, s in enumerate(job_steps)}
+    if steps != expected:
+        failures.append(f"{arm}: steps run {steps}, not {expected}")
+    if report.get("retransmit_status") != "ACCEPTED" or (
+        report.get("retransmit_admitted", 0) <= 0
+    ):
+        failures.append(
+            f"{arm}: the resent token was not acknowledged "
+            f"({report.get('retransmit_status')})"
+        )
+    admission = succ.get("admission") or {}
+    if admission.get("deduped_batches", 0) < 1:
+        failures.append(f"{arm}: no ledger dedup of the resent token")
+    if admission.get("admitted_jobs") != len(job_steps):
+        failures.append(
+            f"{arm}: admitted_jobs {admission.get('admitted_jobs')}, not "
+            f"{len(job_steps)}"
+        )
+    return failures
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="the nodes' planner device and the agents' "
+                        "payload device; cuda raises without a card")
+    parser.add_argument("--policy", default="fifo",
+                        help="the live arms' policy (the sim drill runs "
+                        "shockwave_tpu_pdhg)")
+    parser.add_argument("--arms", default=",".join(ARMS),
+                        help=f"comma-separated subset of {','.join(ARMS)}")
+    parser.add_argument("--out", default=os.path.join(ROOT, "_smoke_out",
+                                                      "ha"))
+    args = parser.parse_args(argv)
+    from shockwave_tpu_torch.utils.device import resolve_device
+    from shockwave_tpu_torch.utils.fileio import atomic_write_json
+
+    resolve_device(args.device)
+    arms = [a for a in args.arms.split(",") if a]
+    unknown = sorted(set(arms) - set(ARMS))
+    if unknown:
+        raise SystemExit(f"unknown arms {unknown}")
+    report = {"config": {
+        "job_steps": JOB_STEPS, "round_s": ROUND_S,
+        "lease_ttl_s": LEASE_TTL_S, "crash_at_s": CRASH_AT_S,
+        "device": args.device, "policy": args.policy,
+    }}
+    failures = []
+    if "sim" in arms:
+        print("[ha_smoke] sim crash/restart drill", flush=True)
+        report["sim_drill"] = sim_drill(args.device)
+        if not report["sim_drill"]["bit_identical"]:
+            failures.append(f"sim drill not exact: {report['sim_drill']}")
+    # The arms' lease directories and logs, kept for triage.
+    tmp = os.path.join(args.out, "run")
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    if "baseline" in arms:
+        print("[ha_smoke] baseline live campaign", flush=True)
+        base = baseline_arm(tmp, args.device, args.policy)
+        report["baseline"] = base
+        if base.get("completed_jobs") != list(range(len(JOB_STEPS))):
+            failures.append(
+                f"baseline completed {base.get('completed_jobs')}")
+    for arm, key, hot in (("hot", "hot_standby", True),
+                          ("cold", "cold_restart", False)):
+        if arm not in arms:
+            continue
+        print(f"[ha_smoke] {key} failover", flush=True)
+        try:
+            report[key] = failover_arm(
+                tmp, arm, hot, args.device, args.policy)
+        except (RuntimeError, TimeoutError,
+                subprocess.TimeoutExpired) as e:
+            failures.append(f"{arm}: {e}")
+            continue
+        failures.extend(check_arm(report[key]))
+        if "baseline" in report:
+            report[key]["makespan_delta_s"] = (
+                report[key]["successor"].get("makespan_s", 0.0)
+                - report["baseline"].get("makespan_s", 0.0)
+            )
+    report["failures"] = failures
+    report["pass"] = not failures
+    out_path = os.path.join(args.out, "ha_smoke.json")
+    atomic_write_json(out_path, report)
+    print(f"[ha_smoke] wrote {out_path}")
+    for failure in failures:
+        print(f"[ha_smoke] FAIL: {failure}")
+    print(f"[ha_smoke] {'PASS' if not failures else 'FAIL'}")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -10,7 +10,6 @@ rules are held on their own.
 """
 
 import importlib
-import os
 import re
 import sys
 
@@ -191,11 +190,3 @@ def test_device_rules():
             resolve_cards("cuda")
         with pytest.raises(RuntimeError, match="no card"):
             Worker("v100", 1, "127.0.0.1", 1, 1, "/tmp/x", "/tmp/y")
-
-
-def test_ha_dir_raises_naming_the_roadmap_item(monkeypatch):
-    monkeypatch.setenv("SHOCKWAVE_HA_DIR", "/tmp/ha")
-    with pytest.raises(NotImplementedError, match="10b"):
-        Worker("v100", 1, "127.0.0.1", 1, 1, "/tmp/x", "/tmp/y",
-               device="cpu")
-    assert os.environ["SHOCKWAVE_HA_DIR"] == "/tmp/ha"

@@ -7,10 +7,12 @@ the string ``shockwave_tpu`` but is not the JAX package.
 """
 
 import ast
+import json
 import os
 import select
 import subprocess
 import sys
+import uuid
 from pathlib import Path
 
 import pytest
@@ -535,6 +537,75 @@ def test_physical_plane_clis_run_with_jax_and_grpc_blocked(tmp_path):
     assert len(list((tmp_path / "run").glob("*.stdout"))) >= 2
 
 
+# Every Python process of a drill (the scheduler nodes, the agents, the
+# payloads) started with this directory first on its path: a
+# sitecustomize marks the blocked modules missing, and at exit each
+# process writes the blocked modules it holds to leaked-<pid>.json.
+_SITECUSTOMIZE = """
+import atexit, json, os, sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu",
+           "grpc", "google.protobuf")
+for name in BLOCKED:
+    sys.modules[name] = None
+
+def _report():
+    leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and any(m == b or m.startswith(b + ".") for b in BLOCKED))
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        f"leaked-{os.getpid()}.json")
+    with open(path, "w") as f:
+        json.dump(leaked, f)
+
+atexit.register(_report)
+"""
+
+
+# A wall-clock drill (3 s rounds, a 2 s lease): the repo's bounded retry
+# for load-sensitive runs, as tests/test_torch_runtime.py's.
+@pytest.mark.wallclock_retry
+def test_ha_drill_runs_with_jax_and_grpc_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.tools.ha_smoke --arms cold`` with
+    every process it starts blocked from ``jax``, the JAX package,
+    ``grpc`` and ``google.protobuf``: the leader (``python -m
+    shockwave_tpu_torch.ha.standby``) is SIGKILLed by the seeded crash, a
+    cold restart resumes from the journal and completes every job, and no
+    process that exited loaded a blocked module."""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(blocker), str(ROOT)]))
+    out = tmp_path / "ha"
+    proc = subprocess.run(
+        [sys.executable, "-c", _PLANE_SCRIPT,
+         "shockwave_tpu_torch.tools.ha_smoke", "--device", "cpu",
+         "--arms", "cold", "--out", str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    assert "[ha_smoke] PASS" in proc.stdout and "LEAKED []" in proc.stdout
+    report = json.loads((out / "ha_smoke.json").read_text())
+    succ = report["cold_restart"]["successor"]
+    assert succ["took_over"] and succ["epoch"] == 2
+    assert succ["completed_jobs"] == [0, 1, 2, 3, 4, 5]
+    leaks = [json.loads(f.read_text()) for f in blocker.glob("leaked-*")]
+    # The restart node, both agents and the payloads at least.
+    assert len(leaks) >= 4 and all(leak == [] for leak in leaks), leaks
+
+
+def test_kill_stale_workloads_runs_with_jax_and_grpc_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _PLANE_SCRIPT,
+         "shockwave_tpu_torch.tools.kill_stale_workloads", "--pattern",
+         f"no-such-process-{uuid.uuid4().hex}"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=60,
+    )
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "No stale workload processes." in out.stdout
+    assert "LEAKED []" in out.stdout
+
+
 def _imports(path: Path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -589,7 +660,10 @@ def test_port_sources_import_no_jax():
                    "runtime/protobuf/worker_to_scheduler_pb2.py",
                    "runtime/protobuf/telemetry_pb2.py",
                    "runtime/protobuf/explain_pb2.py",
-                   "runtime/protobuf/admission_pb2.py"):
+                   "runtime/protobuf/admission_pb2.py",
+                   "ha/journal.py", "ha/election.py", "ha/frontdoor.py",
+                   "ha/standby.py", "tools/ha_smoke.py",
+                   "tools/kill_stale_workloads.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

@@ -310,15 +310,6 @@ def test_physical_schedulers_agree_under_a_scripted_clock(policy,
     assert ref["registered"][1] == ref["registered"][2]
 
 
-def test_ha_arguments_raise_naming_the_roadmap_item():
-    from shockwave_tpu_torch.core.physical import PhysicalScheduler
-    from shockwave_tpu_torch.policies import get_policy
-
-    with pytest.raises(NotImplementedError, match="10b"):
-        PhysicalScheduler(get_policy("fifo"), port=free_port(),
-                          ha_journal=object())
-
-
 def test_a_slow_start_is_not_killed_as_unresponsive(monkeypatch):
     """A relaunched attempt that is kept for the next round (an extended
     lease) and takes 14 s to start, with its previous attempt's last lease

@@ -370,3 +370,88 @@ def test_relaxed_backend_end_to_end():
     assert all(t is not None for t in sched._job_completion_times.values())
     assert {r["backend"] for r in sched._shockwave.solve_records} == {
         "relaxed"}
+
+
+def _flat_problem():
+    """Raw PGD's 1000 x 50 x 256 problem (seed 0), packed for kernel B,
+    and its plain version's output row."""
+    problem = port_problem(bench.make_problem(
+        num_jobs=1000, future_rounds=50, num_gpus=256, seed=0))
+    packed = bench_sim.eg_pack("relaxed", problem, "cpu")
+    return problem, packed, bench_sim.eg_plain("relaxed", packed).numpy()
+
+
+def test_start_moved_spreads_on_a_flat_optimum():
+    """``bench_sim.start_moved``: the plain version of kernel B with its
+    ``s_init`` one float32 step up, then down, on raw PGD's 1000-job
+    problem. ``s`` moves past the limit on a coordinate or two each way,
+    by 0.0125 and 0.039 (CPU readings), while the objective, the rounded
+    objective and feasibility hold (``eg_misses`` without ``s``): float32
+    does not determine ``s`` there, so chip_smoke.py phase 9(b) lists
+    such a miss and does not hold it. The same spread on the 2048-job pdhg
+    tier's 276-job window measured 0.809 / 0.837 (PERF.md)."""
+    problem, packed, ref = _flat_problem()
+    J, slots = problem.num_jobs, packed.shape[2]
+    ref_s = ref[:J].astype(np.float64)
+    largest = []
+    for row in bench_sim.start_moved("relaxed", packed):
+        moved = row.numpy()
+        s = moved[:J].astype(np.float64)
+        count, err = _misses(s, ref_s)
+        assert count >= 1, (count, err)
+        largest.append(err)
+        assert bench_sim.eg_misses(problem, s, float(moved[slots]), ref_s,
+                                   float(ref[slots]), check_s=False) == []
+    assert max(largest) >= 0.03, largest
+
+
+def test_kernel_check_holds_s_only_where_float32_determines_it(
+        monkeypatch):
+    """``bench_sim.check_eg_kernels`` with a stand-in for the kernel (the
+    plain version on the CPU, kernel A exact): an ``s`` that a one-step
+    move of the plain version's start reproduces is listed, not failed,
+    on the flat problem; the same stand-in's objective 1% off, or its
+    ``s`` past the budget, still fails there; and one job's ``s`` one
+    round less fails on a seeded problem, where the plain version's own
+    spread stays under the limit."""
+    flat, flat_packed, _ = _flat_problem()
+    seeded = bench_sim.seeded_problem(256)
+    moved = bench_sim.start_moved("relaxed", flat_packed)[1]
+    cases = {
+        "rounding": lambda row, J, slots: moved.clone(),
+        "objective": lambda row, J, slots: torch.cat([
+            moved[:slots], moved[slots:slots + 1] * 1.01,
+            moved[slots + 1:]]),
+        "budget": lambda row, J, slots: torch.cat([
+            moved[:J] * 1.01, moved[J:]]),
+        "one job": lambda row, J, slots: torch.where(
+            torch.arange(len(row)) == int(torch.argmax(row[:J])),
+            row - 1.0, row),
+    }
+    for case, change in cases.items():
+        def solve(kind, packed, stats=None, variant=None):
+            row = bench_sim.eg_plain(kind, packed)
+            if kind == "pdhg":
+                return row
+            J = int((packed[0, 0] > 0).sum())
+            return change(row, J, packed.shape[2])
+
+        monkeypatch.setattr(bench_sim, "eg_solve", solve)
+        problem = seeded if case == "one job" else flat
+        undetermined = []
+        bad, max_err = bench_sim.check_eg_kernels([problem], "cpu",
+                                                  undetermined)
+        if case == "rounding":
+            assert bad == [] and max_err == {"pdhg": 0.0, "relaxed": 0.0}
+            [u] = undetermined
+            assert (u["kernel"], u["jobs"]) == ("relaxed", 1000)
+            assert u["s_err"] >= 0.03 and max(u["plain_spread"]) >= 0.03
+        elif case == "one job":
+            assert undetermined == [] and len(bad) == 1
+            assert "s off by 1" in bad[0]
+        elif case == "objective":
+            assert len(undetermined) == 1
+            assert len(bad) == 1 and "objective" in bad[0], bad
+        else:
+            assert len(undetermined) == 1
+            assert any("GPU-rounds" in b for b in bad), bad

@@ -9,8 +9,8 @@ Three completion-only flows stay in tier-1 under ``wallclock_retry``:
 ``fifo`` and ``shockwave_tpu`` with the synthetic payload, and the
 Transformer payload. The rest carry ``slow``, as the JAX package's do.
 Left out: the gang-training flow (``torch.distributed`` between payload
-processes, ROADMAP.md queue 1 item 8) and the hot-standby failover (the
-HA plane, item 10b).
+processes, ROADMAP.md queue 1 item 8). The hot-standby failover is
+``tests/test_torch_failover.py``'s.
 """
 
 import os

@@ -229,19 +229,22 @@ def test_policies_not_ported_raise(name):
 # tests/test_torch_hetero.py), and so is online throughput estimation
 # (tests/test_torch_estimator.py), which a Shockwave policy never turns
 # on, in either package. Physical mode is ported
-# (tests/test_torch_physical.py); its HA plane is not.
+# (tests/test_torch_physical.py), and so is its HA plane
+# (tests/test_torch_ha.py, tests/test_torch_failover.py); the cell mesh
+# is not, in the simulator or in physical mode.
 @pytest.mark.parametrize("config, kwargs", [
     ({"cells": 4, "cell_mesh": True}, {}),
-    ({}, {"ha_journal": object()}),
+    ({"cells": 4, "cell_mesh": True}, {"physical": True}),
     ({"cells": 2, "cell_mesh": True}, {}),
-    ({}, {"ha_restore_pending": True, "profiling_percentage": 0.5}),
+    ({"cells": 2, "cell_mesh": True},
+     {"physical": True, "profiling_percentage": 0.5}),
 ])
 def test_options_not_ported_raise(config, kwargs):
     from shockwave_tpu_torch.core.physical import PhysicalScheduler
 
     shockwave_config = {"num_gpus": 8, "time_per_iteration": 120, **config}
-    cls = PhysicalScheduler if any(k.startswith("ha_") for k in kwargs) \
-        else Scheduler
+    kwargs = dict(kwargs)
+    cls = PhysicalScheduler if kwargs.pop("physical", False) else Scheduler
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cls(get_policy("shockwave_tpu_level", device="cpu"),
             throughputs=generate_oracle(),
