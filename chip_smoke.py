@@ -64,8 +64,10 @@
    each within 1e-3 of the JAX package's golden (tests/test_golden.py),
    every level solve of the first run on the card (16); (b) the 2048-job
    trace on 256 GPUs with 120 s rounds under ``shockwave_tpu``, the
-   production dispatch, within 1e-3 of the JAX package's run on the CPU,
-   with at least one level solve on the card; (c) the level solve on the
+   production dispatch, for its first 250 rounds, within 1e-3 of the JAX
+   package's run of the same rounds on the CPU (``bench_sim.
+   TIER_2048_CUT``), with at least one level solve on the card; (c) the
+   level solve on the
    card against the port's CPU solve (which the tests hold to the JAX
    package), counts equal and objectives within 1e-6, on the 204 seeded
    parity problems (slot bands 64 to 1024, with and without a switch
@@ -129,10 +131,11 @@
    server, 120 s rounds, under ``max_min_fairness`` and ``shockwave_tpu``
    at 64, 128 and 256 GPUs and under ``finish_time_fairness`` and
    ``max_min_fairness_water_filling`` at 64, and the 2048-job trace on 256
-   GPUs under ``max_min_fairness`` beside item 8's ``shockwave_tpu`` run,
-   each within 1e-3 of the JAX package's run (``bench_sim.FIGURE9``,
-   ``TIER_2048_MMF``), with a table of makespan, average JCT, worst FTF
-   and unfair fraction and the Shockwave against max-min ratios; (c) the
+   GPUs under ``max_min_fairness`` (item 8's ``shockwave_tpu`` run, cut to
+   its first rounds, printed beside it), each within 1e-3 of the JAX
+   package's run (``bench_sim.FIGURE9``, ``TIER_2048_MMF``), with a table
+   of makespan, average JCT, worst FTF and unfair fraction and the
+   Shockwave against max-min ratios at 220 jobs; (c) the
    220-job trace on ``v100:16 p100:16 k80:16`` under ``fifo``,
    ``fifo_perf``, ``max_min_fairness``, ``max_min_fairness_perf``,
    ``finish_time_fairness_perf``, ``max_sum_throughput_perf`` and
@@ -157,11 +160,11 @@
    package's run (``bench_sim.GOLDEN_CELLS``) in its rounds, then
    ``python -m shockwave_tpu_torch.simulate -t
    traces/generated_2048_dynamic.trace -p shockwave_tpu_pdhg -c v100=256
-   --time_per_iteration 120 --cells 4``: every cell plan audited, every
-   lane of every launch equal to its one-lane launch, its metrics printed
-   beside the JAX package's run (``bench_sim.TIER_2048_CELLS``; another
-   summation order drifts from it, see ``TIER_2048_CELLS_H100``) and held
-   within 1e-3 of the card's pinned run in its rounds, with its launches,
+   --time_per_iteration 120 --cells 4 --max_rounds 260`` (the tier's first
+   260 rounds, round 253 the one with the most incomplete jobs): every
+   cell plan audited, every lane of every launch equal to its one-lane
+   launch, its metrics within 1e-3 of the JAX package's run of the same
+   rounds (``bench_sim.TIER_2048_CELLS_CUT``), with its launches,
    lanes a launch, device head and host tail; (iii) ``python -m
    shockwave_tpu_torch.tools.whatif
    sweep`` on (a) round 91 of the committed decision log with the JAX
@@ -306,20 +309,21 @@
    narrative for every job of (c)'s cells log. It prints one JSON line
    ``{"telemetry": ...}``; the causal flash rows of item 10's line carry
    the Ulysses run's launches (``ulysses_launches``).
-17. Drives the physical control plane (``run_physical_plane``): a
-   ``PhysicalScheduler`` in this process (policy ``shockwave_tpu_pdhg``,
-   planner on the card, ``speculate`` on, rounds sized from phase 6's
-   relaunch phases) and one worker agent started by its CLI
-   (``python -m shockwave_tpu_torch.runtime.worker -t v100 -n 2``), whose
-   two slots share card 0 ("v100" is the oracle's label: the port has no
-   measured H100 oracle). Three jobs at the 110M tier's widths, cut to 4
-   layers, are submitted through ``SubmitterClient`` (the SubmitJobs RPC)
-   and the stream is closed; each job's steps are sized from phase 6's
-   steps/s for 1.6 rounds of training at its share of the card, and the
-   planner plans them under a label it believes three times faster, so
-   that it rotates them (``PHYSICAL_JOB_TYPE``). The phase has the time
-   the smoke has left of its 1200 s, less phase 18's reserve and the exit
-   margin. Fails unless every
+17. Drives the physical control plane (``run_physical_plane``) through
+   the card driver's loop (``tools/physical_drivers.py::
+   run_physical_cluster``): a ``PhysicalScheduler`` in this process (policy
+   ``shockwave_tpu_pdhg``, planner on the card, ``speculate`` on, rounds
+   of 25 s) and one worker agent started by
+   its CLI (``python -m shockwave_tpu_torch.runtime.worker -t h100 -n
+   2``), whose two slots share card 0. The planner plans from phase 20's
+   oracle. Three jobs ``Transformer (batch size 8)`` at the 110M tier's
+   widths, cut to 4 layers, are submitted through ``SubmitterClient`` (the
+   SubmitJobs RPC) and the stream is closed; the card driver sizes their
+   steps from the oracle (``localize_jobs``: its rate x 0.5 x the
+   seconds that make ``PHYSICAL_JOB_EPOCHS`` epochs). The phase has the
+   time the smoke has
+   left of its 1200 s, less phase 18's reserve and the exit margin. Fails
+   unless every
    job completes with at least its steps and held workers in two rounds
    or more, the scheduler preempted a job (it lost its slot at a round
    boundary), every job ran in two attempts or more (its process stopped
@@ -329,7 +333,7 @@
    this process, at least one background speculative solve launched on
    the planner's own stream (not the card's default stream), and no
    scheduler or worker thread raised. Prints the phase's seconds, the
-   planner's solve seconds beside phase 14's, the payloads' relaunch
+   planner's solve seconds, the payloads' relaunch
    phases (mean over attempts) and the launches of kernel A and of the
    flash kernels, with the card's name and power limit.
 18. Drives the survivable control plane's failover drill
@@ -351,7 +355,7 @@
 
 19. Drives every family of the training payload and the Transformer's
    memory options (``run_families``, run after phase 16 and before phase
-   17): (a) ``train.main`` on the card for ResNet-18 at batch 256,
+   21): (a) ``train.main`` on the card for ResNet-18 at batch 256,
    ResNet-50 at 16, LM at 10, Recommendation at 8192 (the golden trace's
    largest batch of each), A3C and CycleGAN at 32: 3 steps with a
    checkpoint, then a resumed step; fails unless every summary line names
@@ -371,7 +375,33 @@
    share, and one JSON line ``{"families": ...}``; the flash rows of item
    10's line carry the MoE run's launches (``moe_launches``).
 
-Phases 17 and 18 run to deadlines (``phase_deadlines``): phase 17's leaves
+20. Measures the card's own oracle (``run_oracle``, after phase 7):
+   ``tools/measure_throughput.measure_oracle`` (the slope method) on phase
+   17's payload under its label ``Transformer (batch size 8)`` (flash, the
+   110M widths at 4 layers) and on ``Recommendation (batch size 512)``,
+   under the worker type ``h100``; writes ``_smoke_out/oracle/
+   oracle_h100.json``, which ``read_throughputs`` must read back equal;
+   fails unless the payload's rate is within a factor 2 of phase 6's
+   probe scaled by layers (8 / 4) and each flash kernel launched in its
+   measurement. Then one two-rank gang of the card driver's command
+   (ResNet-18 at ``GANG_CPU_BATCH``, ``GANG_STEPS`` steps, ``--gang_device
+   cpu``: both ranks on the host's CPU over gloo); fails unless both ranks
+   exit 0 on the CPU and report the same finite losses. The flash rows of
+   item 10's line carry the measurement's launches (``oracle_launches``).
+21. Runs the chaos soak's reduced campaign (``run_chaos``;
+   ``tools/chaos_soak.py --smoke``: 10 jobs on 4 GPUs, 80 target events,
+   3 solver faults, seed 0) with the planner and the replays on the card;
+   fails on any violated invariant (a lost job, a fault without its
+   recovery in the injector or the decision log, a replay that diverges,
+   no degraded round or a solve past the plan deadline) or unless kernel A
+   launched once for each round the ladder degraded to pdhg. Prints the
+   counts, both runs' makespan and worst FTF; kernels A's and B's rows of
+   item 10's line carry the campaign's launches (``chaos_launches``).
+
+Phase 20 and then phase 17 run right after phase 7 (phase 17's long
+rounds then leave the rest of the smoke its time), phase 21 after phase
+19, and phase 18 last. Phases 17 and 18 run to
+deadlines (``phase_deadlines``): phase 17's leaves
 phase 18 its reserve (``FAILOVER_RESERVE_S``, above its measured 63.6-84.2
 s) and the smoke its exit margin, and phase 18's waits are bounded by what
 is left of the 1200 s. Any failed phase exits nonzero without the last
@@ -966,14 +996,16 @@ def run_simulation(device) -> dict:
 
     problems = []
     tier = sim.run_trace(sim.TRACE_2048, "shockwave_tpu", 256, device,
-                         capture=problems)
-    print(f"2048-job tier, shockwave_tpu on 256 GPUs: makespan "
+                         capture=problems,
+                         max_rounds=sim.TIER_2048_CUT["rounds"])
+    print(f"2048-job tier's first {sim.TIER_2048_CUT['rounds']} rounds, "
+          f"shockwave_tpu on 256 GPUs: makespan "
           f"{tier['makespan']:.3f} avg JCT {tier['avg_jct']:.3f} worst FTF "
           f"{tier['worst_ftf']:.3f}, {tier['rounds']} rounds; solves "
           f"{tier['solves']} taking {tier['solve_s']} s (level solves by "
           f"device {tier['device_solves']}); wall {tier['wall_s']:.2f} s",
           flush=True)
-    bad = sim.check_run(tier, sim.TIER_2048)
+    bad = sim.check_run(tier, sim.TIER_2048_CUT)
     if bad:
         fail("2048-job tier: " + ", ".join(bad))
     on_card = tier["device_solves"].get("cuda", 0)
@@ -1217,7 +1249,10 @@ def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
                             cluster=sim.HETERO_CLUSTER, gpus_per_server=4),
               "HETERO", policy)
 
-    runs["2048-job tier, shockwave_tpu on 256 GPUs"] = {
+    # Item 8's tier is cut to its first rounds: printed, not paired with
+    # the whole max-min run.
+    runs[f"2048-job tier's first {shockwave_tier['rounds']} rounds, "
+         "shockwave_tpu on 256 GPUs"] = {
         k: shockwave_tier[k] for k in ("makespan", "avg_jct", "worst_ftf",
                                        "unfair_fraction", "rounds")}
     for title, kind in (("Figure 9", lambda l: "Figure 9" in l or "2048" in l),
@@ -1233,9 +1268,6 @@ def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
         f"Figure 9, shockwave_tpu on {gpus} GPUs",
         f"Figure 9, max_min_fairness on {gpus} GPUs") for gpus in (64, 128,
                                                                     256)}
-    pairs["2048 jobs, 256 GPUs"] = (
-        "2048-job tier, shockwave_tpu on 256 GPUs",
-        "2048-job tier, max_min_fairness on 256 GPUs")
     ratios = {}
     for cell, (sw, mmf) in pairs.items():
         r = ratios[cell] = {k: runs[sw][k] / runs[mmf][k]
@@ -1418,8 +1450,8 @@ def run_cells(device, card: str) -> dict:
                             state=frozen_state(self))
         return real_round(self)
 
-    argv = ["-t", str(sim.TRACE_2048), "-p", "shockwave_tpu_pdhg", "-c",
-            "v100=256", "--time_per_iteration", "120", "--cells", "4"]
+    argv = [*sim.TIER_2048_CELLS_ARGS, "--max_rounds",
+            str(sim.TIER_2048_CELLS_CUT["rounds"])]
     batched.solve_cells_pdhg = recording
     CellPlanner._write_schedules = auditing
     CellPlanner.current_round_schedule = snapshotting
@@ -1448,22 +1480,18 @@ def run_cells(device, card: str) -> dict:
           f"{head['s']:.3f} s, host tail {tail_s:.3f} s; {audited['plans']} "
           f"cell plans audited; {checked} lanes equal to their one-lane "
           f"launches; wall {tier['wall_s']:.2f} s", flush=True)
-    drift = {k: tier[k] / v - 1.0 for k, v in sim.TIER_2048_CELLS.items()}
-    print(f"  against the JAX package's run on the CPU "
-          f"({sim.TIER_2048_CELLS}), relative: "
-          + ", ".join(f"{k} {v:+.4%}" for k, v in drift.items()), flush=True)
-    bad = sim.check_run(tier, sim.TIER_2048_CELLS_H100)
-    print(f"  against the card's pinned run ({sim.TIER_2048_CELLS_H100}): "
+    bad = sim.check_run(tier, sim.TIER_2048_CELLS_CUT)
+    print(f"  against the JAX package's run of the same rounds on the CPU "
+          f"({sim.TIER_2048_CELLS_CUT}): "
           + (", ".join(bad) if bad else "within 1e-3"), flush=True)
     if bad:
-        fail("cells tier against the card's pinned run: " + ", ".join(bad))
+        fail("cells tier against the JAX package's run: " + ", ".join(bad))
     readings["tier"] = dict(
         {k: tier[k] for k in ("makespan", "avg_jct", "worst_ftf", "rounds",
                               "solves", "wall_s")},
         launches=tier_launches, lanes_per_launch=per_launch,
         device_head_s=head["s"], host_tail_s=tail_s,
-        plans_audited=audited["plans"], lanes_checked=checked,
-        drift_vs_jax=drift)
+        plans_audited=audited["plans"], lanes_checked=checked)
 
     # (iii) The what-if fleet through its CLI: (a) round 91 of the
     # committed log on the JAX package's 1024-scenario fleet; (b) the
@@ -2827,37 +2855,227 @@ def run_families(fa, train, device, card: str) -> dict:
             "orbax_resumed_loss": orbax["losses"][0]}
 
 
-# Phase 17: the physical control plane. The payload is phase 6's 110M tier
-# at its widths, cut to 4 layers (the phase's rounds are sized by the
-# relaunch start-up, PERF.md section 6); its own batch is 8. The port has
-# no H100 oracle: the scheduler plans with the v100 oracle's label
-# "Transformer (batch size 16)", 46.4 steps/s, three times the payload's
-# rate at its share of the card. Under that belief each plan expects
-# the jobs to end sooner than they do, the planner re-plans on their
-# measured progress and rotates them, so that every job is stopped
-# before its end and resumed; under "Transformer (batch size 128)",
-# 15.5 steps/s, near the payload's rate, it runs two jobs to their end
-# and then the third, and only one job is relaunched
-# (tests/physical_rotation.py; tests/test_torch_physical.py holds the
-# rotation under a scripted clock).
+# Phase 20: the card's own oracle, measured through
+# ``tools/measure_throughput`` before phase 17 plans from it, and one gang.
+ORACLE_OUT = ROOT / "_smoke_out" / "oracle"
+# Phase 17's payload under its label, and one small row of another family.
+ORACLE_SMALL_ROW = ("Recommendation", 512)
+ORACLE_PROBE_FACTOR = 2.0  # the payload's rate against phase 6's probe
+GANG_TIMEOUT_S = 180.0
+
+
+def run_gang(device, card: str) -> dict:
+    """Phase 20(b): one two-rank gang of the card driver's command
+    (ResNet-18 at ``GANG_CPU_BATCH``, ``GANG_STEPS`` steps, ``--gang_device
+    cpu``), its ranks on the host's CPU over gloo. Returns each rank's
+    exit code, losses and rendezvous seconds."""
+    from shockwave_tpu_torch.runtime.testing import free_port
+    from shockwave_tpu_torch.tools.physical_drivers import (
+        GANG_CPU_BATCH,
+        GANG_STEPS,
+    )
+
+    addr = f"127.0.0.1:{free_port()}"
+    command = [sys.executable, "-m", "shockwave_tpu_torch.models.train",
+               "--model", "ResNet-18", "--batch_size",
+               str(GANG_CPU_BATCH["ResNet-18"]), "-n", str(GANG_STEPS),
+               "--gang_device", "cpu", "--distributed_addr", addr,
+               "--num_workers", "2", "--distributed_timeout", "60"]
+    # The two ranks share the host's cores.
+    env = dict(os.environ, SHOCKWAVE_PHASE_TIMINGS="1",
+               OMP_NUM_THREADS=str(max(1, (os.cpu_count() or 2) // 2)))
+    started = time.time()
+    procs = [subprocess.Popen(command + ["--worker_rank", str(rank)],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            outs.append(proc.communicate(timeout=GANG_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = []
+    for proc, out in zip(procs, outs + [""] * (2 - len(outs))):
+        m = re.search(r"^GANG rank=(\d+) world=2 params=(\w+) losses=(\[.*\])$",
+                      out, re.M)
+        p = _PHASES_LINE.search(out)
+        ranks.append({
+            "exit": proc.returncode,
+            "losses": json.loads(m.group(3)) if m else None,
+            "params": m.group(2) if m else None,
+            "device_cpu": bool(re.search(r"steps=\d+ .* device=cpu$", out,
+                                         re.M)),
+            "rendezvous_s": (float(re.search(r"rendezvous=([\d.]+)s",
+                                             p.group(1)).group(1))
+                             if p and "rendezvous=" in p.group(1) else None),
+            "tail": out[-1500:]})
+    return {"ranks": ranks, "seconds": time.time() - started}
+
+
+def run_oracle(fa, device, card: str, probe_steps_per_s: float) -> dict:
+    """Phase 20 (docstring, item 20). ``probe_steps_per_s`` is phase 6's
+    steps/s at 8 layers. Returns the readings and the oracle's path."""
+    from shockwave_tpu_torch.data import read_throughputs
+    from shockwave_tpu_torch.data.throughputs import stringify_throughputs
+    from shockwave_tpu_torch.tools import measure_throughput as mt
+    from shockwave_tpu_torch.utils.fileio import atomic_write_json
+
+    tag = f"[{card}]"
+    print(f"oracle phase {tag}:", flush=True)
+    shutil.rmtree(ORACLE_OUT, ignore_errors=True)
+    ORACLE_OUT.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    bad = []
+    rows = [("Transformer", PHYSICAL_BATCH, PHYSICAL_WIDTHS), ORACLE_SMALL_ROW]
+    fa.reset_launch_counts()
+    started = time.time()
+    oracle = mt.measure_oracle(rows, PHYSICAL_WORKER_TYPE, device="cuda")
+    measure_s = time.time() - started
+    launches = dict(fa.LAUNCHES)
+    path = ORACLE_OUT / "oracle_h100.json"
+    atomic_write_json(str(path), stringify_throughputs(oracle))
+    read = read_throughputs(str(path))
+    if read != oracle:
+        bad.append("the written oracle does not read back equal")
+    isolated = {key[0]: entry["null"]
+                for key, entry in read[PHYSICAL_WORKER_TYPE].items()
+                if key[1] == 1}
+    rate = isolated.get(PHYSICAL_JOB_TYPE)
+    # Phase 6's probe runs 8 layers; the payload's 4 take about half the
+    # time a step.
+    expected = probe_steps_per_s * 8 / PHYSICAL_LAYERS
+    if rate is None or not (expected / ORACLE_PROBE_FACTOR <= rate
+                            <= expected * ORACLE_PROBE_FACTOR):
+        bad.append(f"{PHYSICAL_JOB_TYPE}: {rate} steps/s, phase 6's probe "
+                   f"scaled by layers {expected:.3f} (a factor "
+                   f"{ORACLE_PROBE_FACTOR} allowed)")
+    for name in ("flash_fwd", "flash_dkv", "flash_dq"):
+        if launches.get(name, 0) < 1:
+            bad.append(f"the payload's measurement launched {name} "
+                       f"{launches.get(name, 0)} times")
+    gang = run_gang(device, card)
+    losses = [r["losses"] for r in gang["ranks"]]
+    for rank, r in enumerate(gang["ranks"]):
+        if r["exit"] != 0 or r["losses"] is None or not r["device_cpu"]:
+            bad.append(f"gang rank {rank}: exit {r['exit']}, losses "
+                       f"{r['losses']}, on the CPU {r['device_cpu']}: "
+                       f"{r['tail']!r}")
+    if losses[0] is None or losses[0] != losses[1]:
+        bad.append(f"gang ranks report different losses: {losses}")
+    digests = [r["params"] for r in gang["ranks"]]
+    if digests[0] is None or digests[0] != digests[1]:
+        bad.append(f"gang ranks hold different parameters: {digests}")
+    elif len(losses[0]) != 2 or not all(math.isfinite(x) for x in losses[0]):
+        bad.append(f"gang losses {losses[0]}")
+    print(f"  {', '.join(f'{k}: {v:.3f} steps/s' for k, v in isolated.items())}"
+          f" alone on the card (slope method, {measure_s:.1f} s); phase 6's "
+          f"probe scaled to {PHYSICAL_LAYERS} layers {expected:.3f} steps/s; "
+          f"flash launches {launches} {tag}", flush=True)
+    print(f"  gang (ResNet-18, 2 ranks on the host's CPU over gloo): losses "
+          f"{losses[0]} on both ranks, rendezvous "
+          f"{[r['rendezvous_s'] for r in gang['ranks']]} s, "
+          f"{gang['seconds']:.1f} s {tag}", flush=True)
+    if bad:
+        fail("oracle phase: " + "; ".join(bad))
+    return {"path": str(path), "isolated": isolated, "measure_s": measure_s,
+            "probe_expected": expected, "launches": launches,
+            "gang": {"losses": losses[0], "seconds": gang["seconds"],
+                     "rendezvous_s": [r["rendezvous_s"]
+                                      for r in gang["ranks"]]}}
+
+
+# Phase 21: the chaos soak's reduced campaign (``tools/chaos_soak.py
+# --smoke``) with the planner on the card.
+CHAOS_OUT = ROOT / "_smoke_out" / "chaos"
+
+
+def run_chaos(device, card: str) -> dict:
+    """Phase 21 (docstring, item 21). Every invariant is hard."""
+    from shockwave_tpu_torch import obs
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel_a
+    from shockwave_tpu_torch.ops import eg_relaxed as kernel_b
+    from shockwave_tpu_torch.tools import chaos_soak
+
+    tag = f"[{card}]"
+    print(f"chaos phase {tag}:", flush=True)
+    shutil.rmtree(CHAOS_OUT, ignore_errors=True)
+    args = chaos_soak.build_parser().parse_args(
+        ["--smoke", "--device", "cuda", "--out", str(CHAOS_OUT)])
+    for key, value in chaos_soak.SMOKE.items():
+        setattr(args, key, value)
+    kernel_a.reset_launch_counts()
+    kernel_b.reset_launch_counts()
+    started = time.time()
+    try:
+        result = chaos_soak.run_campaign(args)
+    finally:
+        # The campaign's recorder and watchdog stay off the later phases.
+        obs.reset()
+    seconds = time.time() - started
+    launches = {"eg_pdhg": kernel_a.LAUNCHES["eg_pdhg"],
+                "eg_relaxed": kernel_b.LAUNCHES["eg_relaxed"]}
+    bad = list(result["failures"])
+    if launches["eg_pdhg"] < result["degraded_rounds"]:
+        bad.append(f"kernel A launched {launches['eg_pdhg']} times for "
+                   f"{result['degraded_rounds']} rounds the ladder degraded "
+                   "to pdhg")
+    print(f"  {result['applied_events']} faults applied, "
+          f"{result['recovered_events']} recovered, "
+          f"{result['log_faults']} / {result['log_recoveries']} in the log, "
+          f"{result['chaos']['rounds']} rounds, {result['degraded_rounds']} "
+          f"degraded, {result['replay_exact']} of {result['replayed_plans']} "
+          f"plans replayed exactly; makespan "
+          f"{result['baseline']['makespan_s']:.1f} s fault-free against "
+          f"{result['chaos']['makespan_s']:.1f} s, worst FTF "
+          f"{result['baseline']['worst_ftf']:.3f} against "
+          f"{result['chaos']['worst_ftf']:.3f} (delta "
+          f"{result['worst_ftf_delta']:+.3f}); launches {launches}; "
+          f"{seconds:.1f} s {tag}", flush=True)
+    if bad:
+        fail("chaos phase: " + "; ".join(bad))
+    return {**{k: v for k, v in result.items() if k != "failures"},
+            "launches": launches, "seconds": seconds}
+
+
+# Phase 17: the physical control plane, through the card driver's loop
+# (``tools/physical_drivers.py``). The payload is phase 6's 110M tier at its
+# widths, cut to 4 layers, at batch 8. The agent registers as ``h100`` and
+# the planner plans from phase 20's oracle, the payload's rate measured on
+# this card under its own label; the jobs are sized as the card driver
+# sizes them (``localize_jobs``: the oracle's rate x 0.5 x the training
+# seconds, two payloads sharing the card), to ``PHYSICAL_JOB_EPOCHS``
+# epochs of 1250 steps. Under the card's own rate the planner's priorities
+# move only when a job finishes an epoch (three one-epoch jobs tie, and the
+# first runs to its end): after a job's first epoch the planner stops it,
+# and a lease it extended before then runs on for up to a round and a
+# half, which the rest of the job must outlast (tests/physical_rotation.py;
+# tests/test_torch_physical.py holds the rotation under a scripted clock).
 PHYSICAL_OUT = ROOT / "_smoke_out" / "physical"
 PHYSICAL_SLOTS = 2
 PHYSICAL_JOBS = 3
-PHYSICAL_JOB_TYPE = "Transformer (batch size 16)"
+PHYSICAL_WORKER_TYPE = "h100"
+PHYSICAL_BATCH = 8
+PHYSICAL_JOB_TYPE = f"Transformer (batch size {PHYSICAL_BATCH})"
 PHYSICAL_LAYERS = 4
-PHYSICAL_PAYLOAD = ("--batch_size 8 --vocab_size 8192 --d_model 1024 "
-                    f"--num_heads 8 --num_layers {PHYSICAL_LAYERS} "
-                    "--seq_len 2048 --dtype bfloat16 --attention flash")
-# A payload process's start before its build (interpreter, torch import),
-# seconds (dispatch to first lease less build and restore, measured on
-# the card); the rest of its start-up is phase 6's build (the card's
-# context included) and restore.
-PHYSICAL_PROCESS_START_S = 9.0
-PHYSICAL_MIN_ROUND_S = 12.0
-# A job's steps: this many rounds of training at its share of the card.
-PHYSICAL_WORK_ROUNDS = 1.6
+PHYSICAL_WIDTHS = ("--vocab_size 8192 --d_model 1024 --num_heads 8 "
+                   f"--num_layers {PHYSICAL_LAYERS} --seq_len 2048 "
+                   "--dtype bfloat16 --attention flash")
+# The rounds' length: a fresh payload reaches its first lease 14-29 s after
+# its dispatch on the card (two start together), so shorter rounds end
+# attempts at their leases before they train; longer ones need longer jobs
+# to rotate, and a job run on for more than about six rounds unbroken
+# refreshes its lease too seldom for the scheduler's silence limit (1.5
+# rounds) and is killed (ROADMAP.md, queue 3).
+PHYSICAL_ROUND_S = 25.0
+PHYSICAL_JOB_EPOCHS = 1.4
 PHYSICAL_BUFFER_S = 30.0
-PHYSICAL_TIMEOUT_S = 420.0
+PHYSICAL_TIMEOUT_S = 480.0
 # The driver's limit on the whole smoke, and what the last phase leaves of
 # it for the lines after the phases and the process's end.
 SMOKE_LIMIT_S = 1200.0
@@ -2896,64 +3114,63 @@ def physical_attempts(run_dir: Path) -> dict:
     return {job: sorted(runs) for job, runs in attempts.items()}
 
 
-def physical_steps(round_s: float, shared_rate: float) -> int:
-    """A phase-17 job's steps: ``PHYSICAL_WORK_ROUNDS`` rounds at its
-    share of the card (``shared_rate`` steps/s)."""
-    return int(math.ceil(PHYSICAL_WORK_ROUNDS * round_s * shared_rate))
+def physical_jobs(oracle: dict) -> list:
+    """Phase 17's jobs, sized by the card driver from ``oracle``:
+    ``PHYSICAL_JOB_EPOCHS`` epochs each."""
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.data.workload_info import steps_per_epoch
+    from shockwave_tpu_torch.tools.physical_drivers import localize_jobs
+
+    rate = oracle[PHYSICAL_WORKER_TYPE][(PHYSICAL_JOB_TYPE, 1)]["null"]
+    train_s = (PHYSICAL_JOB_EPOCHS
+               * steps_per_epoch("Transformer", PHYSICAL_BATCH)
+               / (0.5 * rate))
+    jobs = [Job(job_type=PHYSICAL_JOB_TYPE, command="", total_steps=1)
+            for _ in range(PHYSICAL_JOBS)]
+    return localize_jobs(jobs, oracle, train_s, PHYSICAL_WORKER_TYPE,
+                         PHYSICAL_WIDTHS)
 
 
 def physical_shockwave_config(round_s: float) -> dict:
     """The planner's configuration in phase 17."""
     return {"num_gpus": PHYSICAL_SLOTS, "time_per_iteration": round_s,
-            "future_rounds": 2, "lambda": 5.0, "k": 10.0, "speculate": True}
+            "future_rounds": 3, "lambda": 5.0, "k": 10.0, "speculate": True}
 
 
-def run_physical_plane(device, card: str, steps_per_s: float,
-                       probe_phases: dict, planner: dict,
+def run_physical_plane(device, card: str, oracle_path: Path,
                        deadline: float) -> dict:
-    """Phase 17 (docstring, item 17). ``deadline`` (``time.time()``)
-    bounds every wait of the phase."""
+    """Phase 17 (docstring, item 17). ``oracle_path`` is phase 20's
+    oracle; ``deadline`` (``time.time()``) bounds every wait of the
+    phase."""
     import logging
-    import shlex
     import threading
 
-    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.core.ids import JobId
     from shockwave_tpu_torch.core.physical import PhysicalScheduler
-    from shockwave_tpu_torch.data.default_oracle import generate_oracle
+    from shockwave_tpu_torch.data import read_throughputs
     from shockwave_tpu_torch.data.profiles import synthesize_profiles
     from shockwave_tpu_torch.ops import eg_pdhg as kernel
-    from shockwave_tpu_torch.policies import get_policy
-    from shockwave_tpu_torch.runtime.rpc.submitter_client import (
-        SubmitterClient,
+    from shockwave_tpu_torch.tools.physical_drivers import (
+        run_physical_cluster,
     )
-    from shockwave_tpu_torch.runtime.testing import free_port
 
     tag = f"[{card}]"
     print(f"physical plane phase {tag}:", flush=True)
     shutil.rmtree(PHYSICAL_OUT, ignore_errors=True)
     PHYSICAL_OUT.mkdir(parents=True)
     torch.cuda.empty_cache()
-    # The probe: phase 6's payload alone on the card (8 layers; the
-    # phase's 4 step about twice as fast).
-    startup_s = PHYSICAL_PROCESS_START_S + sum(
-        probe_phases.get(k, 0.0) for k in ("build", "restore"))
-    round_s = max(PHYSICAL_MIN_ROUND_S, math.ceil(startup_s + 6.0))
-    shared_rate = steps_per_s * 8 / PHYSICAL_LAYERS / PHYSICAL_SLOTS
-    steps = physical_steps(round_s, shared_rate)
+    round_s = PHYSICAL_ROUND_S
+    oracle = read_throughputs(str(oracle_path))
+    rate = oracle[PHYSICAL_WORKER_TYPE][(PHYSICAL_JOB_TYPE, 1)]["null"]
+    jobs = physical_jobs(oracle)
+    steps = jobs[0].total_steps
     print(f"  rounds of {round_s:.0f} s, {PHYSICAL_JOBS} jobs of {steps} "
-          f"steps at {PHYSICAL_LAYERS} layers (probe {steps_per_s:.3f} "
-          f"steps/s alone at 8, start-up {startup_s:.1f} s), "
-          f"{deadline - time.time():.0f} s left of the smoke's "
-          f"{SMOKE_LIMIT_S:.0f} s before phase 18's reserve {tag}",
-          flush=True)
-
-    oracle = generate_oracle()
-    command = (f"{shlex.quote(sys.executable)} -m "
-               f"shockwave_tpu_torch.models.train --model Transformer "
-               f"{PHYSICAL_PAYLOAD}")
-    jobs = [Job(job_type=PHYSICAL_JOB_TYPE, command=command,
-                num_steps_arg="-n", total_steps=steps)
-            for _ in range(PHYSICAL_JOBS)]
+          f"steps ({PHYSICAL_JOB_TYPE} at {PHYSICAL_LAYERS} layers, "
+          f"{rate:.3f} steps/s alone in phase 20's oracle, "
+          f"{PHYSICAL_JOB_EPOCHS} epochs), {deadline - time.time():.0f} s "
+          f"left of the smoke's {SMOKE_LIMIT_S:.0f} s before phase 18's "
+          f"reserve {tag}", flush=True)
+    profiles = synthesize_profiles(jobs, oracle, PHYSICAL_WORKER_TYPE)
     errors: list = []
 
     class Errors(logging.Handler):
@@ -2970,13 +3187,11 @@ def run_physical_plane(device, card: str, steps_per_s: float,
 
     threading.excepthook = hook
     kernel.reset_launch_counts()
-    sched_port, worker_port = free_port(), free_port()
-    from shockwave_tpu_torch.core.ids import JobId
-
     # Each attempt's start-up: dispatch to its first lease request; each
     # job's preemptions (it lost its slot at a round boundary).
     startups = []
     preempted_jobs: dict = {}
+    held: dict = {}
 
     class TimedScheduler(PhysicalScheduler):
         def _init_job_rpc(self, job_id):
@@ -2991,56 +3206,31 @@ def run_physical_plane(device, card: str, steps_per_s: float,
             return super()._round_observability(assignments,
                                                 preempted=preempted)
 
-    sched = TimedScheduler(
-        get_policy("shockwave_tpu_pdhg", device=device),
-        port=sched_port, throughputs=oracle, time_per_iteration=round_s,
-        completion_buffer_seconds=PHYSICAL_BUFFER_S,
-        minimum_time_between_allocation_resets=0.0,
-        profiles=synthesize_profiles(jobs, oracle),
-        shockwave_config=physical_shockwave_config(round_s),
-    )
-    worker_log = open(PHYSICAL_OUT / "worker.log", "w")
-    worker = subprocess.Popen(
-        [sys.executable, "-m", "shockwave_tpu_torch.runtime.worker",
-         "-t", "v100", "-n", str(PHYSICAL_SLOTS), "-a", "127.0.0.1",
-         "-s", str(sched_port), "-p", str(worker_port),
-         "--run_dir", str(PHYSICAL_OUT / "run"),
-         "--checkpoint_dir", str(PHYSICAL_OUT / "ckpt")],
-        cwd=ROOT, stdout=worker_log, stderr=subprocess.STDOUT)
     started = time.time()
-
-    def left(most: float) -> float:
-        return max(1.0, min(most, deadline - time.time()))
-
     try:
-        sched.wait_for_workers(PHYSICAL_SLOTS, timeout=left(90))
-        sched.expect_stream()
-        runner = threading.Thread(target=sched.run, name="round-loop")
-        runner.start()
-        client = SubmitterClient("127.0.0.1", sched_port, client_id="smoke")
-        client.submit_stream(jobs, batch_size=len(jobs))
-        client.close()
-        # The worker's exit after Shutdown has 30 s of what is left.
-        runner.join(timeout=left(PHYSICAL_TIMEOUT_S) - 30)
-        if runner.is_alive():
-            errors.append(
-                f"the round loop ran on past {time.time() - started:.0f} s "
-                f"(the phase's limit {PHYSICAL_TIMEOUT_S} s, or the smoke's "
-                f"{SMOKE_LIMIT_S:.0f} s less the phases after it)")
+        summary = run_physical_cluster(
+            jobs, [0.0] * len(jobs), oracle, profiles, "shockwave_tpu_pdhg",
+            str(PHYSICAL_OUT), PHYSICAL_WORKER_TYPE, dict(os.environ),
+            PHYSICAL_SLOTS, round_s, 1.0, None, PHYSICAL_BUFFER_S,
+            shockwave_config=physical_shockwave_config(round_s),
+            device=str(device), worker_device="cuda",
+            scheduler_cls=TimedScheduler,
+            deadline=min(deadline, started + PHYSICAL_TIMEOUT_S),
+            worker_log=str(PHYSICAL_OUT / "worker.log"),
+            extra_summary=lambda sched, run_dir: held.update(sched=sched)
+            or {})
     finally:
-        sched.shutdown()
-        try:
-            worker_rc = worker.wait(timeout=left(60))
-        except subprocess.TimeoutExpired:
-            worker.kill()
-            worker_rc = worker.wait()
-            errors.append("the worker agent did not exit after Shutdown")
-        worker_log.close()
         threading.excepthook = previous_hook
         logging.getLogger().removeHandler(handler)
     loop_s = time.time() - started
+    sched = held["sched"]
 
     bad = list(errors)
+    if summary["timed_out"]:
+        bad.append(f"the round loop ran on past {loop_s:.0f} s (the "
+                   f"phase's limit {PHYSICAL_TIMEOUT_S} s, or the smoke's "
+                   f"{SMOKE_LIMIT_S:.0f} s less the phases after it)")
+    worker_rc = summary["worker_exit_code"]
     worker_text = (PHYSICAL_OUT / "worker.log").read_text()
     if worker_rc != 0 or "Traceback" in worker_text:
         bad.append(f"worker agent exit {worker_rc}: {worker_text[-2000:]}")
@@ -3106,8 +3296,9 @@ def run_physical_plane(device, card: str, steps_per_s: float,
                              "train", "save")} if phases else {}
     relaunch_s = sum(v for k, v in mean_phases.items() if k != "train")
     reading = {
-        "round_s": round_s, "steps": steps, "loop_s": loop_s,
-        "rounds": sched._num_completed_rounds,
+        "round_s": round_s, "steps": steps, "oracle_rate": rate,
+        "worker_type": PHYSICAL_WORKER_TYPE, "job_type": PHYSICAL_JOB_TYPE,
+        "loop_s": loop_s, "rounds": sched._num_completed_rounds,
         "attempts": {j: [r for r, _ in runs] for j, runs in attempts.items()},
         "rounds_held": spans, "startup_s": startups,
         "preemptions": sched.get_num_preemptions(),
@@ -3122,7 +3313,6 @@ def run_physical_plane(device, card: str, steps_per_s: float,
         "eg_pdhg_launches": a_launches, "side_stream_launches": side,
         "flash_launches": flash, "relaunch_phases_mean": mean_phases,
         "relaunch_s_mean": relaunch_s,
-        "phase14_checkpoint": planner.get("checkpoint"),
     }
     print(f"  {len(sched._completed_jobs)} jobs complete in "
           f"{sched._num_completed_rounds} rounds ({loop_s:.1f} s of round "
@@ -3135,9 +3325,7 @@ def run_physical_plane(device, card: str, steps_per_s: float,
     print(f"  planner: {len(solves)} solves, mean "
           f"{reading['solve_s_mean'] or 0:.4f} s, max "
           f"{reading['solve_s_max'] or 0:.4f} s; speculation "
-          f"{reading['spec_stats']} (a finding, no claim; phase 14's "
-          f"checkpointed 220-job pdhg runs: {planner.get('checkpoint')}) "
-          f"{tag}", flush=True)
+          f"{reading['spec_stats']} (a finding, no claim) {tag}", flush=True)
     print(f"  payload relaunch, mean over {len(phases)} attempts: "
           + ", ".join(f"{k} {v:.2f} s" for k, v in mean_phases.items())
           + f"; relaunch overhead {relaunch_s:.2f} s; dispatch to first "
@@ -3323,6 +3511,18 @@ def main() -> None:
           f"GiB; flash {1 / steady_s:.3f} steps/s, peak {peak_gib:.2f} GiB",
           flush=True)
 
+    oracle_started = time.time()
+    oracle = run_oracle(fa, device, card, 1 / steady_s)
+    oracle["phase_s"] = time.time() - oracle_started
+    print(f"oracle phase: {oracle['phase_s']:.1f} s, the smoke's growth "
+          f"[{card}]", flush=True)
+    deadlines = phase_deadlines(started)
+    physical_started = time.time()
+    physical = run_physical_plane(device, card, Path(oracle["path"]),
+                                  deadlines["physical"])
+    physical["phase_s"] = time.time() - physical_started
+    print(f"physical plane phase: {physical['phase_s']:.1f} s, the smoke's "
+          f"growth [{card}]", flush=True)
     simulation_started = time.time()
     simulation = run_simulation(device)
     simulation["phase_s"] = time.time() - simulation_started
@@ -3375,16 +3575,11 @@ def main() -> None:
     families["phase_s"] = time.time() - families_started
     print(f"families phase: {families['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
-    deadlines = phase_deadlines(started)
-    physical_started = time.time()
-    # The probe: phase 6's run, and its resumed run's restore.
-    physical = run_physical_plane(
-        device, card, 1 / steady_s,
-        {**first["phases"], "restore": resumed["phases"].get("restore", 0.0)},
-        planner, deadlines["physical"])
-    physical["phase_s"] = time.time() - physical_started
-    print(f"physical plane phase: {physical['phase_s']:.1f} s, the smoke's "
-          f"growth [{card}]", flush=True)
+    chaos_started = time.time()
+    chaos = run_chaos(device, card)
+    chaos["phase_s"] = time.time() - chaos_started
+    print(f"chaos phase: {chaos['phase_s']:.1f} s, the smoke's growth "
+          f"[{card}]", flush=True)
     failover_started = time.time()
     failover = run_failover(device, card, deadlines["failover"])
     failover["phase_s"] = time.time() - failover_started
@@ -3417,6 +3612,8 @@ def main() -> None:
             "physical_launches": physical["flash_launches"].get(name, 0),
             # Phase 19's 5-step MoE tier (one launch a layer a step).
             "moe_launches": families["moe"]["launches"].get(name, 0),
+            # Phase 20's measurement of phase 17's payload.
+            "oracle_launches": oracle["launches"].get(name, 0),
             "share_of_bound": bound_ms / ms[name][0],
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
@@ -3481,6 +3678,9 @@ def main() -> None:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "jobs": row["jobs"],
+            # Phase 21's chaos campaign: the ladder's degraded rounds and
+            # their replays.
+            "chaos_launches": chaos["launches"][name],
             "ms_before": row["ms_before"],
             "barriers": row["barriers"],
             "barriers_before": row["barriers_before"],
@@ -3549,6 +3749,7 @@ def main() -> None:
         "telemetry": telemetry["phase_s"],
         "physical": physical["phase_s"],
         "failover": failover["phase_s"], "families": families["phase_s"],
+        "oracle": oracle["phase_s"], "chaos": chaos["phase_s"],
         "first_order_tier": first_order["tier_2048_pdhg"]["wall_s"], **{
             f"telemetry_{k}": v for k, v in telemetry["seconds"].items()}},
         "card": card})
@@ -3565,6 +3766,8 @@ def main() -> None:
     print(json.dumps({"physical": physical, "card": card}, default=str))
     print(json.dumps({"failover": failover, "card": card}, default=str))
     print(json.dumps({"families": families, "card": card}))
+    print(json.dumps({"oracle": oracle, "card": card}))
+    print(json.dumps({"chaos": chaos, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(seconds_line)

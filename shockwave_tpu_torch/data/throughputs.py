@@ -58,3 +58,16 @@ def read_throughputs(file_name: str) -> Dict[str, Dict[JobTypeKey, dict]]:
             parsed[worker_type][key] = converted
     return parsed
 
+
+
+def stringify_throughputs(throughputs: Dict[str, Dict[JobTypeKey, dict]]) -> dict:
+    """Inverse of :func:`read_throughputs` for writing oracle files."""
+    out: dict = {}
+    for worker_type, per_type in throughputs.items():
+        out[worker_type] = {}
+        for key, entries in per_type.items():
+            out[worker_type][str(key)] = {
+                ("null" if other == "null" else str(other)): v
+                for other, v in entries.items()
+            }
+    return out

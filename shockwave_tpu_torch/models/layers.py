@@ -97,12 +97,32 @@ class SameConvTranspose2d(nn.Module):
         return y[..., :out_h, :out_w]
 
 
+class _RankMean(torch.autograd.Function):
+    """A tensor's mean over the default process group's ranks; the
+    gradient flows back to every rank's input as the ranks' mean."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        y = x.clone()
+        dist.all_reduce(y)
+        return y / dist.get_world_size()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _RankMean.apply(grad)
+
+
 class FlaxBatchNorm2d(nn.Module):
     """``flax.linen.BatchNorm`` over NCHW channels: scale ``weight``, shift
     ``bias``, and the running ``running_mean`` / ``running_var`` that
     flax keeps in ``batch_stats``. In training mode it normalises with
     the batch's mean and biased variance and moves the running statistics
-    by ``momentum`` (the old value's weight)."""
+    by ``momentum`` (the old value's weight). With ``global_batch`` set
+    (a gang's ranks, each holding an equal shard of the batch) the mean
+    and the mean square are averaged over the default process group, with
+    their gradients, as XLA reduces them over a global batch."""
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM,
                  eps: float = BN_EPS):
@@ -112,12 +132,16 @@ class FlaxBatchNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self.global_batch = False
 
     def forward(self, x):
         if self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            moments = torch.stack([x.mean(dim=(0, 2, 3)),
+                                   (x * x).mean(dim=(0, 2, 3))])
+            if self.global_batch:
+                moments = _RankMean.apply(moments)
+            mean, mean_sq = moments
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean)

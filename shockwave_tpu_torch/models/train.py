@@ -46,8 +46,24 @@ the iterator's progress line tells the dispatcher how far it got.
 JAX program builds it: ``factorize_gang`` over the devices the run holds
 (one card, or the CPU), so P must divide their count.
 
-Not ported (each raises NotImplementedError, see ROADMAP.md): gang
-rendezvous over several workers and model parallelism (queue 1, item 8).
+A gang (``--distributed_addr host:port --num_workers W --worker_rank r``,
+appended by the scheduler) trains data-parallel over gloo, as the JAX
+program's gang trains over ``jax.distributed``: every rank builds the same
+weights from ``--seed``, draws its own ``--batch_size`` batch from
+``--seed + r`` (the global batch is W of them), and takes the step of the
+mean loss over the global batch: the gradients are averaged across the
+ranks, BatchNorm normalises with the global batch's statistics, and the
+reported loss is the global mean, so every rank prints the same losses
+and holds the same parameters (``GANG rank=r world=W params=<digest>
+losses=[...]``). The
+rendezvous fails after ``--distributed_timeout`` seconds (rounded up)
+when a rank is missing. Rank 0 writes the checkpoint; every rank
+restores it and then takes rank 0's state. ``--gang_device cpu`` runs the ranks on the host's CPU
+whatever ``--device`` says, as the card driver runs gangs.
+
+Not ported (each raises NotImplementedError, see ROADMAP.md, queue 1,
+item 8): model parallelism, and inside a gang sequence parallelism and
+the MoE MLP (whose capacity and balance loss are the global batch's).
 """
 
 from __future__ import annotations
@@ -63,6 +79,7 @@ import numpy as np
 import torch
 
 from shockwave_tpu_torch.models import small_models as sm
+from shockwave_tpu_torch.models.layers import FlaxBatchNorm2d
 from shockwave_tpu_torch.models.resnet import ResNet18, ResNet50
 from shockwave_tpu_torch.models.transformer import (
     TransformerConfig,
@@ -82,6 +99,10 @@ FAMILIES = ("Transformer", "ResNet-18", "ResNet-50", "LM", "Recommendation",
             "A3C", "CycleGAN")
 
 
+# jax.distributed's rendezvous timeout when the scheduler sets none.
+DEFAULT_RENDEZVOUS_TIMEOUT_S = 300
+
+
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to shockwave_tpu_torch yet; see ROADMAP.md"
@@ -98,13 +119,75 @@ def _tensor(array, device, dtype=None):
     return torch.from_numpy(np.asarray(array, dtype)).to(device)
 
 
-def build_family(name, args, device, mesh=None):
+class Gang:
+    """The data-parallel ranks of one gang, over the default process
+    group: each rank's batch is one shard of the global batch."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.rank, self.world = dist.get_rank(), dist.get_world_size()
+
+    def average_gradients(self, params) -> None:
+        """Every gradient becomes its mean over the ranks (one
+        all-reduce of the flattened gradients)."""
+        import torch.distributed as dist
+
+        grads = [p.grad for p in params if p.grad is not None]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat)
+        flat /= self.world
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def broadcast_state(self, model, opt) -> None:
+        """Rank 0's parameters, buffers and optimizer moments on every
+        rank (after each rank restored the checkpoint rank 0 wrote)."""
+        import torch.distributed as dist
+
+        state = opt.full_state_dict()["state"]
+        steps = torch.tensor([s["step"] for s in state.values()],
+                             dtype=torch.float64)
+        for tensor in [*model.state_dict().values(), steps,
+                       *(s[k] for s in state.values() for k in ("m", "v"))]:
+            dist.broadcast(tensor, 0)
+        params = [p for group in opt.param_groups for p in group["params"]]
+        for p, count in zip(params, steps.tolist()):
+            opt.state[p]["step"] = int(count)
+
+    def mean(self, value: torch.Tensor) -> torch.Tensor:
+        """``value``'s mean over the ranks."""
+        import torch.distributed as dist
+
+        value = value.detach().clone()
+        dist.all_reduce(value)
+        return value / self.world
+
+
+def state_digest(model) -> str:
+    """A digest of the model's parameters and buffers, bit for bit (a
+    gang's ranks print theirs to show they hold the same state)."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name, tensor in sorted(model.state_dict().items()):
+        digest.update(name.encode())
+        digest.update(tensor.detach().cpu().contiguous().numpy().tobytes())
+    return digest.hexdigest()[:16]
+
+
+def build_family(name, args, device, mesh=None, gang=None):
     """Returns (model, step_fn(batch) -> loss, optimizer,
     batch_fn(np_rng) -> batch). ``step_fn`` takes one AdamW step and
     returns the loss before it, detached and not synchronised. ``mesh``
     is the grid ring and Ulysses attention shard over
     (``parallel/mesh.py``). The weights are drawn on the CPU from
-    ``--seed``, so every device starts from the same ones."""
+    ``--seed``, so every device starts from the same ones. With a
+    ``gang`` (:class:`Gang`) each step is the global batch's: BatchNorm
+    takes the global statistics, the gradients and the returned loss are
+    the ranks' means."""
     generator = torch.Generator().manual_seed(args.seed)
     bs = args.batch_size
 
@@ -205,13 +288,20 @@ def build_family(name, args, device, mesh=None):
         raise ValueError(f"Unknown model family {name!r}")
 
     model = model.to(device)
-    opt = FusedAdamW([p for p in model.parameters() if p.requires_grad],
-                     args.learning_rate)
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = FusedAdamW(params, args.learning_rate)
+    if gang is not None:
+        for module in model.modules():
+            if isinstance(module, FlaxBatchNorm2d):
+                module.global_batch = True
 
     def step_fn(batch):
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(batch)
         loss.backward()
+        if gang is not None:
+            gang.average_gradients(params)
+            loss = gang.mean(loss)
         opt.step()
         return loss.detach()
 
@@ -235,6 +325,10 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"],
                         help="cuda (default) raises when no card is present")
+    parser.add_argument("--gang_device", type=str, default=None,
+                        choices=["cuda", "cpu"],
+                        help="where a gang's ranks train (default: "
+                        "--device); the card driver runs gangs on the CPU")
     # Transformer knobs.
     parser.add_argument("--vocab_size", type=int, default=1024)
     parser.add_argument("--d_model", type=int, default=128)
@@ -263,17 +357,47 @@ def parse_args(argv=None):
     parser.add_argument("--distributed_addr", type=str, default=None)
     parser.add_argument("--num_workers", type=int, default=1)
     parser.add_argument("--worker_rank", type=int, default=0)
-    parser.add_argument("--distributed_timeout", type=float, default=None)
+    parser.add_argument(
+        "--distributed_timeout", type=float, default=None,
+        help="gang rendezvous timeout in seconds (rounded up): fail fast "
+        "when a rank never arrives (default "
+        f"{DEFAULT_RENDEZVOUS_TIMEOUT_S})")
     return parser.parse_args(argv)
 
 
+def _in_gang(args) -> bool:
+    return bool(args.distributed_addr) and args.num_workers > 1
+
+
 def _check_args(args) -> None:
-    if args.distributed_addr and args.num_workers > 1:
-        raise _not_ported(
-            "gang training over several workers (ROADMAP.md, queue 1, "
-            "item 8)")
     if args.model_parallel > 1:
-        raise _not_ported("model parallelism")
+        raise _not_ported("model parallelism (ROADMAP.md, queue 1, item 8)")
+    if _in_gang(args) and args.seq_parallel > 1:
+        raise _not_ported("sequence parallelism across a gang's processes "
+                          "(ROADMAP.md, queue 1, item 8)")
+    if _in_gang(args) and args.model == "Transformer" and args.num_experts:
+        raise _not_ported("the MoE MLP in a gang (ROADMAP.md, queue 1, "
+                          "item 8)")
+
+
+def rendezvous(args) -> Gang:
+    """Joins the gang's gloo process group at ``--distributed_addr``;
+    raises after ``--distributed_timeout`` seconds (rounded up to whole
+    seconds, at least 1, as the JAX program rounds them) when a rank is
+    missing."""
+    import datetime
+    import math
+
+    import torch.distributed as dist
+
+    seconds = (DEFAULT_RENDEZVOUS_TIMEOUT_S
+               if args.distributed_timeout is None
+               else max(1, math.ceil(args.distributed_timeout)))
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://{args.distributed_addr}",
+        world_size=args.num_workers, rank=args.worker_rank,
+        timeout=datetime.timedelta(seconds=seconds))
+    return Gang()
 
 
 class FileCheckpoint:
@@ -303,6 +427,14 @@ class FileCheckpoint:
         torch.save({"model": model.state_dict(), "opt": opt.state_dict(),
                     "step": step}, tmp_path)
         os.replace(tmp_path, self.path)
+
+
+def _one_process() -> dict:
+    """In a gang the directory checkpoint is still one process's (rank 0
+    writes it, each rank reads it): keep the library off the group."""
+    import torch.distributed as dist
+
+    return {"no_dist": True} if dist.is_initialized() else {}
 
 
 class DirectoryCheckpoint:
@@ -335,7 +467,8 @@ class DirectoryCheckpoint:
         tensors = self._tensors(model, opt, 0)
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=_ONE_PROCESS)
-            dcp.load(tensors, checkpoint_id=os.path.realpath(self.path))
+            dcp.load(tensors, checkpoint_id=os.path.realpath(self.path),
+                     **_one_process())
         # The model's tensors and the moments were filled in place.
         params = [p for group in opt.param_groups for p in group["params"]]
         for p, count in zip(params, tensors["moment_steps"].tolist()):
@@ -350,7 +483,8 @@ class DirectoryCheckpoint:
         version = f"{self.path}.v{time.time_ns()}"
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=_ONE_PROCESS)
-            dcp.save(self._tensors(model, opt, step), checkpoint_id=version)
+            dcp.save(self._tensors(model, opt, step), checkpoint_id=version,
+                     **_one_process())
         link = self.path + ".link"
         if os.path.lexists(link):
             os.remove(link)
@@ -382,7 +516,12 @@ def main(argv=None):
             phase_start = now
 
     _check_args(args)
-    device = resolve_device(args.device)
+    gang = None
+    if _in_gang(args):
+        gang = rendezvous(args)
+        mark_phase("rendezvous")
+    device = resolve_device(args.gang_device if gang and args.gang_device
+                            else args.device)
 
     def sync():
         if device.type == "cuda":
@@ -398,11 +537,13 @@ def main(argv=None):
     mesh = make_mesh(factorize_gang(1, args.seq_parallel, args.model_parallel),
                      [device])
     model, step_fn, opt, batch_fn = build_family(args.model, args, device,
-                                                 mesh)
+                                                 mesh, gang)
     sync()
     mark_phase("build")
     if resuming:
         start_step = checkpoint.load(model, opt, device)
+        if gang is not None:
+            gang.broadcast_state(model, opt)
         sync()
         print(f"RESUMED from {checkpoint.path} at step {start_step}",
               flush=True)
@@ -411,10 +552,12 @@ def main(argv=None):
     mark_phase("restore")
 
     def save_checkpoint():
-        if checkpoint:
+        # The ranks hold the same state: rank 0 writes it for the gang.
+        if checkpoint and (gang is None or gang.rank == 0):
             checkpoint.save(model, opt, start_step + len(losses))
 
-    np_rng = np.random.default_rng(args.seed)
+    # Each rank draws its own shard of the global batch.
+    np_rng = np.random.default_rng(args.seed + (gang.rank if gang else 0))
 
     class Batches:
         def __iter__(self):
@@ -468,9 +611,17 @@ def main(argv=None):
 
         print("LAUNCHES " + json.dumps(flash_attention.LAUNCHES,
                                        sort_keys=True), flush=True)
+    if gang is not None:
+        import torch.distributed as dist
+
+        print(f"GANG rank={gang.rank} world={gang.world} "
+              f"params={state_digest(model)} losses="
+              + json.dumps(loss_values), flush=True)
+        dist.destroy_process_group()
     return {"steps": steps, "losses": loss_values, "elapsed_s": elapsed,
             "phases": phase_timings, "resumed": resuming,
-            "start_step": start_step, "device": device.type}
+            "start_step": start_step, "device": device.type,
+            "rank": gang.rank if gang else 0}
 
 
 if __name__ == "__main__":

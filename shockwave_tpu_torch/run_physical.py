@@ -30,6 +30,14 @@ a job of another family raises ValueError.
 ``cuda``; the payloads' device is the worker agent's own ``--device``).
 The telemetry flags are the simulate CLI's (``obs.add_telemetry_args``);
 ``--metrics-port`` also serves the fleet's scrape endpoint.
+
+``--driver card`` and ``--driver localhost`` are the drivers' modes
+(``tools/physical_drivers.py``): one command brings up the scheduler and a
+worker agent, runs the whole trace (the golden one by default) and writes
+its summary; ``card`` runs the payloads on the card with steps sized from
+the measured oracle (``--oracle results/measured_oracle_h100.json``) and
+the gangs' ranks on the host's CPU, ``localhost`` runs every payload on
+the host's CPU. ``--driver card --help`` lists a mode's flags.
 """
 
 from __future__ import annotations
@@ -200,5 +208,18 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def cli(argv=None):
+    """The command line: a driver's mode under ``--driver``, else the
+    scheduler alone."""
+    pre = argparse.ArgumentParser(add_help=False)
+    pre.add_argument("--driver", choices=["card", "localhost"])
+    known, rest = pre.parse_known_args(argv)
+    if known.driver:
+        from shockwave_tpu_torch.tools import physical_drivers
+
+        return physical_drivers.main(known.driver, rest)
+    return main(parse_args(rest))
+
+
 if __name__ == "__main__":
-    main(parse_args())
+    cli()

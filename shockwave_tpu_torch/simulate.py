@@ -220,6 +220,7 @@ def _run(args, device) -> dict:
         jobs_to_complete=jobs_to_complete,
         checkpoint_threshold=args.checkpoint_threshold,
         checkpoint_file=args.checkpoint_file,
+        max_rounds=args.max_rounds,
     )
     wall = time.time() - start
 
@@ -385,6 +386,10 @@ def parse_args(argv=None):
         help="size of the reference-model set for throughput estimation",
     )
     parser.add_argument("--no_profile_cache", action="store_true")
+    parser.add_argument(
+        "--max_rounds", type=int, default=None,
+        help="end the run after this many rounds (its metrics cover the "
+        "jobs completed by then)")
     parser.add_argument(
         "--preemption_overheads",
         type=str,

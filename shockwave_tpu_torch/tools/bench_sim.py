@@ -88,6 +88,13 @@ GOLDEN_FIRST_ORDER = {
 # 497 rounds, 65 level and 349 native solves.
 TIER_2048 = dict(makespan=59578.486, avg_jct=12981.718, worst_ftf=1.410,
                  rounds=497)
+# Its first 250 rounds, which chip_smoke.py phase 8 runs
+# (run_trace(..., max_rounds=TIER_2048_CUT["rounds"])): the JAX package on
+# the CPU (tests/tier_cut_reference.py --policy shockwave_tpu; 191 native
+# and 39 level solves, 1070 jobs completed, the metrics over those). The
+# port on the CPU gives the same digits.
+TIER_2048_CUT = dict(makespan=29879.815, avg_jct=2586.795, worst_ftf=0.867,
+                     rounds=250)
 # The same run under shockwave_tpu_pdhg (the JAX package on the CPU, 424
 # PDHG solves; the port's plain PDHG on the CPU gives the same digits).
 TIER_2048_PDHG = dict(makespan=58678.337, avg_jct=13412.053, worst_ftf=1.399,
@@ -121,6 +128,19 @@ TIER_2048_CELLS = dict(makespan=57838.503, avg_jct=14939.915,
 # capacity move goes the other way.
 TIER_2048_CELLS_H100 = dict(makespan=57298.422, avg_jct=14989.403,
                             worst_ftf=1.812, rounds=478)
+# The cells tier's command line (chip_smoke.py phase 12; the JAX package's
+# scripts/simulate.py takes the same).
+TIER_2048_CELLS_ARGS = ["-t", str(TRACE_2048), "-p", "shockwave_tpu_pdhg",
+                        "-c", "v100=256", "--time_per_iteration", "120",
+                        "--cells", "4"]
+# Its first 260 rounds, which chip_smoke.py phase 12 runs (the CLI's
+# --max_rounds; round 253 holds the most incomplete jobs of the whole
+# run, the state phases 12 and 15 take): the JAX package's
+# scripts/simulate.py on the CPU (tests/tier_cut_reference.py --cells;
+# 1022 jobs completed, the metrics over those). Both follow the JAX
+# package's decisions up to round 292, so the card's cut is held to it.
+TIER_2048_CELLS_CUT = dict(makespan=31079.981, avg_jct=2985.279,
+                           worst_ftf=1.042, rounds=260)
 # The JAX package's golden metrics of Gavel's baselines on the 12-job
 # trace (tests/test_golden.py:23-27).
 GOLDEN_GAVEL = {

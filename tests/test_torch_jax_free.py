@@ -633,6 +633,80 @@ def test_ha_drill_runs_with_jax_and_grpc_blocked(tmp_path):
     assert len(leaks) >= 4 and all(leak == [] for leak in leaks), leaks
 
 
+def test_measure_throughput_runs_with_jax_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.tools.measure_throughput --device
+    cpu`` measures a row and writes its oracle with JAX and the JAX
+    package unimportable."""
+    out = tmp_path / "oracle.json"
+    stdout = _run_blocked(
+        "shockwave_tpu_torch.tools.measure_throughput", "--families",
+        "Recommendation", "--batch_sizes", "512", "--device", "cpu",
+        "--steps", "2", "--warmup", "1", "-o", str(out))
+    assert "Recommendation (batch size 512):" in stdout
+    assert "('Recommendation (batch size 512)', 1)" in json.loads(
+        out.read_text())["h100"]
+
+
+def test_chaos_soak_runs_with_jax_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.tools.chaos_soak --smoke --device
+    cpu`` holds every invariant with JAX and the JAX package
+    unimportable."""
+    stdout = _run_blocked("shockwave_tpu_torch.tools.chaos_soak", "--smoke",
+                          "--device", "cpu", "--out", str(tmp_path))
+    assert "OK: 81 faults, 0 lost jobs" in stdout
+    assert json.loads((tmp_path / "chaos_smoke.json").read_text())["ok"]
+
+
+# A wall-clock run of real payloads (a few seconds a round).
+@pytest.mark.wallclock_retry
+def test_card_driver_with_a_gang_runs_with_jax_and_grpc_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.run_physical --driver card --device
+    cpu`` on a singleton and a two-rank gang, with every process it starts
+    (the agent, the payloads, both gang ranks over gloo) blocked from
+    ``jax``, the JAX package, ``grpc`` and ``google.protobuf``: both jobs
+    complete, and no process that exited loaded a blocked module."""
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.data.throughputs import stringify_throughputs
+    from shockwave_tpu_torch.data.trace import write_trace
+
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    trace = tmp_path / "two.trace"
+    write_trace(str(trace), [
+        Job(job_type="Recommendation (batch size 512)", command="x",
+            num_steps_arg="-n", total_steps=100),
+        Job(job_type="Recommendation (batch size 1024)", command="x",
+            num_steps_arg="-n", total_steps=100, scale_factor=2)],
+        [0.0, 0.0])
+    oracle = tmp_path / "oracle.json"
+    oracle.write_text(json.dumps(stringify_throughputs({"h100": {
+        (f"Recommendation (batch size {bs})", sf): {"null": 20.0 * sf}
+        for bs in (512, 1024) for sf in (1, 2)}})))
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(blocker), str(ROOT)]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PLANE_SCRIPT,
+         "shockwave_tpu_torch.run_physical", "--driver", "card", "--trace",
+         str(trace), "--oracle", str(oracle), "--device", "cpu",
+         "--policy", "shockwave_tpu", "--round_s", "6", "--train_s", "2",
+         "--time_scale", "1", "--max_rounds", "20", "--out",
+         str(tmp_path / "out")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    assert "LEAKED []" in proc.stdout
+    summary = json.loads(
+        (tmp_path / "out" / "shockwave_tpu" / "summary.json").read_text())
+    assert summary["completed_jobs"] == 2 and summary["worker_type"] == "h100"
+    gang = list((tmp_path / "out" / "shockwave_tpu" / "run").glob(
+        "job=1_*.stdout"))
+    assert len(gang) == 2 and all(
+        "GANG rank=" in p.read_text() for p in gang)
+    leaks = [json.loads(f.read_text()) for f in blocker.glob("leaked-*")]
+    # The driver, the agent, the singleton and both ranks at least.
+    assert len(leaks) >= 5 and all(leak == [] for leak in leaks), leaks
+
+
 def test_kill_stale_workloads_runs_with_jax_and_grpc_blocked():
     out = subprocess.run(
         [sys.executable, "-c", _PLANE_SCRIPT,

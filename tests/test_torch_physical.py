@@ -62,6 +62,28 @@ class Cluster:
                 self.sched._heartbeat_rpc(wid)
 
 
+class ScriptedCondition:
+    """A scheduler's condition whose timed waits take scripted time: a
+    wait plays the cluster's events of up to a simulated second (their
+    RPCs re-enter the scheduler's lock on this thread)."""
+
+    def __init__(self, cv, clock):
+        self._cv, self._clock = cv, clock
+
+    def __enter__(self):
+        return self._cv.__enter__()
+
+    def __exit__(self, *exc):
+        return self._cv.__exit__(*exc)
+
+    def wait(self, timeout=None):
+        self._clock.sleep(1.0 if timeout is None else min(timeout, 1.0))
+        return True
+
+    def __getattr__(self, name):
+        return getattr(self._cv, name)
+
+
 class FakeTime:
     """The ``time`` module of core/physical.py under the script."""
 
@@ -338,38 +360,51 @@ def _chip_smoke():
     return smoke
 
 
-# The payload's steps/s at its share of the card in chip_smoke.py phase
-# 17 (an H100's probe: 15.3 steps/s alone at 8 layers, so 15.3 at 4
-# layers and half the card).
-PHASE17_PROBE_RATE = 15.2
+# The payload's steps/s alone on the card in chip_smoke.py phase 17, the
+# rate phase 20 measures under its label (23.3 on an H100, NVIDIA H100
+# 80GB HBM3 at 700 W; 10-14 at its share of the card in phase 17).
+PHASE17_ORACLE_RATE = 23.3
 
 
-def run_phase17(monkeypatch, round_s, startup_s, rate, job_type=None):
+def phase17_oracle(rate=PHASE17_ORACLE_RATE, job_type=None,
+                   worker_type=None):
+    """Phase 20's oracle: one row, the payload's rate alone on the card."""
+    smoke = _chip_smoke()
+    return {worker_type or smoke.PHYSICAL_WORKER_TYPE: {
+        (job_type or smoke.PHYSICAL_JOB_TYPE, 1): {"null": rate}}}
+
+
+def run_phase17(monkeypatch, round_s, startup_s, rate, oracle=None,
+                epochs=None, config=None):
     """``chip_smoke.py`` phase 17's cluster on the port's scheduler under
-    the scripted clock: one agent with two slots, three jobs sized from
-    ``PHASE17_PROBE_RATE`` as the phase sizes them, each of its
-    micro-tasks ``startup_s`` from dispatch to its first lease and
-    training at ``rate``. Returns the round log's job sets, each job's
-    attempts and the scheduler's preemptions by job."""
+    the scripted clock: one ``h100`` agent with two slots, three jobs
+    sized from ``oracle`` (default :func:`phase17_oracle`) as the phase
+    sizes them (``epochs`` overrides ``PHYSICAL_JOB_EPOCHS``), each
+    of its micro-tasks ``startup_s`` from dispatch to its first lease and
+    training at ``rate``; ``config`` updates the planner's configuration.
+    Returns the round log's job sets, each job's attempts and the
+    scheduler's preemptions by job."""
     import shockwave_tpu_torch.core.physical as physical
     import shockwave_tpu_torch.runtime.rpc.scheduler_client as client_mod
-    from shockwave_tpu_torch.data.default_oracle import generate_oracle
     from shockwave_tpu_torch.data.profiles import synthesize_profiles
     from shockwave_tpu_torch.policies import get_policy
     from shockwave_tpu_torch.runtime.admission import job_to_spec_dict
 
     smoke = _chip_smoke()
+    if epochs is not None:
+        monkeypatch.setattr(smoke, "PHYSICAL_JOB_EPOCHS", epochs)
+    oracle = oracle or phase17_oracle()
+    (worker_type,) = oracle
     cluster = Cluster()
-    monkeypatch.setattr(physical, "time", FakeTime(cluster))
+    clock = FakeTime(cluster)
+    monkeypatch.setattr(physical, "time", clock)
     monkeypatch.setattr(physical, "KILL_WAIT_SECONDS", 0.0)
     monkeypatch.setattr(client_mod, "SchedulerRpcClient",
                         make_client_class(cluster, startup_s, rate))
-    steps = smoke.physical_steps(round_s, PHASE17_PROBE_RATE)
-    jobs = [PortJob(job_type=job_type or smoke.PHYSICAL_JOB_TYPE,
-                    command="python3 payload.py", num_steps_arg="-n",
-                    total_steps=steps)
-            for _ in range(smoke.PHYSICAL_JOBS)]
-    oracle = generate_oracle()
+    jobs = smoke.physical_jobs(oracle)
+    for job in jobs:
+        job.job_type = next(iter(oracle[worker_type]))[0]
+    steps = jobs[0].total_steps
     by_job = {}
 
     class Scheduler(physical.PhysicalScheduler):
@@ -384,12 +419,16 @@ def run_phase17(monkeypatch, round_s, startup_s, rate, job_type=None):
         throughputs=oracle, time_per_iteration=round_s,
         completion_buffer_seconds=smoke.PHYSICAL_BUFFER_S,
         minimum_time_between_allocation_resets=0.0,
-        profiles=synthesize_profiles(jobs, oracle),
-        shockwave_config=smoke.physical_shockwave_config(round_s),
+        profiles=synthesize_profiles(jobs, oracle, worker_type),
+        shockwave_config={**smoke.physical_shockwave_config(round_s),
+                          **(config or {})},
     )
     cluster.sched = sched
+    # A micro-task's Done due after the round's end arrives in the
+    # completion wait, which must take scripted time too.
+    sched._cv = ScriptedCondition(sched._cv, clock)
     try:
-        sched._register_worker_rpc("v100", smoke.PHYSICAL_SLOTS,
+        sched._register_worker_rpc(worker_type, smoke.PHYSICAL_SLOTS,
                                    "10.0.0.1", 50061)
         for wid in sched._worker_ids:
             cluster.hb_until[wid] = 10**9
@@ -398,6 +437,11 @@ def run_phase17(monkeypatch, round_s, startup_s, rate, job_type=None):
         sched.run(max_rounds=20)
     finally:
         sched.shutdown()
+        # The last background speculation solves in real time; one still
+        # running when the interpreter exits aborts it.
+        speculation = getattr(sched._shockwave, "_speculation", None)
+        if speculation is not None:
+            speculation.done.wait(timeout=60)
     attempts = {}
     for entry in cluster.log:
         if entry[0] == "init":
@@ -415,13 +459,14 @@ def run_phase17(monkeypatch, round_s, startup_s, rate, job_type=None):
 
 
 @pytest.mark.parametrize("round_s,startup_s,rate", [
-    (23, 17.0, 15.2), (22, 15.0, 16.5), (25, 19.0, 14.0)])
+    (25, 18.4, 12.5), (25, 14.0, 15.0), (25, 24.0, 10.0)])
 def test_the_smoke_phase_17_rotates_every_job(round_s, startup_s, rate,
                                               monkeypatch):
-    """Phase 17's jobs, planned under its label: every job completes after
-    two attempts or more (stopped before its end and resumed), and the
-    scheduler preempts at least one, at the start-ups, rates and rounds
-    the card has shown and around them."""
+    """Phase 17's jobs, planned from the card's own rate (phase 20's
+    ``h100`` row): every job completes after two attempts or more
+    (stopped before its end and resumed), and the scheduler preempts at
+    least one, at the start-ups, rates and rounds the card has shown and
+    around them."""
     run = run_phase17(monkeypatch, round_s, startup_s, rate)
     assert run["completed"] == ["0", "1", "2"], run
     assert all(run["attempts"].get(j, 0) >= 2 for j in "012"), run
