@@ -397,10 +397,54 @@
    launched once for each round the ladder degraded to pdhg. Prints the
    counts, both runs' makespan and worst FTF; kernels A's and B's rows of
    item 10's line carry the campaign's launches (``chaos_launches``).
+22. Runs the soaks of the admission front door (``run_soaks``): (a) the
+   streaming soak's reduced campaign (``tools/streaming_soak.py --smoke``:
+   ``scripts/ci/churn_smoke.py``'s 14 jobs on 4 GPUs, 80 target churn
+   events, 2 SubmitJobs and 2 solver faults, seed 0) under
+   ``shockwave_tpu_pdhg`` with the planner and the replays on the card;
+   fails on any violated invariant (a job lost or admitted twice,
+   backpressure that never engaged or drained, the p99 replan past the
+   round, a fault without its recovery, a replay that diverges) or unless
+   kernel A launched once for each pdhg replan of both runs and for each
+   replay of one; prints both runs' makespan and worst FTF. (b) The
+   ingest soak's decode-parity gate (the scalar and the columnar decode
+   through the SubmitJobs handler, byte-equal acks, equal drained jobs).
+   (c) One repetition of the full-scale ingest campaign
+   (``tools/ingest_soak.py``'s defaults: a columnar peer of 245760 jobs
+   and a legacy peer of 16384, batch 1536, window 6, 8 client faults each)
+   through the port's socket front door; fails unless no job is lost or
+   admitted twice, every fault recovered, both peers moved jobs, the
+   queue's p99 is within 150 ms and the rate reaches 60000 jobs/s (the
+   JAX package's floors), and the pricing phase's 8 lanes convoy into
+   fewer
+   dispatches of kernel A's lane grid on the card with the audit
+   bit-identical; prints the rate, the p99 and each peer's rate. Kernel
+   A's row of item 10's line carries the phase's launches
+   (``soak_launches``).
+23. Runs gangs of the training program on card 0 (``run_gangs``), each
+   rank ``python -m shockwave_tpu_torch.models.train`` over gloo (NCCL
+   refuses two ranks on one card; each hop and collective goes through
+   pinned host memory): (a) the 110M tier with ``--seq_parallel 2
+   --attention ring``, 3 steps, and (b) with ``--attention ulysses``, 2
+   steps; each fails unless both ranks name ``backend=gloo`` and
+   ``device=cuda``, each launched each causal flash kernel 8 times a step
+   (and under ring the second rank each non-causal one as often), the
+   ranks' losses and parameters are equal, and each step's loss and the
+   parameters rank 0 saved after the last are one process's over a
+   two-place mesh of the card on the same weights and global batch:
+   losses within ``RING_LOSS_RTOL`` on step 1 and ``RING_STEPS_RTOL`` on
+   each, parameters within ``GANG_PARAMS_RTOL`` of that run's update
+   (``GANG_PARAM_RTOL`` for the worst one), limits that a planted ring
+   bug (one live hop without its K/V gradient) must fail. (c) The MoE tier's widths cut to 2
+   layers, two ranks of batch 4, 2 steps: the ranks equal, and the losses
+   within ``MOE_GANG_RTOL`` of one process's on the global batch. The
+   three gangs run at once (six processes on card 0, one CPU thread
+   each) while this process computes the references. The flash rows of
+   item 10's line carry (a)'s and (b)'s launches (``gang_seq_launches``).
 
 Phase 20 and then phase 17 run right after phase 7 (phase 17's long
-rounds then leave the rest of the smoke its time), phase 21 after phase
-19, and phase 18 last. Phases 17 and 18 run to
+rounds then leave the rest of the smoke its time), phases 21, 22 and 23
+after phase 19, and phase 18 last. Phases 17 and 18 run to
 deadlines (``phase_deadlines``): phase 17's leaves
 phase 18 its reserve (``FAILOVER_RESERVE_S``, above its measured 63.6-84.2
 s) and the smoke its exit margin, and phase 18's waits are bounded by what
@@ -3043,6 +3087,441 @@ def run_chaos(device, card: str) -> dict:
             "launches": launches, "seconds": seconds}
 
 
+# Phase 22: the streaming soak's reduced campaign and the ingest soak's
+# parity gate and one full-scale repetition (``tools/streaming_soak.py``,
+# ``tools/ingest_soak.py``), the planner's and the pricer's kernel A on the
+# card.
+SOAKS_OUT = ROOT / "_smoke_out" / "soaks"
+INGEST_TIMEOUT_S = 300.0
+# The full campaign's floors (tools/ingest_soak.py's defaults, the JAX
+# package's): jobs/s and the queue's p99 in ms.
+INGEST_FLOORS = (60000.0, 150.0)
+
+
+def run_soaks(device, card: str) -> dict:
+    """Phase 22 (docstring, item 22). Every invariant is hard."""
+    from shockwave_tpu_torch import obs
+    from shockwave_tpu_torch.tools import ingest_soak, streaming_soak
+
+    tag = f"[{card}]"
+    print(f"soaks phase {tag}:", flush=True)
+    shutil.rmtree(SOAKS_OUT, ignore_errors=True)
+    bad = []
+    args = streaming_soak.build_parser().parse_args(
+        ["--smoke", "--device", "cuda", "--out", str(SOAKS_OUT)])
+    for key, value in streaming_soak.SMOKE.items():
+        setattr(args, key, value)
+    started = time.time()
+    try:
+        stream = streaming_soak.run_campaign(args)
+    finally:
+        obs.reset()  # the campaign's recorder and watchdog stay off
+    stream_s = time.time() - started
+    bad += stream["failures"]
+    solves, launches = stream["solves_by_backend"], stream["kernel_launches"]
+    # One launch of kernel A a replan the pdhg rung made, in each run and
+    # in the replays of the churned run's plans.
+    for run, made in (("baseline", solves["baseline"].get("pdhg", 0)),
+                      ("chaos", solves["chaos"].get("pdhg", 0)),
+                      ("replay", solves["chaos"].get("pdhg", 0))):
+        if launches[run]["eg_pdhg"] != made or made < 1:
+            bad.append(f"streaming {run}: kernel A launched "
+                       f"{launches[run]['eg_pdhg']} times for {made} pdhg "
+                       "replans")
+    print(f"  streaming soak (--smoke, planner on the card): "
+          f"{stream['total_events']} events ({stream['applied_fault_events']}"
+          f" faults), {stream['admission']['rejected_batches']} rejects "
+          f"drained, {stream['admission']['deduped_batches']} dedups, p99 "
+          f"replan {stream['replan_p99_s']} s, {stream['replay_exact']} of "
+          f"{stream['replayed_plans']} plans replayed exactly; makespan "
+          f"{stream['baseline']['makespan_s']:.1f} s fault-free against "
+          f"{stream['chaos']['makespan_s']:.1f} s, worst FTF "
+          f"{stream['baseline']['worst_ftf']:.3f} against "
+          f"{stream['chaos']['worst_ftf']:.3f}; solves {solves}, launches "
+          f"{launches}; {stream_s:.1f} s {tag}", flush=True)
+
+    if ingest_soak.parity_check() != 0:
+        bad.append("ingest: the scalar and the columnar decode disagree")
+    # The campaign runs as its own process, as a user runs it: its server's
+    # threads share no interpreter with what earlier phases left running.
+    started = time.time()
+    run = subprocess.run(
+        [sys.executable, "-m", "shockwave_tpu_torch.tools.ingest_soak",
+         "--device", "cuda", "--reps", "1", "--out",
+         str(SOAKS_OUT)], cwd=ROOT, capture_output=True, text=True,
+        timeout=INGEST_TIMEOUT_S)
+    ingest_s = time.time() - started
+    try:
+        ingest = json.loads((SOAKS_OUT / "ingest_soak.json").read_text())
+    except (OSError, ValueError):
+        fail(f"ingest soak: exit {run.returncode}, no result: "
+             f"{run.stdout[-1500:]!r} {run.stderr[-1500:]!r}")
+    bad += [f"ingest: {v}" for v in ingest["violations"]]
+    floors = (ingest["config"]["min_rate"], ingest["config"]["p99_budget_ms"])
+    if floors != INGEST_FLOORS:
+        bad.append(f"ingest: floors {floors}, not {INGEST_FLOORS}")
+    if run.returncode != (1 if ingest["violations"] else 0):
+        bad.append(f"ingest: exit {run.returncode}: {run.stderr[-1500:]!r}")
+    pricing_launches = ingest["pricing"]["kernel_a_launches"]
+    if pricing_launches < ingest["pricing"]["dispatches"]:
+        bad.append(f"ingest pricing: kernel A launched {pricing_launches} "
+                   f"times for {ingest['pricing']['dispatches']} dispatches")
+    print(f"  ingest soak (full scale, one rep, the socket front door): "
+          f"{ingest['throughput']['total_jobs']} jobs at "
+          f"{ingest['throughput']['submits_per_s']:.1f} jobs/s over "
+          f"{ingest['throughput']['fleet_span_s']:.3f} s (floor "
+          f"{INGEST_FLOORS[0]:.0f}), queue p50 "
+          f"{ingest['latency']['queue_p50_ms']} ms p99 "
+          f"{ingest['latency']['queue_p99_ms']} ms (budget "
+          f"{INGEST_FLOORS[1]:.0f}); per peer {ingest['interop']}; "
+          f"{ingest['exactly_once']['faults_applied']} faults, "
+          f"{ingest['exactly_once']['deduped_batches']} dedups, lost "
+          f"{len(ingest['exactly_once']['lost'])}, double "
+          f"{len(ingest['exactly_once']['double_admitted'])}; pricing "
+          f"{ingest['pricing']['lanes_priced']} lanes in "
+          f"{ingest['pricing']['dispatches']} dispatches (largest "
+          f"{ingest['pricing']['max_convoy']}), audit "
+          f"{ingest['pricing']['audit']}, kernel A launches "
+          f"{pricing_launches}; {ingest_s:.1f} s {tag}", flush=True)
+    if bad:
+        fail("soaks phase: " + "; ".join(bad))
+    return {"streaming": {k: v for k, v in stream.items()
+                          if k not in ("failures", "submitter")},
+            "ingest": {k: ingest[k] for k in (
+                "config", "throughput", "latency", "interop", "pricing")},
+            "ingest_faults": ingest["exactly_once"]["faults_applied"],
+            "launches": (sum(r["eg_pdhg"] for r in launches.values())
+                         + pricing_launches),
+            "pricing_launches": pricing_launches,
+            "seconds": {"streaming": stream_s, "ingest": ingest_s}}
+
+
+# Phase 23: gangs of the training program on card 0, each rank a
+# ``python -m shockwave_tpu_torch.models.train`` process over gloo (NCCL
+# refuses two ranks on one card): the 110M tier with its sequence over the
+# two ranks (ring 3 steps, Ulysses 2), and the MoE tier's widths cut to 2
+# layers over two data shards, all three at once. Each is held to one
+# process on the same card, weights and global batch.
+GANG_SEQ_STEPS = {"ring": 3, "ulysses": 2}
+GANG_MOE_STEPS = 2
+GANG_MOE_LAYERS = 2
+GANG_MOE_BATCH = 4  # a rank's: the global batch is the tier's 8
+GANG_CARD_TIMEOUT_S = 300.0
+GANG_OUT = ROOT / "_smoke_out" / "gangs"
+# The seq gangs' parameters after their last step against the one-process
+# run's, as a share of that run's update (Frobenius): over all parameters,
+# and for the worst one. On an H100 the ring gang's lie 0.0134 apart (worst
+# the last layer's key weight, 0.0337) and Ulysses' 0.0141 (0.0383), the
+# bf16 products of half a sequence a rank rounding apart from one
+# process's; one process's reruns are bit-equal. A ring whose live hop
+# gives its K/V block no gradient (the hop's gradient never sent back)
+# moves them 0.146 (worst 0.775) in the first layer alone, 0.324 (0.927)
+# in the last and 0.608 (0.976) in every layer, while its losses move
+# by as little as 1.7e-6 at step 2 and 8.4e-5 at step 3.
+GANG_PARAMS_RTOL = 0.05
+GANG_PARAM_RTOL = 0.15
+# The MoE gang against one process on the global batch, bf16: the dense
+# products run at batch 4 a rank against 8 in one process, so cuBLAS may
+# tile them otherwise and the bf16 activations round apart, and a
+# near-tie router choice may flip between experts. On an H100 the two
+# steps' losses are 2.9e-6 apart (relative); the limit is 1e-4, about
+# 35 times that.
+MOE_GANG_RTOL = 1e-4
+_MESH_LINE = re.compile(r"^MESH backend=(\w+) rank=(\d+) world=(\d+) "
+                           r"mesh=(\{.*\}) device=(\S+)$", re.M)
+_GANG_LINE = re.compile(r"^GANG rank=(\d+) world=\d+ params=(\w+) "
+                        r"losses=(\[.*\])$", re.M)
+
+
+def gang_argv(steps: int, attention: str, batch: int = 8,
+              layers: int = 8) -> list:
+    """The 110M tier's command line (no checkpoint) at ``layers``."""
+    return ["--model", "Transformer", "--batch_size", str(batch), "-n",
+            str(steps), "--vocab_size", "8192", "--d_model", "1024",
+            "--num_heads", "8", "--num_layers", str(layers), "--seq_len",
+            "2048", "--attention", attention, "--dtype", "bfloat16",
+            "--learning_rate", "1e-3", "--seed", "0", "--device", "cuda"]
+
+
+def start_card_gang(argv: list, ranks: int = 2, threads: int = 1) -> dict:
+    """Starts ``ranks`` processes of the training program on the card, one
+    gang, each with ``threads`` CPU threads; :func:`finish_card_gang`
+    collects them."""
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    addr = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, SHOCKWAVE_PHASE_TIMINGS="1",
+               OMP_NUM_THREADS=str(threads))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "shockwave_tpu_torch.models.train", *argv,
+         "--distributed_addr", addr, "--num_workers", str(ranks),
+         "--distributed_timeout", "120", "--worker_rank", str(rank)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(ranks)]
+    return {"procs": procs, "started": time.time()}
+
+
+def finish_card_gang(gang: dict) -> dict:
+    """Each rank's exit code, backend line, losses, parameter digest,
+    flash launches and phases, and the gang's seconds."""
+    procs, outs = gang["procs"], []
+    try:
+        for proc in procs:
+            left = gang["started"] + GANG_CARD_TIMEOUT_S - time.time()
+            outs.append(proc.communicate(timeout=max(left, 1.0))[0])
+    except subprocess.TimeoutExpired:
+        outs.append("timed out")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    seconds = time.time() - gang["started"]
+    result = []
+    for proc, out in zip(procs, outs + [""] * (len(procs) - len(outs))):
+        backend = _MESH_LINE.search(out)
+        line = _GANG_LINE.search(out)
+        launches = _LAUNCHES_LINE.search(out)
+        phases = _PHASES_LINE.search(out)
+        result.append({
+            "exit": proc.returncode,
+            "backend": backend.group(1) if backend else None,
+            "device": backend.group(5) if backend else None,
+            "losses": json.loads(line.group(3)) if line else None,
+            "params": line.group(2) if line else None,
+            "launches": json.loads(launches.group(1)) if launches else {},
+            "phases": phases.group(1) if phases else None,
+            "steps_device_cuda": bool(re.search(
+                r"steps=\d+ .* device=cuda$", out, re.M)),
+            "tail": out[-2000:]})
+    return {"ranks": result, "seconds": seconds}
+
+
+def host_params(model) -> dict:
+    """The model's parameters, copied to the host as float32."""
+    return {name: p.detach().to("cpu", torch.float32, copy=True)
+            for name, p in model.named_parameters()}
+
+
+def one_process_seq_run(train, device, attention: str, steps: int,
+                        fault=None) -> dict:
+    """The seq gang's ``steps`` steps in one process over a two-place seq
+    mesh of the card, on the same seed-0 weights and global batch (the
+    data group's one draw from the seed): the losses, and the parameters
+    before and after on the host. ``fault`` replaces the ring's
+    ``flash_attention_lse`` for the run (a planted fault)."""
+    from shockwave_tpu_torch.parallel import ring_attention as ra
+    from shockwave_tpu_torch.parallel.mesh import make_mesh
+
+    args = train.parse_args(gang_argv(steps, attention))
+    mesh = make_mesh((1, 1, 2, 1), [device, device])
+    model, step_fn, opt, batch_fn = train.build_family("Transformer", args,
+                                                       device, mesh)
+    start = host_params(model)
+    rng = np.random.default_rng(args.seed)
+    attend = ra.flash_attention_lse
+    ra.flash_attention_lse = fault or attend
+    try:
+        losses = [float(step_fn(batch_fn(rng))) for _ in range(steps)]
+    finally:
+        ra.flash_attention_lse = attend
+    end = host_params(model)
+    del model, step_fn, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "start": start, "end": end}
+
+
+def live_hop_kv_grad_dropped(attend, layers, num_layers: int):
+    """``flash_attention_lse`` as a two-shard ring's flash body would see
+    it with one bug: in each layer of ``layers`` the live hop gives its
+    K/V block no gradient, as if that hop's gradients were never sent back
+    to the rank that sent the block. The ring has one live hop a layer,
+    called layer by layer in each forward."""
+    calls = [0]
+
+    def faulty(q, k, v, causal=True, window=None):
+        if not causal:
+            if calls[0] % num_layers in layers:
+                k, v = k.detach(), v.detach()
+            calls[0] += 1
+        return attend(q, k, v, causal=causal, window=window)
+
+    return faulty
+
+
+def update_errors(got: dict, ref: dict) -> tuple:
+    """How far parameters ``got`` lie from ``ref["end"]``, relative to
+    the reference's own update (``ref["end"] - ref["start"]``, Frobenius):
+    (the worst parameter's name, its error, the error over all of them)."""
+    worst, total, moved = ("", 0.0), 0.0, 0.0
+    for name, end in ref["end"].items():
+        miss = float(torch.linalg.vector_norm(got[name].float() - end))
+        step = float(torch.linalg.vector_norm(end - ref["start"][name]))
+        total, moved = total + miss ** 2, moved + step ** 2
+        rel = miss / step if step else (math.inf if miss else 0.0)
+        if rel > worst[1]:
+            worst = (name, rel)
+    return worst[0], worst[1], math.sqrt(total / moved)
+
+
+def one_process_moe_losses(train, device) -> list:
+    """The MoE gang's steps in one process on the global batch: the two
+    ranks' draws (``--seed + r``, a rank's batch each) stacked."""
+    args = train.parse_args(moe_gang_argv(2 * GANG_MOE_BATCH))
+    model, step_fn, opt, _ = train.build_family("Transformer", args, device)
+    rngs = [np.random.default_rng(args.seed + r) for r in range(2)]
+    losses = []
+    for _ in range(GANG_MOE_STEPS):
+        # Each rank's draw, as its batch_fn makes it.
+        batch = np.concatenate([rng.integers(
+            0, args.vocab_size, (GANG_MOE_BATCH, args.seq_len + 1))
+            for rng in rngs])
+        losses.append(float(step_fn(torch.from_numpy(batch).to(device))))
+    del model, step_fn, opt
+    torch.cuda.empty_cache()
+    return losses
+
+
+def moe_gang_argv(batch: int) -> list:
+    return gang_argv(GANG_MOE_STEPS, "flash", batch, GANG_MOE_LAYERS) + [
+        "--num_experts", str(MOE_EXPERTS), "--moe_dispatch", "grouped",
+        "--moe_capacity_factor", "1.25"]
+
+
+def _gang_checks(what: str, gang: dict, steps: int) -> list:
+    bad = []
+    ranks = gang["ranks"]
+    for rank, r in enumerate(ranks):
+        if (r["exit"] != 0 or r["losses"] is None or len(r["losses"]) != steps
+                or not all(math.isfinite(x) for x in r["losses"])):
+            bad.append(f"{what} rank {rank}: exit {r['exit']}, losses "
+                       f"{r['losses']}: {r['tail']!r}")
+        if r["backend"] != "gloo" or r["device"] != "cuda:0" or not r[
+                "steps_device_cuda"]:
+            bad.append(f"{what} rank {rank}: backend {r['backend']}, device "
+                       f"{r['device']}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        bad.append(f"{what}: the ranks' losses differ: "
+                   f"{[r['losses'] for r in ranks]}")
+    if ranks[0]["params"] != ranks[1]["params"]:
+        bad.append(f"{what}: the ranks hold different parameters")
+    return bad
+
+
+def run_gangs(train, device, card: str) -> dict:
+    """Phase 23 (docstring, item 23). The three gangs run at once (six
+    processes on card 0, one CPU thread each), while this process runs the
+    one-process references. Every check is hard."""
+    tag = f"[{card}]"
+    print(f"gang phase {tag}:", flush=True)
+    torch.cuda.empty_cache()
+    started = time.time()
+    shutil.rmtree(GANG_OUT, ignore_errors=True)
+    gangs = {attention: start_card_gang(
+        gang_argv(steps, attention) + ["--seq_parallel", "2",
+                                       "--checkpoint_dir",
+                                       str(GANG_OUT / attention)])
+        for attention, steps in GANG_SEQ_STEPS.items()}
+    gangs["moe"] = start_card_gang(moe_gang_argv(GANG_MOE_BATCH))
+    alone = {attention: one_process_seq_run(train, device, attention, steps)
+             for attention, steps in GANG_SEQ_STEPS.items()}
+    alone["moe"] = one_process_moe_losses(train, device)
+    # The parameter limits must reject the ring's subtlest planted bug.
+    from shockwave_tpu_torch.parallel import ring_attention as ra
+
+    planted = one_process_seq_run(
+        train, device, "ring", GANG_SEQ_STEPS["ring"],
+        fault=live_hop_kv_grad_dropped(ra.flash_attention_lse, (0,), 8))
+    planted_errors = update_errors(planted["end"], alone["ring"])
+    del planted
+    gangs = {name: finish_card_gang(gang) for name, gang in gangs.items()}
+    bad, readings, launches = [], {}, {}
+    for attention, steps in GANG_SEQ_STEPS.items():
+        gang, what = gangs[attention], f"{attention} seq gang"
+        bad += _gang_checks(what, gang, steps)
+        for rank, r in enumerate(gang["ranks"]):
+            causal = steps * 8  # one launch a layer a step on each rank
+            want = {"flash_fwd": causal, "flash_dkv": causal,
+                    "flash_dq": causal}
+            if attention == "ring":  # rank 1's one live hop a layer
+                want.update({k + "_nc": causal * rank for k in
+                             ("flash_fwd", "flash_dkv", "flash_dq")})
+            got = {k: r["launches"].get(k, 0) for k in want}
+            if got != want:
+                bad.append(f"{what} rank {rank}: flash launches {got}, "
+                           f"expected {want}")
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        ref = alone[attention]
+        losses = gang["ranks"][0]["losses"] or [float("nan")] * steps
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        if not (errs[0] <= RING_LOSS_RTOL
+                and all(e <= RING_STEPS_RTOL for e in errs)):
+            bad.append(f"{what}: losses {losses} against one process's "
+                       f"{ref['losses']} (relative {errs}; limits "
+                       f"{RING_LOSS_RTOL} on step 1, {RING_STEPS_RTOL} on "
+                       "each)")
+        # The parameters rank 0 saved after the last step, against the
+        # one-process run's: the multi-process backward (the ring's hop
+        # gradients sent back, Ulysses' all-to-all backward, the pinned
+        # staging) moves them.
+        try:
+            saved = torch.load(GANG_OUT / attention / train.CHECKPOINT_NAME,
+                               map_location="cpu", weights_only=True)["model"]
+            name, worst, overall = update_errors(saved, ref)
+            del saved
+        except (OSError, RuntimeError, KeyError) as e:
+            name, worst, overall = f"no checkpoint: {e}", math.inf, math.inf
+        if not (worst <= GANG_PARAM_RTOL and overall <= GANG_PARAMS_RTOL):
+            bad.append(f"{what}: parameters after {steps} steps {overall:.4f} "
+                       f"of the update off one process's (limit "
+                       f"{GANG_PARAMS_RTOL}), worst {name} {worst:.4f} "
+                       f"(limit {GANG_PARAM_RTOL})")
+        readings[attention] = {
+            "losses": losses, "one_process_losses": ref["losses"],
+            "loss_rel_errs": errs, "param_update_rel_err": overall,
+            "worst_param": name, "worst_param_update_rel_err": worst,
+            "seconds": gang["seconds"],
+            "phases": [r["phases"] for r in gang["ranks"]],
+            "launches": [r["launches"] for r in gang["ranks"]]}
+        print(f"  {what} (110M tier, 2 ranks on card 0 over gloo, {steps} "
+              f"steps): losses {losses} on both ranks; one process over a "
+              f"two-place mesh {ref['losses']} (relative "
+              f"{[f'{e:.2e}' for e in errs]}); parameters {overall:.4f} of "
+              f"the update apart, worst {name} {worst:.4f}; launches "
+              f"{[r['launches'] for r in gang['ranks']]}; phases "
+              f"{[r['phases'] for r in gang['ranks']]}; "
+              f"{gang['seconds']:.1f} s {tag}", flush=True)
+    name, worst, overall = planted_errors
+    print(f"  planted: the ring's first-layer live hop without its K/V "
+          f"gradient moves one process's parameters {overall:.4f} of the "
+          f"update, worst {name} {worst:.4f}", flush=True)
+    if worst <= GANG_PARAM_RTOL and overall <= GANG_PARAMS_RTOL:
+        bad.append("the gang's parameter limits accept a ring hop without "
+                   "its K/V gradient")
+    readings["planted_param_update_rel_err"] = overall
+    gang = gangs["moe"]
+    bad += _gang_checks("MoE gang", gang, GANG_MOE_STEPS)
+    got = gang["ranks"][0]["losses"] or [float("nan")] * GANG_MOE_STEPS
+    errs = [abs(a - b) / abs(b) for a, b in zip(got, alone["moe"])]
+    if not all(e <= MOE_GANG_RTOL for e in errs):
+        bad.append(f"MoE gang: losses {got} against one process's "
+                   f"{alone['moe']} (relative {errs}, limit {MOE_GANG_RTOL})")
+    readings["moe"] = {"losses": got, "one_process_losses": alone["moe"],
+                       "rel_errs": errs, "seconds": gang["seconds"],
+                       "phases": [r["phases"] for r in gang["ranks"]]}
+    print(f"  MoE gang ({MOE_EXPERTS} experts, {GANG_MOE_LAYERS} layers, 2 "
+          f"ranks of batch {GANG_MOE_BATCH} on card 0): losses {got} on both "
+          f"ranks; one process on the global batch {alone['moe']} (relative "
+          f"{[f'{e:.2e}' for e in errs]}, limit {MOE_GANG_RTOL}); "
+          f"{gang['seconds']:.1f} s {tag}", flush=True)
+    print(f"  three gangs at once and the references: "
+          f"{time.time() - started:.1f} s {tag}", flush=True)
+    if bad:
+        fail("gang phase: " + "; ".join(bad))
+    return {**readings, "launches": launches}
+
+
 # Phase 17: the physical control plane, through the card driver's loop
 # (``tools/physical_drivers.py``). The payload is phase 6's 110M tier at its
 # widths, cut to 4 layers, at batch 8. The agent registers as ``h100`` and
@@ -3580,6 +4059,16 @@ def main() -> None:
     chaos["phase_s"] = time.time() - chaos_started
     print(f"chaos phase: {chaos['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
+    soaks_started = time.time()
+    soaks = run_soaks(device, card)
+    soaks["phase_s"] = time.time() - soaks_started
+    print(f"soaks phase: {soaks['phase_s']:.1f} s, the smoke's growth "
+          f"[{card}]", flush=True)
+    gangs_started = time.time()
+    gangs = run_gangs(train, device, card)
+    gangs["phase_s"] = time.time() - gangs_started
+    print(f"gang phase: {gangs['phase_s']:.1f} s, the smoke's growth "
+          f"[{card}]", flush=True)
     failover_started = time.time()
     failover = run_failover(device, card, deadlines["failover"])
     failover["phase_s"] = time.time() - failover_started
@@ -3614,6 +4103,9 @@ def main() -> None:
             "moe_launches": families["moe"]["launches"].get(name, 0),
             # Phase 20's measurement of phase 17's payload.
             "oracle_launches": oracle["launches"].get(name, 0),
+            # Phase 23's sequence-parallel gangs, both ranks, ring and
+            # Ulysses.
+            "gang_seq_launches": gangs["launches"].get(name, 0),
             "share_of_bound": bound_ms / ms[name][0],
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
@@ -3646,6 +4138,8 @@ def main() -> None:
             "library_ms": ring["sdpa_fwd_ms"] if name == "flash_fwd"
             else None,
             "share_of_bound": bound_ms / t, "shape": list(bench.HOP_SHAPE),
+            # Phase 23's ring gang: the second rank's live hop.
+            "gang_seq_launches": gangs["launches"].get(name + "_nc", 0),
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
         if name != "flash_fwd":
@@ -3681,6 +4175,9 @@ def main() -> None:
             # Phase 21's chaos campaign: the ladder's degraded rounds and
             # their replays.
             "chaos_launches": chaos["launches"][name],
+            # Phase 22's soaks: the streaming campaign's replans and
+            # replays and the ingest pricing lanes (kernel A only).
+            "soak_launches": soaks["launches"] if name == "eg_pdhg" else 0,
             "ms_before": row["ms_before"],
             "barriers": row["barriers"],
             "barriers_before": row["barriers_before"],
@@ -3750,6 +4247,7 @@ def main() -> None:
         "physical": physical["phase_s"],
         "failover": failover["phase_s"], "families": families["phase_s"],
         "oracle": oracle["phase_s"], "chaos": chaos["phase_s"],
+        "soaks": soaks["phase_s"], "gangs": gangs["phase_s"],
         "first_order_tier": first_order["tier_2048_pdhg"]["wall_s"], **{
             f"telemetry_{k}": v for k, v in telemetry["seconds"].items()}},
         "card": card})
@@ -3768,6 +4266,8 @@ def main() -> None:
     print(json.dumps({"families": families, "card": card}))
     print(json.dumps({"oracle": oracle, "card": card}))
     print(json.dumps({"chaos": chaos, "card": card}, default=str))
+    print(json.dumps({"soaks": soaks, "card": card}, default=str))
+    print(json.dumps({"gangs": gangs, "card": card}, default=str))
     print(json.dumps({"ring": {k: v for k, v in ring.items() if k != "ms"},
                       "card": card}))
     print(seconds_line)

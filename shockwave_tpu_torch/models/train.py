@@ -44,10 +44,13 @@ the iterator's progress line tells the dispatcher how far it got.
 ``--attention ring --seq_parallel P`` and ``--attention ulysses
 --seq_parallel P`` run ring or Ulysses attention over a mesh built as the
 JAX program builds it: ``factorize_gang`` over the devices the run holds
-(one card, or the CPU), so P must divide their count.
+(one card, or the CPU, so P must divide their count), or in a gang over
+its processes (``parallel/mesh.py::make_process_mesh``: data x seq, ranks
+row-major). There each rank holds one sequence shard of its data group's
+batch, and its tokens take their global positions.
 
 A gang (``--distributed_addr host:port --num_workers W --worker_rank r``,
-appended by the scheduler) trains data-parallel over gloo, as the JAX
+appended by the scheduler) trains data-parallel, as the JAX
 program's gang trains over ``jax.distributed``: every rank builds the same
 weights from ``--seed``, draws its own ``--batch_size`` batch from
 ``--seed + r`` (the global batch is W of them), and takes the step of the
@@ -59,11 +62,20 @@ losses=[...]``). The
 rendezvous fails after ``--distributed_timeout`` seconds (rounded up)
 when a rank is missing. Rank 0 writes the checkpoint; every rank
 restores it and then takes rank 0's state. ``--gang_device cpu`` runs the ranks on the host's CPU
-whatever ``--device`` says, as the card driver runs gangs.
+whatever ``--device`` says, as the card driver runs gangs. With
+``--seq_parallel P`` a gang's W ranks form W / P data groups of P
+sequence shards: a group's ranks draw the same batch from ``--seed + d``
+(d the group's index), so the global batch is the groups' draws in rank
+order, and gradients and the loss are averaged over every rank. (The JAX
+program draws from ``--seed + rank`` and declares the batch replicated
+across a seq group, whose copies then differ: a defect of the reference,
+ROADMAP.md, queue 3.) The MoE MLP routes the global batch as one problem
+(``models/transformer.py::MoEMlp``). The backend is gloo, for ranks on
+the CPU and on cards alike (tensors on a card travel through pinned host
+memory); the ``MESH backend=`` line names it.
 
-Not ported (each raises NotImplementedError, see ROADMAP.md, queue 1,
-item 8): model parallelism, and inside a gang sequence parallelism and
-the MoE MLP (whose capacity and balance loss are the global batch's).
+Not ported (it raises NotImplementedError, see ROADMAP.md, queue 1, item
+8): model parallelism.
 """
 
 from __future__ import annotations
@@ -87,7 +99,13 @@ from shockwave_tpu_torch.models.transformer import (
     lm_loss,
 )
 from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
-from shockwave_tpu_torch.parallel.mesh import factorize_gang, make_mesh
+from shockwave_tpu_torch.parallel.mesh import (
+    ProcessMesh,
+    factorize_gang,
+    collective_in_place,
+    make_mesh,
+    make_process_mesh,
+)
 from shockwave_tpu_torch.utils.device import resolve_device
 
 CHECKPOINT_NAME = "train_state.pt"
@@ -120,22 +138,28 @@ def _tensor(array, device, dtype=None):
 
 
 class Gang:
-    """The data-parallel ranks of one gang, over the default process
-    group: each rank's batch is one shard of the global batch."""
+    """The ranks of one gang, over the default process group (gloo's):
+    each rank's batch is one shard of the global batch. A tensor on a card
+    travels through pinned host memory (``parallel/mesh.py``)."""
 
     def __init__(self):
         import torch.distributed as dist
 
         self.rank, self.world = dist.get_rank(), dist.get_world_size()
+        self.backend = dist.get_backend()
+
+    def _sum(self, tensor: torch.Tensor) -> torch.Tensor:
+        """``tensor`` summed over the ranks, in place; returned."""
+        import torch.distributed as dist
+
+        return collective_in_place(dist.all_reduce, tensor)
 
     def average_gradients(self, params) -> None:
         """Every gradient becomes its mean over the ranks (one
         all-reduce of the flattened gradients)."""
-        import torch.distributed as dist
-
         grads = [p.grad for p in params if p.grad is not None]
         flat = torch.cat([g.reshape(-1) for g in grads])
-        dist.all_reduce(flat)
+        self._sum(flat)
         flat /= self.world
         offset = 0
         for g in grads:
@@ -152,18 +176,14 @@ class Gang:
                              dtype=torch.float64)
         for tensor in [*model.state_dict().values(), steps,
                        *(s[k] for s in state.values() for k in ("m", "v"))]:
-            dist.broadcast(tensor, 0)
+            collective_in_place(dist.broadcast, tensor, 0)
         params = [p for group in opt.param_groups for p in group["params"]]
         for p, count in zip(params, steps.tolist()):
             opt.state[p]["step"] = int(count)
 
     def mean(self, value: torch.Tensor) -> torch.Tensor:
         """``value``'s mean over the ranks."""
-        import torch.distributed as dist
-
-        value = value.detach().clone()
-        dist.all_reduce(value)
-        return value / self.world
+        return self._sum(value.detach().clone()) / self.world
 
 
 def state_digest(model) -> str:
@@ -183,7 +203,9 @@ def build_family(name, args, device, mesh=None, gang=None):
     batch_fn(np_rng) -> batch). ``step_fn`` takes one AdamW step and
     returns the loss before it, detached and not synchronised. ``mesh``
     is the grid ring and Ulysses attention shard over
-    (``parallel/mesh.py``). The weights are drawn on the CPU from
+    (``parallel/mesh.py``); over a gang's processes the Transformer's
+    ``batch_fn`` draws the data group's batch and keeps this rank's
+    sequence shard of it. The weights are drawn on the CPU from
     ``--seed``, so every device starts from the same ones. With a
     ``gang`` (:class:`Gang`) each step is the global batch's: BatchNorm
     takes the global statistics, the gradients and the returned loss are
@@ -215,9 +237,19 @@ def build_family(name, args, device, mesh=None, gang=None):
         def loss_fn(batch):
             return lm_loss(model, batch, logit_chunk=args.logit_chunk)
 
+        shard = (mesh.sizes["seq"] if isinstance(mesh, ProcessMesh)
+                 else 1)
+        if args.seq_len % shard:
+            raise ValueError(f"seq_len {args.seq_len} does not divide into "
+                             f"{shard} sequence shards")
+        s_local = args.seq_len // shard
+        first = mesh.index("seq") * s_local if shard > 1 else 0
+
         def batch_fn(np_rng):
-            return _tensor(np_rng.integers(0, cfg.vocab_size,
-                                           (bs, args.seq_len + 1)), device)
+            tokens = np_rng.integers(0, cfg.vocab_size,
+                                     (bs, args.seq_len + 1))
+            # This rank's inputs and their next tokens.
+            return _tensor(tokens[:, first:first + s_local + 1], device)
 
     elif name in ("ResNet-18", "ResNet-50"):
         model = (ResNet18 if name == "ResNet-18" else ResNet50)(generator)
@@ -372,19 +404,13 @@ def _in_gang(args) -> bool:
 def _check_args(args) -> None:
     if args.model_parallel > 1:
         raise _not_ported("model parallelism (ROADMAP.md, queue 1, item 8)")
-    if _in_gang(args) and args.seq_parallel > 1:
-        raise _not_ported("sequence parallelism across a gang's processes "
-                          "(ROADMAP.md, queue 1, item 8)")
-    if _in_gang(args) and args.model == "Transformer" and args.num_experts:
-        raise _not_ported("the MoE MLP in a gang (ROADMAP.md, queue 1, "
-                          "item 8)")
 
 
 def rendezvous(args) -> Gang:
-    """Joins the gang's gloo process group at ``--distributed_addr``;
-    raises after ``--distributed_timeout`` seconds (rounded up to whole
-    seconds, at least 1, as the JAX program rounds them) when a rank is
-    missing."""
+    """Joins the gang's process group at ``--distributed_addr`` over gloo
+    (two ranks may share a card, which NCCL refuses); raises after
+    ``--distributed_timeout`` seconds (rounded up to whole seconds, at
+    least 1, as the JAX program rounds them) when a rank is missing."""
     import datetime
     import math
 
@@ -532,10 +558,18 @@ def main(argv=None):
         checkpoint = (DirectoryCheckpoint if args.ckpt_backend == "orbax"
                       else FileCheckpoint)(args.checkpoint_dir)
     resuming = bool(checkpoint and os.path.exists(checkpoint.path))
-    # The run holds one device (a card, or the CPU): as in the JAX program,
-    # --seq_parallel and --model_parallel must divide that count.
-    mesh = make_mesh(factorize_gang(1, args.seq_parallel, args.model_parallel),
-                     [device])
+    if gang is not None:
+        # The mesh spans the gang's processes, one place a rank.
+        mesh = make_process_mesh(args.seq_parallel, args.model_parallel)
+        print(f"MESH backend={gang.backend} rank={gang.rank} "
+              f"world={gang.world} mesh={mesh.sizes} device={device}",
+              flush=True)
+    else:
+        # The run holds one device (a card, or the CPU): as in the JAX
+        # program, --seq_parallel and --model_parallel must divide that
+        # count.
+        mesh = make_mesh(factorize_gang(1, args.seq_parallel,
+                                        args.model_parallel), [device])
     model, step_fn, opt, batch_fn = build_family(args.model, args, device,
                                                  mesh, gang)
     sync()
@@ -556,8 +590,10 @@ def main(argv=None):
         if checkpoint and (gang is None or gang.rank == 0):
             checkpoint.save(model, opt, start_step + len(losses))
 
-    # Each rank draws its own shard of the global batch.
-    np_rng = np.random.default_rng(args.seed + (gang.rank if gang else 0))
+    # Each data group draws its own shard of the global batch; its sequence
+    # shards share the draw.
+    np_rng = np.random.default_rng(
+        args.seed + (mesh.index("data") if gang else 0))
 
     class Batches:
         def __iter__(self):

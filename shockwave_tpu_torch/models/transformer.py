@@ -49,6 +49,7 @@ from shockwave_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_tiles,
 )
+from shockwave_tpu_torch.parallel.mesh import ProcessMesh
 from shockwave_tpu_torch.parallel.ring_attention import (
     dense_causal_attention,
     ring_attention,
@@ -102,24 +103,33 @@ def check_config(cfg: TransformerConfig) -> None:
         raise ValueError(f"dtype must be float32 or bfloat16, got {cfg.dtype}")
 
 
-def apply_rope(x, base=10000.0):
+def apply_rope(x, base=10000.0, offset: int = 0):
     """Rotary position embedding over [B, S, H, D] (D even): rotate
     feature pairs (x_i, x_{i+D/2}) by pos * base^(-2i/D), with the angles
-    in float32 whatever the activation dtype."""
+    in float32 whatever the activation dtype. ``offset`` is the position
+    of the first row (a sequence shard's place in the sequence)."""
     B, S, H, D = x.shape
     half = D // 2
     freqs = torch.exp(
         -torch.arange(0, half, dtype=torch.float32, device=x.device)
         * (2.0 * math.log(base) / D)
     )
-    angles = (torch.arange(S, dtype=torch.float32, device=x.device)[:, None]
-              * freqs[None, :])
+    angles = ((torch.arange(S, dtype=torch.float32, device=x.device)
+               + offset)[:, None] * freqs[None, :])
     cos = torch.cos(angles)[None, :, None, :]
     sin = torch.sin(angles)[None, :, None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat(
         [x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1
     ).to(x.dtype)
+
+
+def position_offset(mesh, seq_len: int) -> int:
+    """The global position of a rank's first token: its sequence shard's
+    place over a gang's processes, 0 in one process."""
+    if isinstance(mesh, ProcessMesh):
+        return mesh.index("seq") * seq_len
+    return 0
 
 
 def _dense(layer: nn.Linear, x, dtype):
@@ -144,6 +154,11 @@ class Attention(nn.Module):
                 f"num_kv_heads ({self.kv_heads}) must be >= 1 and divide "
                 f"num_heads ({cfg.num_heads})"
             )
+        if (isinstance(mesh, ProcessMesh) and mesh.sizes["seq"] > 1
+                and cfg.attention not in ("ring", "ulysses")):
+            raise ValueError(
+                "a sequence sharded over a gang's processes needs ring or "
+                f"ulysses attention, got {cfg.attention!r}")
         if cfg.attention_window is not None and cfg.attention != "flash":
             raise ValueError(
                 "attention_window is only supported by attention='flash'"
@@ -168,8 +183,9 @@ class Attention(nn.Module):
         k = proj(self.key, self.kv_heads)
         v = proj(self.value, self.kv_heads)
         if cfg.positional == "rope":
-            q = apply_rope(q, cfg.rope_base)
-            k = apply_rope(k, cfg.rope_base)
+            offset = position_offset(self.mesh, S)
+            q = apply_rope(q, cfg.rope_base, offset)
+            k = apply_rope(k, cfg.rope_base, offset)
         if self.kv_heads != cfg.num_heads and cfg.attention == "ulysses":
             # Ulysses reshards the head dim in its all-to-alls; the JAX
             # model refuses grouped-query K/V there.
@@ -244,9 +260,22 @@ class MoEMlp(nn.Module):
     (the residual passes). ``dense`` dispatch runs every expert on every
     token and masks. ``forward`` returns the output and the Switch
     balance loss ``E * sum_e f_e * P_e``; ``dropped`` holds the share of
-    the last call's tokens dropped (a detached scalar)."""
+    the last call's tokens dropped and ``balance`` its balance loss (both
+    detached scalars).
 
-    def __init__(self, cfg: TransformerConfig):
+    In a gang (``mesh`` a :class:`~shockwave_tpu_torch.parallel.mesh.
+    ProcessMesh`) the global batch is one routing problem, as under the
+    JAX program's global arrays: the capacity is the global token count's,
+    a token's place in its expert's bucket counts every token routed there
+    before it in the global batch's order (rows of the data shards in rank
+    order, each row's sequence shards in seq order; an all-gather of the
+    per-row counts), and the balance loss's dispatched fractions and mean
+    gates and the dropped share are the global batch's (all-reduces). Each
+    rank's balance loss carries the gradient of its own tokens' gates
+    scaled by the world size, which the gang's gradient average takes
+    back out."""
+
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         if cfg.moe_dispatch not in ("grouped", "dense"):
             raise ValueError(
@@ -259,22 +288,60 @@ class MoEMlp(nn.Module):
                 f"{cfg.moe_capacity_factor}"
             )
         self.cfg = cfg
+        self.gang = mesh if isinstance(mesh, ProcessMesh) else None
         E = cfg.num_experts
         self.router = _linear(cfg.d_model, E)
         self.w_in = nn.Parameter(torch.empty(E, cfg.d_model, cfg.d_ff))
         self.w_out = nn.Parameter(torch.empty(E, cfg.d_ff, cfg.d_model))
         self.dropped = None
+        self.balance = None
+
+    def _balance_loss(self, one_hot, weights, tokens: int):
+        """E * sum_e f_e * P_e over the global batch of ``tokens``."""
+        E = self.cfg.num_experts
+        gang = self.gang
+        if gang is None:
+            return E * torch.sum(one_hot.mean(dim=(0, 1))
+                                 * weights.mean(dim=(0, 1)))
+        frac = gang.all_reduce(one_hot.sum(dim=(0, 1))) / tokens
+        local = weights.sum(dim=(0, 1)) / tokens
+        # The global mean gate in value; the gradient of this rank's gates
+        # times the world size, which the gradient average divides out.
+        prob = gang.world * local + (gang.all_reduce(local)
+                                     - gang.world * local).detach()
+        return E * torch.sum(frac * prob)
+
+    def _gang_slots(self, top, capacity: int):
+        """Each of this rank's tokens' row in the [E * C] buckets, counted
+        in the global batch's token order (``expert_slots`` over the whole
+        batch), or ``E * C`` (dropped)."""
+        gang, E = self.gang, self.cfg.num_experts
+        B = top.shape[0]
+        one_hot = F.one_hot(top, E)  # [B, s, E]
+        counts = gang.all_gather(one_hot.sum(dim=1)).view(
+            gang.sizes["data"], gang.sizes["seq"], B, E)
+        d, j = gang.index("data"), gang.index("seq")
+        rows = counts[d].sum(dim=0)  # [B, E]: each row of this data shard
+        offset = (counts[:d].sum(dim=(0, 1, 2)) + rows.cumsum(dim=0) - rows
+                  + counts[d, :j].sum(dim=0))  # [B, E]
+        pos = ((torch.cumsum(one_hot, dim=1) * one_hot).sum(dim=-1) - 1
+               + offset.gather(1, top))
+        return torch.where(pos < capacity, top * capacity + pos,
+                           E * capacity).reshape(-1)
 
     def forward(self, x):
         cfg = self.cfg
         E = cfg.num_experts
+        B, S, d = x.shape
+        N = B * S
+        tokens = N * (self.gang.world if self.gang is not None else 1)
         weights = torch.softmax(F.linear(x.float(), self.router.weight),
                                 dim=-1)
         top = torch.argmax(weights, dim=-1)  # [B, S]
         one_hot = F.one_hot(top, E).float()
         gate_scale = torch.sum(weights * one_hot, dim=-1, keepdim=True)
-        aux = E * torch.sum(one_hot.mean(dim=(0, 1))
-                            * weights.mean(dim=(0, 1)))
+        aux = self._balance_loss(one_hot, weights, tokens)
+        self.balance = aux.detach()
         w_in, w_out = self.w_in.to(x.dtype), self.w_out.to(x.dtype)
         if cfg.moe_dispatch == "dense":
             dispatch = one_hot.to(x.dtype)
@@ -283,11 +350,14 @@ class MoEMlp(nn.Module):
             out = torch.einsum("bse,bsf,efd->bsd", dispatch, hidden, w_out)
             self.dropped = torch.zeros((), device=x.device)
             return out * gate_scale.to(x.dtype), aux
-        B, S, d = x.shape
-        N = B * S
-        C = expert_capacity(N, E, cfg.moe_capacity_factor)
-        slot = expert_slots(top.reshape(N), E, C)
-        self.dropped = (slot == E * C).float().mean().detach()
+        C = expert_capacity(tokens, E, cfg.moe_capacity_factor)
+        if self.gang is None:
+            slot = expert_slots(top.reshape(N), E, C)
+            self.dropped = (slot == E * C).float().mean().detach()
+        else:
+            slot = self._gang_slots(top, C)
+            self.dropped = self.gang.all_reduce(
+                (slot == E * C).float().sum()) / tokens
         # Row E * C is where dropped tokens land; it is cut off before the
         # products and reads back as zeros.
         buckets = x.new_zeros(E * C + 1, d).index_copy(0, slot, x.reshape(N, d))
@@ -310,7 +380,7 @@ class Block(nn.Module):
         self.attention = Attention(cfg, mesh)
         self.ln2 = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
         if cfg.num_experts > 0:
-            self.moe = MoEMlp(cfg)
+            self.moe = MoEMlp(cfg, mesh)
         else:
             self.mlp = Mlp(cfg)
 
@@ -334,13 +404,16 @@ def _run_blocks(blocks, x):
 
 class TransformerLM(nn.Module):
     """Logits [B, S, V] (float32) for tokens [B, S]. ``mesh``
-    (``parallel/mesh.py``) is the grid ring and Ulysses attention shard over."""
+    (``parallel/mesh.py``) is the grid ring and Ulysses attention shard over;
+    over a gang's processes the tokens are this rank's sequence shard, and
+    its positions (learned or rotary) are the shard's global ones."""
 
     def __init__(self, cfg: TransformerConfig,
                  generator: Optional[torch.Generator] = None, mesh=None):
         super().__init__()
         check_config(cfg)
         self.config = cfg
+        self.mesh = mesh
         self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
         if cfg.positional == "learned":
             self.positional = nn.Parameter(
@@ -379,7 +452,8 @@ class TransformerLM(nn.Module):
         dtype = getattr(torch, cfg.dtype)
         x = self.embedding[tokens]
         if cfg.positional == "learned":
-            x = x + self.positional[: tokens.shape[1]]
+            offset = position_offset(self.mesh, tokens.shape[1])
+            x = x + self.positional[offset:offset + tokens.shape[1]]
         x = x.to(dtype)
         if cfg.remat:
             auxes = []

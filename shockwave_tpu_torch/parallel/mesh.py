@@ -7,18 +7,28 @@ of ``torch.device``s over the framework's standard axes:
   "seq"   - sequence parallelism (ring attention shards);
   "pipe"  - pipeline parallelism.
 
-One process drives the whole grid, as ``shard_map`` drives its mesh: ring
-attention (``parallel/ring_attention.py``) puts each shard on its mesh
-device and steps the shards in lockstep. A device may stand in more than
-one place, so one card can hold a P-shard ring, as the JAX package's
-tests hold a ring on virtual CPU devices. A mesh over several processes
-(``torch.distributed``) is a later slice (ROADMAP.md).
+Two kinds of mesh. A :class:`Mesh` is one process's grid: ring attention
+(``parallel/ring_attention.py``) puts each shard on its mesh device and
+steps the shards in lockstep, as ``shard_map`` drives its mesh. A device
+may stand in more than one place, so one card can hold a P-shard ring, as
+the JAX package's tests hold a ring on virtual CPU devices.
+
+A :class:`ProcessMesh` spans a gang's processes (``torch.distributed``),
+one place a process, as the JAX program's mesh spans its gang's devices
+(``factorize_gang`` over the world, ranks in row-major order over
+(data, model, seq, pipe)). Each axis that crosses processes has its own
+process group, and the mesh carries the few collectives the parallel
+bodies need (a ring shift, an all-to-all, sums and gathers). The gang's
+group is gloo's (``models/train.py::rendezvous``), which moves host
+tensors, so a tensor on a card travels through pinned host memory
+(:func:`to_host`); the gang's own collectives stage the same way
+(:func:`collective_in_place`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -91,3 +101,151 @@ def factorize_gang(
         seq_parallel,
         pipe_parallel,
     )
+
+
+def to_host(tensor: torch.Tensor) -> torch.Tensor:
+    """What gloo moves for ``tensor`` (contiguous): a pinned host copy
+    when it lies on a card, else the tensor itself."""
+    tensor = tensor.contiguous()
+    if tensor.device.type != "cuda":
+        return tensor
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor)
+    return host
+
+
+def collective_in_place(op, tensor: torch.Tensor, *args) -> torch.Tensor:
+    """``op(tensor, *args)``, a ``torch.distributed`` collective that
+    writes its result into its tensor, on ``tensor`` through
+    :func:`to_host`; returns ``tensor``."""
+    staged = to_host(tensor)
+    op(staged, *args)
+    if staged.data_ptr() != tensor.data_ptr():
+        tensor.copy_(staged)
+    return tensor
+
+
+def _place_of(rank: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """A rank's index on each axis: ranks fill the grid row-major, as
+    ``make_mesh`` fills it with ``jax.devices()`` (process-major)."""
+    return tuple(int(i) for i in np.unravel_index(rank, shape))
+
+
+@dataclasses.dataclass(eq=False)
+class ProcessMesh:
+    """One process's place on a mesh over the gang's processes.
+
+    ``shape`` is the global (data, model, seq, pipe) grid, ``rank`` and
+    ``world`` the default group's. ``groups[axis]`` is the process group of this rank's line along ``axis`` (the ranks
+    that differ from it only there), ``members[axis]`` their global ranks
+    in axis order; an axis of size 1 has neither."""
+
+    shape: Tuple[int, ...]
+    rank: int
+    world: int
+    groups: Dict[str, object]
+    members: Dict[str, List[int]]
+    axis_names: Tuple[str, ...] = AXES
+
+    @property
+    def sizes(self) -> dict:
+        """{axis name: size}."""
+        return dict(zip(self.axis_names, self.shape))
+
+    def index(self, axis: str) -> int:
+        """This rank's index along ``axis``."""
+        return _place_of(self.rank, self.shape)[self.axis_names.index(axis)]
+
+    # -- collectives (through host memory, :func:`to_host`) ----------
+
+    def _back(self, staged: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+        return staged.to(like.device, non_blocking=True)
+
+    def shift_start(self, tensors: Sequence[torch.Tensor], axis: str,
+                    step: int):
+        """Posts one ring shift along ``axis``: each tensor goes to the
+        rank ``step`` places on, and the same shapes come from the rank
+        ``step`` places back. Returns the pending exchange, for
+        :meth:`shift_wait`; the caller may launch work in between."""
+        import torch.distributed as dist
+
+        members = self.members[axis]
+        n = len(members)
+        me = self.index(axis)
+        dst, src = members[(me + step) % n], members[(me - step) % n]
+        group = self.groups[axis]
+        sends = [to_host(t) for t in tensors]
+        recvs = [torch.empty_like(s) for s in sends]
+        works = []
+        for s, r in zip(sends, recvs):
+            works += [dist.isend(s, dst, group=group),
+                      dist.irecv(r, src, group=group)]
+        return works, sends, recvs, list(tensors)
+
+    def shift_wait(self, pending) -> List[torch.Tensor]:
+        """The tensors a :meth:`shift_start` received, on the device of
+        what it sent."""
+        works, _sends, recvs, like = pending
+        for work in works:
+            work.wait()
+        return [self._back(r, t) for r, t in zip(recvs, like)]
+
+    def shift(self, tensors: Sequence[torch.Tensor], axis: str,
+              step: int) -> List[torch.Tensor]:
+        return self.shift_wait(self.shift_start(tensors, axis, step))
+
+    def all_to_all(self, tensor: torch.Tensor, axis: str) -> torch.Tensor:
+        """``tensor``'s equal pieces along dim 0 go one to each rank of
+        ``axis`` in axis order; returns the pieces received, stacked in
+        source order."""
+        import torch.distributed as dist
+
+        staged = to_host(tensor)
+        out = torch.empty_like(staged)
+        dist.all_to_all_single(out, staged, group=self.groups[axis])
+        return self._back(out, tensor)
+
+    def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
+        """The sum of ``tensor`` over every rank, as a new tensor."""
+        import torch.distributed as dist
+
+        staged = to_host(tensor.detach())
+        if staged.data_ptr() == tensor.data_ptr():
+            staged = staged.clone()  # the sum must not land in ``tensor``
+        dist.all_reduce(staged)
+        return self._back(staged, tensor)
+
+    def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``tensor``, stacked in rank order along a new dim
+        0."""
+        import torch.distributed as dist
+
+        staged = to_host(tensor.detach())
+        parts = [torch.empty_like(staged) for _ in range(self.world)]
+        dist.all_gather(parts, staged)
+        return self._back(torch.stack(parts), tensor)
+
+
+def make_process_mesh(seq_parallel: int = 1,
+                      model_parallel: int = 1) -> ProcessMesh:
+    """The gang's mesh over the default process group:
+    ``factorize_gang(world, seq_parallel, model_parallel)``, one place a
+    rank. Every rank must call it (it creates each axis's groups, and
+    ``torch.distributed.new_group`` is collective)."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    shape = factorize_gang(world, seq_parallel, model_parallel)
+    groups, members = {}, {}
+    ranks = np.arange(world).reshape(shape)
+    for a, axis in enumerate(AXES):
+        if shape[a] == 1:
+            continue
+        # Every line along the axis gets its group, on every rank, in the
+        # same order; this rank keeps its own line's.
+        lines = np.moveaxis(ranks, a, -1).reshape(-1, shape[a])
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[axis], members[axis] = group, [int(r) for r in line]
+    return ProcessMesh(shape, rank, world, groups, members)

@@ -20,6 +20,15 @@ Two hop bodies, selected by ``inner``:
 - "dense": the einsum body, which scores every hop (masked where the
   block lies in the causal future) with an online softmax in float32.
 
+Over a gang's processes (a :class:`~shockwave_tpu_torch.parallel.mesh.
+ProcessMesh`) each rank holds its own sequence shard and runs its shard's
+body of the one-process version, with the same hops and merges; a hop
+moves the K/V block to the next rank with ``torch.distributed``'s
+isend/irecv, posted before the hop's launch so the exchange overlaps it
+(``_RingHop``). In the backward pass the blocks' gradients go round the
+ring the other way. ``_ring_attention_local`` and ``_ring_flash_local``
+are the reference each rank's body equals.
+
 ``dense_causal_attention`` is the single-device reference the tests hold
 both to.
 """
@@ -32,6 +41,7 @@ from shockwave_tpu_torch.ops.flash_attention import (
     flash_attention_lse,
     flash_tiles,
 )
+from shockwave_tpu_torch.parallel.mesh import ProcessMesh
 
 
 def _block_attention(q, k, v, scale, mask):
@@ -140,6 +150,125 @@ def _ring_flash_local(qs, ks, vs, devices):
     return [a.to(q.dtype) for a, q in zip(acc, qs)]
 
 
+class _RingHop(torch.autograd.Function):
+    """One hop of the ring over processes, as a node of the autograd
+    graph: the forward waits for the exchange ``pending`` (posted by
+    ``mesh.shift_start`` before the previous hop's launch) and returns the
+    K/V block it received from the previous rank; the backward sends the
+    received block's gradients back to that rank and takes, from the next
+    rank, the gradients of the block this rank sent. Every rank runs every
+    hop's backward in the same order (a chain, hop P-1 first), so the
+    exchanges pair up."""
+
+    @staticmethod
+    def forward(ctx, k, v, mesh, axis, pending):
+        ctx.mesh, ctx.axis = mesh, axis
+        k_recv, v_recv = mesh.shift_wait(pending)
+        return k_recv, v_recv
+
+    @staticmethod
+    def backward(ctx, g_k, g_v):
+        g_k, g_v = ctx.mesh.shift([g_k, g_v], ctx.axis, -1)
+        return g_k, g_v, None, None, None
+
+
+def _hops(k, v, mesh, axis):
+    """The K/V block a rank holds at each hop of the ring over ``axis``,
+    as a generator: hop 0's is its own; hop i's is rank (j - i)'s, and the
+    next hop's exchange is posted before hop i's block is handed out, so
+    the caller's launches on it overlap the exchange."""
+    P = mesh.sizes[axis]
+    pending = (mesh.shift_start([k.detach(), v.detach()], axis, 1)
+               if P > 1 else None)
+    yield k, v
+    for i in range(1, P):
+        k, v = _RingHop.apply(k, v, mesh, axis, pending)
+        if i < P - 1:
+            pending = mesh.shift_start([k.detach(), v.detach()], axis, 1)
+        yield k, v
+
+
+def _ring_flash_gang(q, k, v, mesh, axis):
+    """This rank's body of :func:`_ring_flash_local` over processes: hop 0
+    causal, a later hop live when its block lies wholly in the past, the
+    (out, lse) merges in float32."""
+    j = mesh.index(axis)
+    acc = lse = None
+    for i, (k_i, v_i) in enumerate(_hops(k, v, mesh, axis)):
+        if i == 0:
+            out0, lse = flash_attention_lse(q, k_i, v_i, causal=True)
+            acc = out0.float()
+        elif i <= j:  # the block of rank j - i >= 0 lies in the past
+            out_h, lse_h = flash_attention_lse(q, k_i, v_i, causal=False)
+            lse_new = torch.logaddexp(lse, lse_h)
+            w_prev = torch.exp(lse - lse_new).transpose(1, 2)[..., None]
+            w_hop = torch.exp(lse_h - lse_new).transpose(1, 2)[..., None]
+            acc = acc * w_prev + out_h.float() * w_hop
+            lse = lse_new
+    if j < mesh.sizes[axis] - 1:
+        # The last hop is dead here but live on the last rank: a zero term
+        # keeps its node in this rank's graph, so this rank's backward
+        # takes part in that hop's exchange too.
+        acc = acc + 0.0 * k_i.float().sum()
+    return acc.to(q.dtype)
+
+
+def _ring_dense_gang(q, k, v, mesh, axis):
+    """This rank's body of :func:`_ring_attention_local` over processes:
+    every hop scored (masked where its block lies in the causal future),
+    merged by the online softmax in float32."""
+    j = mesh.index(axis)
+    B, S, H, D = q.shape
+    group = H // k.shape[2]
+    scale = _scale(D)
+    dev = q.device
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    m = torch.full((B, H, S), -torch.inf, device=dev)
+    l = torch.zeros((B, H, S), device=dev)
+    P = mesh.sizes[axis]
+    for i, (k_i, v_i) in enumerate(_hops(k, v, mesh, axis)):
+        src = (j - i) % P
+        if group > 1:
+            k_i = k_i.repeat_interleave(group, dim=2)
+            v_i = v_i.repeat_interleave(group, dim=2)
+        q_pos = j * S + torch.arange(S, device=dev)
+        k_pos = src * S + torch.arange(S, device=dev)
+        mask = torch.zeros((S, S), device=dev).masked_fill(
+            k_pos[None, :] > q_pos[:, None], -torch.inf)
+        blk_out, blk_max, blk_denom = _block_attention(q, k_i, v_i, scale,
+                                                       mask)
+        new_m = torch.maximum(m, blk_max)
+        old_scale = torch.exp(torch.clamp(m - new_m, -80.0, 0.0))
+        blk_scale = torch.exp(torch.clamp(blk_max - new_m, -80.0, 0.0))
+        empty = torch.isinf(blk_max) & (blk_max < 0)
+        blk_scale = torch.where(empty, torch.zeros_like(blk_scale), blk_scale)
+        new_m = torch.where(torch.isinf(new_m) & (new_m < 0), m, new_m)
+        l = l * old_scale + blk_denom * blk_scale
+        acc = (acc * old_scale.transpose(1, 2)[..., None]
+               + blk_out * blk_scale.transpose(1, 2)[..., None])
+        m = new_m
+    return (acc / torch.clamp(l.transpose(1, 2)[..., None], min=1e-20)
+            ).to(q.dtype)
+
+
+def _ring_gang(q, k, v, mesh, seq_axis, inner):
+    """Ring attention over a gang's processes: q, k, v are this rank's
+    sequence shard ``[batch, seq / P, heads, head_dim]`` (its batch rows
+    are its data shard already); returns its shard of the output."""
+    if mesh.sizes.get("model", 1) > 1:
+        raise ValueError("ring attention over processes shards no heads; "
+                         "the mesh's model axis must be 1")
+    H, Hkv = q.shape[2], k.shape[2]
+    if Hkv != H and H % Hkv:
+        raise ValueError(
+            f"q heads ({H}) must be a multiple of kv heads ({Hkv})")
+    if inner == "auto":
+        inner = "flash" if flash_tiles(q.shape[1]) else "dense"
+    if inner == "flash":
+        return _ring_flash_gang(q, k, v, mesh, seq_axis)
+    return _ring_dense_gang(q, k, v, mesh, seq_axis)
+
+
 def ring_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -162,14 +291,20 @@ def ring_attention(
     skipped), "dense" (the einsum body), or "auto" (default): flash
     exactly when the local block ``seq / P`` tiles for the kernels
     (:func:`flash_tiles`).
+
+    Over a :class:`~shockwave_tpu_torch.parallel.mesh.ProcessMesh` q, k, v
+    are this rank's shard (``[batch, seq / P, heads, head_dim]``) and so
+    is the output.
     """
-    other_axes = [a for a in mesh.axis_names if a != seq_axis]
-    batch_axis = other_axes[0] if len(other_axes) > 0 else None
-    head_axis = other_axes[1] if len(other_axes) > 1 else None
     if inner not in ("auto", "flash", "dense"):
         raise ValueError(
             f"inner must be 'auto', 'flash' or 'dense', got {inner!r}"
         )
+    if isinstance(mesh, ProcessMesh):
+        return _ring_gang(q, k, v, mesh, seq_axis, inner)
+    other_axes = [a for a in mesh.axis_names if a != seq_axis]
+    batch_axis = other_axes[0] if len(other_axes) > 0 else None
+    head_axis = other_axes[1] if len(other_axes) > 1 else None
     B, S, H, D = q.shape
     Hkv = k.shape[2]
     P = mesh.shape[seq_axis]

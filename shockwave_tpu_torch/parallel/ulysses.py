@@ -21,6 +21,13 @@ launch over every head computes for it. Where the sequence does not tile
 for the kernels (:func:`flash_tiles`), the local body is
 ``dense_causal_attention``, as in the JAX package.
 
+Over a gang's processes (a :class:`~shockwave_tpu_torch.parallel.mesh.
+ProcessMesh`) each rank holds its sequence shard, and the all-to-alls are
+``torch.distributed`` all-to-alls over the seq axis (``_AllToAll``, which
+is differentiable: with equal pieces the all-to-all is its own adjoint),
+around one flash launch a rank; each rank's body is its shard's body of
+the one-process version.
+
 Requires the local head count (after any split over the mesh's head
 axis) to divide by the seq axis; grouped-query K/V heads must divide by
 it too, so each shard's query heads meet their own K/V heads.
@@ -31,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from shockwave_tpu_torch.ops.flash_attention import flash_attention, flash_tiles
+from shockwave_tpu_torch.parallel.mesh import ProcessMesh
 from shockwave_tpu_torch.parallel.ring_attention import dense_causal_attention
 
 
@@ -45,6 +53,54 @@ def _all_to_all(blocks, devices, split_dim: int, concat_dim: int):
             for p in range(P)]
 
 
+class _AllToAll(torch.autograd.Function):
+    """``mesh.all_to_all`` over ``axis`` of a ``[P, ...]`` tensor (piece p
+    to rank p, received pieces stacked in source order). Its adjoint is
+    the same all-to-all of the gradient."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_to_all(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_to_all(g, ctx.axis), None, None
+
+
+def _local_attention(q, k, v, local_attention: str):
+    """One shard's causal attention over the full sequence."""
+    if local_attention == "flash":
+        return flash_attention(q, k, v)
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
+    return dense_causal_attention(q, k, v)
+
+
+def _ulysses_gang(q, k, v, mesh, axis, local_attention: str):
+    """This rank's body of :func:`_ulysses_local` over processes: q, k, v
+    are its ``[B, S/P, H, D]`` shard; returns its shard of the output."""
+    P = mesh.sizes[axis]
+
+    def scatter_heads(x):  # [B, S/P, H, D] -> [B, S, H/P, D]
+        B, s, H, D = x.shape
+        pieces = x.reshape(B, s, P, H // P, D).permute(2, 0, 1, 3, 4)
+        got = _AllToAll.apply(pieces.contiguous(), mesh, axis)
+        return got.permute(1, 0, 2, 3, 4).reshape(B, P * s, H // P, D)
+
+    def gather_heads(x):  # [B, S, H/P, D] -> [B, S/P, H, D]
+        B, S, h, D = x.shape
+        pieces = x.reshape(B, P, S // P, h, D).permute(1, 0, 2, 3, 4)
+        got = _AllToAll.apply(pieces.contiguous(), mesh, axis)
+        return got.permute(1, 2, 0, 3, 4).reshape(B, S // P, P * h, D)
+
+    out = _local_attention(scatter_heads(q), scatter_heads(k),
+                           scatter_heads(v), local_attention)
+    return gather_heads(out)
+
+
 def _ulysses_local(qs, ks, vs, devices, local_attention: str):
     """Every shard's body in lockstep: qs[j]/ks[j]/vs[j] are shard j's
     ``[B, S/P, H, D]`` blocks on devices[j]; returns each shard's output
@@ -53,16 +109,8 @@ def _ulysses_local(qs, ks, vs, devices, local_attention: str):
     qs = _all_to_all(qs, devices, split_dim=2, concat_dim=1)
     ks = _all_to_all(ks, devices, split_dim=2, concat_dim=1)
     vs = _all_to_all(vs, devices, split_dim=2, concat_dim=1)
-    if local_attention == "flash":
-        outs = [flash_attention(q, k, v) for q, k, v in zip(qs, ks, vs)]
-    else:
-        outs = []
-        for q, k, v in zip(qs, ks, vs):
-            group = q.shape[2] // k.shape[2]
-            if group > 1:
-                k = k.repeat_interleave(group, dim=2)
-                v = v.repeat_interleave(group, dim=2)
-            outs.append(dense_causal_attention(q, k, v))
+    outs = [_local_attention(q, k, v, local_attention)
+            for q, k, v in zip(qs, ks, vs)]
     # [B, S, H/P, D] -> [B, S/P, H, D]
     return _all_to_all(outs, devices, split_dim=1, concat_dim=2)
 
@@ -83,12 +131,26 @@ def ulysses_attention(
     (``make_mesh`` names them "data" and "model"); further axes
     replicate. ``local_attention`` selects the per-shard body: "dense" or
     "flash" (the flash kernels). Returns ``[batch, seq, heads,
-    head_dim]`` on q's device.
+    head_dim]`` on q's device. Over a :class:`~shockwave_tpu_torch.parallel.
+    mesh.ProcessMesh` q, k, v are this rank's sequence shard, and so is the
+    output.
     """
     if local_attention not in ("dense", "flash"):
         raise ValueError(
             f"local_attention must be 'dense' or 'flash', got "
             f"{local_attention!r}")
+    if isinstance(mesh, ProcessMesh):
+        P = mesh.sizes[seq_axis]
+        if mesh.sizes.get("model", 1) > 1:
+            raise ValueError("Ulysses over processes shards no heads; the "
+                             "mesh's model axis must be 1")
+        if q.shape[2] % P or k.shape[2] % P:
+            raise ValueError(
+                f"{q.shape[2]} heads ({k.shape[2]} K/V heads) not divisible "
+                f"by seq axis {seq_axis}={P}; use ring attention instead")
+        if local_attention == "flash" and not flash_tiles(P * q.shape[1]):
+            local_attention = "dense"
+        return _ulysses_gang(q, k, v, mesh, seq_axis, local_attention)
     seq_par = mesh.shape[seq_axis]
     other_axes = [a for a in mesh.axis_names if a != seq_axis]
     batch_axis = other_axes[0] if len(other_axes) > 0 else None

@@ -307,10 +307,29 @@ class JobColumns:
         if cached is not None:
             return cached
         arena = self.arena
+        lens_col = self.str_len[col]
+        if not lens_col.any():  # all empty, or no rows (a close)
+            out = [""] * self.n
+            self._str_cache[col] = out
+            return out
+        offs_col = self.str_off[col]
+        first = int(lens_col[0])
+        if first and (lens_col == first).all():
+            # One value down the whole column (a batch's command, mode or
+            # tenant), laid back to back as the columnar frame lays a
+            # column: its bytes are that value n times over.
+            start = int(offs_col[0])
+            end = start + first * self.n
+            value = bytes(arena[start:start + first])
+            if (np.array_equal(offs_col, start + first * np.arange(self.n))
+                    and arena[start:end] == value * self.n):
+                out = [value.decode("utf-8")] * self.n
+                self._str_cache[col] = out
+                return out
+        offs = offs_col.tolist()
+        lens = lens_col.tolist()
         cache: dict = {}
         out: List[str] = []
-        offs = self.str_off[col].tolist()
-        lens = self.str_len[col].tolist()
         for off, ln in zip(offs, lens):
             if not ln:
                 out.append("")
@@ -448,14 +467,18 @@ def encode_columnar_block(specs: Sequence[dict]) -> bytes:
     if n == 0:
         return bytes(out)
     chunks: List[bytes] = []
-    lens = np.empty(NUM_STR_COLS * n, dtype=np.int64)
-    k = 0
     for _field, name in STR_FIELDS:
+        # A column's values repeat (a batch's job types, command, mode):
+        # each distinct one is encoded once.
+        encoded: dict = {}
         for spec in specs:
-            raw = str(spec.get(name, "") or "").encode("utf-8")
+            value = str(spec.get(name, "") or "")
+            raw = encoded.get(value)
+            if raw is None:
+                raw = encoded[value] = value.encode("utf-8")
             chunks.append(raw)
-            lens[k] = len(raw)
-            k += 1
+    lens = np.fromiter(map(len, chunks), dtype=np.int64,
+                       count=NUM_STR_COLS * n)
     arena = b"".join(chunks)
     if arena:
         # An all-empty-strings batch omits the arena entirely (protoc

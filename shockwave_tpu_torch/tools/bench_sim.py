@@ -99,12 +99,14 @@ TIER_2048_CUT = dict(makespan=29879.815, avg_jct=2586.795, worst_ftf=0.867,
 # PDHG solves; the port's plain PDHG on the CPU gives the same digits).
 TIER_2048_PDHG = dict(makespan=58678.337, avg_jct=13412.053, worst_ftf=1.399,
                       rounds=489)
-# Its first 160 rounds (run_trace(..., max_rounds=160)), which chip_smoke.py
+# Its first 80 rounds (run_trace(..., max_rounds=80)), which chip_smoke.py
 # phase 9 runs: the JAX package on the CPU (tests/tier_cut_reference.py;
-# 140 PDHG solves, 653 jobs completed; the metrics cover those jobs). The
-# port's plain PDHG on the CPU gives the same digits.
-TIER_2048_PDHG_CUT = dict(makespan=19079.815, avg_jct=2589.265,
-                          worst_ftf=0.727, rounds=160)
+# 60 PDHG solves, 279 jobs completed; the metrics cover those jobs). The
+# port's plain PDHG on the CPU gives the same digits. Its 8 windows still
+# reach 328 jobs and the greedy's 16-grant steps. (The earlier cut, its
+# first 160 rounds: 19079.815 / 2589.265 / 0.727, 140 solves.)
+TIER_2048_PDHG_CUT = dict(makespan=9479.815, avg_jct=2794.657,
+                          worst_ftf=1.51, rounds=80)
 # The JAX package's run of the 12-job trace on 8 GPUs, 120 s rounds, under
 # shockwave_tpu_pdhg with --cells 2 (its scripts/simulate.py on the CPU):
 # 16 coordinated replans, each one batched solve of the stale cells.

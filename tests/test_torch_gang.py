@@ -35,11 +35,13 @@ _GANG = re.compile(r"^GANG rank=(\d+) world=(\d+) params=(\w+) "
 
 
 def run_gang(num_ranks, model, steps=3, batch=2, extra=(), timeout_s=240,
-             checkpoint_dir=None):
-    """``num_ranks`` ranks of the training program on the CPU; returns
-    (exit codes, outputs, per-rank (params digest, losses))."""
+             checkpoint_dir=None, threads=2):
+    """``num_ranks`` ranks of the training program on the CPU, each with
+    ``threads`` CPU threads; returns (exit codes, outputs, per-rank (params
+    digest, losses))."""
     addr = f"127.0.0.1:{free_port()}"
-    env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=str(ROOT))
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               PYTHONPATH=str(ROOT))
     command = [sys.executable, "-m", "shockwave_tpu_torch.models.train",
                "--model", model, "-n", str(steps), "--batch_size",
                str(batch), "--device", "cpu", "--distributed_addr", addr,
@@ -160,8 +162,6 @@ def test_rendezvous_timeout_fails_fast():
 
 @pytest.mark.parametrize("extra,what", [
     (["--model_parallel", "2"], "model parallelism"),
-    (["--seq_parallel", "2", "--attention", "ring"], "sequence parallelism"),
-    (["--num_experts", "4"], "the MoE MLP in a gang"),
 ])
 def test_what_a_gang_cannot_do_raises_naming_item_8(extra, what):
     args = train.parse_args(["--model", "Transformer", "-n", "1",

@@ -657,6 +657,99 @@ def test_chaos_soak_runs_with_jax_blocked(tmp_path):
     assert json.loads((tmp_path / "chaos_smoke.json").read_text())["ok"]
 
 
+def test_streaming_soak_runs_with_jax_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.tools.streaming_soak --smoke
+    --device cpu`` holds every invariant with JAX and the JAX package
+    unimportable."""
+    stdout = _run_blocked("shockwave_tpu_torch.tools.streaming_soak",
+                          "--smoke", "--device", "cpu", "--out",
+                          str(tmp_path))
+    assert "OK: 106 events (82 faults + 24 admissions)" in stdout
+    assert json.loads((tmp_path / "churn_smoke.json").read_text())["ok"]
+
+
+# _SITECUSTOMIZE that also reports whether the process loaded torch and
+# whether it is an ingest submitter (which sets its wire mode's variable).
+_SITECUSTOMIZE_TORCH = _SITECUSTOMIZE.replace(
+    "        json.dump(leaked, f)",
+    "        json.dump({'leaked': leaked, 'torch': 'torch' in sys.modules,\n"
+    "                   'submitter': 'SHOCKWAVE_WIRE_COLUMNAR' in os.environ},"
+    " f)")
+
+
+# A wall-clock campaign under the smoke's rate floor and p99 budget.
+@pytest.mark.wallclock_retry
+def test_ingest_soak_runs_with_jax_and_grpc_blocked(tmp_path):
+    """``python -m shockwave_tpu_torch.tools.ingest_soak --smoke --device
+    cpu`` (the parity gate, the fleet, the pricing phase) with every
+    process blocked from ``jax``, the JAX package, ``grpc`` and
+    ``google.protobuf``; the submitter processes import no torch
+    either."""
+    assert "'torch' in sys.modules" in _SITECUSTOMIZE_TORCH
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_SITECUSTOMIZE_TORCH)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(blocker), str(ROOT)]))
+    proc = subprocess.run(
+        [sys.executable, "-c", _PLANE_SCRIPT,
+         "shockwave_tpu_torch.tools.ingest_soak", "--smoke", "--device",
+         "cpu", "--out", str(tmp_path / "out")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
+    assert "parity: 24 batches byte-identical acks" in proc.stdout
+    assert "OK: 3000 jobs" in proc.stdout and "LEAKED []" in proc.stdout
+    reports = [json.loads(f.read_text()) for f in blocker.glob("leaked-*")]
+    children = [r for r in reports if r["submitter"]]
+    assert len(children) == 2 and not any(r["torch"] for r in children)
+    assert all(r["leaked"] == [] for r in reports), reports
+
+
+def test_profile_ingest_runs_with_jax_blocked(tmp_path):
+    out = tmp_path / "profile.json"
+    _run_blocked("shockwave_tpu_torch.tools.profile_ingest", "-o", str(out),
+                 "--batches", "4", "--batch-size", "64", "--repeats", "1")
+    stages = json.loads(out.read_text())["stages"]
+    assert set(stages) == {"encode_scalar", "encode_columnar",
+                           "decode_scalar", "decode_columnar_legacy",
+                           "decode_columnar_frame", "ledger", "ack_encode"}
+
+
+def test_a_seq_and_moe_gang_runs_with_jax_blocked(tmp_path):
+    """Two ranks of ``python -m shockwave_tpu_torch.models.train
+    --seq_parallel 2 --attention ring --num_experts 2`` over gloo with
+    ``jax`` and the JAX package unimportable in both."""
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    blocker = tmp_path / "blocker"
+    blocker.mkdir()
+    (blocker / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=os.pathsep.join([str(blocker), str(ROOT)]))
+    addr = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "shockwave_tpu_torch.models.train", "--model",
+         "Transformer", "-n", "2", "--batch_size", "2", "--vocab_size", "64",
+         "--d_model", "32", "--num_heads", "2", "--num_layers", "1",
+         "--seq_len", "64", "--attention", "ring", "--seq_parallel", "2",
+         "--num_experts", "2", "--device", "cpu", "--distributed_addr",
+         addr, "--num_workers", "2", "--worker_rank", str(rank)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+        assert "MESH backend=gloo" in out and "GANG rank=" in out
+    leaks = [json.loads(f.read_text()) for f in blocker.glob("leaked-*")]
+    assert len(leaks) == 2 and all(leak == [] for leak in leaks), leaks
+
+
 # A wall-clock run of real payloads (a few seconds a round).
 @pytest.mark.wallclock_retry
 def test_card_driver_with_a_gang_runs_with_jax_and_grpc_blocked(tmp_path):

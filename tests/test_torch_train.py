@@ -86,7 +86,7 @@ def test_phase_timings_line(monkeypatch, capsys):
         ["--model", "A3C"],
         ["--model", "CycleGAN"],
         ["--distributed_addr", "localhost:1234", "--num_workers", "2",
-         "--seq_parallel", "2", "--attention", "ring"],
+         "--model_parallel", "2"],
         ["--model_parallel", "2"],
         ["--ckpt_backend", "orbax"],
         ["--attention", "ulysses"],
@@ -96,9 +96,9 @@ def test_phase_timings_line(monkeypatch, capsys):
     ],
 )
 def test_unported_paths_raise(extra, tmp_path):
-    """Sequence parallelism across a gang's processes and model
-    parallelism still raise (item 8; the gang itself trains,
-    tests/test_torch_gang.py). Every other case
+    """Model parallelism still raises (item 8), in a gang before its
+    rendezvous (a gang trains with its sequence over its processes,
+    tests/test_torch_gang_seq.py). Every other case
     is ported: ``train.main`` runs it (``--ckpt_backend orbax`` saves a
     directory checkpoint and resumes from it), and its loop from the JAX
     initialisation tracks the JAX program's: the first loss within 1e-5,
