@@ -122,7 +122,10 @@
 10. Prints one JSON line ``{"kernels": [...]}`` (a row for each kernel
    and mode) and, last, ``{"ok": true, "device": {...}}``. Every printed
    reading of the ring phase carries the card's name and power limit.
-11. Before item 10's lines, drives the Gavel round path (``run_gavel``):
+11. Before item 10's lines, drives the Gavel round path (``run_gavel``;
+   it and item 13 run in a process of their own, ``python chip_smoke.py
+   --host-phases b``, started before item 17 and waited for after item 8,
+   whose output is then printed):
    Gavel's policies, whose allocation LPs run on the host (scipy's
    HiGHS), through ``bench_sim.run_trace`` and the Figure-9 runner
    (``shockwave_tpu_torch/tools/scale_experiments.py``): (a) the 12-job
@@ -160,7 +163,8 @@
    package's run (``bench_sim.GOLDEN_CELLS``) in its rounds, then
    ``python -m shockwave_tpu_torch.simulate -t
    traces/generated_2048_dynamic.trace -p shockwave_tpu_pdhg -c v100=256
-   --time_per_iteration 120 --cells 4 --max_rounds 260`` (the tier's first
+   --time_per_iteration 120 --cells 4 --max_rounds 260`` (run beside item
+   17 in a process of its own, ``run_cells_tier``; the tier's first
    260 rounds, round 253 the one with the most incomplete jobs): every
    cell plan audited, every lane of every launch equal to its one-lane
    launch, its metrics within 1e-3 of the JAX package's run of the same
@@ -435,12 +439,31 @@
    losses within ``RING_LOSS_RTOL`` on step 1 and ``RING_STEPS_RTOL`` on
    each, parameters within ``GANG_PARAMS_RTOL`` of that run's update
    (``GANG_PARAM_RTOL`` for the worst one), limits that a planted ring
-   bug (one live hop without its K/V gradient) must fail. (c) The MoE tier's widths cut to 2
+   bug (one live hop without its K/V gradient) must fail; they and (d)
+   resume the seed's weights from a step-0 checkpoint this process
+   writes. (c) The MoE tier's widths cut to 2
    layers, two ranks of batch 4, 2 steps: the ranks equal, and the losses
    within ``MOE_GANG_RTOL`` of one process's on the global batch. The
-   three gangs run at once (six processes on card 0, one CPU thread
-   each) while this process computes the references. The flash rows of
-   item 10's line carry (a)'s and (b)'s launches (``gang_seq_launches``).
+   gangs run on card 0, one CPU thread a rank. (d) The 110M tier
+   with ``--model_parallel 2`` (4 heads, half the MLP and the vocabulary a
+   rank), ``GANG_MODEL_STEPS`` steps, and (e) the MoE tier's 2 layers
+   with its 4 experts over "model" (2 a rank), at batches 4 and 8 from
+   the seed (the ranks share the draw): each fails unless the ranks are equal,
+   each launched each causal flash kernel once a layer a step on its own
+   heads (8 a step in (d)), and each step's loss and the whole parameters rank
+   0 saved (gathered over "model") are one process's on the same weights
+   and batch, within ``MODEL_LOSS_RTOL``, ``MODEL_PARAMS_RTOL`` and
+   ``MODEL_PARAM_RTOL`` (for (e) ``MODEL_MOE_*``), limits each of which
+   (d) with one planted fault must fail: a gang whose first
+   layer leaves its tensor-parallel input gradients unsummed over "model"
+   (``planted_model_rank``). (f) ``parallel/pipeline.py::PipelinedLM`` at
+   the 110M widths cut to 4 layers, 2 stages over a two-rank pipe gang, 4
+   microbatches of 2, ``PIPE_STEPS`` AdamW steps (``pipe_rank``): every
+   step's loss within ``PIPE_RTOL`` of one process's pipelined run, and
+   the first within it of ``logits_sequential``'s. All of them run at once
+   (fourteen processes), while this process computes the references. The
+   flash rows of item 10's line carry (a)'s and (b)'s launches
+   (``gang_seq_launches``) and (d)'s and (e)'s (``gang_model_launches``).
 
 Phase 20 and then phase 17 run right after phase 7 (phase 17's long
 rounds then leave the rest of the smoke its time), phases 21, 22 and 23
@@ -496,8 +519,24 @@ DKV_Q_TILE = 64
 DQ_K_TILE = 128
 
 
+# The phase that is running and the smoke's start, for fail()'s message.
+PROGRESS = {"phase": "start-up", "started": time.time()}
+
+
+def enter(phase: str) -> float:
+    """Marks ``phase`` as the one running; returns the time."""
+    PROGRESS["phase"] = phase
+    return time.time()
+
+
+def where() -> str:
+    return (f"in phase {PROGRESS['phase']}, "
+            f"{time.time() - PROGRESS['started']:.1f} s after the start")
+
+
 def fail(message: str) -> None:
-    print(f"chip_smoke: FAILED: {message}", file=sys.stderr, flush=True)
+    print(f"chip_smoke: FAILED {where()}: {message}", file=sys.stderr,
+          flush=True)
     sys.exit(1)
 
 
@@ -1243,10 +1282,9 @@ def run_first_order(device) -> dict:
             "windows": windows}
 
 
-def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
+def run_gavel(device, card: str) -> dict:
     """Phases (a)-(d) of the Gavel round path (docstring, item 11); fails
-    on any run past its tolerance. ``shockwave_tier`` is item 8's run of
-    the 2048-job trace under ``shockwave_tpu``."""
+    on any run past its tolerance."""
     import scipy
 
     from shockwave_tpu_torch.tools import bench_sim as sim
@@ -1293,12 +1331,6 @@ def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
                             cluster=sim.HETERO_CLUSTER, gpus_per_server=4),
               "HETERO", policy)
 
-    # Item 8's tier is cut to its first rounds: printed, not paired with
-    # the whole max-min run.
-    runs[f"2048-job tier's first {shockwave_tier['rounds']} rounds, "
-         "shockwave_tpu on 256 GPUs"] = {
-        k: shockwave_tier[k] for k in ("makespan", "avg_jct", "worst_ftf",
-                                       "unfair_fraction", "rounds")}
     for title, kind in (("Figure 9", lambda l: "Figure 9" in l or "2048" in l),
                         ("heterogeneous", lambda l: l.startswith("v100"))):
         print(f"{title} table {tag}: run | makespan | avg JCT | worst FTF "
@@ -1320,6 +1352,89 @@ def run_gavel(device, card: str, shockwave_tier: dict) -> dict:
               f"{r['makespan']:.4f}, avg JCT {r['avg_jct']:.4f}, worst FTF "
               f"{r['worst_ftf']:.4f} {tag}", flush=True)
     return {"runs": runs, "ratios": ratios, "scipy": scipy.__version__}
+
+
+# Host work that runs beside phase 17, whose rounds leave the host most of
+# its cores: phases 11 and 13 (their LPs, assignments and MILPs on the
+# host; the card only for Figure 9's Shockwave cells and the MILP window's
+# level and pdhg solves) in one process, and phase 12's --cells 4 tier (its
+# planner's host tail; its device head is 2.3 s of its minute) in another;
+# the tier's device head is read beside phase 17's payloads on the card.
+# Work that keeps the card busy stays out: phase 9's checks there put
+# phase 17's first leases at 20-31 s and its rounds at 12, not 9 (PERF.md
+# section 6).
+HOST_PHASES = {"a": "12's tier", "b": "11 and 13"}
+HOST_DIR = ROOT / "_smoke_out" / "host_phases"
+HOST_PHASES_NICE = 10
+HOST_PHASES_FLAG = "--host-phases"
+
+
+def run_host_phases(group: str, device, card: str) -> None:
+    """One group of :data:`HOST_PHASES`, as ``python chip_smoke.py
+    --host-phases <group>`` runs it: its readings and seconds pickled
+    into ``HOST_DIR / <group>.pkl``. It yields the host to phase 17, whose
+    payloads' start-ups set its rounds (a start-up past a round costs the
+    job that round)."""
+    import pickle
+
+    os.nice(HOST_PHASES_NICE)
+    readings = {}
+    if group == "a":
+        started = enter("12 (the cells tier)")
+        readings["cells_tier"] = run_cells_tier(device, card)
+        readings["cells_tier"]["phase_s"] = time.time() - started
+    else:
+        started = enter("11 (Gavel)")
+        readings["gavel"] = run_gavel(device, card)
+        readings["gavel"]["phase_s"] = time.time() - started
+        print(f"Gavel phase: {readings['gavel']['phase_s']:.1f} s [{card}]",
+              flush=True)
+        started = enter("13 (the policy library)")
+        readings["library"] = run_library(device, card)
+        readings["library"]["phase_s"] = time.time() - started
+        print(f"policy library phase: {readings['library']['phase_s']:.1f} "
+              f"s [{card}]", flush=True)
+    with open(HOST_DIR / f"{group}.pkl", "wb") as f:
+        pickle.dump(readings, f)
+
+
+def start_host_phases() -> dict:
+    """Starts each group of :data:`HOST_PHASES` in its own process, its
+    output into ``HOST_DIR / <group>.log``; :func:`finish_host_phases`
+    collects them."""
+    shutil.rmtree(HOST_DIR, ignore_errors=True)
+    HOST_DIR.mkdir(parents=True)
+    procs = {}
+    for group in HOST_PHASES:
+        log = open(HOST_DIR / f"{group}.log", "w")
+        procs[group] = (subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), HOST_PHASES_FLAG,
+             group], cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log)
+    return procs
+
+
+def finish_host_phases(procs: dict, deadline: float) -> tuple:
+    """Waits for every group (until ``deadline``), prints each one's
+    output and returns (their readings merged, seconds waited)."""
+    import pickle
+
+    waited = time.time()
+    readings = {}
+    for group, (proc, log) in procs.items():
+        try:
+            proc.wait(timeout=max(deadline - time.time(), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log.close()
+        print((HOST_DIR / f"{group}.log").read_text(), end="", flush=True)
+        out = HOST_DIR / f"{group}.pkl"
+        if proc.returncode != 0 or not out.exists():
+            fail(f"phases {HOST_PHASES[group]} (their own process) ended "
+                 f"with {proc.returncode}; their output is above")
+        with open(out, "rb") as f:
+            readings.update(pickle.load(f))
+    return readings, time.time() - waited
 
 
 # The cells-vs-global objective gap the cells market is held to
@@ -1358,14 +1473,14 @@ def frozen_state(planner) -> dict:
     return state
 
 
-def run_cells(device, card: str) -> dict:
+def run_cells(device, card: str, tier: dict) -> dict:
     """Phase 12 (docstring, item 12): the cells market and the what-if
     fleet on kernel A's lane grid; fails on any lane that differs in a bit
     from its one-lane launch, a gap past CELLS_GAP_PCT, a plan that is not
-    feasible, or a tier metric past its tolerance."""
-    from shockwave_tpu_torch import simulate
+    feasible, or a tier metric past its tolerance. ``tier`` is
+    :func:`run_cells_tier`'s (the ``--cells 4`` tier, run beside phase
+    17), whose state at its most incomplete jobs is in ``CELLS_STATE``."""
     from shockwave_tpu_torch.cells import batched
-    from shockwave_tpu_torch.cells.planner import CellPlanner
     from shockwave_tpu_torch.obs import recorder
     from shockwave_tpu_torch.ops import eg_pdhg as kernel
     from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
@@ -1457,7 +1572,94 @@ def run_cells(device, card: str) -> dict:
              + ", ".join(bad or ["no launch of kernel A"]))
     readings["golden"] = {k: golden[k] for k in (
         "makespan", "avg_jct", "worst_ftf", "rounds", "solves", "launches")}
+    readings["tier"] = tier
 
+    # (iii) The what-if fleet through its CLI: (a) round 91 of the
+    # committed log on the JAX package's 1024-scenario fleet; (b) the
+    # tier's state at its most incomplete jobs, 65 scenarios.
+    fleet_lists = [",".join(f"{x:g}" for x in values) for values in (
+        wcli.FLEET_CAPACITIES, wcli.FLEET_PRIORITY_SCALES,
+        wcli.FLEET_SWITCH_SCALES)]
+    grids = {
+        "a": (["--log", str(FLIGHT_LOG), "--round", "91"], fleet_lists,
+              f"round 91 of {FLIGHT_LOG.relative_to(ROOT)}"),
+        "b": (["--state", str(CELLS_STATE)],
+              ["128,192,256,320", "0.5,1,2,4", "0,0.5,1,2"],
+              f"the cells tier's state at round {tier['state_round']} "
+              f"({tier['state_jobs']} incomplete jobs)"),
+    }
+    fleet = {}
+    for name, (source_args, (caps, pscales, sscales), source) in grids.items():
+        out_path = ROOT / "_smoke_out" / f"whatif_grid_{name}.json"
+        kernel.reset_launch_counts()
+        rc = wcli.main(["sweep", *source_args, "--capacity", caps,
+                        "--priority-scale", pscales, "--switch-scale",
+                        sscales, "--out", str(out_path)])
+        grid_launches = kernel.LAUNCHES["eg_pdhg"]
+        with open(out_path) as f:
+            report = json.load(f)
+        if rc != 0 or not report["audit"]["bit_identical"] or report[
+                "audit"]["audited"] != report["timing"]["scenarios"]:
+            fail(f"what-if grid ({name}): audit {report['audit']}")
+        if name == "a":
+            base, _, warm, _ = base_problem_from_log(str(FLIGHT_LOG),
+                                                     round_index=91)
+        else:
+            base, _, warm = base_problem_from_state(recorder.load_exported_state(
+                str(CELLS_STATE))["planner_state"])
+        grid = wcli.build_grid(base, caps, pscales, sscales)
+        batch = ScenarioBatch(base, grid, s0=warm)
+        timing = sim.time_lane_grid(torch.from_numpy(batch.packed()).to(
+            device))
+        if timing["differ"]:
+            fail(f"what-if grid ({name}): lanes {timing['differ'][:8]} "
+                 "differ from their one-lane launches")
+        sync()
+        t0 = time.perf_counter()
+        solve_scenarios(batch, device=device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+        t = report["timing"]
+        fleet[name] = dict(source=source, jobs=base.num_jobs,
+                           scenarios=t["scenarios"], lanes=t["lanes"],
+                           chunk=t["chunk"], slots=t["slots"],
+                           launches=grid_launches,
+                           scenarios_per_s=t["scenarios_per_s"],
+                           batch_solve_s=t["batch_solve_s"],
+                           one_by_one_s=report["audit"]["one_by_one_s"],
+                           audited=report["audit"]["audited"], grid=timing,
+                           solve_wall_ms=wall_ms,
+                           busy_share=timing["ms"] / wall_ms)
+        print(f"what-if grid ({name}), {source}: {base.num_jobs} jobs x "
+              f"{t['scenarios']} scenarios in {t['lanes']} lanes "
+              f"({t['chunk']} a launch, {t['slots']} slots) {tag}: "
+              f"{t['scenarios_per_s']:.1f} scenarios/s (batch "
+              f"{t['batch_solve_s']:.4f} s; the {report['audit']['audited']} "
+              f"lanes one by one {report['audit']['one_by_one_s']:.4f} s); "
+              f"kernel A {timing['ms']:.4f} ms for the grid against "
+              f"{timing['one_by_one_ms']:.4f} ms for its lanes one by one "
+              f"(bound {timing['bound_ms']:.5f} ms by {timing['bound_by']}; "
+              f"slowest lane {timing['max_cycles']} cycles); the card busy "
+              f"{timing['ms']:.4f} of {wall_ms:.4f} ms of a solve_scenarios "
+              f"call ({100 * timing['ms'] / wall_ms:.1f}%); "
+              f"{grid_launches} launches by the CLI; every lane equal to "
+              f"its one-lane launch", flush=True)
+    readings["whatif"] = fleet
+    return readings
+
+
+def run_cells_tier(device, card: str) -> dict:
+    """Phase 12's ``--cells 4`` tier (docstring, item 12 (ii)): every cell
+    plan audited, every lane equal to its one-lane launch, the metrics
+    within the JAX package's run of the same rounds; its state at its most
+    incomplete jobs written to ``CELLS_STATE``. Its readings."""
+    from shockwave_tpu_torch import simulate
+    from shockwave_tpu_torch.cells import batched
+    from shockwave_tpu_torch.cells.planner import CellPlanner
+    from shockwave_tpu_torch.obs import recorder
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    tag = f"[{card}]"
     launches, head, audited = [], {"s": 0.0}, {"plans": 0}
     snapshot = {"jobs": -1}
     real_solve = batched.solve_cells_pdhg
@@ -1530,86 +1732,15 @@ def run_cells(device, card: str) -> dict:
           + (", ".join(bad) if bad else "within 1e-3"), flush=True)
     if bad:
         fail("cells tier against the JAX package's run: " + ", ".join(bad))
-    readings["tier"] = dict(
+    recorder.write_state(str(CELLS_STATE), snapshot["state"],
+                         snapshot["round"], "cells", source=" ".join(argv))
+    return dict(
         {k: tier[k] for k in ("makespan", "avg_jct", "worst_ftf", "rounds",
                               "solves", "wall_s")},
         launches=tier_launches, lanes_per_launch=per_launch,
         device_head_s=head["s"], host_tail_s=tail_s,
-        plans_audited=audited["plans"], lanes_checked=checked)
-
-    # (iii) The what-if fleet through its CLI: (a) round 91 of the
-    # committed log on the JAX package's 1024-scenario fleet; (b) the
-    # tier's state at its most incomplete jobs, 65 scenarios.
-    recorder.write_state(str(CELLS_STATE), snapshot["state"],
-                         snapshot["round"], "cells", source=" ".join(argv))
-    fleet_lists = [",".join(f"{x:g}" for x in values) for values in (
-        wcli.FLEET_CAPACITIES, wcli.FLEET_PRIORITY_SCALES,
-        wcli.FLEET_SWITCH_SCALES)]
-    grids = {
-        "a": (["--log", str(FLIGHT_LOG), "--round", "91"], fleet_lists,
-              f"round 91 of {FLIGHT_LOG.relative_to(ROOT)}"),
-        "b": (["--state", str(CELLS_STATE)],
-              ["128,192,256,320", "0.5,1,2,4", "0,0.5,1,2"],
-              f"the cells tier's state at round {snapshot['round']} "
-              f"({snapshot['jobs']} incomplete jobs)"),
-    }
-    fleet = {}
-    for name, (source_args, (caps, pscales, sscales), source) in grids.items():
-        out_path = ROOT / "_smoke_out" / f"whatif_grid_{name}.json"
-        kernel.reset_launch_counts()
-        rc = wcli.main(["sweep", *source_args, "--capacity", caps,
-                        "--priority-scale", pscales, "--switch-scale",
-                        sscales, "--out", str(out_path)])
-        grid_launches = kernel.LAUNCHES["eg_pdhg"]
-        with open(out_path) as f:
-            report = json.load(f)
-        if rc != 0 or not report["audit"]["bit_identical"] or report[
-                "audit"]["audited"] != report["timing"]["scenarios"]:
-            fail(f"what-if grid ({name}): audit {report['audit']}")
-        if name == "a":
-            base, _, warm, _ = base_problem_from_log(str(FLIGHT_LOG),
-                                                     round_index=91)
-        else:
-            base, _, warm = base_problem_from_state(recorder.load_exported_state(
-                str(CELLS_STATE))["planner_state"])
-        grid = wcli.build_grid(base, caps, pscales, sscales)
-        batch = ScenarioBatch(base, grid, s0=warm)
-        timing = sim.time_lane_grid(torch.from_numpy(batch.packed()).to(
-            device))
-        if timing["differ"]:
-            fail(f"what-if grid ({name}): lanes {timing['differ'][:8]} "
-                 "differ from their one-lane launches")
-        sync()
-        t0 = time.perf_counter()
-        solve_scenarios(batch, device=device)
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-        t = report["timing"]
-        fleet[name] = dict(source=source, jobs=base.num_jobs,
-                           scenarios=t["scenarios"], lanes=t["lanes"],
-                           chunk=t["chunk"], slots=t["slots"],
-                           launches=grid_launches,
-                           scenarios_per_s=t["scenarios_per_s"],
-                           batch_solve_s=t["batch_solve_s"],
-                           one_by_one_s=report["audit"]["one_by_one_s"],
-                           audited=report["audit"]["audited"], grid=timing,
-                           solve_wall_ms=wall_ms,
-                           busy_share=timing["ms"] / wall_ms)
-        print(f"what-if grid ({name}), {source}: {base.num_jobs} jobs x "
-              f"{t['scenarios']} scenarios in {t['lanes']} lanes "
-              f"({t['chunk']} a launch, {t['slots']} slots) {tag}: "
-              f"{t['scenarios_per_s']:.1f} scenarios/s (batch "
-              f"{t['batch_solve_s']:.4f} s; the {report['audit']['audited']} "
-              f"lanes one by one {report['audit']['one_by_one_s']:.4f} s); "
-              f"kernel A {timing['ms']:.4f} ms for the grid against "
-              f"{timing['one_by_one_ms']:.4f} ms for its lanes one by one "
-              f"(bound {timing['bound_ms']:.5f} ms by {timing['bound_by']}; "
-              f"slowest lane {timing['max_cycles']} cycles); the card busy "
-              f"{timing['ms']:.4f} of {wall_ms:.4f} ms of a solve_scenarios "
-              f"call ({100 * timing['ms'] / wall_ms:.1f}%); "
-              f"{grid_launches} launches by the CLI; every lane equal to "
-              f"its one-lane launch", flush=True)
-    readings["whatif"] = fleet
-    return readings
+        plans_audited=audited["plans"], lanes_checked=checked,
+        state_round=snapshot["round"], state_jobs=snapshot["jobs"])
 
 
 def run_library(device, card: str) -> dict:
@@ -3205,6 +3336,37 @@ def run_soaks(device, card: str) -> dict:
 GANG_SEQ_STEPS = {"ring": 3, "ulysses": 2}
 GANG_MOE_STEPS = 2
 GANG_MOE_LAYERS = 2
+# The model-parallel gangs (tensor and expert parallelism over "model"):
+# their steps, and their losses against one process's.
+GANG_MODEL_STEPS = 2
+# Batch 4: fourteen ranks and the references share the card's memory (72
+# GiB at their peak on an H100; at batch 8 they overflow its 80 GB).
+GANG_MODEL_BATCH = 4
+# The dense model gang against one process on the card (NVIDIA H100 80GB
+# HBM3, 700.00 W): its losses 7.66e-6 and 8.38e-6 apart (relative), its
+# whole parameters 0.0862 of the update apart, worst the last layer's
+# query weight 0.1806 (batch 8: 0.0810, 0.1539). A rank's row-parallel
+# products are rounded to bf16 before the sum over "model", and AdamW's
+# first steps move a parameter by about the learning rate whatever its
+# gradient's size, so a gradient near zero that rounds otherwise moves it
+# the other way. A gang whose first layer leaves its input gradients
+# unsummed over "model" lies 0.2867 off, worst that layer's ln1 bias
+# 1.0087: each limit below rejects it alone.
+MODEL_LOSS_RTOL = 1e-4
+MODEL_PARAMS_RTOL = 0.15
+MODEL_PARAM_RTOL = 0.5
+# The MoE's experts over "model": the first step's loss equal to the bit,
+# the second 7.92e-5 apart and the whole parameters 0.2021 (worst an
+# expert's w_out, 0.2675), the bf16 rounding above moving tokens between
+# experts at near ties; the limits are about 6 and 2.5 times those.
+MODEL_MOE_LOSS_RTOL = 5e-4
+MODEL_MOE_PARAMS_RTOL = 0.5
+MODEL_MOE_PARAM_RTOL = 0.7
+# The pipeline over a two-rank pipe gang.
+PIPE_LAYERS = 4
+PIPE_MICROBATCHES = 4
+PIPE_STEPS = 2
+PIPE_RTOL = 1e-5
 GANG_MOE_BATCH = 4  # a rank's: the global batch is the tier's 8
 GANG_CARD_TIMEOUT_S = 300.0
 GANG_OUT = ROOT / "_smoke_out" / "gangs"
@@ -3251,7 +3413,8 @@ def start_card_gang(argv: list, ranks: int = 2, threads: int = 1) -> dict:
 
     addr = f"127.0.0.1:{free_port()}"
     env = dict(os.environ, SHOCKWAVE_PHASE_TIMINGS="1",
-               OMP_NUM_THREADS=str(threads))
+               OMP_NUM_THREADS=str(threads),
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "shockwave_tpu_torch.models.train", *argv,
          "--distributed_addr", addr, "--num_workers", str(ranks),
@@ -3293,8 +3456,33 @@ def finish_card_gang(gang: dict) -> dict:
             "phases": phases.group(1) if phases else None,
             "steps_device_cuda": bool(re.search(
                 r"steps=\d+ .* device=cuda$", out, re.M)),
+            "resumed": "RESUMED from" in out,
             "tail": out[-2000:]})
     return {"ranks": result, "seconds": seconds}
+
+
+# The seed's weights of each configuration phase 23's references train,
+# drawn once (a draw of the 110M tier takes seconds of the host's CPU,
+# which the gangs' ranks are drawing theirs on).
+_SEED_STATES = {}
+
+
+def seed_family(train, args, device, mesh=None):
+    """``train.build_family("Transformer", args, device, mesh)``, its
+    weights the seed's: drawn for the first run of a configuration, then
+    loaded from that draw."""
+    key = tuple(getattr(args, k) for k in (
+        "vocab_size", "d_model", "num_heads", "num_layers", "seq_len",
+        "num_experts", "num_kv_heads", "positional", "seed"))
+    cached = _SEED_STATES.get(key)
+    built = train.build_family("Transformer", args, device, mesh,
+                               draw=cached is None)
+    if cached is None:
+        _SEED_STATES[key] = {k: v.detach().to("cpu", copy=True)
+                             for k, v in built[0].state_dict().items()}
+    else:
+        built[0].load_state_dict(cached)
+    return built
 
 
 def host_params(model) -> dict:
@@ -3315,8 +3503,7 @@ def one_process_seq_run(train, device, attention: str, steps: int,
 
     args = train.parse_args(gang_argv(steps, attention))
     mesh = make_mesh((1, 1, 2, 1), [device, device])
-    model, step_fn, opt, batch_fn = train.build_family("Transformer", args,
-                                                       device, mesh)
+    model, step_fn, opt, batch_fn = seed_family(train, args, device, mesh)
     start = host_params(model)
     rng = np.random.default_rng(args.seed)
     attend = ra.flash_attention_lse
@@ -3368,7 +3555,7 @@ def one_process_moe_losses(train, device) -> list:
     """The MoE gang's steps in one process on the global batch: the two
     ranks' draws (``--seed + r``, a rank's batch each) stacked."""
     args = train.parse_args(moe_gang_argv(2 * GANG_MOE_BATCH))
-    model, step_fn, opt, _ = train.build_family("Transformer", args, device)
+    model, step_fn, opt, _ = seed_family(train, args, device)
     rngs = [np.random.default_rng(args.seed + r) for r in range(2)]
     losses = []
     for _ in range(GANG_MOE_STEPS):
@@ -3380,6 +3567,177 @@ def one_process_moe_losses(train, device) -> list:
     del model, step_fn, opt
     torch.cuda.empty_cache()
     return losses
+
+
+def model_gang_argv(moe: bool) -> list:
+    """The model-parallel gang's command line: the 110M tier at batch
+    ``GANG_MODEL_BATCH``, or with ``moe`` the MoE tier's 2 layers at
+    batch 8 (no checkpoint)."""
+    if moe:
+        return moe_gang_argv(8) + ["--model_parallel", "2"]
+    return gang_argv(GANG_MODEL_STEPS, "flash", GANG_MODEL_BATCH) + [
+        "--model_parallel", "2"]
+
+
+def one_process_run(train, device, argv: list) -> dict:
+    """``argv``'s steps in one process on the card (no model axis), from
+    the seed's weights and draws: losses, parameters before and after."""
+    args = train.parse_args(argv)
+    args.model_parallel = 1
+    model, step_fn, opt, batch_fn = seed_family(train, args, device)
+    start = host_params(model)
+    rng = np.random.default_rng(args.seed)
+    losses = [float(step_fn(batch_fn(rng))) for _ in range(args.num_steps)]
+    end = host_params(model)
+    del model, step_fn, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "start": start, "end": end}
+
+
+def _init_rank(rank: int, addr: str) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"tcp://{addr}",
+                            world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+
+
+def planted_model_rank(rank: int, addr: str) -> None:
+    """A rank of (d)'s gang with one planted fault: the first layer's
+    attention and MLP inputs take their gradient from this rank's heads
+    and columns alone (the backward all-reduce over "model" left out).
+    From the seed checkpoint, as (d)'s ranks start; rank 0 saves the
+    losses and the whole parameters after the steps."""
+    import torch.distributed as dist
+
+    from shockwave_tpu_torch.models import train
+    from shockwave_tpu_torch.parallel.mesh import make_process_mesh
+
+    from shockwave_tpu_torch.models import transformer
+
+    _init_rank(rank, addr)
+    args = train.parse_args(model_gang_argv(False))
+    mesh = make_process_mesh(1, 2)
+    device = torch.device("cuda")
+    model, step_fn, opt, batch_fn = train.build_family(
+        "Transformer", args, device, mesh, train.Gang(), draw=False)
+    train.FileCheckpoint(str(GANG_OUT / "seed")).load(model, opt, device,
+                                                      mesh)
+    # A forward copies its input to the model axis twice a layer (the
+    # attention's and the MLP's) and once for the head; the first layer's
+    # two copies become the identity, which sums no gradient.
+    copy, calls = transformer.copy_to_model, [0]
+
+    def faulty(x, mesh):
+        calls[0] += 1
+        if (calls[0] - 1) % (2 * args.num_layers + 1) < 2:
+            return x
+        return copy(x, mesh)
+
+    transformer.copy_to_model = faulty
+    rng = np.random.default_rng(args.seed)
+    losses = [float(step_fn(batch_fn(rng))) for _ in range(args.num_steps)]
+    state, _ = train.whole_state(model, opt, mesh)
+    if rank == 0:
+        torch.save({"losses": losses, "params": {
+            k: v.detach().to("cpu", torch.float32) for k, v in state.items()}},
+            GANG_OUT / "planted_model.pt")
+    dist.destroy_process_group()
+
+
+def pipe_config():
+    from shockwave_tpu_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig(vocab_size=8192, d_model=1024, num_heads=8,
+                             num_layers=PIPE_LAYERS, d_ff=4096, max_len=2048,
+                             dtype="bfloat16", attention="flash")
+
+
+def pipe_inputs(device):
+    """The pipeline's whole parameters (from seed 0) and its [8, 2049]
+    tokens, on ``device``."""
+    from shockwave_tpu_torch.parallel.pipeline import PipelinedLM, _tree_map
+
+    params = PipelinedLM(pipe_config(), 2, PIPE_MICROBATCHES).init(
+        torch.Generator().manual_seed(0), None)
+    tokens = np.random.default_rng(0).integers(0, 8192, (8, 2049))
+    return (_tree_map(lambda p: p.to(device), params),
+            torch.from_numpy(tokens).to(device))
+
+
+def pipe_steps(model, params, tokens) -> list:
+    """``PIPE_STEPS`` AdamW steps of ``model.loss``: the losses."""
+    from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
+    from shockwave_tpu_torch.parallel.pipeline import _leaves
+
+    for leaf in _leaves(params):
+        leaf.requires_grad_()
+    opt = FusedAdamW(_leaves(params), 1e-3)
+    losses = []
+    for _ in range(PIPE_STEPS):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(params, tokens)
+        loss.backward()
+        model.sum_replicated_gradients(params)
+        opt.step()
+        losses.append(float(loss.detach()))
+    return losses
+
+
+def pipe_rank(rank: int, addr: str) -> None:
+    """Stage ``rank`` of (f)'s pipeline over a two-rank pipe gang: its
+    losses and flash launches into ``GANG_OUT``."""
+    import torch.distributed as dist
+
+    from shockwave_tpu_torch.ops import flash_attention as fa
+    from shockwave_tpu_torch.parallel.mesh import make_process_mesh
+    from shockwave_tpu_torch.parallel.pipeline import PipelinedLM
+
+    _init_rank(rank, addr)
+    mesh = make_process_mesh(pipe_parallel=2)
+    model = PipelinedLM(pipe_config(), 2, PIPE_MICROBATCHES, mesh)
+    params, tokens = pipe_inputs(torch.device("cuda"))
+    losses = pipe_steps(model, model.shard_params(params), tokens)
+    (GANG_OUT / f"pipe{rank}.json").write_text(json.dumps(
+        {"losses": losses, "launches": dict(fa.LAUNCHES)}))
+    dist.destroy_process_group()
+
+
+def start_function_gang(function: str) -> dict:
+    """Two processes running ``chip_smoke.<function>(rank, addr)`` on the
+    card, one CPU thread each; :func:`finish_card_gang` collects them."""
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    addr = f"127.0.0.1:{free_port()}"
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; "
+         f"chip_smoke.{function}({rank}, {addr!r})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for rank in range(2)]
+    return {"procs": procs, "started": time.time()}
+
+
+def one_process_pipe(device) -> dict:
+    """(f) in one process: the loss of ``logits_sequential`` and the
+    pipelined steps' losses."""
+    from shockwave_tpu_torch.models.small_models import token_xent
+    from shockwave_tpu_torch.parallel.pipeline import PipelinedLM
+
+    model = PipelinedLM(pipe_config(), 2, PIPE_MICROBATCHES)
+    params, tokens = pipe_inputs(device)
+    with torch.no_grad():
+        sequential = float(token_xent(model.logits_sequential(
+            params, tokens[:, :-1]), tokens[:, 1:]))
+    losses = pipe_steps(model, params, tokens)
+    del params
+    torch.cuda.empty_cache()
+    return {"sequential_loss": sequential, "losses": losses}
 
 
 def moe_gang_argv(batch: int) -> list:
@@ -3409,7 +3767,7 @@ def _gang_checks(what: str, gang: dict, steps: int) -> list:
 
 
 def run_gangs(train, device, card: str) -> dict:
-    """Phase 23 (docstring, item 23). The three gangs run at once (six
+    """Phase 23 (docstring, item 23). The gangs run at once (fourteen
     processes on card 0, one CPU thread each), while this process runs the
     one-process references. Every check is hard."""
     tag = f"[{card}]"
@@ -3417,15 +3775,35 @@ def run_gangs(train, device, card: str) -> dict:
     torch.cuda.empty_cache()
     started = time.time()
     shutil.rmtree(GANG_OUT, ignore_errors=True)
+    # The 110M tier's seed weights, drawn once here: its gangs' ranks
+    # resume them from a step-0 checkpoint (a rank's draw takes seconds of
+    # the host's CPU, which fourteen ranks share).
+    model, _, opt, _ = seed_family(train, train.parse_args(
+        gang_argv(1, "flash")), torch.device("cpu"))
+    train.FileCheckpoint(str(GANG_OUT / "seed")).save(model, opt, 0)
+    del model, opt
+    for name in ("ring", "ulysses", "model"):
+        (GANG_OUT / name).mkdir(parents=True)
+        os.link(GANG_OUT / "seed" / train.CHECKPOINT_NAME,
+                GANG_OUT / name / train.CHECKPOINT_NAME)
     gangs = {attention: start_card_gang(
         gang_argv(steps, attention) + ["--seq_parallel", "2",
                                        "--checkpoint_dir",
                                        str(GANG_OUT / attention)])
         for attention, steps in GANG_SEQ_STEPS.items()}
     gangs["moe"] = start_card_gang(moe_gang_argv(GANG_MOE_BATCH))
+    for name, moe in (("model", False), ("model_moe", True)):
+        gangs[name] = start_card_gang(model_gang_argv(moe) + [
+            "--checkpoint_dir", str(GANG_OUT / name)])
+    GANG_OUT.mkdir(parents=True, exist_ok=True)
+    gangs["planted_model"] = start_function_gang("planted_model_rank")
+    gangs["pipe"] = start_function_gang("pipe_rank")
     alone = {attention: one_process_seq_run(train, device, attention, steps)
              for attention, steps in GANG_SEQ_STEPS.items()}
     alone["moe"] = one_process_moe_losses(train, device)
+    for name, moe in (("model", False), ("model_moe", True)):
+        alone[name] = one_process_run(train, device, model_gang_argv(moe))
+    alone["pipe"] = one_process_pipe(device)
     # The parameter limits must reject the ring's subtlest planted bug.
     from shockwave_tpu_torch.parallel import ring_attention as ra
 
@@ -3436,6 +3814,10 @@ def run_gangs(train, device, card: str) -> dict:
     del planted
     gangs = {name: finish_card_gang(gang) for name, gang in gangs.items()}
     bad, readings, launches = [], {}, {}
+    for name in ("ring", "ulysses", "model"):
+        if not all(r["resumed"] for r in gangs[name]["ranks"]):
+            bad.append(f"{name} gang: a rank did not resume the seed "
+                       "checkpoint")
     for attention, steps in GANG_SEQ_STEPS.items():
         gang, what = gangs[attention], f"{attention} seq gang"
         bad += _gang_checks(what, gang, steps)
@@ -3515,11 +3897,119 @@ def run_gangs(train, device, card: str) -> dict:
           f"ranks; one process on the global batch {alone['moe']} (relative "
           f"{[f'{e:.2e}' for e in errs]}, limit {MOE_GANG_RTOL}); "
           f"{gang['seconds']:.1f} s {tag}", flush=True)
-    print(f"  three gangs at once and the references: "
+    model_launches = {}
+    for name, what in (("model", "model-parallel gang"),
+                       ("model_moe", "MoE gang over \"model\"")):
+        gang, ref = gangs[name], alone[name]
+        steps = len(ref["losses"])
+        bad += _gang_checks(what, gang, steps)
+        layers = GANG_MOE_LAYERS if name == "model_moe" else 8
+        want = {k: steps * layers for k in ("flash_fwd", "flash_dkv",
+                                             "flash_dq")}
+        for rank, r in enumerate(gang["ranks"]):
+            got = {k: r["launches"].get(k, 0) for k in want}
+            if got != want or any(r["launches"].get(k + "_nc", 0)
+                                  for k in want):
+                bad.append(f"{what} rank {rank}: flash launches "
+                           f"{r['launches']}, expected {want}")
+            for k, v in r["launches"].items():
+                model_launches[k] = model_launches.get(k, 0) + v
+        loss_rtol, params_rtol, param_rtol = (
+            (MODEL_MOE_LOSS_RTOL, MODEL_MOE_PARAMS_RTOL, MODEL_MOE_PARAM_RTOL)
+            if name == "model_moe" else
+            (MODEL_LOSS_RTOL, MODEL_PARAMS_RTOL, MODEL_PARAM_RTOL))
+        losses = gang["ranks"][0]["losses"] or [float("nan")] * steps
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        if not all(e <= loss_rtol for e in errs):
+            bad.append(f"{what}: losses {losses} against one process's "
+                       f"{ref['losses']} (relative {errs}, limit "
+                       f"{loss_rtol})")
+        try:
+            saved = torch.load(GANG_OUT / name / train.CHECKPOINT_NAME,
+                               map_location="cpu", weights_only=True)["model"]
+            pname, worst, overall = update_errors(saved, ref)
+            del saved
+        except (OSError, RuntimeError, KeyError) as e:
+            pname, worst, overall = f"no checkpoint: {e}", math.inf, math.inf
+        if not (worst <= param_rtol and overall <= params_rtol):
+            bad.append(f"{what}: whole parameters after {steps} steps "
+                       f"{overall:.4f} of the update off one process's (limit "
+                       f"{params_rtol}), worst {pname} {worst:.4f} (limit "
+                       f"{param_rtol})")
+        readings[name] = {
+            "losses": losses, "one_process_losses": ref["losses"],
+            "loss_rel_errs": errs, "param_update_rel_err": overall,
+            "worst_param": pname, "worst_param_update_rel_err": worst,
+            "seconds": gang["seconds"],
+            "phases": [r["phases"] for r in gang["ranks"]],
+            "launches": [r["launches"] for r in gang["ranks"]]}
+        print(f"  {what} (2 ranks on card 0 over gloo, {steps} steps, "
+              f"{layers} layers): losses {losses} on both ranks; one process "
+              f"{ref['losses']} (relative {[f'{e:.2e}' for e in errs]}, limit "
+              f"{loss_rtol}); whole parameters {overall:.4f} of the "
+              f"update apart, worst {pname} {worst:.4f}; launches "
+              f"{[r['launches'] for r in gang['ranks']]}; phases "
+              f"{[r['phases'] for r in gang['ranks']]}; "
+              f"{gang['seconds']:.1f} s {tag}", flush=True)
+    planted = gangs["planted_model"]
+    try:
+        got = torch.load(GANG_OUT / "planted_model.pt", map_location="cpu",
+                         weights_only=True)
+        pname, worst, overall = update_errors(got["params"], alone["model"])
+        planted_losses = got["losses"]
+    except (OSError, RuntimeError, KeyError) as e:
+        bad.append(f"the planted model-parallel gang did not run: {e}: "
+                   f"{[r['tail'] for r in planted['ranks']]}")
+        pname, worst, overall, planted_losses = "", 0.0, 0.0, None
+    print(f"  planted: a model-parallel gang whose first layer leaves its "
+          f"input gradients unsummed over \"model\" lies {overall:.4f} of "
+          f"the update off one process's, worst {pname} {worst:.4f} (losses "
+          f"{planted_losses}); {planted['seconds']:.1f} s {tag}", flush=True)
+    if worst <= MODEL_PARAM_RTOL or overall <= MODEL_PARAMS_RTOL:
+        bad.append("the model gang's parameter limits accept a layer "
+                   "without its backward all-reduce over \"model\"")
+    readings["planted_model_param_update_rel_err"] = overall
+    readings["planted_model_worst"] = [pname, worst]
+    pipe, ref = gangs["pipe"], alone["pipe"]
+    ranks = []
+    for rank, r in enumerate(pipe["ranks"]):
+        try:
+            ranks.append(json.loads((GANG_OUT / f"pipe{rank}.json")
+                                    .read_text()))
+        except (OSError, ValueError) as e:
+            bad.append(f"pipe gang rank {rank}: exit {r['exit']}, {e}: "
+                       f"{r['tail']!r}")
+    pipe_errs = []
+    if len(ranks) == 2:
+        if ranks[0]["losses"] != ranks[1]["losses"]:
+            bad.append(f"pipe gang: the ranks' losses differ: "
+                       f"{[r['losses'] for r in ranks]}")
+        losses = ranks[0]["losses"]
+        pipe_errs = [abs(a - b) / abs(b) for a, b in zip(
+            [losses[0]] + losses, [ref["sequential_loss"]] + ref["losses"])]
+        if len(losses) != PIPE_STEPS or not all(e <= PIPE_RTOL
+                                                for e in pipe_errs):
+            bad.append(f"pipe gang: losses {losses} against one process's "
+                       f"{ref['losses']} and logits_sequential's "
+                       f"{ref['sequential_loss']} (relative {pipe_errs}, "
+                       f"limit {PIPE_RTOL})")
+    readings["pipe"] = {"ranks": ranks, "one_process": ref,
+                        "rel_errs": pipe_errs, "seconds": pipe["seconds"]}
+    print(f"  pipe gang (PipelinedLM, {PIPE_LAYERS} layers in 2 stages, "
+          f"{PIPE_MICROBATCHES} microbatches, 2 ranks on card 0 over gloo, "
+          f"{PIPE_STEPS} steps): losses {[r['losses'] for r in ranks]}; one "
+          f"process {ref['losses']}, logits_sequential's loss "
+          f"{ref['sequential_loss']} (relative "
+          f"{[f'{e:.2e}' for e in pipe_errs]}, limit {PIPE_RTOL}); launches "
+          f"{[r['launches'] for r in ranks]}; {pipe['seconds']:.1f} s {tag}",
+          flush=True)
+    _SEED_STATES.clear()
+    print(f"  every gang at once and the references: "
           f"{time.time() - started:.1f} s {tag}", flush=True)
     if bad:
         fail("gang phase: " + "; ".join(bad))
-    return {**readings, "launches": launches}
+    return {**readings, "launches": launches,
+            "model_launches": model_launches}
 
 
 # Phase 17: the physical control plane, through the card driver's loop
@@ -3903,10 +4393,15 @@ def run_failover(device, card: str, deadline: float) -> dict:
 
 
 def main() -> None:
-    started = time.time()
+    started = PROGRESS["started"] = time.time()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a card")
     sys.path.insert(0, str(ROOT))
+    if sys.argv[1:2] == [HOST_PHASES_FLAG]:
+        from shockwave_tpu_torch.utils.device import resolve_device
+
+        run_host_phases(sys.argv[2], resolve_device("cuda"), card_line())
+        return
     try:
         from shockwave_tpu_torch.models import train
         from shockwave_tpu_torch.ops import _build
@@ -3922,7 +4417,7 @@ def main() -> None:
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
 
-    t0 = time.time()
+    t0 = enter("2 (building the kernels)")
     libraries = _build.build_all(["flash_attention", *SOURCES])
     print(f"built kernels in {time.time() - t0:.1f} s (one nvcc each, "
           f"together: {', '.join(p.name for p in libraries.values())})",
@@ -3938,6 +4433,7 @@ def main() -> None:
                   f"bytes of stack, {k['SPILL']} bytes of spill stores, "
                   f"{k['SMEM']} bytes of static shared memory (ptxas -v)")
 
+    enter("3 (the kernels against their plain versions)")
     print("kernels against their plain versions:")
     B, S, H, D = bench.TRAIN_SHAPE
     # Seed 1 as well: on its inputs a few elements need the flip term.
@@ -3957,9 +4453,12 @@ def main() -> None:
     check_planted_faults(fa, bench, inputs, plain, H)
     del inputs, plain
 
+    enter("4 (timing the kernels)")
     ms, sdpa_fwd, sdpa_bwd = bench.time_kernels(fa, B, S, H, D,
                                                 torch.bfloat16, device)
+    enter("5 (a small model)")
     check_small_model(device)
+    enter("6 (the main path)")
 
     os.environ["SHOCKWAVE_PHASE_TIMINGS"] = "1"
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -3981,7 +4480,7 @@ def main() -> None:
           f"peak memory {peak_gib:.2f} GiB; launches {launches}, "
           f"resume {resume_launches} [{card}]")
 
-    ring_started = time.time()
+    ring_started = enter("7 (ring attention)")
     ring = run_ring(fa, bench, train, device, card, first["losses"])
     ring["phase_s"] = time.time() - ring_started
     print(f"ring phase: {ring['phase_s']:.1f} s [{card}]", flush=True)
@@ -3990,50 +4489,54 @@ def main() -> None:
           f"GiB; flash {1 / steady_s:.3f} steps/s, peak {peak_gib:.2f} GiB",
           flush=True)
 
-    oracle_started = time.time()
+    oracle_started = enter("20 (the card's oracle)")
     oracle = run_oracle(fa, device, card, 1 / steady_s)
     oracle["phase_s"] = time.time() - oracle_started
     print(f"oracle phase: {oracle['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
     deadlines = phase_deadlines(started)
-    physical_started = time.time()
+    host = start_host_phases()
+    physical_started = enter("17 (the physical control plane)")
     physical = run_physical_plane(device, card, Path(oracle["path"]),
                                   deadlines["physical"])
     physical["phase_s"] = time.time() - physical_started
     print(f"physical plane phase: {physical['phase_s']:.1f} s, the smoke's "
           f"growth [{card}]", flush=True)
-    simulation_started = time.time()
+    simulation_started = enter("8 (simulation)")
     simulation = run_simulation(device)
     simulation["phase_s"] = time.time() - simulation_started
-    first_order_started = time.time()
+    first_order_started = enter("9 (kernels A and B)")
     first_order = run_first_order(device)
     first_order["phase_s"] = time.time() - first_order_started
-    gavel_started = time.time()
-    gavel = run_gavel(device, card, simulation["tier_2048"])
-    gavel["phase_s"] = time.time() - gavel_started
-    print(f"Gavel phase: {gavel['phase_s']:.1f} s [{card}]", flush=True)
-    cells_started = time.time()
-    cells = run_cells(device, card)
+    enter("11, 12's tier and 13 (their own processes)")
+    host_readings, host_wait_s = finish_host_phases(host,
+                                                    deadlines["failover"])
+    gavel, library = host_readings["gavel"], host_readings["library"]
+    cells_tier = host_readings["cells_tier"]
+    tier = simulation["tier_2048"]
+    print(f"  item 8's tier, cut to its first {tier['rounds']} rounds, "
+          f"shockwave_tpu on 256 GPUs | {tier['makespan']:.3f} | "
+          f"{tier['avg_jct']:.3f} | {tier['worst_ftf']:.3f} | "
+          f"{tier['unfair_fraction']:.1f} (not paired with the whole max-min "
+          f"run); phases 11 and 13 and phase 12's tier ran beside phase 17 "
+          f"and were waited for {host_wait_s:.1f} s [{card}]", flush=True)
+    cells_started = enter("12 (cells and what-if)")
+    cells = run_cells(device, card, cells_tier)
     cells["phase_s"] = time.time() - cells_started
     print(f"cells and what-if phase: {cells['phase_s']:.1f} s, the smoke's "
           f"growth [{card}]", flush=True)
     cells["retimed_noncausal"] = retime_noncausal(fa, bench, ring, card)
-    library_started = time.time()
-    library = run_library(device, card)
-    library["phase_s"] = time.time() - library_started
-    print(f"policy library phase: {library['phase_s']:.1f} s, the smoke's "
-          f"growth [{card}]", flush=True)
-    planner_started = time.time()
+    planner_started = enter("14 (the planner)")
     planner = run_planner(device, card, first_order.pop("windows"))
     planner["phase_s"] = time.time() - planner_started
     print(f"planner phase: {planner['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
-    features_started = time.time()
+    features_started = enter("15 (simulator features)")
     features = run_sim_features(device, card)
     features["phase_s"] = time.time() - features_started
     print(f"simulator features phase: {features['phase_s']:.1f} s, the "
           f"smoke's growth [{card}]", flush=True)
-    telemetry_started = time.time()
+    telemetry_started = enter("16 (Ulysses and telemetry)")
     ulysses = run_ulysses(fa, train, device, card, first["losses"],
                           1 / steady_s, peak_gib)
     ulysses_s = time.time() - telemetry_started
@@ -4049,27 +4552,27 @@ def main() -> None:
           f"{telemetry['fixture_run']['planes_off_s']:.1f} s; replays "
           f"{sum(r['seconds'] for r in telemetry['replay'].values()):.1f} "
           f"s) [{card}]", flush=True)
-    families_started = time.time()
+    families_started = enter("19 (families)")
     families = run_families(fa, train, device, card)
     families["phase_s"] = time.time() - families_started
     print(f"families phase: {families['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
-    chaos_started = time.time()
+    chaos_started = enter("21 (chaos)")
     chaos = run_chaos(device, card)
     chaos["phase_s"] = time.time() - chaos_started
     print(f"chaos phase: {chaos['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
-    soaks_started = time.time()
+    soaks_started = enter("22 (soaks)")
     soaks = run_soaks(device, card)
     soaks["phase_s"] = time.time() - soaks_started
     print(f"soaks phase: {soaks['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
-    gangs_started = time.time()
+    gangs_started = enter("23 (gangs)")
     gangs = run_gangs(train, device, card)
     gangs["phase_s"] = time.time() - gangs_started
     print(f"gang phase: {gangs['phase_s']:.1f} s, the smoke's growth "
           f"[{card}]", flush=True)
-    failover_started = time.time()
+    failover_started = enter("18 (failover)")
     failover = run_failover(device, card, deadlines["failover"])
     failover["phase_s"] = time.time() - failover_started
     print(f"failover phase: {failover['phase_s']:.1f} s, the smoke's growth "
@@ -4106,6 +4609,8 @@ def main() -> None:
             # Phase 23's sequence-parallel gangs, both ranks, ring and
             # Ulysses.
             "gang_seq_launches": gangs["launches"].get(name, 0),
+            # Phase 23's model-parallel gangs, both ranks, dense and MoE.
+            "gang_model_launches": gangs["model_launches"].get(name, 0),
             "share_of_bound": bound_ms / ms[name][0],
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
@@ -4140,6 +4645,8 @@ def main() -> None:
             "share_of_bound": bound_ms / t, "shape": list(bench.HOP_SHAPE),
             # Phase 23's ring gang: the second rank's live hop.
             "gang_seq_launches": gangs["launches"].get(name + "_nc", 0),
+            "gang_model_launches": gangs["model_launches"].get(
+                name + "_nc", 0),
             "registers": res.get("REG"), "local_bytes": res.get("LOCAL"),
         }
         if name != "flash_fwd":
@@ -4241,7 +4748,9 @@ def main() -> None:
         "first_order": first_order["phase_s"],
         "first_order_9d": first_order["timing_s"],
         "gavel": gavel["phase_s"], "cells": cells["phase_s"],
-        "library": library["phase_s"], "planner": planner["phase_s"],
+        "library": library["phase_s"], "cells_tier": cells_tier["phase_s"],
+        "host_phases_wait": host_wait_s,
+        "planner": planner["phase_s"],
         "sim_features": features["phase_s"],
         "telemetry": telemetry["phase_s"],
         "physical": physical["phase_s"],
@@ -4281,4 +4790,8 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception:
+        print(f"chip_smoke: FAILED {where()}", file=sys.stderr, flush=True)
+        raise

@@ -11,7 +11,8 @@ gradient of ``params``; a family with running statistics then leaves them
 out).
 
 - ``params_from_jax``: the TransformerLM (dense or MoE MLP, blocks flat or
-  in ``remat_group`` groups).
+  in ``remat_group`` groups), whole or a model-parallel rank's share.
+- ``pipelined_params_from_jax``: ``parallel/pipeline.py::PipelinedLM``'s.
 - ``resnet_params_from_jax``, ``lstm_lm_params_from_jax``,
   ``neumf_params_from_jax``, ``a3c_params_from_jax``,
   ``cyclegan_params_from_jax``: the other families;
@@ -73,10 +74,23 @@ def _block_params(state: dict, prefix: str, value) -> None:
         raise ValueError(f"{prefix} has neither 'mlp' nor 'moe'")
 
 
-def params_from_jax(tree) -> dict:
+def params_from_jax(tree, model_index: int = 0,
+                    model_parallel: int = 1) -> dict:
     """The port's state_dict for the JAX TransformerLM ``params`` tree. A
     ``remat_group`` tree (``group_g/block_i``) maps to the flat block
-    ``g * group + i``."""
+    ``g * group + i``. With ``model_parallel`` M > 1, rank
+    ``model_index``'s share of it over a gang's model axis (the JAX
+    model's "model" annotations: heads, MLP columns, vocabulary rows and
+    experts; ``models/transformer.py::shard_state``)."""
+    state = _whole_params_from_jax(tree)
+    if model_parallel == 1:
+        return state
+    from shockwave_tpu_torch.models.transformer import shard_state
+
+    return shard_state(state, model_index, model_parallel)
+
+
+def _whole_params_from_jax(tree) -> dict:
     state = {"embedding": _array(tree["embedding"])}
     if "positional" in tree:
         state["positional"] = _array(tree["positional"])
@@ -198,3 +212,29 @@ def family_params_from_jax(family: str, variables) -> dict:
                "Recommendation": neumf_params_from_jax,
                "A3C": a3c_params_from_jax}[family]
     return convert(params)
+
+
+def pipelined_params_from_jax(params) -> dict:
+    """``parallel/pipeline.py::PipelinedLM``'s parameters for the JAX
+    ``PipelinedLM``'s: each ``blocks`` leaf [S, L, ...] maps to the port's
+    Block parameter of that name, [S, L, ...] in the port's layout."""
+    blocks = params["blocks"]
+    S, L = np.shape(blocks["ln1"]["scale"])[:2]
+    drawn = []
+    for s in range(S):
+        for i in range(L):
+            state = {}
+            _block_params(state, "b", _index_tree(blocks, (s, i)))
+            drawn.append({k[len("b."):]: v for k, v in state.items()})
+    out = {"blocks": {name: torch.stack([d[name] for d in drawn]).reshape(
+        (S, L) + drawn[0][name].shape) for name in drawn[0]}}
+    for key in ("embedding", "ln_f_scale", "ln_f_bias", "positional"):
+        if key in params:
+            out[key] = _array(params[key])
+    return out
+
+
+def _index_tree(tree, index):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, index) for k, v in tree.items()}
+    return np.asarray(tree)[index]

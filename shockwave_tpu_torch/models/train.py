@@ -74,8 +74,17 @@ ROADMAP.md, queue 3.) The MoE MLP routes the global batch as one problem
 the CPU and on cards alike (tensors on a card travel through pinned host
 memory); the ``MESH backend=`` line names it.
 
-Not ported (it raises NotImplementedError, see ROADMAP.md, queue 1, item
-8): model parallelism.
+``--model_parallel M`` in a gang makes the Transformer tensor- and
+expert-parallel over the mesh's model axis (``models/transformer.py``,
+``parallel/tensor.py``): a data group's model and seq ranks share its
+draw, each rank trains its share of the heads, the MLP, the vocabulary
+and the experts, a sharded parameter's gradient is averaged over the
+ranks that hold the same share (data x seq) and a whole one's over every
+rank. The checkpoint holds whole parameters, gathered over "model" (the
+file one process writes), and a resume takes each rank's share of them,
+so an attempt may resume under another gang shape. The GANG line's digest
+is the whole parameters'. Without a gang, ``--model_parallel M`` raises
+the JAX program's error: one device does not divide over M.
 """
 
 from __future__ import annotations
@@ -96,16 +105,21 @@ from shockwave_tpu_torch.models.resnet import ResNet18, ResNet50
 from shockwave_tpu_torch.models.transformer import (
     TransformerConfig,
     TransformerLM,
+    gather_state,
     lm_loss,
+    model_shard_dim,
+    shard_state,
 )
 from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
 from shockwave_tpu_torch.parallel.mesh import (
+    TOKENS,
     ProcessMesh,
     factorize_gang,
     collective_in_place,
     make_mesh,
     make_process_mesh,
 )
+from shockwave_tpu_torch.parallel.tensor import AXIS, model_parallel
 from shockwave_tpu_torch.utils.device import resolve_device
 
 CHECKPOINT_NAME = "train_state.pt"
@@ -119,12 +133,6 @@ FAMILIES = ("Transformer", "ResNet-18", "ResNet-50", "LM", "Recommendation",
 
 # jax.distributed's rendezvous timeout when the scheduler sets none.
 DEFAULT_RENDEZVOUS_TIMEOUT_S = 300
-
-
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to shockwave_tpu_torch yet; see ROADMAP.md"
-    )
 
 
 def _images(np_rng, shape, device):
@@ -148,35 +156,57 @@ class Gang:
         self.rank, self.world = dist.get_rank(), dist.get_world_size()
         self.backend = dist.get_backend()
 
-    def _sum(self, tensor: torch.Tensor) -> torch.Tensor:
-        """``tensor`` summed over the ranks, in place; returned."""
+    def _sum(self, tensor: torch.Tensor, group=None) -> torch.Tensor:
+        """``tensor`` summed over the ranks (of ``group``, by default
+        every rank), in place; returned."""
         import torch.distributed as dist
 
-        return collective_in_place(dist.all_reduce, tensor)
+        return collective_in_place(dist.all_reduce, tensor,
+                                   dist.ReduceOp.SUM, group)
 
-    def average_gradients(self, params) -> None:
-        """Every gradient becomes its mean over the ranks (one
-        all-reduce of the flattened gradients)."""
-        grads = [p.grad for p in params if p.grad is not None]
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        self._sum(flat)
-        flat /= self.world
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+    def average_gradients(self, params, mesh=None, sharded=()) -> None:
+        """Every gradient becomes its mean over the ranks that hold the
+        same parameter: every rank, or for a parameter in ``sharded`` (ids
+        of parameters split over ``mesh``'s model axis) the ranks of its
+        share, ``mesh``'s token shards. One all-reduce of the flattened
+        gradients for each."""
+        whole = [p.grad for p in params
+                 if p.grad is not None and id(p) not in sharded]
+        shares = [p.grad for p in params
+                  if p.grad is not None and id(p) in sharded]
+        for grads, (group, size) in (
+                (whole, (None, self.world)),
+                (shares, mesh.group(TOKENS) if shares else (None, 1))):
+            if not grads:
+                continue
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            if size > 1:
+                self._sum(flat, group)
+                flat /= size
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
-    def broadcast_state(self, model, opt) -> None:
+    def broadcast_state(self, model, opt, mesh=None) -> None:
         """Rank 0's parameters, buffers and optimizer moments on every
-        rank (after each rank restored the checkpoint rank 0 wrote)."""
+        rank (after each rank restored the checkpoint rank 0 wrote); with
+        a model axis, each share's from the first rank that holds it."""
         import torch.distributed as dist
 
+        group, src = None, 0
+        if model_parallel(mesh) > 1:
+            # The token shards are fewer than the world here.
+            group, size = mesh.group(TOKENS)
+            if size == 1:
+                return
+            src = mesh.members[TOKENS][0]
         state = opt.full_state_dict()["state"]
         steps = torch.tensor([s["step"] for s in state.values()],
                              dtype=torch.float64)
         for tensor in [*model.state_dict().values(), steps,
                        *(s[k] for s in state.values() for k in ("m", "v"))]:
-            collective_in_place(dist.broadcast, tensor, 0)
+            collective_in_place(dist.broadcast, tensor, src, group)
         params = [p for group in opt.param_groups for p in group["params"]]
         for p, count in zip(params, steps.tolist()):
             opt.state[p]["step"] = int(count)
@@ -186,19 +216,69 @@ class Gang:
         return self._sum(value.detach().clone()) / self.world
 
 
-def state_digest(model) -> str:
+def shard_dims(model, mesh) -> dict:
+    """{parameter name: the dimension it splits along} for the parameters
+    split over a gang's model axis (the Transformer's; none off one)."""
+    if not isinstance(model, TransformerLM) or model_parallel(mesh) == 1:
+        return {}
+    return {name: model_shard_dim(name) for name, _ in model.named_parameters()
+            if model_shard_dim(name) is not None}
+
+
+def whole_state(model, opt, mesh=None):
+    """(model state, optimizer state) with whole parameters: a rank's
+    shares gathered over the model axis (every rank of it calls this), or
+    the rank's own state off one."""
+    dims = shard_dims(model, mesh)
+    if not dims:
+        return model.state_dict(), opt.state_dict()
+    model_state, opt_state = model.state_dict(), opt.full_state_dict()
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    moments = {}
+    for i, entry in opt_state["state"].items():
+        dim = dims.get(names[i])
+        moments[i] = entry if dim is None else {**entry, **{
+            k: torch.cat(list(mesh.all_gather(entry[k], AXIS).unbind(0)),
+                         dim=dim) for k in ("m", "v")}}
+    return gather_state(model_state, mesh), {**opt_state, "state": moments}
+
+
+def load_whole_state(model, opt, model_state, opt_state, mesh=None) -> None:
+    """Loads whole parameters (``whole_state``'s) into a rank: its share
+    of each split parameter and its moments."""
+    dims = shard_dims(model, mesh)
+    if dims:
+        index, parts = mesh.index(AXIS), mesh.sizes[AXIS]
+        model_state = shard_state(model_state, index, parts)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+        moments = {}
+        for i, entry in opt_state["state"].items():
+            dim = dims.get(names[int(i)])
+            moments[i] = entry if dim is None else {**entry, **{
+                k: entry[k].chunk(parts, dim=dim)[index].contiguous()
+                for k in ("m", "v")}}
+        opt_state = {**opt_state, "state": moments}
+    model.load_state_dict(model_state)
+    opt.load_state_dict(opt_state)
+
+
+def state_digest(model, mesh=None) -> str:
     """A digest of the model's parameters and buffers, bit for bit (a
-    gang's ranks print theirs to show they hold the same state)."""
+    gang's ranks print theirs to show they hold the same state; with a
+    model axis, of the whole parameters)."""
     import hashlib
 
+    state = model.state_dict()
+    if shard_dims(model, mesh):
+        state = gather_state(state, mesh)
     digest = hashlib.sha256()
-    for name, tensor in sorted(model.state_dict().items()):
+    for name, tensor in sorted(state.items()):
         digest.update(name.encode())
         digest.update(tensor.detach().cpu().contiguous().numpy().tobytes())
     return digest.hexdigest()[:16]
 
 
-def build_family(name, args, device, mesh=None, gang=None):
+def build_family(name, args, device, mesh=None, gang=None, draw=True):
     """Returns (model, step_fn(batch) -> loss, optimizer,
     batch_fn(np_rng) -> batch). ``step_fn`` takes one AdamW step and
     returns the loss before it, detached and not synchronised. ``mesh``
@@ -209,7 +289,9 @@ def build_family(name, args, device, mesh=None, gang=None):
     ``--seed``, so every device starts from the same ones. With a
     ``gang`` (:class:`Gang`) each step is the global batch's: BatchNorm
     takes the global statistics, the gradients and the returned loss are
-    the ranks' means."""
+    the ranks' means, a sharded parameter's gradient over the ranks of its
+    share. ``draw=False`` (a run about to restore a checkpoint) leaves the
+    Transformer's weights undrawn."""
     generator = torch.Generator().manual_seed(args.seed)
     bs = args.batch_size
 
@@ -232,7 +314,7 @@ def build_family(name, args, device, mesh=None, gang=None):
             moe_dispatch=args.moe_dispatch,
             remat=args.remat,
         )
-        model = TransformerLM(cfg, generator=generator, mesh=mesh)
+        model = TransformerLM(cfg, generator=generator, mesh=mesh, draw=draw)
 
         def loss_fn(batch):
             return lm_loss(model, batch, logit_chunk=args.logit_chunk)
@@ -322,6 +404,8 @@ def build_family(name, args, device, mesh=None, gang=None):
     model = model.to(device)
     params = [p for p in model.parameters() if p.requires_grad]
     opt = FusedAdamW(params, args.learning_rate)
+    split = set(shard_dims(model, mesh))
+    sharded = {id(p) for name, p in model.named_parameters() if name in split}
     if gang is not None:
         for module in model.modules():
             if isinstance(module, FlaxBatchNorm2d):
@@ -332,7 +416,7 @@ def build_family(name, args, device, mesh=None, gang=None):
         loss = loss_fn(batch)
         loss.backward()
         if gang is not None:
-            gang.average_gradients(params)
+            gang.average_gradients(params, mesh, sharded)
             loss = gang.mean(loss)
         opt.step()
         return loss.detach()
@@ -401,11 +485,6 @@ def _in_gang(args) -> bool:
     return bool(args.distributed_addr) and args.num_workers > 1
 
 
-def _check_args(args) -> None:
-    if args.model_parallel > 1:
-        raise _not_ported("model parallelism (ROADMAP.md, queue 1, item 8)")
-
-
 def rendezvous(args) -> Gang:
     """Joins the gang's process group at ``--distributed_addr`` over gloo
     (two ranks may share a card, which NCCL refuses); raises after
@@ -428,13 +507,15 @@ def rendezvous(args) -> Gang:
 
 class FileCheckpoint:
     """``train_state.pt``: one ``torch.save`` file, written beside its
-    path and renamed into place."""
+    path and renamed into place. It holds whole parameters: with a gang's
+    ``mesh`` of a model axis, ``save`` gathers them (every rank calls it,
+    the ``write`` one writes) and ``load`` takes the rank's share."""
 
     def __init__(self, directory: str):
         self.directory = directory
         self.path = os.path.join(directory, CHECKPOINT_NAME)
 
-    def load(self, model, opt, device) -> int:
+    def load(self, model, opt, device, mesh=None) -> int:
         try:
             state = torch.load(self.path, map_location=device,
                                weights_only=True)
@@ -443,15 +524,18 @@ class FileCheckpoint:
                 f"checkpoint at {self.path} disappeared between resume "
                 "detection and restore"
             ) from None
-        model.load_state_dict(state["model"])
-        opt.load_state_dict(state["opt"])
+        load_whole_state(model, opt, state["model"], state["opt"], mesh)
         return int(state.get("step", 0))
 
-    def save(self, model, opt, step: int) -> None:
+    def save(self, model, opt, step: int, mesh=None,
+             write: bool = True) -> None:
+        model_state, opt_state = whole_state(model, opt, mesh)
+        if not write:
+            return
         os.makedirs(self.directory, exist_ok=True)
         tmp_path = self.path + ".tmp"
-        torch.save({"model": model.state_dict(), "opt": opt.state_dict(),
-                    "step": step}, tmp_path)
+        torch.save({"model": model_state, "opt": opt_state, "step": step},
+                   tmp_path)
         os.replace(tmp_path, self.path)
 
 
@@ -468,49 +552,62 @@ class DirectoryCheckpoint:
     process). Each save writes a new version directory beside it and then
     swaps the ``orbax_state`` link onto it in one rename, so a kill
     mid-save leaves the link on the previous complete version; older
-    versions are removed after the swap."""
+    versions are removed after the swap. Whole parameters, as
+    ``FileCheckpoint``'s."""
 
     def __init__(self, directory: str):
         self.path = os.path.join(os.path.abspath(directory),
                                  DIRECTORY_CHECKPOINT_NAME)
 
     @staticmethod
-    def _tensors(model, opt, step: int) -> dict:
+    def _tensors(model_state, opt_state, step: int) -> dict:
         """The train state as tensors only (the library restores tensors
         in place and plain values not at all): the model, every
         parameter's moments, their step counts and the steps taken."""
-        state = opt.full_state_dict()["state"]
-        return {"model": model.state_dict(),
+        state = opt_state["state"]
+        return {"model": model_state,
                 "moments": {f"{i}.{k}": s[k] for i, s in state.items()
                             for k in ("m", "v")},
                 "moment_steps": torch.tensor([s["step"]
                                               for s in state.values()]),
                 "step": torch.tensor(step)}
 
-    def load(self, model, opt, device) -> int:
+    def load(self, model, opt, device, mesh=None) -> int:
         import torch.distributed.checkpoint as dcp
 
-        tensors = self._tensors(model, opt, 0)
+        # Whole tensors to fill: the rank's own with one share, else the
+        # gathered shares (templates).
+        opt.full_state_dict()
+        model_state, opt_state = whole_state(model, opt, mesh)
+        tensors = self._tensors(model_state, opt_state, 0)
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=_ONE_PROCESS)
             dcp.load(tensors, checkpoint_id=os.path.realpath(self.path),
                      **_one_process())
-        # The model's tensors and the moments were filled in place.
-        params = [p for group in opt.param_groups for p in group["params"]]
-        for p, count in zip(params, tensors["moment_steps"].tolist()):
-            opt.state[p]["step"] = count
+        # The tensors were filled in place: with one share, the model's
+        # and the optimizer's own (its state entries are the optimizer's).
+        counts = tensors["moment_steps"].tolist()
+        for entry, count in zip(opt_state["state"].values(), counts):
+            entry["step"] = count
+        if shard_dims(model, mesh):
+            load_whole_state(model, opt, model_state, opt_state, mesh)
         return int(tensors["step"])
 
-    def save(self, model, opt, step: int) -> None:
+    def save(self, model, opt, step: int, mesh=None,
+             write: bool = True) -> None:
         import torch.distributed.checkpoint as dcp
 
+        opt.full_state_dict()
+        model_state, opt_state = whole_state(model, opt, mesh)
+        if not write:
+            return
         parent, name = os.path.split(self.path)
         os.makedirs(parent, exist_ok=True)
         version = f"{self.path}.v{time.time_ns()}"
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", message=_ONE_PROCESS)
-            dcp.save(self._tensors(model, opt, step), checkpoint_id=version,
-                     **_one_process())
+            dcp.save(self._tensors(model_state, opt_state, step),
+                     checkpoint_id=version, **_one_process())
         link = self.path + ".link"
         if os.path.lexists(link):
             os.remove(link)
@@ -541,7 +638,6 @@ def main(argv=None):
             phase_timings[name] = phase_timings.get(name, 0.0) + now - phase_start
             phase_start = now
 
-    _check_args(args)
     gang = None
     if _in_gang(args):
         gang = rendezvous(args)
@@ -571,13 +667,13 @@ def main(argv=None):
         mesh = make_mesh(factorize_gang(1, args.seq_parallel,
                                         args.model_parallel), [device])
     model, step_fn, opt, batch_fn = build_family(args.model, args, device,
-                                                 mesh, gang)
+                                                 mesh, gang, draw=not resuming)
     sync()
     mark_phase("build")
     if resuming:
-        start_step = checkpoint.load(model, opt, device)
+        start_step = checkpoint.load(model, opt, device, mesh)
         if gang is not None:
-            gang.broadcast_state(model, opt)
+            gang.broadcast_state(model, opt, mesh)
         sync()
         print(f"RESUMED from {checkpoint.path} at step {start_step}",
               flush=True)
@@ -586,9 +682,12 @@ def main(argv=None):
     mark_phase("restore")
 
     def save_checkpoint():
-        # The ranks hold the same state: rank 0 writes it for the gang.
-        if checkpoint and (gang is None or gang.rank == 0):
-            checkpoint.save(model, opt, start_step + len(losses))
+        # Rank 0 writes the gang's whole state (gathered over a model
+        # axis, which every rank takes part in).
+        if checkpoint and (gang is None or gang.rank == 0
+                           or shard_dims(model, mesh)):
+            checkpoint.save(model, opt, start_step + len(losses), mesh,
+                            write=gang is None or gang.rank == 0)
 
     # Each data group draws its own shard of the global batch; its sequence
     # shards share the draw.
@@ -651,7 +750,7 @@ def main(argv=None):
         import torch.distributed as dist
 
         print(f"GANG rank={gang.rank} world={gang.world} "
-              f"params={state_digest(model)} losses="
+              f"params={state_digest(model, mesh)} losses="
               + json.dumps(loss_values), flush=True)
         dist.destroy_process_group()
     return {"steps": steps, "losses": loss_values, "elapsed_s": elapsed,

@@ -30,6 +30,21 @@ products or the dense one-hot dispatch, the Switch balance loss that
 and ``lm_loss(..., logit_chunk=c)`` evaluates the tied head and the loss
 ``c`` positions at a time, each chunk recomputed in the backward, so the
 [B, S, vocab] logits never exist whole.
+
+Over a gang's processes with a model axis of M ranks (a
+:class:`~shockwave_tpu_torch.parallel.mesh.ProcessMesh`), the model is
+tensor- and expert-parallel as the JAX model's annotations declare it
+(``parallel/tensor.py``): a rank holds H / M query heads and its share of
+the K/V heads (their Q/K/V columns and the output projection's rows), its
+d_ff / M share of the MLP, V / M rows of the tied embedding and E / M
+experts; LayerNorms, the learned positions and the router are whole on
+every rank. Its heads go through the attention body as a one-rank model's
+do (the flash kernels, or ring and Ulysses over the seq axis); the
+row-parallel products are summed over "model", the experts' buckets are
+gathered over it, and the head's loss is the vocabulary-parallel cross
+entropy. ``model_shard_dim`` names the dimension each parameter splits
+along; ``shard_state`` and ``gather_state`` turn whole parameters into a
+rank's and back, so checkpoints hold whole ones.
 """
 
 from __future__ import annotations
@@ -44,15 +59,25 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from shockwave_tpu_torch.models.layers import lecun_normal_
-from shockwave_tpu_torch.models.small_models import token_xent, token_xent_sum
+from shockwave_tpu_torch.models.small_models import token_xent_sum
 from shockwave_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_tiles,
 )
-from shockwave_tpu_torch.parallel.mesh import ProcessMesh
+from shockwave_tpu_torch.parallel.mesh import TOKENS, ProcessMesh
 from shockwave_tpu_torch.parallel.ring_attention import (
     dense_causal_attention,
     ring_attention,
+)
+from shockwave_tpu_torch.parallel.tensor import (
+    AXIS,
+    copy_to_model,
+    gather_from_model,
+    model_parallel,
+    model_range,
+    reduce_from_model,
+    vocab_cross_entropy_sum,
+    vocab_embedding,
 )
 from shockwave_tpu_torch.parallel.ulysses import ulysses_attention
 
@@ -132,13 +157,68 @@ def position_offset(mesh, seq_len: int) -> int:
     return 0
 
 
+# Parameters split over a gang's model axis, by name suffix: the
+# dimension each splits along (the JAX model's "model" annotations).
+_SHARD_DIMS = (
+    ("embedding", 0),
+    ("attention.query.weight", 0),
+    ("attention.key.weight", 0),
+    ("attention.value.weight", 0),
+    ("attention.out.weight", 1),
+    ("mlp.in_.weight", 0),
+    ("mlp.out.weight", 1),
+    ("moe.w_in", 0),
+    ("moe.w_out", 0),
+)
+
+
+def model_shard_dim(name: str) -> Optional[int]:
+    """The dimension parameter ``name`` splits along over the model axis;
+    None for one that every rank holds whole."""
+    for suffix, dim in _SHARD_DIMS:
+        if name == suffix or name.endswith("." + suffix):
+            return dim
+    return None
+
+
+def shard_state(state: dict, index: int, parts: int) -> dict:
+    """Rank ``index``'s share (of ``parts`` on the model axis) of a whole
+    state dict."""
+    out = {}
+    for name, value in state.items():
+        dim = model_shard_dim(name)
+        if dim is None or parts == 1:
+            out[name] = value
+        else:
+            out[name] = value.chunk(parts, dim=dim)[index].contiguous()
+    return out
+
+
+def gather_state(state: dict, mesh) -> dict:
+    """The whole parameters of a rank's ``state`` (every rank of the model
+    axis calls it; each gets them)."""
+    if model_parallel(mesh) == 1:
+        return dict(state)
+    out = {}
+    for name, value in state.items():
+        dim = model_shard_dim(name)
+        if dim is None:
+            out[name] = value
+        else:
+            parts = mesh.all_gather(value, AXIS)
+            out[name] = torch.cat(list(parts.unbind(0)), dim=dim)
+    return out
+
+
 def _dense(layer: nn.Linear, x, dtype):
     """Flax ``Dense(dtype=...)``: input and float32 kernel cast to dtype."""
     return F.linear(x.to(dtype), layer.weight.to(dtype))
 
 
 def _linear(d_in: int, d_out: int) -> nn.Linear:
-    return nn.Linear(d_in, d_out, bias=False)
+    # Uninitialised: ``TransformerLM.reset_parameters`` draws the weights
+    # (or a checkpoint fills them), so torch's own draw would be wasted.
+    return torch.nn.utils.skip_init(nn.Linear, d_in, d_out, bias=False)
 
 
 class Attention(nn.Module):
@@ -154,6 +234,13 @@ class Attention(nn.Module):
                 f"num_kv_heads ({self.kv_heads}) must be >= 1 and divide "
                 f"num_heads ({cfg.num_heads})"
             )
+        # This rank's heads (all of them off a gang's model axis).
+        tp = model_parallel(mesh)
+        if self.kv_heads % tp:
+            raise ValueError(
+                f"{cfg.num_heads} heads ({self.kv_heads} K/V heads) do not "
+                f"divide over a model axis of {tp}")
+        self.heads, self.heads_kv = cfg.num_heads // tp, self.kv_heads // tp
         if (isinstance(mesh, ProcessMesh) and mesh.sizes["seq"] > 1
                 and cfg.attention not in ("ring", "ulysses")):
             raise ValueError(
@@ -165,23 +252,24 @@ class Attention(nn.Module):
                 f", got {cfg.attention!r}"
             )
         hd = self.head_dim
-        self.query = _linear(cfg.d_model, cfg.num_heads * hd)
-        self.key = _linear(cfg.d_model, self.kv_heads * hd)
-        self.value = _linear(cfg.d_model, self.kv_heads * hd)
-        self.out = _linear(cfg.d_model, cfg.d_model)
+        self.query = _linear(cfg.d_model, self.heads * hd)
+        self.key = _linear(cfg.d_model, self.heads_kv * hd)
+        self.value = _linear(cfg.d_model, self.heads_kv * hd)
+        self.out = _linear(self.heads * hd, cfg.d_model)
 
     def forward(self, x):
         cfg = self.cfg
         dtype = getattr(torch, cfg.dtype)
         B, S, _ = x.shape
         group = cfg.num_heads // self.kv_heads
+        x = copy_to_model(x, self.mesh)
 
         def proj(layer, heads):
             return _dense(layer, x, dtype).view(B, S, heads, self.head_dim)
 
-        q = proj(self.query, cfg.num_heads)
-        k = proj(self.key, self.kv_heads)
-        v = proj(self.value, self.kv_heads)
+        q = proj(self.query, self.heads)
+        k = proj(self.key, self.heads_kv)
+        v = proj(self.value, self.heads_kv)
         if cfg.positional == "rope":
             offset = position_offset(self.mesh, S)
             q = apply_rope(q, cfg.rope_base, offset)
@@ -214,20 +302,25 @@ class Attention(nn.Module):
                 k = k.repeat_interleave(group, dim=2)
                 v = v.repeat_interleave(group, dim=2)
             out = dense_causal_attention(q, k, v)
-        return _dense(self.out, out.reshape(B, S, cfg.d_model), dtype)
+        out = _dense(self.out, out.reshape(B, S, self.heads * self.head_dim),
+                     dtype)
+        return reduce_from_model(out, self.mesh)
 
 
 class Mlp(nn.Module):
-    def __init__(self, cfg: TransformerConfig):
+    def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
         self.cfg = cfg
-        self.in_ = _linear(cfg.d_model, cfg.d_ff)
-        self.out = _linear(cfg.d_ff, cfg.d_model)
+        self.mesh = mesh
+        first, end = model_range(cfg.d_ff, mesh)
+        self.in_ = _linear(cfg.d_model, end - first)
+        self.out = _linear(end - first, cfg.d_model)
 
     def forward(self, x):
         dtype = getattr(torch, self.cfg.dtype)
+        x = copy_to_model(x, self.mesh)
         h = F.gelu(_dense(self.in_, x, dtype), approximate="tanh")
-        return _dense(self.out, h, dtype), None
+        return reduce_from_model(_dense(self.out, h, dtype), self.mesh), None
 
 
 def expert_capacity(tokens: int, num_experts: int,
@@ -273,7 +366,12 @@ class MoEMlp(nn.Module):
     gates and the dropped share are the global batch's (all-reduces). Each
     rank's balance loss carries the gradient of its own tokens' gates
     scaled by the world size, which the gang's gradient average takes
-    back out."""
+    back out.
+
+    With a model axis of M ranks, a rank holds E / M experts: it routes
+    every token (the router is whole), runs its experts' buckets, and the
+    buckets' outputs are gathered over "model" before each token takes its
+    row back, as the JAX model's buckets shard over "model"."""
 
     def __init__(self, cfg: TransformerConfig, mesh=None):
         super().__init__()
@@ -291,8 +389,10 @@ class MoEMlp(nn.Module):
         self.gang = mesh if isinstance(mesh, ProcessMesh) else None
         E = cfg.num_experts
         self.router = _linear(cfg.d_model, E)
-        self.w_in = nn.Parameter(torch.empty(E, cfg.d_model, cfg.d_ff))
-        self.w_out = nn.Parameter(torch.empty(E, cfg.d_ff, cfg.d_model))
+        self.experts = model_range(E, mesh)  # this rank's [first, end)
+        mine = self.experts[1] - self.experts[0]
+        self.w_in = nn.Parameter(torch.empty(mine, cfg.d_model, cfg.d_ff))
+        self.w_out = nn.Parameter(torch.empty(mine, cfg.d_ff, cfg.d_model))
         self.dropped = None
         self.balance = None
 
@@ -303,12 +403,14 @@ class MoEMlp(nn.Module):
         if gang is None:
             return E * torch.sum(one_hot.mean(dim=(0, 1))
                                  * weights.mean(dim=(0, 1)))
-        frac = gang.all_reduce(one_hot.sum(dim=(0, 1))) / tokens
+        frac = gang.all_reduce(one_hot.sum(dim=(0, 1)), TOKENS) / tokens
         local = weights.sum(dim=(0, 1)) / tokens
         # The global mean gate in value; the gradient of this rank's gates
-        # times the world size, which the gradient average divides out.
-        prob = gang.world * local + (gang.all_reduce(local)
-                                     - gang.world * local).detach()
+        # times the token shards' count, which the gradient average over
+        # every rank (the model axis's copies included) divides out.
+        shards = _token_shards(gang)
+        prob = shards * local + (gang.all_reduce(local, TOKENS)
+                                 - shards * local).detach()
         return E * torch.sum(frac * prob)
 
     def _gang_slots(self, top, capacity: int):
@@ -318,7 +420,7 @@ class MoEMlp(nn.Module):
         gang, E = self.gang, self.cfg.num_experts
         B = top.shape[0]
         one_hot = F.one_hot(top, E)  # [B, s, E]
-        counts = gang.all_gather(one_hot.sum(dim=1)).view(
+        counts = gang.all_gather(one_hot.sum(dim=1), TOKENS).view(
             gang.sizes["data"], gang.sizes["seq"], B, E)
         d, j = gang.index("data"), gang.index("seq")
         rows = counts[d].sum(dim=0)  # [B, E]: each row of this data shard
@@ -334,7 +436,8 @@ class MoEMlp(nn.Module):
         E = cfg.num_experts
         B, S, d = x.shape
         N = B * S
-        tokens = N * (self.gang.world if self.gang is not None else 1)
+        tokens = N * (_token_shards(self.gang) if self.gang is not None
+                      else 1)
         weights = torch.softmax(F.linear(x.float(), self.router.weight),
                                 dim=-1)
         top = torch.argmax(weights, dim=-1)  # [B, S]
@@ -343,11 +446,15 @@ class MoEMlp(nn.Module):
         aux = self._balance_loss(one_hot, weights, tokens)
         self.balance = aux.detach()
         w_in, w_out = self.w_in.to(x.dtype), self.w_out.to(x.dtype)
+        first, end = self.experts
+        # The experts' input: its gradient sums the model axis's experts.
+        x_in = copy_to_model(x, self.gang)
         if cfg.moe_dispatch == "dense":
-            dispatch = one_hot.to(x.dtype)
-            hidden = F.gelu(torch.einsum("bse,bsd,edf->bsf", dispatch, x,
+            dispatch = one_hot[..., first:end].to(x.dtype)
+            hidden = F.gelu(torch.einsum("bse,bsd,edf->bsf", dispatch, x_in,
                                          w_in), approximate="tanh")
             out = torch.einsum("bse,bsf,efd->bsd", dispatch, hidden, w_out)
+            out = reduce_from_model(out, self.gang)
             self.dropped = torch.zeros((), device=x.device)
             return out * gate_scale.to(x.dtype), aux
         C = expert_capacity(tokens, E, cfg.moe_capacity_factor)
@@ -357,15 +464,23 @@ class MoEMlp(nn.Module):
         else:
             slot = self._gang_slots(top, C)
             self.dropped = self.gang.all_reduce(
-                (slot == E * C).float().sum()) / tokens
+                (slot == E * C).float().sum(), TOKENS) / tokens
         # Row E * C is where dropped tokens land; it is cut off before the
         # products and reads back as zeros.
-        buckets = x.new_zeros(E * C + 1, d).index_copy(0, slot, x.reshape(N, d))
-        hidden = F.gelu(torch.bmm(buckets[:-1].view(E, C, d), w_in),
-                        approximate="tanh")
-        out = torch.bmm(hidden, w_out).reshape(E * C, d)
+        buckets = x.new_zeros(E * C + 1, d).index_copy(0, slot,
+                                                       x_in.reshape(N, d))
+        mine = buckets[first * C:end * C].view(end - first, C, d)
+        hidden = F.gelu(torch.bmm(mine, w_in), approximate="tanh")
+        out = torch.bmm(hidden, w_out).reshape((end - first) * C, d)
+        # Every expert's bucket, from the ranks that hold them.
+        out = gather_from_model(out, self.gang, dim=0)
         y = torch.cat([out, out.new_zeros(1, d)])[slot]
         return y.reshape(B, S, d) * gate_scale.to(x.dtype), aux
+
+
+def _token_shards(gang: ProcessMesh) -> int:
+    """How many ranks hold different tokens: the data and seq places."""
+    return gang.sizes["data"] * gang.sizes["seq"]
 
 
 def _layer_norm(ln: nn.LayerNorm, x):
@@ -382,7 +497,7 @@ class Block(nn.Module):
         if cfg.num_experts > 0:
             self.moe = MoEMlp(cfg, mesh)
         else:
-            self.mlp = Mlp(cfg)
+            self.mlp = Mlp(cfg, mesh)
 
     def forward(self, x):
         """(output, the MoE balance loss or None)."""
@@ -406,15 +521,24 @@ class TransformerLM(nn.Module):
     """Logits [B, S, V] (float32) for tokens [B, S]. ``mesh``
     (``parallel/mesh.py``) is the grid ring and Ulysses attention shard over;
     over a gang's processes the tokens are this rank's sequence shard, and
-    its positions (learned or rotary) are the shard's global ones."""
+    its positions (learned or rotary) are the shard's global ones, and with
+    a model axis the rank holds its share of the parameters (the module
+    docstring). ``generator`` draws the whole parameters, which a rank then
+    keeps its share of, so every gang shape starts from one process's
+    weights. ``draw=False`` leaves them uninitialised, for a checkpoint to
+    fill (a resumed run skips the draw, as the JAX program builds only its
+    state's template then)."""
 
     def __init__(self, cfg: TransformerConfig,
-                 generator: Optional[torch.Generator] = None, mesh=None):
+                 generator: Optional[torch.Generator] = None, mesh=None,
+                 draw: bool = True):
         super().__init__()
         check_config(cfg)
         self.config = cfg
         self.mesh = mesh
-        self.embedding = nn.Parameter(torch.empty(cfg.vocab_size, cfg.d_model))
+        rows = model_range(cfg.vocab_size, mesh)
+        self.embedding = nn.Parameter(torch.empty(rows[1] - rows[0],
+                                                  cfg.d_model))
         if cfg.positional == "learned":
             self.positional = nn.Parameter(
                 torch.empty(cfg.max_len, cfg.d_model)
@@ -422,7 +546,8 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(Block(cfg, mesh)
                                     for _ in range(cfg.num_layers))
         self.ln_f = nn.LayerNorm(cfg.d_model, eps=_LN_EPS)
-        self.reset_parameters(generator)
+        if draw:  # else uninitialised, for a checkpoint to fill
+            self.reset_parameters(generator)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -431,16 +556,38 @@ class TransformerLM(nn.Module):
         expert weights. The numbers differ from JAX's for the same seed;
         tests carry JAX's parameters over with ``models/convert.py``
         instead."""
-        nn.init.normal_(self.embedding, std=0.02, generator=generator)
+        parts = model_parallel(self.mesh)
+        index = self.mesh.index(AXIS) if parts > 1 else 0
+
+        def draw(name, param, init):
+            """``init(whole, its shape)`` on the whole parameter; this
+            rank keeps its share."""
+            dim = model_shard_dim(name) if parts > 1 else None
+            if dim is None:
+                init(param, param.shape)
+                return
+            shape = list(param.shape)
+            shape[dim] *= parts
+            whole = torch.empty(shape)
+            init(whole, shape)
+            param.copy_(whole.chunk(parts, dim=dim)[index])
+
+        def normal(w, shape):
+            nn.init.normal_(w, std=0.02, generator=generator)
+
+        draw("embedding", self.embedding, normal)
         if self.config.positional == "learned":
-            nn.init.normal_(self.positional, std=0.02, generator=generator)
-        for module in self.modules():
+            draw("positional", self.positional, normal)
+        for prefix, module in self.named_modules():
             if isinstance(module, nn.Linear):
-                lecun_normal_(module.weight, module.in_features, generator)
+                draw(f"{prefix}.weight", module.weight,
+                     lambda w, shape: lecun_normal_(w, shape[1], generator))
             elif isinstance(module, MoEMlp):
                 # flax's fan-in of an [E, in, out] kernel is E * in.
-                for w in (module.w_in, module.w_out):
-                    lecun_normal_(w, w.shape[0] * w.shape[1], generator)
+                for name in ("w_in", "w_out"):
+                    draw(f"{prefix}.{name}", getattr(module, name),
+                         lambda w, shape: lecun_normal_(
+                             w, shape[0] * shape[1], generator))
             elif isinstance(module, nn.LayerNorm):
                 nn.init.ones_(module.weight)
                 nn.init.zeros_(module.bias)
@@ -450,7 +597,7 @@ class TransformerLM(nn.Module):
         block's MoE balance loss (None for a dense MLP)."""
         cfg = self.config
         dtype = getattr(torch, cfg.dtype)
-        x = self.embedding[tokens]
+        x = vocab_embedding(self.embedding, tokens, self.mesh)
         if cfg.positional == "learned":
             offset = position_offset(self.mesh, tokens.shape[1])
             x = x + self.positional[offset:offset + tokens.shape[1]]
@@ -466,12 +613,21 @@ class TransformerLM(nn.Module):
         return _layer_norm(self.ln_f, x), auxes
 
     def head(self, x):
-        """Tied head: activation-dtype operands, float32 accumulation."""
+        """Tied head: activation-dtype operands, float32 accumulation. With
+        a model axis, the logits of this rank's vocabulary rows."""
         dtype = getattr(torch, self.config.dtype)
+        x = copy_to_model(x, self.mesh)
         return x.to(dtype).float() @ self.embedding.to(dtype).float().t()
 
+    def xent_sum(self, x, targets):
+        """``token_xent_sum`` of the head's logits for ``x``."""
+        if model_parallel(self.mesh) == 1:
+            return token_xent_sum(self.head(x), targets)
+        return vocab_cross_entropy_sum(self.head(x), targets, self.mesh)
+
     def forward(self, tokens):
-        return self.head(self.trunk(tokens)[0])
+        logits = self.head(self.trunk(tokens)[0])
+        return gather_from_model(logits, self.mesh, dim=-1)
 
 
 def lm_loss(model: TransformerLM, tokens, logit_chunk=None):
@@ -484,7 +640,7 @@ def lm_loss(model: TransformerLM, tokens, logit_chunk=None):
     targets = tokens[:, 1:]
     x, auxes = model.trunk(tokens[:, :-1])
     if logit_chunk is None:
-        loss = token_xent(model.head(x), targets)
+        loss = model.xent_sum(x, targets) / targets.numel()
     else:
         B, S = targets.shape
         chunk = int(logit_chunk)
@@ -495,7 +651,7 @@ def lm_loss(model: TransformerLM, tokens, logit_chunk=None):
             )
 
         def chunk_loss(xc, tc):
-            return token_xent_sum(model.head(xc), tc)
+            return model.xent_sum(xc, tc)
 
         total = 0.0
         for start in range(0, S, chunk):

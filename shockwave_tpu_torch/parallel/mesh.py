@@ -18,7 +18,11 @@ one place a process, as the JAX program's mesh spans its gang's devices
 (``factorize_gang`` over the world, ranks in row-major order over
 (data, model, seq, pipe)). Each axis that crosses processes has its own
 process group, and the mesh carries the few collectives the parallel
-bodies need (a ring shift, an all-to-all, sums and gathers). The gang's
+bodies need (a ring shift, an all-to-all, sums and gathers, each over the
+whole gang or over one axis's group). With a model or pipe axis, the
+ranks that hold the same tokens' other shards (one model and pipe place,
+every data and seq place) have a group too: the MoE's global routing and
+a sharded parameter's gradient average run over it. The gang's
 group is gloo's (``models/train.py::rendezvous``), which moves host
 tensors, so a tensor on a card travels through pinned host memory
 (:func:`to_host`); the gang's own collectives stage the same way
@@ -34,6 +38,9 @@ import numpy as np
 import torch
 
 AXES = ("data", "model", "seq", "pipe")
+# The ranks that hold one model and pipe place and every data and seq
+# place: the gang's token shards (``ProcessMesh.group``).
+TOKENS = "tokens"
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -136,9 +143,12 @@ class ProcessMesh:
     """One process's place on a mesh over the gang's processes.
 
     ``shape`` is the global (data, model, seq, pipe) grid, ``rank`` and
-    ``world`` the default group's. ``groups[axis]`` is the process group of this rank's line along ``axis`` (the ranks
-    that differ from it only there), ``members[axis]`` their global ranks
-    in axis order; an axis of size 1 has neither."""
+    ``world`` the default group's. ``groups[axis]`` is the process group
+    of this rank's line along ``axis`` (the ranks that differ from it only
+    there), ``members[axis]`` their global ranks in axis order; an axis of
+    size 1 has neither. ``groups[TOKENS]`` and ``members[TOKENS]`` are
+    those of the ranks that differ from it only in data and seq, where
+    they are neither one rank nor the world."""
 
     shape: Tuple[int, ...]
     rank: int
@@ -205,37 +215,65 @@ class ProcessMesh:
         dist.all_to_all_single(out, staged, group=self.groups[axis])
         return self._back(out, tensor)
 
-    def all_reduce(self, tensor: torch.Tensor) -> torch.Tensor:
-        """The sum of ``tensor`` over every rank, as a new tensor."""
+    def group(self, over=None):
+        """(process group, ranks in it) of ``over``: None for every rank
+        (the default group), an axis name for this rank's line along it,
+        or ``TOKENS`` for the ranks that share its model and pipe places.
+        A group of one rank is (None, 1)."""
+        if over is None:
+            return None, self.world
+        if over == TOKENS:
+            size = self.sizes["data"] * self.sizes["seq"]
+            if size == self.world:
+                return None, self.world
+        else:
+            size = self.sizes[over]
+        if size == 1:
+            return None, 1
+        return self.groups[over], size
+
+    def all_reduce(self, tensor: torch.Tensor, over=None,
+                   op: str = "sum") -> torch.Tensor:
+        """``tensor`` reduced (``op`` "sum" or "max") over the ranks of
+        ``over`` (:meth:`group`; every rank by default), as a new
+        tensor."""
         import torch.distributed as dist
 
+        group, size = self.group(over)
         staged = to_host(tensor.detach())
         if staged.data_ptr() == tensor.data_ptr():
             staged = staged.clone()  # the sum must not land in ``tensor``
-        dist.all_reduce(staged)
+        if size > 1:
+            dist.all_reduce(staged, op=getattr(dist.ReduceOp, op.upper()),
+                            group=group)
         return self._back(staged, tensor)
 
-    def all_gather(self, tensor: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``tensor``, stacked in rank order along a new dim
-        0."""
+    def all_gather(self, tensor: torch.Tensor, over=None) -> torch.Tensor:
+        """The ``tensor`` of every rank of ``over`` (:meth:`group`; every
+        rank by default), stacked in their order along a new dim 0."""
         import torch.distributed as dist
 
+        group, size = self.group(over)
         staged = to_host(tensor.detach())
-        parts = [torch.empty_like(staged) for _ in range(self.world)]
-        dist.all_gather(parts, staged)
+        parts = [torch.empty_like(staged) for _ in range(size)]
+        if size > 1:
+            dist.all_gather(parts, staged, group=group)
+        else:
+            parts[0].copy_(staged)
         return self._back(torch.stack(parts), tensor)
 
 
-def make_process_mesh(seq_parallel: int = 1,
-                      model_parallel: int = 1) -> ProcessMesh:
+def make_process_mesh(seq_parallel: int = 1, model_parallel: int = 1,
+                      pipe_parallel: int = 1) -> ProcessMesh:
     """The gang's mesh over the default process group:
-    ``factorize_gang(world, seq_parallel, model_parallel)``, one place a
-    rank. Every rank must call it (it creates each axis's groups, and
-    ``torch.distributed.new_group`` is collective)."""
+    ``factorize_gang(world, seq_parallel, model_parallel, pipe_parallel)``,
+    one place a rank. Every rank must call it (it creates each axis's
+    groups, and ``torch.distributed.new_group`` is collective)."""
     import torch.distributed as dist
 
     rank, world = dist.get_rank(), dist.get_world_size()
-    shape = factorize_gang(world, seq_parallel, model_parallel)
+    shape = factorize_gang(world, seq_parallel, model_parallel,
+                           pipe_parallel)
     groups, members = {}, {}
     ranks = np.arange(world).reshape(shape)
     for a, axis in enumerate(AXES):
@@ -248,4 +286,13 @@ def make_process_mesh(seq_parallel: int = 1,
             group = dist.new_group([int(r) for r in line])
             if rank in line:
                 groups[axis], members[axis] = group, [int(r) for r in line]
+    data, model, seq, pipe = shape
+    if 1 < data * seq < world:
+        # One plane of (data, seq) a (model, pipe) place.
+        planes = np.moveaxis(ranks, (1, 3), (0, 1)).reshape(model * pipe, -1)
+        for plane in planes:
+            group = dist.new_group([int(r) for r in plane])
+            if rank in plane:
+                groups[TOKENS] = group
+                members[TOKENS] = [int(r) for r in plane]
     return ProcessMesh(shape, rank, world, groups, members)

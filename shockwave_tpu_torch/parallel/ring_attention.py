@@ -254,10 +254,8 @@ def _ring_dense_gang(q, k, v, mesh, axis):
 def _ring_gang(q, k, v, mesh, seq_axis, inner):
     """Ring attention over a gang's processes: q, k, v are this rank's
     sequence shard ``[batch, seq / P, heads, head_dim]`` (its batch rows
-    are its data shard already); returns its shard of the output."""
-    if mesh.sizes.get("model", 1) > 1:
-        raise ValueError("ring attention over processes shards no heads; "
-                         "the mesh's model axis must be 1")
+    are its data shard already, its heads its model shard); returns its
+    shard of the output."""
     H, Hkv = q.shape[2], k.shape[2]
     if Hkv != H and H % Hkv:
         raise ValueError(

@@ -140,10 +140,8 @@ def ulysses_attention(
             f"local_attention must be 'dense' or 'flash', got "
             f"{local_attention!r}")
     if isinstance(mesh, ProcessMesh):
+        # This rank's heads are its model shard already.
         P = mesh.sizes[seq_axis]
-        if mesh.sizes.get("model", 1) > 1:
-            raise ValueError("Ulysses over processes shards no heads; the "
-                             "mesh's model axis must be 1")
         if q.shape[2] % P or k.shape[2] % P:
             raise ValueError(
                 f"{q.shape[2]} heads ({k.shape[2]} K/V heads) not divisible "

@@ -750,6 +750,104 @@ def test_a_seq_and_moe_gang_runs_with_jax_blocked(tmp_path):
     assert len(leaks) == 2 and all(leak == [] for leak in leaks), leaks
 
 
+def _blocked_ranks(tmp_path, commands):
+    """``commands`` (one a rank) run with the blocker installed; each exit
+    code and output, and the leaks the ranks reported."""
+    blocker = tmp_path / "blocker"
+    blocker.mkdir(parents=True)
+    (blocker / "sitecustomize.py").write_text(_SITECUSTOMIZE)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(blocker), str(ROOT)]))
+    procs = [subprocess.Popen(command, cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for command in commands]
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    leaks = [json.loads(f.read_text()) for f in blocker.glob("leaked-*")]
+    return [p.returncode for p in procs], outs, leaks
+
+
+def test_a_model_parallel_gang_runs_with_jax_blocked(tmp_path):
+    """Two ranks of ``python -m shockwave_tpu_torch.models.train
+    --model_parallel 2 --num_experts 2`` over gloo (heads, MLP, vocabulary
+    and experts split over "model"), writing and then resuming its
+    checkpoint of whole parameters, with ``jax`` and the JAX package
+    unimportable in both."""
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    for steps in ("2", "1"):
+        addr = f"127.0.0.1:{free_port()}"
+        codes, outs, leaks = _blocked_ranks(tmp_path / steps, [
+            [sys.executable, "-m", "shockwave_tpu_torch.models.train",
+             "--model", "Transformer", "-n", steps, "--batch_size", "2",
+             "--vocab_size", "64", "--d_model", "32", "--num_heads", "2",
+             "--num_layers", "1", "--seq_len", "64", "--num_experts", "2",
+             "--model_parallel", "2", "--device", "cpu", "--checkpoint_dir",
+             str(tmp_path / "ckpt"), "--distributed_addr", addr,
+             "--num_workers", "2", "--worker_rank", str(rank)]
+            for rank in range(2)])
+        for code, out in zip(codes, outs):
+            assert code == 0, out[-3000:]
+            assert "'model': 2" in out and "GANG rank=" in out
+            assert ("RESUMED" in out) == (steps == "1")
+        assert len(leaks) == 2 and all(leak == [] for leak in leaks), leaks
+
+
+_PIPE_SCRIPT = """
+import datetime, sys
+import torch
+import torch.distributed as dist
+from shockwave_tpu_torch.models.transformer import TransformerConfig
+from shockwave_tpu_torch.parallel.mesh import make_process_mesh
+from shockwave_tpu_torch.parallel.pipeline import PipelinedLM
+rank, addr = int(sys.argv[1]), sys.argv[2]
+dist.init_process_group("gloo", init_method=f"tcp://{addr}", world_size=2,
+                        rank=rank, timeout=datetime.timedelta(seconds=120))
+cfg = TransformerConfig(vocab_size=64, d_model=16, num_heads=2, num_layers=2,
+                        d_ff=32, max_len=12)
+tokens = torch.randint(0, 64, (4, 13),
+                       generator=torch.Generator().manual_seed(0))
+whole = PipelinedLM(cfg, 2, 2).init(torch.Generator().manual_seed(0), tokens)
+model = PipelinedLM(cfg, 2, 2, make_process_mesh(pipe_parallel=2))
+params = model.shard_params(whole)
+for key in ("embedding", "ln_f_scale", "ln_f_bias", "positional"):
+    params[key].requires_grad_()
+loss = model.loss(params, tokens)
+loss.backward()
+model.sum_replicated_gradients(params)
+alone = PipelinedLM(cfg, 2, 2).loss(whole, tokens)
+print("PIPE", rank, float(loss), float(alone))
+dist.destroy_process_group()
+"""
+
+
+def test_the_pipeline_runs_with_jax_blocked(tmp_path):
+    """``parallel/pipeline.py``'s ``PipelinedLM`` over a two-rank pipe
+    gang (one stage a rank) and in one process, with ``jax`` and the JAX
+    package unimportable: the same loss on both ranks and alone."""
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    addr = f"127.0.0.1:{free_port()}"
+    codes, outs, leaks = _blocked_ranks(tmp_path, [
+        [sys.executable, "-c", _PIPE_SCRIPT, str(rank), addr]
+        for rank in range(2)])
+    losses = set()
+    for code, out in zip(codes, outs):
+        assert code == 0, out[-3000:]
+        line = [l for l in out.splitlines() if l.startswith("PIPE ")][0]
+        gang, alone = line.split()[2:]
+        assert abs(float(gang) - float(alone)) <= 1e-6 * abs(float(alone))
+        losses.add(gang)
+    assert len(losses) == 1
+    assert len(leaks) == 2 and all(leak == [] for leak in leaks), leaks
+
+
 # A wall-clock run of real payloads (a few seconds a round).
 @pytest.mark.wallclock_retry
 def test_card_driver_with_a_gang_runs_with_jax_and_grpc_blocked(tmp_path):

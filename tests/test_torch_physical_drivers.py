@@ -151,6 +151,24 @@ def test_run_physical_dispatches_the_driver_modes(capsys):
         run_physical.cli(["--driver", "tpu"])
 
 
+def _gang_payload_seconds() -> float:
+    """The wall seconds of one process doing a gang rank's work on this
+    host as it is loaded now: the ResNet-18 payload at the gang's CPU
+    batch for its steps, start-up included."""
+    import subprocess
+    import time
+
+    started = time.time()
+    subprocess.run(
+        [sys.executable, "-m", "shockwave_tpu_torch.models.train", "--model",
+         "ResNet-18", "--batch_size",
+         str(drivers.GANG_CPU_BATCH["ResNet-18"]), "-n",
+         str(drivers.GANG_STEPS), "--device", "cpu"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), check=True,
+        capture_output=True, timeout=600)
+    return time.time() - started
+
+
 # A wall-clock run of real payloads (a few seconds a round).
 @pytest.mark.wallclock_retry
 def test_card_driver_runs_a_singleton_and_a_gang_on_the_cpu(tmp_path):
@@ -159,7 +177,15 @@ def test_card_driver_runs_a_singleton_and_a_gang_on_the_cpu(tmp_path):
     Recommendation singleton sized from the oracle and a ResNet-18 gang
     whose two ranks train over gloo; both complete with their steps, and
     the summary carries the payloads' phase report, the gang's rendezvous
-    included."""
+    included.
+
+    The rounds follow the work: a gang's Done is both ranks' reports,
+    merged when the later one lands within the round's completion wait
+    (1.5 rounds). A rank's start-up and first step take 4-5 s on an idle
+    host but 13 s and more when other test workers load it, which left the
+    later rank's report outside 8 s rounds (the gang completed with one
+    rank's steps). So a round is 1.6 times one process doing a rank's work
+    on the host as it is loaded now, and at least 8 s."""
     from shockwave_tpu_torch import run_physical
     from shockwave_tpu_torch.data.throughputs import stringify_throughputs
     from shockwave_tpu_torch.data.trace import write_trace
@@ -176,9 +202,11 @@ def test_card_driver_runs_a_singleton_and_a_gang_on_the_cpu(tmp_path):
                   ("ResNet-18 (batch size 128)", 1): {"null": 10.0},
                   ("ResNet-18 (batch size 128)", 2): {"null": 18.4}}})))
     os.environ.setdefault("OMP_NUM_THREADS", "2")
+    round_s = max(8.0, 1.6 * _gang_payload_seconds())
     summary = run_physical.cli(
         ["--driver", "card", "--trace", str(trace), "--oracle", str(oracle),
-         "--device", "cpu", "--policy", "shockwave_tpu", "--round_s", "8",
+         "--device", "cpu", "--policy", "shockwave_tpu", "--round_s",
+         f"{round_s:.1f}",
          "--train_s", "4", "--time_scale", "1", "--max_rounds", "20",
          "--out", str(tmp_path / "out")])
     assert summary["worker_type"] == "h100"

@@ -93,3 +93,25 @@ def test_phase_18_waits_are_bounded_by_what_is_left(monkeypatch, tmp_path):
     with pytest.raises(TimeoutError):
         ha_smoke.failover_arm(str(tmp_path), "hot", True)
     assert waits[1] == 120
+
+
+def test_a_failure_names_its_phase_and_the_seconds_since_the_start(
+        capsys):
+    """``fail`` (and an exception out of ``main``) says which phase was
+    running and how far into the smoke, so a failed run on the card tells
+    where it stopped."""
+    smoke = _chip_smoke()
+    smoke.PROGRESS["started"] = time.time() - 12.5
+    smoke.enter("17 (the physical control plane)")
+    with pytest.raises(SystemExit) as e:
+        smoke.fail("a job never completed")
+    assert e.value.code == 1
+    err = capsys.readouterr().err
+    assert err.startswith("chip_smoke: FAILED in phase 17 (the physical "
+                          "control plane), 12.")
+    assert " s after the start: a job never completed" in err
+    # Every phase the smoke runs is entered by name before it starts.
+    source = inspect.getsource(smoke)
+    for number in (2, 3, 4, 5, 6, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 18,
+                   19, 20, 21, 22, 23):
+        assert f'enter("{number} (' in source, number

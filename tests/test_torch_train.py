@@ -96,18 +96,33 @@ def test_phase_timings_line(monkeypatch, capsys):
     ],
 )
 def test_unported_paths_raise(extra, tmp_path):
-    """Model parallelism still raises (item 8), in a gang before its
-    rendezvous (a gang trains with its sequence over its processes,
-    tests/test_torch_gang_seq.py). Every other case
-    is ported: ``train.main`` runs it (``--ckpt_backend orbax`` saves a
-    directory checkpoint and resumes from it), and its loop from the JAX
-    initialisation tracks the JAX program's: the first loss within 1e-5,
-    the second within 1e-4 (ResNet's float32 steps part by more on
-    BatchNorm over two images; test_torch_families.py holds them in
-    float64). ``--attention ulysses`` runs on a one-shard seq mesh of
-    each package."""
-    if "--distributed_addr" in extra or "--model_parallel" in extra:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    """Every case is ported. ``--model_parallel 2`` in a gang of two runs
+    (one head, half the MLP and the vocabulary a rank), its losses within
+    1e-5 of one process's on the same seed
+    (tests/test_torch_gang_model.py holds it to the JAX program); without
+    a gang it raises the JAX program's error, one device not divisible
+    over the model axis. Every other case: ``train.main`` runs it
+    (``--ckpt_backend orbax`` saves a directory checkpoint and resumes
+    from it), and its loop from the JAX initialisation tracks the JAX
+    program's: the first loss within 1e-5, the second within 1e-4
+    (ResNet's float32 steps part by more on BatchNorm over two images;
+    test_torch_families.py holds them in float64). ``--attention
+    ulysses`` runs on a one-shard seq mesh of each package."""
+    if "--distributed_addr" in extra:
+        from test_torch_gang import run_gang
+
+        flags = TINY_ARGS[TINY_ARGS.index("--vocab_size"):-2]
+        codes, outs, ranks = run_gang(2, "Transformer", steps=2, batch=2,
+                                      extra=flags + ["--model_parallel", "2"],
+                                      threads=1)
+        assert codes == [0, 0], outs[0][-3000:]
+        assert ranks[0] == ranks[1], ranks
+        alone = train.main(TINY_ARGS + ["-n", "2"])
+        np.testing.assert_allclose(ranks[0][1], alone["losses"], rtol=1e-5)
+        return
+    if "--model_parallel" in extra:
+        with pytest.raises(ValueError,
+                           match="1 devices not divisible by model=2"):
             train.main(TINY_ARGS + ["-n", "1"] + extra)
         return
     from shockwave_tpu.parallel.mesh import make_mesh as jax_make_mesh

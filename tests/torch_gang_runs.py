@@ -189,3 +189,89 @@ def one_process(argv, data_groups: int, seq_places: int = 1):
     return {"steps": steps,
             "params": {k: v.detach().clone()
                        for k, v in model.state_dict().items()}}
+
+
+# -- the pipeline ----------------------------------------------------------
+
+
+def toy_stage(params, x):
+    """``tests/test_pipeline.py``'s stage: one affine map and a tanh."""
+    return torch.tanh(x @ params["w"] + params["b"])
+
+
+def toy_params(rng, S, d):
+    """``tests/test_pipeline.py::_toy_params``'s draws, as tensors."""
+    return {"w": torch.from_numpy((rng.normal(size=(S, d, d)) * 0.3)
+                                  .astype(np.float32)),
+            "b": torch.from_numpy((rng.normal(size=(S, d)) * 0.1)
+                                  .astype(np.float32))}
+
+
+def gpipe_rank(rank, world, addr, params, x):
+    """Stage ``rank`` of ``gpipe_apply`` over a gang's pipe axis: the
+    outputs (on every rank), the gradient of their sum of squares with
+    respect to this rank's stage, and the input's gradient."""
+    import torch.distributed as dist
+
+    from shockwave_tpu_torch.parallel.mesh import make_process_mesh
+    from shockwave_tpu_torch.parallel.pipeline import gpipe_apply
+
+    init_gloo(rank, world, addr)
+    mesh = make_process_mesh(pipe_parallel=world)
+    mine = {k: v[rank:rank + 1].clone().requires_grad_() for k, v in
+            params.items()}
+    x = x.clone().requires_grad_()
+    y = gpipe_apply(toy_stage, mine, x, mesh)
+    (y ** 2).sum().backward()
+    result = (y.detach(), {k: v.grad[0] for k, v in mine.items()},
+              x.grad if x.grad is not None else torch.zeros_like(x))
+    dist.destroy_process_group()
+    return result
+
+
+def pipelined_steps(model, params, tokens, steps, lr=1e-3):
+    """``steps`` AdamW steps of ``model.loss`` on ``tokens`` (a pipe
+    gang's replicated gradients summed over its ranks): the losses and the
+    parameters after them."""
+    from shockwave_tpu_torch.ops.fused_adamw import FusedAdamW
+    from shockwave_tpu_torch.parallel.pipeline import _leaves
+
+    for leaf in _leaves(params):
+        leaf.requires_grad_()
+    opt = FusedAdamW(_leaves(params), lr)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(params, tokens)
+        loss.backward()
+        model.sum_replicated_gradients(params)
+        opt.step()
+        losses.append(float(loss.detach()))
+    return losses, params
+
+
+def pipelined_lm_rank(rank, world, addr, cfg, microbatches, params, tokens,
+                      steps):
+    """Stage ``rank`` of a ``PipelinedLM`` over a gang's pipe axis, trained
+    ``steps`` steps: the losses and this rank's parameters."""
+    import torch.distributed as dist
+
+    from shockwave_tpu_torch.parallel.mesh import make_process_mesh
+    from shockwave_tpu_torch.parallel.pipeline import PipelinedLM
+
+    init_gloo(rank, world, addr)
+    mesh = make_process_mesh(pipe_parallel=world)
+    model = PipelinedLM(cfg, world, microbatches, mesh)
+    # The spawned ranks share ``params``' memory with the caller: train a
+    # copy.
+    params = {k: ({n: p.clone() for n, p in v.items()}
+                  if isinstance(v, dict) else v.clone())
+              for k, v in params.items()}
+    losses, mine = pipelined_steps(model, model.shard_params(params), tokens,
+                                   steps)
+    logits = model.logits(mine, tokens[:, :-1]).detach()
+    dist.destroy_process_group()
+    detached = {k: ({n: p.detach() for n, p in v.items()}
+                    if isinstance(v, dict) else v.detach())
+                for k, v in mine.items()}
+    return losses, detached, logits
