@@ -79,8 +79,22 @@
    one run; ``bench_sim.SMOKE_ITERS``; the tool's deeper readings are
    PERF.md's), its kernel launches
    and the device's busy time under torch.profiler, and the native
-   greedy's time on the same problem, with the crossover of each set. It
-   prints one JSON line ``{"simulation": {...}}`` of these readings.
+   greedy's time on the same problem, with the crossover of each set.
+   (e) The sharded level solve (``solver/eg_sharded.py``, the job slots
+   over a one-process solve mesh that holds card 0 in 1, 2, 4 and 8
+   places, each shard sorting only its own cells): on one parity problem
+   of each slot band and the tie-heavy problem of
+   tests/test_sharded_solver.py, and at 8 places on the 16384-job,
+   50-round, 4096-GPU stress problem (``bench_sim.stress_problem``, the
+   JAX package's ``bench.make_problem(seed=0)``); fails unless its counts
+   equal the one-card level solve's in every bit and its objective is
+   within ``SHARDED_OBJ_RTOL``. Then the golden trace under
+   ``shockwave_tpu_sharded`` (the mesh of every visible card); fails
+   unless its metrics and every plan equal the level run's of (a) and
+   every solve took the sharded backend on the card. Prints, and does
+   not hold, the sharded solve's ms and kernel launches at 8 places
+   against the one-card solve's at 4096 and 16384 jobs. It prints one
+   JSON line ``{"simulation": {...}}`` of these readings.
 9. Drives the planner's first-order backends, kernels A (restarted PDHG,
    ``csrc/eg_pdhg.cu``) and B (relaxed PGD, ``csrc/eg_relaxed.cu``), each
    one launch a solve (``shockwave_tpu_torch/tools/bench_sim.py``): (a) the
@@ -158,7 +172,11 @@
    lanes: every lane equal in every bit to its own one-lane launch and
    within the limits of its plain version, the merged cell schedule
    feasible for the global problem and its objective within
-   ``CELLS_GAP_PCT`` (0.5%) of the global solve's; (ii) the 12-job trace on
+   ``CELLS_GAP_PCT`` (0.5%) of the global solve's, then the 8 lanes over
+   a lane mesh that holds card 0 in 2 and in 4 places
+   (``CELLS_MESH_PLACES``; ``cells/batched.py``'s ``mesh``): one launch a
+   place, every lane equal in every bit to the single launch's; (ii) the
+   12-job trace on
    8 GPUs under ``shockwave_tpu_pdhg --cells 2`` within 1e-3 of the JAX
    package's run (``bench_sim.GOLDEN_CELLS``) in its rounds, then
    ``python -m shockwave_tpu_torch.simulate -t
@@ -179,7 +197,9 @@
    equal to its one-lane launch, the scenarios/s, the grid's kernel time
    against its lanes launched one by one and its bound
    (``bench_sim.time_lane_grid``, also at the 8 lanes of (i)), and the
-   card's busy share of a ``solve_scenarios`` call. Then re-times the
+   card's busy share of a ``solve_scenarios`` call; grid (a)'s 1024 lanes
+   over card 0 in 4 places (``whatif/scenario.py``'s ``mesh``), every lane
+   equal in every bit to the single launch's. Then re-times the
    non-causal flash kernels and SDPA's ``is_causal=False`` forward at the
    hop shape beside item 7's reading (back to back, the host's issue time
    and queued behind a sleep kernel) with the card's clock and power. It
@@ -1062,7 +1082,10 @@ def run_simulation(device) -> dict:
 
     golden = {}
     for policy in ("shockwave_tpu_level", "shockwave_native"):
-        r = sim.run_trace(sim.GOLDEN_TRACE, policy, 8, device)
+        plans = [] if policy == "shockwave_tpu_level" else None
+        r = sim.run_trace(sim.GOLDEN_TRACE, policy, 8, device, plans=plans)
+        if plans is not None:
+            r["plans"] = plans
         print(f"golden trace, {policy}: makespan {r['makespan']:.3f} avg "
               f"JCT {r['avg_jct']:.3f} worst FTF {r['worst_ftf']:.3f}, "
               f"{r['rounds']} rounds, solves {r['solves']} on "
@@ -1107,6 +1130,111 @@ def run_simulation(device) -> dict:
     if bad:
         fail("level solve on the card against the CPU's: " + "; ".join(bad))
     return {"golden": golden, "tier_2048": tier, **report}
+
+
+# Phase 8 (e): the sharded level solve's places on card 0, the
+# objective's tolerance against the one-card solve (its sum over jobs runs
+# shard by shard), and the job counts of its timing.
+SHARDED_PLACES = (1, 2, 4, 8)
+SHARDED_OBJ_RTOL = 1e-5
+SHARDED_TIMED_JOBS = (4096, 16384)
+
+
+def tie_heavy_problem(J: int = 512):
+    """tests/test_sharded_solver.py's tie-heavy problem (:41-67): every
+    job identical, so every marginal density ties across shards."""
+    from shockwave_tpu_torch.solver.eg_problem import EGProblem
+
+    return EGProblem(
+        priorities=np.full(J, 2.0), completed_epochs=np.full(J, 3.0),
+        total_epochs=np.full(J, 10.0), epoch_duration=np.full(J, 100.0),
+        remaining_runtime=np.full(J, 700.0), nworkers=np.full(J, 2.0),
+        num_gpus=64, round_duration=120.0, future_rounds=10,
+        regularizer=1.0, log_bases=np.array([0.0, 0.2, 0.4, 0.6, 0.8, 1.0]))
+
+
+def run_sharded(device, card: str, level_golden: dict) -> dict:
+    """Phase 8 (e) (docstring, item 8): the sharded level solve against
+    the one-card solve, the golden trace under ``shockwave_tpu_sharded``
+    against ``level_golden`` (phase 8 (a)'s level run, with its plans),
+    then the timing it prints and does not hold."""
+    from shockwave_tpu_torch.parallel.mesh import make_solve_mesh
+    from shockwave_tpu_torch.solver import eg_level, eg_sharded
+    from shockwave_tpu_torch.tools import bench_sim as sim
+
+    tag = f"[{card}]"
+    meshes = {p: make_solve_mesh([device] * p) for p in SHARDED_PLACES}
+    cases = [(f"parity band {band}", sim.parity_problem(0, band, True),
+              SHARDED_PLACES) for band in sim.PARITY_PER_BAND]
+    cases.append(("tie-heavy, 512 jobs", tie_heavy_problem(),
+                  SHARDED_PLACES))
+    cases.append(("16384 jobs x 50 rounds x 4096 GPUs",
+                  sim.stress_problem(16384, 50, 4096, seed=0), (8,)))
+    checked = []
+    for name, problem, places in cases:
+        ref, ref_obj = eg_level.solve_level_counts(problem, device)
+        for p in places:
+            counts, obj = eg_sharded.solve_level_sharded(
+                problem, mesh=meshes[p], device=device)
+            rel = abs(obj - ref_obj) / max(abs(ref_obj), 1e-30)
+            if not np.array_equal(counts, ref) or rel > SHARDED_OBJ_RTOL:
+                fail(f"sharded level solve, {name}, {p} places: "
+                     f"{int(np.sum(counts != ref))} counts differ from the "
+                     f"one-card solve's, objective {obj!r} against "
+                     f"{ref_obj!r} ({rel:.2e} relative, limit "
+                     f"{SHARDED_OBJ_RTOL})")
+            checked.append(dict(case=name, places=p, jobs=problem.num_jobs,
+                                obj_rel_err=rel))
+        print(f"  (e) sharded level solve, {name}: counts equal to the "
+              f"one-card solve's at {', '.join(map(str, places))} places "
+              f"of card 0 {tag}", flush=True)
+
+    eg_sharded.SOLVES.clear()
+    plans = []
+    golden = sim.run_trace(sim.GOLDEN_TRACE, "shockwave_tpu_sharded", 8,
+                           device, plans=plans)
+    level_plans = level_golden["plans"]
+    same_plans = len(plans) == len(level_plans) and all(
+        r == lr and np.array_equal(Y, LY)
+        for (r, Y), (lr, LY) in zip(plans, level_plans))
+    metrics = ("makespan", "avg_jct", "worst_ftf", "rounds")
+    if (any(golden[k] != level_golden[k] for k in metrics) or not same_plans
+            or golden["solves"] != {"sharded": len(plans)}
+            or eg_sharded.SOLVES["cuda"] != len(plans)):
+        fail(f"golden trace under shockwave_tpu_sharded: "
+             f"{ {k: golden[k] for k in metrics} } against the level run's "
+             f"{ {k: level_golden[k] for k in metrics} }, plans equal "
+             f"{same_plans}, solves {golden['solves']}, sharded solves by "
+             f"device {dict(eg_sharded.SOLVES)}")
+    print(f"  (e) golden trace under shockwave_tpu_sharded {tag}: makespan "
+          f"{golden['makespan']:.3f} avg JCT {golden['avg_jct']:.3f} worst "
+          f"FTF {golden['worst_ftf']:.3f}, {golden['rounds']} rounds, "
+          f"{len(plans)} plans, each equal to the level run's; solves "
+          f"{golden['solves']} on the card", flush=True)
+
+    timing = []
+    for jobs in SHARDED_TIMED_JOBS:
+        problem = sim.stress_problem(jobs, 50, jobs // 4, seed=0)
+        row = dict(jobs=jobs, future_rounds=50, num_gpus=jobs // 4)
+        for label, solve in (
+                ("one_card", lambda: eg_level.solve_level_counts(
+                    problem, device)),
+                ("sharded_8", lambda: eg_sharded.solve_level_sharded(
+                    problem, mesh=meshes[8], device=device))):
+            solve()
+            row[f"{label}_ms"] = 1e3 * sim._median_s(solve, 3)
+            row[f"{label}_launches"] = sim.device_profile(
+                problem, device, solve)["launches"]
+        timing.append(row)
+        print(f"  (e) {jobs} jobs x 50 rounds x {jobs // 4} GPUs {tag}: "
+              f"sharded at 8 places {row['sharded_8_ms']:.2f} ms, "
+              f"{row['sharded_8_launches']} launches; one card "
+              f"{row['one_card_ms']:.2f} ms, {row['one_card_launches']} "
+              f"launches (median of 3, device head with its fetch; not "
+              f"held)", flush=True)
+    return dict(checked=checked, timing=timing,
+                golden={k: golden[k] for k in (*metrics, "solves")},
+                golden_plans=len(plans))
 
 
 def check_resident(what: str, run: dict, kernel: str) -> None:
@@ -1473,6 +1601,13 @@ def frozen_state(planner) -> dict:
     return state
 
 
+# Phase 12's lane meshes: the quality A/B's lanes over card 0 in these
+# many places, and what-if grid (a)'s over four.
+CELLS_MESH_PLACES = (2, 4)
+WHATIF_MESH_GRID = "a"
+WHATIF_MESH_PLACES = 4
+
+
 def run_cells(device, card: str, tier: dict) -> dict:
     """Phase 12 (docstring, item 12): the cells market and the what-if
     fleet on kernel A's lane grid; fails on any lane that differs in a bit
@@ -1483,6 +1618,7 @@ def run_cells(device, card: str, tier: dict) -> dict:
     from shockwave_tpu_torch.cells import batched
     from shockwave_tpu_torch.obs import recorder
     from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.parallel.mesh import make_solve_mesh
     from shockwave_tpu_torch.solver import eg_pdhg as pdhg_solver
     from shockwave_tpu_torch.solver.eg_level import num_slots_for
     from shockwave_tpu_torch.tools import bench_sim as sim
@@ -1542,6 +1678,22 @@ def run_cells(device, card: str, tier: dict) -> dict:
             fail(f"quality A/B lane {b} against the plain version: {misses}")
         worst = max(worst, float(np.abs(out[b, :J] - plain[:J]).max()))
     grid8 = sim.time_lane_grid(packed)
+    # The 8 lanes over card 0 in 2 and in 4 places: one launch a place,
+    # each lane the single launch's in every bit.
+    mesh_launches = {}
+    for places in CELLS_MESH_PLACES:
+        kernel.reset_launch_counts()
+        s_mesh, objs_mesh, _ = batched.solve_cells_pdhg(
+            cells, mesh=make_solve_mesh([device] * places, "cells"),
+            device=device)
+        mesh_launches[places] = kernel.LAUNCHES["eg_pdhg"]
+        differ = [i for i in range(len(cells))
+                  if not np.array_equal(s_mesh[i], s_list[i])
+                  or objs_mesh[i] != objs[i]]
+        if differ or mesh_launches[places] != places:
+            fail(f"quality A/B over {places} places of card 0: lanes "
+                 f"{differ} differ from the single launch's, "
+                 f"{mesh_launches[places]} launches")
     print(f"cells quality A/B (1000 jobs x 256 GPUs x 50 rounds, 8 cells) "
           f"{tag}: objective global {obj_g!r}, cells {obj_c!r}, gap "
           f"{gap_pct:.6f}% (limit {CELLS_GAP_PCT}%); merged schedule "
@@ -1549,13 +1701,16 @@ def run_cells(device, card: str, tier: dict) -> dict:
           f"{cells_s:.3f} s; {ab_launches} launches (1 global, 1 of 8 "
           f"lanes); every lane equal to its one-lane launch; lanes against "
           f"the plain version within the limits, largest |s| error "
-          f"{worst}", flush=True)
+          f"{worst}; over {' and '.join(map(str, CELLS_MESH_PLACES))} "
+          f"places of card 0, {mesh_launches} launches, every lane the "
+          f"single launch's", flush=True)
     if gap_pct > CELLS_GAP_PCT:
         fail(f"quality A/B: gap {gap_pct}% > {CELLS_GAP_PCT}%")
     readings["quality_ab"] = dict(
         objective_global=obj_g, objective_cells=obj_c, gap_pct=gap_pct,
         global_solve_s=global_s, cells_solve_s=cells_s,
-        launches=ab_launches, max_abs_err=worst, grid=grid8)
+        launches=ab_launches, max_abs_err=worst, grid=grid8,
+        mesh_launches=mesh_launches)
 
     # (ii) The golden trace under two cells against the JAX package's
     # run, then the 2048-job tier through the CLI.
@@ -1616,8 +1771,27 @@ def run_cells(device, card: str, tier: dict) -> dict:
                  "differ from their one-lane launches")
         sync()
         t0 = time.perf_counter()
-        solve_scenarios(batch, device=device)
+        single = solve_scenarios(batch, device=device)
         wall_ms = 1e3 * (time.perf_counter() - t0)
+        mesh_launches = None
+        if name == WHATIF_MESH_GRID:
+            # The grid's lanes over card 0 in 4 places: one launch a
+            # place (a chunk), each lane the single launch's in every bit.
+            kernel.reset_launch_counts()
+            meshed = solve_scenarios(batch, mesh=make_solve_mesh(
+                [device] * WHATIF_MESH_PLACES, "scenarios"), device=device)
+            mesh_launches = kernel.LAUNCHES["eg_pdhg"]
+            differ = [i for i in range(batch.lanes)
+                      if not np.array_equal(meshed[0][i], single[0][i])
+                      or meshed[1][i] != single[1][i]]
+            if differ or mesh_launches < WHATIF_MESH_PLACES:
+                fail(f"what-if grid ({name}) over {WHATIF_MESH_PLACES} "
+                     f"places of card 0: lanes {differ[:8]} differ from "
+                     f"the single launch's, {mesh_launches} launches")
+            print(f"what-if grid ({name}) over {WHATIF_MESH_PLACES} places "
+                  f"of card 0 {tag}: {batch.lanes} lanes in "
+                  f"{mesh_launches} launches, every lane the single "
+                  f"launch's", flush=True)
         t = report["timing"]
         fleet[name] = dict(source=source, jobs=base.num_jobs,
                            scenarios=t["scenarios"], lanes=t["lanes"],
@@ -1628,7 +1802,8 @@ def run_cells(device, card: str, tier: dict) -> dict:
                            one_by_one_s=report["audit"]["one_by_one_s"],
                            audited=report["audit"]["audited"], grid=timing,
                            solve_wall_ms=wall_ms,
-                           busy_share=timing["ms"] / wall_ms)
+                           busy_share=timing["ms"] / wall_ms,
+                           mesh_launches=mesh_launches)
         print(f"what-if grid ({name}), {source}: {base.num_jobs} jobs x "
               f"{t['scenarios']} scenarios in {t['lanes']} lanes "
               f"({t['chunk']} a launch, {t['slots']} slots) {tag}: "
@@ -4504,7 +4679,15 @@ def main() -> None:
           f"growth [{card}]", flush=True)
     simulation_started = enter("8 (simulation)")
     simulation = run_simulation(device)
+    sharded_started = time.time()
+    simulation["sharded"] = run_sharded(
+        device, card, simulation["golden"]["shockwave_tpu_level"])
+    simulation["sharded"]["phase_s"] = time.time() - sharded_started
+    for run in simulation["golden"].values():
+        run.pop("plans", None)
     simulation["phase_s"] = time.time() - simulation_started
+    print(f"  (e) {simulation['sharded']['phase_s']:.1f} s, the smoke's "
+          f"growth [{card}]", flush=True)
     first_order_started = enter("9 (kernels A and B)")
     first_order = run_first_order(device)
     first_order["phase_s"] = time.time() - first_order_started
@@ -4725,6 +4908,12 @@ def main() -> None:
                 "lanes_per_launch": cells["tier"]["lanes_per_launch"],
                 "whatif_launches": {g: cells["whatif"][g]["launches"]
                                     for g in ("a", "b")},
+                # The lane meshes: the quality A/B's lanes over card 0 in
+                # 2 and 4 places, what-if grid (a)'s over 4.
+                "mesh_launches": {
+                    "quality_ab": cells["quality_ab"]["mesh_launches"],
+                    "whatif_a": cells["whatif"][WHATIF_MESH_GRID][
+                        "mesh_launches"]},
                 "grids": [{k: grid[k] for k in (
                     "lanes", "slots", "ms", "one_by_one_ms", "bound_ms",
                     "bound_by", "max_cycles")} for grid in grids],
@@ -4745,6 +4934,7 @@ def main() -> None:
         "simulation": simulation["phase_s"],
         "simulation_8c": simulation.get("check_s"),
         "simulation_8d": simulation.get("timing_s"),
+        "simulation_8e": simulation["sharded"]["phase_s"],
         "first_order": first_order["phase_s"],
         "first_order_9d": first_order["timing_s"],
         "gavel": gavel["phase_s"], "cells": cells["phase_s"],

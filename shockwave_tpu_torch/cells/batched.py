@@ -14,9 +14,12 @@ plain version one after another.
 The JAX package pads the lane count to a power of two with inert lanes
 so that a varying stale set reuses a few compiled programs; a CUDA
 launch compiles nothing, so the port launches exactly the live lanes
-(:func:`lane_band` stays for the reports that print it). The
-``shard_map`` of the cell axis over several devices (``mesh=``) is not
-ported: it raises, naming ``ROADMAP.md``.
+(:func:`lane_band` stays for the reports that print it). With a mesh
+(``mesh=``, a :func:`~shockwave_tpu_torch.parallel.mesh.make_solve_mesh`
+over a ``"cells"`` axis) whose places divide the band, the JAX package's
+``shard_map`` of the cell axis (``_build_cells_sharded`` :93): the lanes
+go to the places in contiguous blocks, one grid launch a place on its
+device, with no collective between them.
 """
 
 from __future__ import annotations
@@ -35,13 +38,9 @@ from shockwave_tpu_torch.solver.eg_pdhg import (
     _diag_to_host,
     pack_problems,
     solve_lanes,
+    solve_lanes_on_mesh,
 )
 from shockwave_tpu_torch.solver.eg_problem import EGProblem
-
-MESH_NOT_PORTED = (
-    "the cells market sharded over several devices (mesh=, cell_mesh) is "
-    "not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1 item 8)")
-
 
 def lane_band(num_lanes: int) -> int:
     """Next power-of-two lane count >= num_lanes: the JAX package's
@@ -62,8 +61,12 @@ def solve_cells_pdhg(
     slots: Optional[int] = None,
     mesh=None,
     device="cuda",
+    axis_name: str = "cells",
 ) -> Tuple[List[np.ndarray], List[float], List[dict]]:
-    """Solve every cell's relaxed EG market in one launch on ``device``.
+    """Solve every cell's relaxed EG market in one launch on ``device``,
+    or in one launch a place of ``mesh`` along ``axis_name`` where its
+    places divide the cells' lane band (else on ``device``, as the JAX
+    package falls back to its unsharded program).
 
     All problems must share ``round_duration`` / ``future_rounds`` /
     ``regularizer`` (one fleet, one planning config). Returns per-cell
@@ -73,8 +76,6 @@ def solve_cells_pdhg(
     one-problem solve's (``solver/eg_pdhg.py::solve_pdhg_relaxed``) on
     the same inputs in every bit, so a cell's market does not change
     meaning by being solved next to its neighbours."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     if not problems:
         return [], [], []
     ref = problems[0]
@@ -90,7 +91,12 @@ def solve_cells_pdhg(
     if slots is None:
         slots = num_slots_for(max(p.num_jobs for p in problems))
     packed = pack_problems(problems, s0s, slots, tol, stall_rel)
-    out, chunk = solve_lanes(packed, max_cycles, inner_iters, device)
+    band = lane_band(len(problems))
+    if mesh is not None and band % mesh.devices.size == 0:
+        out, chunk = solve_lanes_on_mesh(packed, mesh, axis_name, band,
+                                         max_cycles, inner_iters)
+    else:
+        out, chunk = solve_lanes(packed, max_cycles, inner_iters, device)
     diags = [{**_diag_to_host(row[slots:]), "lanes": len(problems),
               "chunk": chunk} for row in out]
     return ([out[i, :p.num_jobs].astype(np.float64)

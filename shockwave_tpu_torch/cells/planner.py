@@ -44,8 +44,11 @@ market with its own child planner:
   replan. With the recorder or metrics on, the market attribution (per
   cell dual reports, solver/duals.py) is published beside it.
 
-Not ported yet (ROADMAP.md, queue 1 item 8): the ``shard_map`` of the
-cell axis (``cell_mesh`` raises).
+* **A mesh of cards.** With ``cell_mesh`` the stale cells' lanes split
+  over the cards visible beside the planner's device: the largest count
+  up to the cards that divides the cells' lane band, one grid launch a
+  card (:func:`shockwave_tpu_torch.cells.batched.solve_cells_pdhg`'s
+  ``mesh``); with one card, no mesh, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -88,14 +91,12 @@ class CellPlanner(SpeculativePlannerMixin):
         per-replan migration cap.
     ``cell_max_cycles`` / ``cell_inner_iters``
         per-cell PDHG effort (defaults: the pdhg backend's).
-    ``cell_mesh``
-        not ported: raises.
+    ``cell_mesh`` (default false)
+        split the batched lanes over the visible cards (:meth:`_mesh`).
     """
 
     def __init__(self, config: dict, backend: str = "cells",
                  device="cuda"):
-        if config.get("cell_mesh"):
-            raise NotImplementedError(batched.MESH_NOT_PORTED)
         self._init_speculation(config)
         self.config = dict(config)
         self.backend = backend
@@ -147,6 +148,7 @@ class CellPlanner(SpeculativePlannerMixin):
             config.get("cell_max_migrations", DEFAULT_MAX_MIGRATIONS))
         self.cell_max_cycles = int(config.get("cell_max_cycles", 96))
         self.cell_inner_iters = int(config.get("cell_inner_iters", 40))
+        self.use_mesh = bool(config.get("cell_mesh", False))
         # Coordinator-level solve history (the per-cell records ride each
         # child's own solve_records).
         self.coord_solve_records: List[dict] = []
@@ -459,6 +461,23 @@ class CellPlanner(SpeculativePlannerMixin):
         return num_slots_for(
             max([1] + [c.num_jobs for c in self.children.values()]))
 
+    def _mesh(self):
+        """The lane mesh of ``cell_mesh``: the largest n up to the cards
+        visible beside the planner's device that divides the cells' lane
+        band, or None (no ``cell_mesh``, one card, or n = 1)."""
+        if not self.use_mesh:
+            return None
+        from shockwave_tpu_torch.parallel import mesh
+
+        devices = mesh.visible_devices(self.device)
+        n = len(devices)
+        lanes = batched.lane_band(len(self.cells))
+        while n > 1 and lanes % n:
+            n -= 1
+        if n <= 1:
+            return None
+        return mesh.make_solve_mesh(devices[:n], "cells")
+
     def _replan(self) -> None:
         """One coordinated planning round over the stale cells (module
         docstring). Records one coordinator-level plan record; replay
@@ -601,7 +620,7 @@ class CellPlanner(SpeculativePlannerMixin):
             problems, s0s, tol=self.pdhg_tol,
             max_cycles=self.cell_max_cycles,
             inner_iters=self.cell_inner_iters, slots=self._slot_band(),
-            device=self.device)
+            mesh=self._mesh(), device=self.device)
         out = {}
         for i, n in enumerate(solve_names):
             s_by_cell[n] = {"ids": list(built[n][1]), "s": s_list[i]}

@@ -1159,6 +1159,20 @@ class PhysicalScheduler(Scheduler):
             return agreed_steps, agreed_duration, 0.0
 
     # -- dispatch -------------------------------------------------------
+    def _gang_port(self, job_index: int) -> int:
+        """The coordinator port of a gang's attempt this round. It must
+        differ across a job's attempts: a relaunch that reuses the
+        previous attempt's port can meet the stale coordination service
+        and fail rendezvous forever after one bad round (the reference's
+        formula, shockwave_tpu/core/physical.py:1198). Unlike the
+        reference, it is shifted by this scheduler's own port, which no
+        other live scheduler on the host holds: with the reference's
+        formula, two clusters on one host (two card-driver runs at once)
+        hand the same job of the same round one coordinator, and one
+        gang's ranks join the other's."""
+        return 10000 + ((job_index * 131 + self._round_id + self._port)
+                        % 40000)
+
     def _job_description(self, job, num_steps, rank, scale_factor, lead_addr):
         command = job.command
         if scale_factor > 1:
@@ -1184,14 +1198,7 @@ class PhysicalScheduler(Scheduler):
     def _dispatch(self, key: JobId, worker_ids) -> None:
         """Send RunJob for every worker of a (possibly packed) assignment."""
         lead_ip, lead_port = self._worker_addrs[worker_ids[0]]
-        # The gang coordinator port must differ across a job's attempts:
-        # a relaunch that reuses the previous attempt's port can meet
-        # the stale coordination service ("connected with a different
-        # incarnation") and fail rendezvous forever after one bad round.
-        lead_addr = (
-            f"{lead_ip}:"
-            f"{10000 + ((key.as_tuple()[0] * 131 + self._round_id) % 40000)}"
-        )
+        lead_addr = f"{lead_ip}:{self._gang_port(key.as_tuple()[0])}"
         scale_factor = len(worker_ids)
         self._dispatch_times[key] = self.get_current_timestamp()
         # A new attempt's silence runs from its dispatch: the previous

@@ -89,6 +89,43 @@ def make_mesh(
     return Mesh(grid.reshape(shape), AXES)
 
 
+def visible_devices(device) -> List[torch.device]:
+    """The devices a one-process mesh can take beside ``device``: every
+    visible card for a card, the CPU alone for the CPU (the JAX package's
+    ``jax.devices()``)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def make_solve_mesh(devices: Sequence, axis_name: str = "solve") -> Mesh:
+    """A 1-D mesh of one place a device of ``devices`` (repeats allowed:
+    one card in P places), the JAX package's ``Mesh(devices,
+    (axis_name,))`` of its sharded solves and lane splits."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("a solve mesh needs at least one device")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(grid, (axis_name,))
+
+
+def axis_devices(mesh: Mesh, axis_name: str) -> List[torch.device]:
+    """The devices along ``axis_name`` of a mesh whose other axes have
+    one place each, in axis order."""
+    if axis_name not in mesh.axis_names:
+        raise ValueError(f"mesh axes {mesh.axis_names} have no "
+                         f"{axis_name!r}")
+    grid = np.asarray(mesh.devices)
+    places = grid.shape[mesh.axis_names.index(axis_name)]
+    if grid.size != places:
+        raise ValueError(f"mesh {mesh.shape}: only {axis_name!r} may have "
+                         "more than one place")
+    return [torch.device(d) for d in grid.reshape(-1)]
+
+
 def factorize_gang(
     num_devices: int,
     seq_parallel: int = 1,

@@ -1,17 +1,16 @@
 """Policy registry: name -> policy.
 
 Every name of the JAX package's registry
-(``shockwave_tpu/policies/__init__.py``) but one: the Shockwave policies
+(``shockwave_tpu/policies/__init__.py``): the Shockwave policies
 (``shockwave``, the exact MILP on the host; ``shockwave_tpu``, the
 production dispatch; ``shockwave_tpu_level``, ``shockwave_native``,
+``shockwave_tpu_sharded``, the level solve over a solve mesh,
 ``shockwave_tpu_pdhg``, ``shockwave_tpu_relaxed`` and
 ``shockwave_tpu_cells``, the cell-decomposed market) and Gavel's policies
 (FIFO, isolated, max-min fairness and its water-filling and
 strategy-proof forms, finish-time fairness, min-total-duration, the
 throughput-sum programs with cost and SLOs, Gandiva, AlloX and the packed
-forms), whose LPs and assignments run on the host. The sharded
-multi-device solve (``shockwave_tpu_sharded``) raises
-``NotImplementedError`` naming ``ROADMAP.md``.
+forms), whose LPs and assignments run on the host.
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ _BACKENDS = {
     "shockwave_tpu": "tpu",
     "shockwave_tpu_level": "level",
     "shockwave_native": "native",
+    "shockwave_tpu_sharded": "sharded",
     "shockwave_tpu_relaxed": "relaxed",
     "shockwave_tpu_pdhg": "pdhg",
     "shockwave_tpu_cells": "cells",
@@ -78,9 +78,6 @@ _GAVEL = {
 # Gandiva's pairs.
 _SEEDED = ("fifo", "gandiva")
 
-# The JAX package's vocabulary that is still to be ported.
-_NOT_PORTED = ("shockwave_tpu_sharded",)
-
 
 def get_policy(policy_name: str, device="cuda",
                seed: Optional[int] = None) -> Policy:
@@ -102,10 +99,6 @@ def get_policy(policy_name: str, device="cuda",
         cls = getattr(importlib.import_module(
             f"shockwave_tpu_torch.policies.{module}"), cls)
         return cls(seed=seed) if policy_name in _SEEDED else cls()
-    if policy_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {policy_name!r} is not ported to shockwave_tpu_torch "
-            "yet (ROADMAP.md, queue 1)")
     raise ValueError(f"Unknown policy: {policy_name!r}")
 
 

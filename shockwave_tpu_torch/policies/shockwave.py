@@ -36,9 +36,13 @@ planner reconciles it at the boundary
 (:mod:`shockwave_tpu_torch.policies.speculation`); a churned boundary
 that replans anyway re-solves through the ``pdhg`` backend, warm-started
 from the speculative window, whatever the configured backend (kernel A
-on a card). The ``sharded`` backend raises ``NotImplementedError``
-naming ``ROADMAP.md``. The device of the device solves is passed
-explicitly (``ShockwavePolicy(backend, device=...)``).
+on a card). The ``sharded`` backend forces the level solve sharded
+over the job slots of a one-process solve mesh, every card visible
+beside the planner's device once
+(:func:`shockwave_tpu_torch.solver.eg_sharded.solve_eg_level_sharded`);
+its counts, and so its plans, are the ``level`` backend's. The device
+of the device solves is passed explicitly (``ShockwavePolicy(backend,
+device=...)``).
 
 A rung that blows the deadline is abandoned as a thread and runs on to
 its end, as in the reference. On a card its kernel would hold the
@@ -80,12 +84,21 @@ from shockwave_tpu_torch.solver.eg_problem import EGProblem
 
 DEFAULT_LOG_BASES = [0.0, 0.2, 0.4, 0.6, 0.8, 1.0]
 
-# Fleet scale at which the reference's "tpu" dispatch shards one solve
-# over every visible device (shockwave_tpu/policies/shockwave.py:49). The
-# sharded solve is not ported, so with more than one card visible the
-# dispatch raises at this scale rather than quietly solving on one.
-# (The reference's SHOCKWAVE_SHARDED_MIN_JOBS override is not ported.)
+# Fleet scale at which the "tpu" dispatch shards one solve over every
+# card visible beside the planner's device: the reference's default
+# (shockwave_tpu/policies/shockwave.py:49), not a crossover measured on
+# the card; SHOCKWAVE_SHARDED_MIN_JOBS overrides it per deployment.
 SHARDED_DISPATCH_MIN_JOBS = 8192
+
+
+def sharded_dispatch_min_jobs() -> int:
+    """Live threshold for the "tpu" backend's sharded dispatch:
+    SHOCKWAVE_SHARDED_MIN_JOBS when set, else the module default."""
+    import os
+
+    raw = os.environ.get("SHOCKWAVE_SHARDED_MIN_JOBS", "").strip()
+    return int(raw) if raw else SHARDED_DISPATCH_MIN_JOBS
+
 
 # Work (num_gpus x future_rounds x jobs) below which the "tpu" dispatch
 # takes the C++ host greedy: the reference's default
@@ -93,8 +106,8 @@ SHARDED_DISPATCH_MIN_JOBS = 8192
 # measured crossover between the two is in PERF.md.
 NATIVE_MAX_WORK = 4e6
 
-BACKENDS = ("tpu", "level", "native", "pdhg", "relaxed", "reference")
-_NOT_PORTED = "is not ported to shockwave_tpu_torch yet (ROADMAP.md, queue 1)"
+BACKENDS = ("tpu", "level", "native", "sharded", "pdhg", "relaxed",
+            "reference")
 
 
 def _is_device_fault(error: Optional[BaseException]) -> bool:
@@ -117,7 +130,7 @@ class ShockwavePlanner(SpeculativePlannerMixin):
 
     def __init__(self, config: dict, backend: str = "tpu", device="cuda"):
         if backend not in BACKENDS:
-            raise NotImplementedError(f"the {backend!r} backend {_NOT_PORTED}")
+            raise ValueError(f"unknown Shockwave backend {backend!r}")
         self.config = dict(config)
         self.backend = backend
         self.device = torch.device(device)
@@ -792,6 +805,14 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             Y = native.solve_eg_greedy_native(problem)
         elif backend == "level":
             Y = solve_eg_level(problem, self.device)
+        elif backend == "sharded":
+            # The level solve forced onto the solve mesh: one problem's
+            # job slots over every card visible beside the planner's
+            # device. Its counts are the level backend's in every bit, so
+            # are its plans.
+            from shockwave_tpu_torch.solver import eg_sharded
+
+            Y = eg_sharded.solve_eg_level_sharded(problem, device=self.device)
         elif backend == "pdhg":
             # Restarted PDHG on the exact continuous relaxation,
             # solution-warm-started from the previous plan's round
@@ -836,22 +857,24 @@ class ShockwavePlanner(SpeculativePlannerMixin):
             # threshold the level-set solve runs on the device. Both
             # optimize the same objective.
             Y = None
-            if (
-                problem.num_jobs >= SHARDED_DISPATCH_MIN_JOBS
-                and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1
-            ):
-                raise NotImplementedError(
-                    f"the sharded multi-card solve {_NOT_PORTED}; at "
-                    f"{problem.num_jobs} jobs with "
-                    f"{torch.cuda.device_count()} cards the reference "
-                    "would shard")
+            if problem.num_jobs >= sharded_dispatch_min_jobs():
+                # Fleet scale comes before the native fast path: with
+                # more than one card visible, shard the one solve over
+                # them all (counts equal to the one-card solve's).
+                from shockwave_tpu_torch.parallel import mesh
+                from shockwave_tpu_torch.solver import eg_sharded
+
+                if len(mesh.visible_devices(self.device)) > 1:
+                    self._attempted_backend = "sharded"
+                    Y = eg_sharded.solve_eg_level_sharded(
+                        problem, device=self.device)
+                    used = "sharded"
             work = (
                 float(problem.num_gpus)
                 * problem.future_rounds
                 * problem.num_jobs
             )
-            if work < NATIVE_MAX_WORK and native.available():
+            if Y is None and work < NATIVE_MAX_WORK and native.available():
                 self._attempted_backend = "native"
                 Y = native.solve_eg_greedy_native(problem)
                 used = "native"
@@ -1444,6 +1467,7 @@ class ShockwavePolicy(Policy):
             "reference": "Shockwave",
             "native": "Shockwave_Native",
             "level": "Shockwave_TPU_Level",
+            "sharded": "Shockwave_TPU_Sharded",
             "relaxed": "Shockwave_TPU_Relaxed",
             "pdhg": "Shockwave_TPU_PDHG",
             "cells": "Shockwave_TPU_Cells",

@@ -34,11 +34,13 @@ replayable forensic data, and surfaced as metrics for the
 from __future__ import annotations
 
 import bisect
+import itertools
 import os
 import re
 import threading
 import time
-from collections import OrderedDict, deque
+from collections import Counter, OrderedDict, deque
+from operator import attrgetter, itemgetter
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from shockwave_tpu_torch import obs
@@ -62,6 +64,11 @@ STATUS_QUOTA = "QUOTA"
 # semantics as QUOTA — resubmitting the identical batch re-prices the
 # identical externality, so submitters shed instead of retrying.
 STATUS_PRICED = "PRICED"
+
+# A job's tenant and a queue entry's enqueue time, for the C-level
+# tallies of the line-rate paths.
+_TENANT_OF = attrgetter("tenant")
+_ENQUEUED_OF = itemgetter(2)
 
 # Default bound on pending (accepted-but-not-admitted) jobs; the env
 # knob SHOCKWAVE_ADMISSION_QUEUE_CAP overrides it in physical mode.
@@ -175,11 +182,14 @@ def jobs_from_columns(cols) -> List[Job]:
     # Scalar contract: int(spec.get("scale_factor", 1)) or 1 -> an
     # absent/zero scale is 1, and only then is < 1 an error.
     scale = np.where(cols.scale_factor == 0, 1, cols.scale_factor)
-    bad_type = np.fromiter(
-        (not type_ok[jt] for jt in job_types), dtype=bool, count=n
-    )
     bad_steps = total_steps <= 0
     bad_scale = scale < 1
+    if all(type_ok.values()):
+        bad_type = np.zeros(n, dtype=bool)
+    else:
+        bad_type = np.fromiter(
+            (not type_ok[jt] for jt in job_types), dtype=bool, count=n
+        )
     bad = bad_type | bad_steps | bad_scale
     if bad.any():
         i = int(np.argmax(bad))
@@ -195,32 +205,32 @@ def jobs_from_columns(cols) -> List[Job]:
         raise ValueError(
             f"scale_factor must be >= 1, got {int(scale[i])}"
         )
-    commands = cols.strs(1)
-    working_dirs = cols.strs(2)
-    num_steps_args = cols.strs(3)
-    modes = cols.strs(4)
-    tenants = cols.strs(5)
-    trace_contexts = cols.strs(6)
-    steps_list = total_steps.tolist()
-    scale_list = scale.tolist()
-    pw_list = cols.priority_weight.tolist()
-    slo_list = cols.slo.tolist()
-    dur_list = cols.duration.tolist()
-    ndd_list = cols.needs_data_dir.tolist()
+
+    def column(values, fix):
+        """``fix`` of each value, applied once per distinct value."""
+        fixed = {v: fix(v) for v in set(values)}
+        return list(map(fixed.__getitem__, values))
+
+    num_steps_args = column(cols.strs(3), lambda v: v or "-n")
+    modes = column(cols.strs(4), lambda v: v or "static")
+    priority_weights = column(cols.priority_weight.tolist(),
+                              lambda v: v or 1.0)
+    slos = column(cols.slo.tolist(), lambda v: v if v > 0 else None)
+    durations = column(cols.duration.tolist(),
+                       lambda v: v if v > 0 else None)
+    needs_data_dir = column(cols.needs_data_dir.tolist(), bool)
     # Positional, in Job's field order (job_type, command,
     # working_directory, num_steps_arg, total_steps, duration, mode,
     # scale_factor, priority_weight, SLO, needs_data_dir, job_id, tenant,
-    # trace_context): keywords cost the line-rate path a third of its
-    # construction time.
-    return [
-        Job(jt, cmd, wd, nsa or "-n", steps, dur if dur > 0 else None,
-            mode or "static", sc, pw or 1.0, slo if slo > 0 else None,
-            bool(ndd), None, ten, tc)
-        for jt, cmd, wd, nsa, steps, dur, mode, sc, pw, slo, ndd, ten, tc
-        in zip(job_types, commands, working_dirs, num_steps_args,
-               steps_list, dur_list, modes, scale_list, pw_list, slo_list,
-               ndd_list, tenants, trace_contexts)
-    ]
+    # trace_context), and one ``map`` over the columns: keywords or a
+    # per-job comprehension cost the line-rate path a third or more of
+    # its construction time.
+    return list(map(
+        Job, job_types, cols.strs(1), cols.strs(2), num_steps_args,
+        total_steps.tolist(), durations, modes, scale.tolist(),
+        priority_weights, slos, needs_data_dir, itertools.repeat(None, n),
+        cols.strs(5), cols.strs(6),
+    ))
 
 
 class _TenantLedger:
@@ -242,11 +252,18 @@ class _TenantLedger:
 
     @staticmethod
     def batch_counts(jobs: Sequence[Job]) -> Dict[str, int]:
+        """Jobs per non-empty tenant, in the batch's order of first
+        appearance: one C-level tally of the tenants, then a pass over
+        the distinct ones."""
+        try:
+            tally = Counter(map(_TENANT_OF, jobs))
+        except AttributeError:
+            tally = Counter(getattr(job, "tenant", "") for job in jobs)
         counts: Dict[str, int] = {}
-        for job in jobs:
-            tenant = str(getattr(job, "tenant", "") or "")
+        for tenant, count in tally.items():
+            tenant = str(tenant or "")
             if tenant:
-                counts[tenant] = counts.get(tenant, 0) + 1
+                counts[tenant] = counts.get(tenant, 0) + count
         return counts
 
     def reserve(
@@ -1237,21 +1254,26 @@ class AdmissionQueue:
                 )
                 if released:
                     self._tenants.release(released)
-                waits = [max(now - e[2], 0.0) for e in entries]
+                import numpy as np
+
+                waits = np.maximum(now - np.fromiter(
+                    map(_ENQUEUED_OF, entries), dtype=np.float64,
+                    count=len(entries)), 0.0)
                 latency.observe_many(waits)
                 # Worst offender of the batch keeps its identity: the
                 # histogram above is a rollup, so without this a
                 # pathological straggler is invisible past its quantile.
                 # One offer per drain (not per job) keeps line-rate
                 # drains O(batch) with a single reservoir touch.
-                worst = max(range(len(waits)), key=waits.__getitem__)
+                worst = int(np.argmax(waits))
+                worst_wait = float(waits[worst])
                 obs.offer_exemplar(
                     "admission_worst_wait",
                     str(entries[worst][0]),
-                    waits[worst],
+                    worst_wait,
                     help="submit tokens that waited longest in the "
                     "admission queue",
-                    wait_s=round(waits[worst], 6),
+                    wait_s=round(worst_wait, 6),
                 )
             if out:
                 self.stats["admitted_jobs"] += len(out)

@@ -315,17 +315,28 @@ class JobColumns:
         offs_col = self.str_off[col]
         first = int(lens_col[0])
         if first and (lens_col == first).all():
-            # One value down the whole column (a batch's command, mode or
-            # tenant), laid back to back as the columnar frame lays a
-            # column: its bytes are that value n times over.
+            # One width down the column: the n values as fixed-width rows
+            # in one C pass, each distinct row decoded once. Laid back to
+            # back, as the columnar frame lays a column, one value n times
+            # over (a batch's command, mode or tenant) is one decode.
             start = int(offs_col[0])
-            end = start + first * self.n
-            value = bytes(arena[start:start + first])
-            if (np.array_equal(offs_col, start + first * np.arange(self.n))
-                    and arena[start:end] == value * self.n):
-                out = [value.decode("utf-8")] * self.n
-                self._str_cache[col] = out
-                return out
+            if np.array_equal(offs_col, start + first * np.arange(self.n)):
+                value = bytes(arena[start:start + first])
+                if arena[start:start + first * self.n] == value * self.n:
+                    out = [value.decode("utf-8")] * self.n
+                    self._str_cache[col] = out
+                    return out
+                rows = np.frombuffer(arena, dtype=f"V{first}", count=self.n,
+                                     offset=start)
+            else:
+                rows = np.frombuffer(arena, dtype=np.uint8)[
+                    offs_col[:, None] + np.arange(first)
+                ].view(f"V{first}").ravel()
+            raw = rows.tolist()
+            values = {r: r.decode("utf-8") for r in set(raw)}
+            out = list(map(values.__getitem__, raw))
+            self._str_cache[col] = out
+            return out
         offs = offs_col.tolist()
         lens = lens_col.tolist()
         cache: dict = {}

@@ -301,6 +301,16 @@ def _admission_handlers(callbacks):
     coalescer = (
         _SubmitCoalescer(submit_many) if submit_many is not None else None
     )
+    # One batch decodes at a time. The handler threads share one
+    # interpreter lock, and the decode's numpy calls let it go: with
+    # several frames decoding at once, each call that lets it go waits
+    # out another thread's switch interval to get it back, and a batch's
+    # decode costs several times its own work (the ingest soak, full
+    # campaign). Threads waiting here block on this lock instead, and the
+    # coalescer below still convoys whatever finished decoding.
+    decode_lock = sanitize.make_lock(
+        "runtime.rpc.scheduler_server._admission_handlers.decode_lock"
+    )
 
     def SubmitJobs(request, context):
         caps = int(getattr(request, "wire_caps", 0))
@@ -309,27 +319,30 @@ def _admission_handlers(callbacks):
             # columns (whichever encoding the peer sent); plain
             # admission_pb2 requests from direct callers still carry
             # JobSpec objects.
-            cols = getattr(request, "columns", None)
             if coalescer is not None:
-                jobs = (
-                    admission.jobs_from_columns(cols)
-                    if cols is not None
-                    else [
-                        admission.job_from_spec_dict(
-                            _spec_dict(spec)
-                        )
-                        for spec in request.jobs
-                    ]
-                )
+                with decode_lock:
+                    cols = getattr(request, "columns", None)
+                    jobs = (
+                        admission.jobs_from_columns(cols)
+                        if cols is not None
+                        else [
+                            admission.job_from_spec_dict(
+                                _spec_dict(spec)
+                            )
+                            for spec in request.jobs
+                        ]
+                    )
                 status, retry_after_s, admitted, depth = coalescer.submit(
                     request.token, jobs, bool(request.close)
                 )
             else:
-                specs = (
-                    cols.to_spec_dicts()
-                    if cols is not None
-                    else [_spec_dict(spec) for spec in request.jobs]
-                )
+                with decode_lock:
+                    cols = getattr(request, "columns", None)
+                    specs = (
+                        cols.to_spec_dicts()
+                        if cols is not None
+                        else [_spec_dict(spec) for spec in request.jobs]
+                    )
                 status, retry_after_s, admitted, depth = callbacks[
                     "submit_jobs"
                 ](request.token, specs, bool(request.close))

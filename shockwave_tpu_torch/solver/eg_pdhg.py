@@ -401,6 +401,39 @@ def solve_lanes(packed: np.ndarray, max_cycles: int = DEFAULT_MAX_CYCLES,
     return out.cpu().numpy(), chunk
 
 
+def solve_lanes_on_mesh(packed: np.ndarray, mesh, axis_name: str,
+                        band: int, max_cycles: int = DEFAULT_MAX_CYCLES,
+                        inner_iters: int = DEFAULT_INNER_ITERS
+                        ) -> Tuple[np.ndarray, int]:
+    """:func:`solve_lanes` with the lanes split over ``mesh``'s places
+    along ``axis_name``: the JAX package's ``shard_map`` of a band of
+    ``band`` lanes (which the P places divide) in contiguous blocks of
+    ``band / P``, its padding lanes dropped. Each place that holds lanes
+    takes one copy in and one grid launch of kernel A on its device, all
+    launched before the first fetch; the rows come back in lane order.
+    Lanes are independent, so each is its one-lane launch in every bit.
+    Returns the output rows and the most lanes a launch took."""
+    from shockwave_tpu_torch.ops import eg_pdhg as kernel
+    from shockwave_tpu_torch.parallel.mesh import axis_devices
+
+    devices = axis_devices(mesh, axis_name)
+    if band % len(devices) or band < len(packed):
+        raise ValueError(f"{len(packed)} lanes in a band of {band} do not "
+                         f"split over {len(devices)} places")
+    per = band // len(devices)
+    outs, chunk = [], 0
+    for i, device in enumerate(devices):
+        block = packed[i * per:(i + 1) * per]
+        if not len(block):
+            break
+        lanes = torch.from_numpy(np.ascontiguousarray(block)).to(device)
+        place_chunk = kernel.lane_chunk(lanes)
+        outs.append(kernel.pdhg(lanes, int(max_cycles), int(inner_iters),
+                                chunk=place_chunk))
+        chunk = max(chunk, place_chunk)
+    return np.concatenate([out.cpu().numpy() for out in outs]), chunk
+
+
 def _diag_to_host(row: np.ndarray) -> dict:
     d = dict(zip(DIAG, row))
     return {

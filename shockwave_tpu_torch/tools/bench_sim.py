@@ -1392,17 +1392,20 @@ def _median_s(fn, iters: int) -> float:
     return statistics.median(times)
 
 
-def device_profile(problem, device) -> dict:
-    """One level solve under torch.profiler: the kernels it launched,
-    its copies, and the device's busy time (the kernels' and copies'
-    self time, ms). None for the counts when the profiler saw no device
-    activity."""
+def device_profile(problem, device, solve=None) -> dict:
+    """One level solve (or ``solve()``, where given) under torch.profiler:
+    the kernels it launched, its copies, and the device's busy time (the
+    kernels' and copies' self time, ms). None for the counts when the
+    profiler saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     from shockwave_tpu_torch.solver.eg_level import solve_level_counts
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solve_level_counts(problem, device)
+        if solve is None:
+            solve_level_counts(problem, device)
+        else:
+            solve()
     kernels = copies = 0
     busy_us = 0.0
     for evt in prof.events():

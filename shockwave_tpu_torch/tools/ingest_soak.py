@@ -210,10 +210,10 @@ def submitter_main(worker_id: int, port: int, num_jobs: int, batch_size: int,
                              client_id=f"soak-h{host_id}w{worker_id}")
     if start_gate is not None:
         start_gate.wait()
-    t0 = time.monotonic()
+    t0, cpu0 = time.monotonic(), time.process_time()
     tokens = client.submit_pipelined(jobs, batch_size=batch_size,
                                      window=window, close=False)
-    t1 = time.monotonic()
+    t1, cpu1 = time.monotonic(), time.process_time()
     client.close()
     expected = {token: len(jobs[i * batch_size:(i + 1) * batch_size])
                 for i, token in enumerate(tokens)}
@@ -225,6 +225,7 @@ def submitter_main(worker_id: int, port: int, num_jobs: int, batch_size: int,
         "expected": expected,
         "jobs": num_jobs,
         "submit_s": round(t1 - t0, 4),
+        "submit_cpu_s": round(cpu1 - cpu0, 4),
         "start_s": t0,
         "end_s": t1,
         "faults_applied": summary["applied"],
@@ -416,11 +417,13 @@ def run_rep(args, rep: int) -> dict:
         # The start gate: every child has imported and built its jobs.
         for proc in procs:
             proc.stdout.readline()
+        server_cpu0 = time.process_time()
         for proc in procs:
             proc.stdin.write("go\n")
             proc.stdin.flush()
         for proc in procs:
             proc.wait(timeout=600)
+        server_cpu_s = time.process_time() - server_cpu0
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -440,6 +443,7 @@ def run_rep(args, rep: int) -> dict:
     fault_applied = 0
     unrecovered = []
     spans = []
+    submit_cpu = []
     by_mode: dict = {}
     for path in manifests:
         if not os.path.exists(path):
@@ -455,6 +459,7 @@ def run_rep(args, rep: int) -> dict:
         agg["submitters"] += 1
         agg["jobs"] += m["jobs"]
         agg["submit_s"] += m["submit_s"]
+        submit_cpu.append(m["submit_cpu_s"])
     lost = {t: n for t, n in expected.items() if admitted.get(t, 0) < n}
     double = {t: (expected.get(t, 0), n) for t, n in admitted.items()
               if n != expected.get(t, 0)}
@@ -486,6 +491,10 @@ def run_rep(args, rep: int) -> dict:
         "fleet_span_s": round(fleet_span_s, 4),
         "submits_per_s": round(rate, 1),
         "wall_s": round(time.monotonic() - wall_t0, 3),
+        # CPU seconds of the server's process and of each submitter over
+        # the fleet's run: which side the span waits for.
+        "server_cpu_s": round(server_cpu_s, 3),
+        "submitter_cpu_s": submit_cpu,
         "admitted_observed": observed,
         "queue_p50_ms": round(p50_ms, 3) if p50_ms is not None else None,
         "queue_p99_ms": round(p99_ms, 3) if p99_ms is not None else None,
@@ -586,6 +595,8 @@ def run_campaign(args) -> dict:
             "submits_per_s": best["submits_per_s"],
             "best_rep": best["rep"],
             "per_rep_submits_per_s": [r["submits_per_s"] for r in reps],
+            "per_rep_server_cpu_s": [r["server_cpu_s"] for r in reps],
+            "per_rep_submitter_cpu_s": [r["submitter_cpu_s"] for r in reps],
             "wall_s": round(sum(r["wall_s"] for r in reps), 3),
         },
         "latency": {

@@ -26,8 +26,12 @@ splits large bands into CPU-cache-sized chunks; a CUDA launch compiles
 nothing and each block stops alone, so the port launches exactly the S
 live lanes and splits them only where a global instantiation's state
 would not fit the card (``ops/eg_pdhg.py::lane_chunk``; each diagnostics
-dict names the chunk). The ``shard_map`` over several devices (``mesh=``)
-is not ported: it raises.
+dict names the chunk). With a mesh (``mesh=``, a
+:func:`~shockwave_tpu_torch.parallel.mesh.make_solve_mesh` over a
+``"scenarios"`` axis) whose places divide the band, the JAX package's
+``shard_map`` of the scenario axis (``_build_scenarios_sharded`` :177):
+the lanes go to the places in contiguous blocks, one grid launch a
+place on its device, with no collective between them.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from shockwave_tpu_torch import obs
-from shockwave_tpu_torch.cells.batched import MESH_NOT_PORTED, lane_band
+from shockwave_tpu_torch.cells.batched import lane_band
 from shockwave_tpu_torch.solver.eg_level import _EPS, num_slots_for
 from shockwave_tpu_torch.solver.eg_pdhg import (
     DEFAULT_INNER_ITERS,
@@ -51,6 +55,7 @@ from shockwave_tpu_torch.solver.eg_pdhg import (
     _packed_args,
     overlay_lanes,
     solve_lanes,
+    solve_lanes_on_mesh,
 )
 from shockwave_tpu_torch.solver.eg_problem import EGProblem
 
@@ -181,15 +186,21 @@ def solve_scenarios(
     inner_iters: int = DEFAULT_INNER_ITERS,
     mesh=None,
     device="cuda",
+    axis_name: str = "scenarios",
 ) -> Tuple[List[np.ndarray], List[float], List[dict]]:
     """Solve every scenario's counterfactual market in one launch on
-    ``device``; returns per-scenario ``(s [num_jobs] float64, objective,
-    diagnostics)`` lists."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    ``device``, or in one launch a place of ``mesh`` along ``axis_name``
+    where its places divide the lane band (else on ``device``, as the
+    JAX package falls back to its unsharded program); returns
+    per-scenario ``(s [num_jobs] float64, objective, diagnostics)``
+    lists."""
     t0 = time.monotonic()
-    out, chunk = solve_lanes(batch.packed(tol, stall_rel), max_cycles,
-                             inner_iters, device)
+    packed = batch.packed(tol, stall_rel)
+    if mesh is not None and batch.band % mesh.devices.size == 0:
+        out, chunk = solve_lanes_on_mesh(packed, mesh, axis_name, batch.band,
+                                         max_cycles, inner_iters)
+    else:
+        out, chunk = solve_lanes(packed, max_cycles, inner_iters, device)
     obs.counter("whatif_scenarios_solved_total",
                 "counterfactual scenario solves completed by the what-if "
                 "fleet").inc(batch.lanes)

@@ -36,6 +36,7 @@ from shockwave_tpu_torch.cells import batched, coordinator, partition
 from shockwave_tpu_torch.cells.planner import CellPlanner
 from shockwave_tpu_torch.obs import recorder
 from shockwave_tpu_torch.ops import eg_pdhg as kernel
+from shockwave_tpu_torch.parallel import mesh as meshes
 from shockwave_tpu_torch.policies import get_policy
 from shockwave_tpu_torch.policies.shockwave import (ShockwavePlanner,
                                                     planner_from_state)
@@ -280,6 +281,64 @@ def test_lane_equals_its_one_lane_solve_whatever_its_neighbours():
     assert np.array_equal(s_two[1], s_all[2])
 
 
+@pytest.mark.parametrize("places, cells", [(1, 8), (2, 8), (4, 8), (4, 3),
+                                           (3, 8)])
+def test_lanes_on_a_mesh_equal_the_meshless_call(places, cells):
+    """The lanes split over a mesh's places in contiguous blocks of the
+    band over P, one launch a place; each lane equal in every bit to the
+    meshless call (tests/test_whatif.py:130-141). A mesh whose places do
+    not divide the band runs the meshless call, as the JAX package."""
+    g = bench.make_problem(num_jobs=16 * cells, future_rounds=10,
+                           num_gpus=4 * cells, seed=cells)
+    problems = [port_problem(c) for c in split_global(g, cells)[0]]
+    s_one, obj_one, diag_one = batched.solve_cells_pdhg(problems,
+                                                        device="cpu")
+    launches = []
+    real = eg_pdhg.solve_lanes_on_mesh
+
+    def spy(packed, *args, **kwargs):
+        launches.append(len(packed))
+        return real(packed, *args, **kwargs)
+
+    mesh = meshes.make_solve_mesh(["cpu"] * places, "cells")
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(batched, "solve_lanes_on_mesh", spy)
+        s_mesh, obj_mesh, diag_mesh = batched.solve_cells_pdhg(
+            problems, mesh=mesh, device="cpu")
+    band = batched.lane_band(cells)
+    assert launches == ([cells] if band % places == 0 else [])
+    for i in range(cells):
+        assert np.array_equal(s_mesh[i], s_one[i])
+        assert obj_mesh[i] == obj_one[i]
+        assert diag_mesh[i]["lanes"] == cells
+        assert diag_mesh[i]["iterations"] == diag_one[i]["iterations"]
+    if band % places == 0:
+        assert diag_mesh[0]["chunk"] == min(band // places, cells)
+
+
+@pytest.mark.parametrize("devices", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("cells", [2, 3, 4, 6, 8])
+def test_cell_mesh_takes_the_largest_n_dividing_the_band(devices, cells,
+                                                         monkeypatch):
+    """``_mesh``: the largest n up to the visible devices that divides the
+    cells' lane band, none for one device or n = 1 (the JAX package's
+    ``CellPlanner._mesh`` on its host devices)."""
+    import jax
+
+    config = {**CONFIG, "num_gpus": 16, "cells": cells, "cell_mesh": True}
+    monkeypatch.setattr(meshes, "visible_devices",
+                        lambda device: [torch.device("cpu")] * devices)
+    mesh = CellPlanner(config, device="cpu")._mesh()
+    ref_planner = RefCellPlanner(config)
+    monkeypatch.setattr(jax, "devices", lambda: jax.local_devices()[:devices])
+    ref_mesh = ref_planner._mesh()
+    if ref_mesh is None:
+        assert mesh is None
+    else:
+        assert mesh.shape == {"cells": ref_mesh.devices.size}
+        assert batched.lane_band(cells) % mesh.devices.size == 0
+
+
 @pytest.mark.parametrize("jobs, gpus, cells, seed", [(48, 12, 2, 1),
                                                      (120, 32, 4, 3)])
 def test_lanes_match_the_reference_batch(jobs, gpus, cells, seed):
@@ -308,10 +367,13 @@ def test_mismatched_planning_configs_and_mesh_raise():
     other = dataclasses.replace(cells[1], future_rounds=12)
     with pytest.raises(ValueError, match="planning config"):
         batched.solve_cells_pdhg([cells[0], other], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        batched.solve_cells_pdhg(cells, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        CellPlanner({**CONFIG, "cell_mesh": True}, device="cpu")
+    # A mesh without the lane axis.
+    with pytest.raises(ValueError, match="'cells'"):
+        batched.solve_cells_pdhg(cells, mesh=meshes.make_solve_mesh(
+            ["cpu", "cpu"], "solve"), device="cpu")
+    # cell_mesh with one device visible: no mesh, as the JAX package.
+    assert CellPlanner({**CONFIG, "cell_mesh": True},
+                       device="cpu")._mesh() is None
     # Speculation is ported (tests/test_torch_speculation.py).
     planner = CellPlanner({**CONFIG, "speculate": True}, device="cpu")
     assert planner.spec_stats == {"hit": 0, "repair": 0, "miss": 0}

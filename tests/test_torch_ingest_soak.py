@@ -185,3 +185,171 @@ def test_repeated_columns_decode_alike_from_both_encodings(specs):
     for request in (ingest_soak.columnar_request("t", specs),
                     fastwire.FastSubmitRequest.FromString(legacy)):
         assert admission.jobs_from_columns(request.columns) == expected
+
+
+def _mixed_specs(n: int, seed: int):
+    """A batch as the soak's submitters send it (job types of one width
+    in random order), with the optional fields drawn too: priorities,
+    SLOs, durations, data-dir flags, tenants, modes and step arguments,
+    some left at their defaults."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    types = ["ResNet-18 (batch size 32)", "ResNet-50 (batch size 64)",
+             "LM (batch size 80)"]
+    specs = []
+    for i in range(n):
+        spec = {"job_type": types[int(rng.integers(2 if seed % 2 else 3))],
+                "command": "python3 main.py", "total_steps": int(
+                    rng.integers(1, 900)), "scale_factor": int(
+                    rng.integers(0, 3))}
+        if rng.random() < 0.5:
+            spec["priority_weight"] = float(rng.choice([0.0, 2.5, -0.0]))
+        if rng.random() < 0.5:
+            spec["slo"] = float(rng.choice([0.0, 1.5, -2.0]))
+        if rng.random() < 0.5:
+            spec["duration"] = float(rng.choice([0.0, 3600.0]))
+        if rng.random() < 0.3:
+            spec["needs_data_dir"] = True
+        if rng.random() < 0.5:
+            spec["tenant"] = f"t{int(rng.integers(3))}"
+        if rng.random() < 0.5:
+            spec["mode"] = str(rng.choice(["", "static", "accordion"]))
+        if rng.random() < 0.3:
+            spec["num_steps_arg"] = str(rng.choice(["", "--steps"]))
+        specs.append(spec)
+    return specs
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_the_columnar_decode_gives_the_scalar_jobs_in_one_pass(seed):
+    """The line-rate decode (one fixed-width pass over a string column of
+    one width, a job built column by column) gives the scalar parse's
+    jobs over both encodings, and decodes each distinct string once."""
+    from shockwave_tpu_torch.runtime import admission
+    from shockwave_tpu_torch.runtime.protobuf import admission_pb2 as adm_pb2
+    from shockwave_tpu_torch.runtime.protobuf import fastwire
+    from shockwave_tpu_torch.runtime.rpc.scheduler_server import _spec_dict
+
+    specs = _mixed_specs(300, seed)
+    expected = [admission.job_from_spec_dict(_spec_dict(s)) for s in (
+        ingest_soak.scalar_request("t", specs).jobs)]
+    legacy = fastwire.FastSubmitRequest.FromString(adm_pb2.SubmitJobsRequest(
+        token="t", jobs=[adm_pb2.JobSpec(**s) for s in specs],
+    ).SerializeToString())
+    for request in (ingest_soak.columnar_request("t", specs), legacy):
+        cols = request.columns
+        assert admission.jobs_from_columns(cols) == expected
+        # One decode a distinct value: the job-type column is one
+        # fixed-width pass whose values are shared between jobs.
+        job_types = cols.strs(0)
+        assert len({id(v) for v in job_types}) == len(set(job_types))
+
+
+def test_a_bad_job_type_names_the_first_offending_job():
+    from shockwave_tpu_torch.runtime import admission
+
+    specs = _mixed_specs(40, 1)
+    specs[7]["job_type"] = "not a job type"
+    specs[9]["total_steps"] = 0
+    request = ingest_soak.columnar_request("t", specs)
+    with pytest.raises(ValueError, match="'not a job type'"):
+        admission.jobs_from_columns(request.columns)
+    specs[7]["job_type"] = "ResNet-18 (batch size 32)"
+    with pytest.raises(ValueError, match="total_steps must be positive"):
+        admission.jobs_from_columns(
+            ingest_soak.columnar_request("t", specs).columns)
+
+
+def test_handler_threads_decode_one_batch_at_a_time(monkeypatch):
+    """Concurrent SubmitJobs frames decode one at a time (the decode's
+    numpy calls let the interpreter lock go, and several decodes at once
+    each wait out the others' switch intervals), and every batch is
+    admitted once."""
+    import threading
+    import time
+
+    from shockwave_tpu_torch.runtime import admission
+    from shockwave_tpu_torch.runtime.rpc.scheduler_server import (
+        _admission_handlers,
+    )
+
+    inside = [0]
+    most = [0]
+    real = admission.jobs_from_columns
+
+    def slow(cols):
+        inside[0] += 1
+        most[0] = max(most[0], inside[0])
+        time.sleep(0.01)
+        try:
+            return real(cols)
+        finally:
+            inside[0] -= 1
+
+    monkeypatch.setattr(admission, "jobs_from_columns", slow)
+    queue = admission.build_queue(capacity=100000, retry_delay_s=0.05)
+
+    def submit_jobs_many(reqs):
+        outs = queue.submit_many(reqs)
+        return [(s, r, a, queue.depth()) for (s, r, a) in outs]
+
+    handler = _admission_handlers(
+        {"submit_jobs_many": submit_jobs_many})["SubmitJobs"]
+    requests = [ingest_soak.columnar_request(f"b{k}", _mixed_specs(50, k))
+                for k in range(12)]
+    acks = [None] * len(requests)
+
+    def call(k):
+        acks[k] = handler(requests[k], None)
+
+    threads = [threading.Thread(target=call, args=(k,))
+               for k in range(len(requests))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert most[0] == 1
+    assert [a.status for a in acks] == ["ACCEPTED"] * len(requests)
+    drained = queue.drain()
+    assert len(drained) == 50 * len(requests)
+    assert sorted({token for token, _, _ in drained}) == sorted(
+        f"b{k}" for k in range(len(requests)))
+
+
+def test_the_drain_observes_each_wait_and_tallies_tenants():
+    """The drain's waits (one numpy pass) land in the latency histogram as
+    per-job observations would, the worst wait keeps its token, and the
+    tenants' tally releases what the submits reserved."""
+    from shockwave_tpu_torch import obs
+    from shockwave_tpu_torch.core.job import Job
+    from shockwave_tpu_torch.runtime import admission
+
+    obs.reset()
+    obs.configure(metrics=True)
+    try:
+        clock = [100.0]
+        queue = admission.build_queue(capacity=1000, retry_delay_s=0.05,
+                                      clock=lambda: clock[0])
+        waits = {}
+        for k, tenant in enumerate(["", "a", "b", None, "a"]):
+            jobs = [Job(job_type="ResNet-18 (batch size 32)",
+                        total_steps=10, tenant=tenant) for _ in range(k + 1)]
+            queue.submit(f"tok{k}", jobs)
+            waits[f"tok{k}"] = 10.0 - k
+            clock[0] += 1.0
+        clock[0] = 110.0
+        assert admission._TenantLedger.batch_counts(
+            [Job(job_type="x", tenant=t) for t in ("b", "", "a", "b", None)]
+        ) == {"b": 2, "a": 1}
+        drained = queue.drain()
+        assert len(drained) == 15
+        series = obs.get_registry().snapshot()["metrics"][
+            "admission_queue_latency_seconds"]["series"][0]
+        assert series["count"] == 15
+        assert series["sum"] == pytest.approx(
+            sum((k + 1) * (10.0 - k) for k in range(5)))
+        assert series["max"] == 10.0
+        assert queue._tenants.pending_of(["a", "b"]) == [0, 0]
+    finally:
+        obs.reset()

@@ -219,6 +219,61 @@ def test_cells_simulate_cli_runs_with_jax_blocked():
     assert f"Rounds: {golden['rounds']}; solves by backend: {{'cells'" in out
 
 
+def test_sharded_simulate_cli_runs_with_jax_blocked():
+    """``simulate -p shockwave_tpu_sharded --device cpu`` on the golden
+    trace (the level solve over a one-place solve mesh) with JAX and the
+    JAX package unimportable: the level backend's golden metrics, every
+    solve sharded, no module of either loaded."""
+    out = _run_blocked("shockwave_tpu_torch.simulate",
+                       *_golden_args("shockwave_tpu_sharded"))
+    golden = bench_sim.GOLDEN["shockwave_tpu_level"]
+    assert f"Makespan: {golden['makespan']:.3f} s" in out
+    assert f"Average JCT: {golden['avg_jct']:.3f} s" in out
+    assert f"Worst FTF: {golden['worst_ftf']:.3f}" in out
+    assert "solves by backend: {'sharded':" in out
+
+
+_MESH_SCRIPT = """
+import sys
+for name in ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu"):
+    sys.modules[name] = None  # any import of them now raises ImportError
+import numpy as np
+from shockwave_tpu_torch.cells import batched
+from shockwave_tpu_torch.parallel.mesh import make_solve_mesh
+from shockwave_tpu_torch.solver import eg_level, eg_sharded
+from shockwave_tpu_torch.tools import bench_sim
+from shockwave_tpu_torch.whatif import Scenario, ScenarioBatch, solve_scenarios
+problem = bench_sim.seeded_problem(40, num_gpus=8)
+counts, _ = eg_sharded.solve_level_sharded(
+    problem, mesh=make_solve_mesh(["cpu"] * 4), device="cpu")
+assert np.array_equal(counts, eg_level.solve_level_counts(problem, "cpu")[0])
+cells = [bench_sim.seeded_problem(12, num_gpus=4, seed=s) for s in range(4)]
+meshed = batched.solve_cells_pdhg(
+    cells, mesh=make_solve_mesh(["cpu"] * 2, "cells"), device="cpu")[0]
+alone = batched.solve_cells_pdhg(cells, device="cpu")[0]
+assert all(np.array_equal(a, b) for a, b in zip(meshed, alone))
+batch = ScenarioBatch(problem, [Scenario(num_gpus=g) for g in (4, 6, 8, 10)])
+meshed = solve_scenarios(
+    batch, mesh=make_solve_mesh(["cpu"] * 4, "scenarios"), device="cpu")[0]
+alone = solve_scenarios(batch, device="cpu")[0]
+assert all(np.array_equal(a, b) for a, b in zip(meshed, alone))
+print("MESHES OK")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "flax", "optax", "orbax", "shockwave_tpu")
+                and sys.modules[m] is not None)
+print("LEAKED", leaked)
+"""
+
+
+def test_mesh_paths_run_with_jax_blocked():
+    """The sharded level solve over a four-place mesh, the cells' lanes
+    over two places and the what-if lanes over four, with JAX and the
+    JAX package unimportable: counts equal to the one-device solve's,
+    lanes to the meshless call's, no module of either loaded."""
+    out = _run_blocked("", script=_MESH_SCRIPT)
+    assert "MESHES OK" in out
+
+
 def test_whatif_sweep_runs_with_jax_blocked(tmp_path):
     """``tools.whatif sweep`` on round 91 of the committed decision log
     (written by the JAX package, read by the port's recorder) with JAX
@@ -1016,7 +1071,8 @@ def test_port_sources_import_no_jax():
                    "ha/standby.py", "tools/ha_smoke.py",
                    "tools/kill_stale_workloads.py", "models/resnet.py",
                    "models/layers.py", "models/small_models.py",
-                   "models/convert.py"):
+                   "models/convert.py", "solver/eg_sharded.py",
+                   "parallel/mesh.py", "solver/eg_pdhg.py"):
         assert ROOT / "shockwave_tpu_torch" / walked in files
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
            if _forbidden(m)]

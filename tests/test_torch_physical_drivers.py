@@ -169,6 +169,32 @@ def _gang_payload_seconds() -> float:
     return time.time() - started
 
 
+def test_two_schedulers_on_one_host_give_a_gang_distinct_coordinators():
+    """A gang's coordinator port differs across its job's attempts and
+    between two schedulers on one host: with the reference's formula two
+    card-driver runs at once gave job 1's gang one coordinator in the same
+    round, and a rank of one run joined the other's gang (the next test
+    then counted three ResNet-18 attempts, not two)."""
+    from shockwave_tpu_torch.core.physical import PhysicalScheduler
+    from shockwave_tpu_torch.data.default_oracle import generate_oracle
+    from shockwave_tpu_torch.policies import get_policy
+    from shockwave_tpu_torch.runtime.testing import free_port
+
+    scheds = [PhysicalScheduler(get_policy("fifo"), port=free_port(),
+                                throughputs=generate_oracle())
+              for _ in range(2)]
+    try:
+        first = [s._gang_port(1) for s in scheds]
+        assert first[0] != first[1]
+        scheds[0]._round_id += 1
+        assert scheds[0]._gang_port(1) != first[0]
+        assert all(10000 <= s._gang_port(j) < 50000 for s in scheds
+                   for j in range(64))
+    finally:
+        for s in scheds:
+            s.shutdown()
+
+
 # A wall-clock run of real payloads (a few seconds a round).
 @pytest.mark.wallclock_retry
 def test_card_driver_runs_a_singleton_and_a_gang_on_the_cpu(tmp_path):

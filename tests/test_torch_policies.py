@@ -309,18 +309,19 @@ def test_fifo_packing_mode_equals_the_reference():
 
 def test_registry_covers_the_reference_vocabulary():
     ported = set(policies.get_available_policies())
-    assert ported.isdisjoint(policies._NOT_PORTED)
-    assert set(_ALL_POLICY_NAMES) <= ported | set(policies._NOT_PORTED)
-    assert policies._NOT_PORTED == ("shockwave_tpu_sharded",)
+    assert set(_ALL_POLICY_NAMES) <= ported
     allox = get_policy("allox_alpha=0.5")
     assert allox.name == ref_get_policy("allox_alpha=0.5").name
     assert allox._alpha == 0.5
 
 
-@pytest.mark.parametrize("name", policies._NOT_PORTED)
-def test_names_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_policy(name, device="cpu")
+def test_the_sharded_policy_is_the_references():
+    """``shockwave_tpu_sharded``, the last name of the JAX package's
+    vocabulary to be ported, builds the sharded backend under the
+    reference's name."""
+    policy = get_policy("shockwave_tpu_sharded", device="cpu")
+    assert policy.name == ref_get_policy("shockwave_tpu_sharded").name
+    assert policy.backend == "sharded"
 
 
 # -- single-policy contracts (tests/test_policies.py) -----------------------

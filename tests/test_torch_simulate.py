@@ -219,10 +219,15 @@ def test_cli_cuda_without_a_card_raises():
                        "shockwave_native", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("name", ["shockwave_tpu_sharded"])
-def test_policies_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_policy(name, device="cpu")
+def test_the_sharded_policy_runs_the_golden_trace_as_level():
+    """``shockwave_tpu_sharded`` (a one-place solve mesh on the CPU)
+    gives the golden metrics of ``shockwave_tpu_level``, every solve
+    through the sharded backend."""
+    result = bench_sim.run_trace(bench_sim.GOLDEN_TRACE,
+                                 "shockwave_tpu_sharded", 8, "cpu")
+    assert bench_sim.check_run(
+        result, bench_sim.GOLDEN["shockwave_tpu_level"]) == []
+    assert set(result["solves"]) == {"sharded"}
 
 
 # Speculation and hetero_pools are ported (tests/test_torch_speculation.py,
@@ -230,8 +235,9 @@ def test_policies_not_ported_raise(name):
 # (tests/test_torch_estimator.py), which a Shockwave policy never turns
 # on, in either package. Physical mode is ported
 # (tests/test_torch_physical.py), and so is its HA plane
-# (tests/test_torch_ha.py, tests/test_torch_failover.py); the cell mesh
-# is not, in the simulator or in physical mode.
+# (tests/test_torch_ha.py, tests/test_torch_failover.py); so is the cell
+# mesh, which with one device visible takes no mesh, in the simulator or
+# in physical mode, as the JAX package with one device.
 @pytest.mark.parametrize("config, kwargs", [
     ({"cells": 4, "cell_mesh": True}, {}),
     ({"cells": 4, "cell_mesh": True}, {"physical": True}),
@@ -239,30 +245,46 @@ def test_policies_not_ported_raise(name):
     ({"cells": 2, "cell_mesh": True},
      {"physical": True, "profiling_percentage": 0.5}),
 ])
-def test_options_not_ported_raise(config, kwargs):
+def test_cell_mesh_options_build_a_planner(config, kwargs):
+    from shockwave_tpu_torch.cells.planner import CellPlanner
     from shockwave_tpu_torch.core.physical import PhysicalScheduler
+
+    from shockwave_tpu_torch.runtime.testing import free_port
 
     shockwave_config = {"num_gpus": 8, "time_per_iteration": 120, **config}
     kwargs = dict(kwargs)
-    cls = PhysicalScheduler if kwargs.pop("physical", False) else Scheduler
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cls(get_policy("shockwave_tpu_level", device="cpu"),
-            throughputs=generate_oracle(),
-            shockwave_config=shockwave_config, **kwargs)
+    physical = kwargs.pop("physical", False)
+    if physical:
+        kwargs["port"] = free_port()
+    cls = PhysicalScheduler if physical else Scheduler
+    sched = cls(get_policy("shockwave_tpu_level", device="cpu"),
+                throughputs=generate_oracle(),
+                shockwave_config=shockwave_config, **kwargs)
+    try:
+        planner = sched._shockwave
+        assert isinstance(planner, CellPlanner) and planner.use_mesh
+        assert len(planner.cells) == config["cells"]
+        assert planner._mesh() is None
+    finally:
+        if physical:
+            sched.shutdown()
 
 
-def test_sharded_scale_with_several_cards_raises(monkeypatch):
-    """At the reference's sharded-dispatch scale with more than one card
-    visible the tpu dispatch raises instead of solving on one card."""
+def test_sharded_scale_with_several_cards_shards(monkeypatch):
+    """At the dispatch threshold with more than one device visible the
+    tpu dispatch shards the solve over them."""
+    from shockwave_tpu_torch.parallel import mesh
     from shockwave_tpu_torch.policies import shockwave
 
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(mesh, "visible_devices",
+                        lambda device: [torch.device("cpu")] * 2)
     monkeypatch.setattr(shockwave, "SHARDED_DISPATCH_MIN_JOBS", 2)
     planner = ShockwavePlanner({"num_gpus": 8, "time_per_iteration": 120},
-                               backend="tpu", device="cuda")
+                               backend="tpu", device="cpu")
     problem = bench_sim.seeded_problem(4, num_gpus=8)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        planner._solve_backend("tpu", problem)
+    Y, used = planner._solve_backend("tpu", problem)
+    assert used == "sharded" and planner._attempted_backend == "sharded"
+    problem.audit_schedule(np.asarray(Y))
 
 
 @pytest.mark.parametrize("case", sorted(CLI_CASES))

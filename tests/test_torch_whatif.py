@@ -32,6 +32,7 @@ from shockwave_tpu.whatif import base_problem_from_state as ref_from_state
 from shockwave_tpu.whatif import solve_scenarios as ref_solve_scenarios
 from shockwave_tpu_torch.obs import recorder
 from shockwave_tpu_torch.ops import eg_pdhg as kernel
+from shockwave_tpu_torch.parallel import mesh as meshes
 from shockwave_tpu_torch.solver import eg_pdhg
 from shockwave_tpu_torch.tools import whatif as cli
 from shockwave_tpu_torch.whatif import (Scenario, ScenarioBatch, audit_lanes,
@@ -234,9 +235,29 @@ def test_lanes_are_the_scenarios_and_the_band_is_reported():
                                         batch.slots)
     with pytest.raises(ValueError, match="at least one"):
         ScenarioBatch(problem, [])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        solve_scenarios(ScenarioBatch(problem, [Scenario()]), mesh=object(),
-                        device="cpu")
+
+
+@pytest.mark.parametrize("places, n", [(8, 8), (4, 8), (2, 7), (4, 5),
+                                       (3, 8)])
+def test_sharded_scenario_axis_matches_single_device(places, n):
+    """The scenario lanes over a mesh's places, one launch a place: each
+    lane equal in every bit to the meshless call (tests/test_whatif.py:
+    130-141); a mesh whose places do not divide the band runs the
+    meshless call, as the JAX package."""
+    problem = make_problem()
+    batch = ScenarioBatch(problem, mixed_grid(problem, n=n))
+    s_single, obj_single, diag_single = solve(batch)
+    mesh = meshes.make_solve_mesh(["cpu"] * places, "scenarios")
+    before = kernel.LAUNCHES["eg_pdhg"]
+    s_mesh, obj_mesh, diag_mesh = solve(batch, mesh=mesh)
+    assert kernel.LAUNCHES["eg_pdhg"] == before  # plain versions here
+    for a, b in zip(s_single, s_mesh):
+        np.testing.assert_array_equal(a, b)
+    assert obj_single == obj_mesh
+    assert [d["lanes"] for d in diag_mesh] == [n] * n
+    per = batch.band // places
+    assert diag_mesh[0]["chunk"] == (min(per, n) if batch.band % places == 0
+                                     else diag_single[0]["chunk"])
 
 
 def test_report_rows_carry_deltas():
